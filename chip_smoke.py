@@ -1,0 +1,585 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's fused sand3 main path on one NVIDIA GPU.
+
+Run from the repository root with no arguments: `python3 chip_smoke.py`.
+It needs one CUDA device (written for an H100, sm_90a) and nvcc, and exits
+non-zero on any failure: no CUDA device, a kernel that does not build,
+launch or agree with its plain PyTorch version, a main path that does not
+run through the kernels, or results that are not right.
+
+Phases (one line each, longer logs under chiprun_out/):
+  1. card and toolchain;
+  2. build of the CUDA kernels from sparkl_tpu_torch/csrc;
+  3. the substep kernels against their plain versions on the card, at the
+     main path's shapes (sand3 at nx=100, ny=50, nz=100: ~1.02M particles),
+     with times; and a small sand3 frame on the card against the port's CPU
+     path;
+  4. the main path: FusedMpmPipeline.pack_state -> 15 frames of
+     run_frames_state -> unpack_state, with the kernels' launch counts
+     held against the substeps and the resort branches taken;
+  5. after the main path: the resort kernels against their plain versions
+     on the state the main path's first resort started from, that whole
+     resort on the card against the same resort of a CPU copy, and kernel
+     B on the landed final state and on that state with perturbed F, both
+     with Drucker-Prager plastic flow;
+  6. a JSON line of per-kernel results, the card's nvidia-smi line, and
+     the final {"ok": true, "device": ...} line.
+"""
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(HERE, "chiprun_out")
+REPLACES = {
+    "p2g_fused": "sparkl_tpu/fused/kernels.py:548",
+    "merge_blocks": "sparkl_tpu/fused/kernels.py:1098",
+    "g2p_fused": "sparkl_tpu/fused/kernels.py:1510",
+    "src_rows_from_order": "sparkl_tpu/fused/kernels.py:775",
+    "permute_slots": "sparkl_tpu/fused/kernels.py:1008",
+}
+SOURCE = "sparkl_tpu_torch/csrc/fused_kernels.cu"
+FRAMES, TIMED_FRAMES = 15, 3
+# Tolerances of the kernel-vs-plain checks (the plain versions run on the
+# same card on the same tensors); p2g_errors and g2p_errors state each one.
+
+
+class SmokeError(RuntimeError):
+    pass
+
+
+def say(phase, msg):
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def require(cond, msg):
+    if not cond:
+        raise SmokeError(msg)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def nvcc_release():
+    from sparkl_tpu_torch.cuda_build import _nvcc
+
+    out = subprocess.run([_nvcc(), "--version"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return next(ln for ln in out.stdout.splitlines() if "release" in ln).strip()
+
+
+def cuda_median_ms(fn, reps=20):
+    """Median of `reps` launches of fn(), each between two CUDA events."""
+    import torch
+
+    fn()  # warm-up
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def p2g_errors(img_k, img_p):
+    """Per image channel (mass, momentum x3): max |kernel - plain| over the
+    bound 2e-5 * max|channel| + 1e-5 * |plain|. Both sum the same f32 terms
+    (up to 27 taps x 128 slots per cell) in different orders, and the plain
+    version's scatter-add on the card takes an arbitrary one; momentum
+    cells sum terms much larger than the result (stress against inertia),
+    so the floor follows the channel's scale. Returns [(err/bound, max|err|)]."""
+    out = []
+    for c in range(img_p.shape[1]):
+        d = (img_k[:, c] - img_p[:, c]).abs()
+        bound = 2e-5 * img_p[:, c].abs().max() + 1e-5 * img_p[:, c].abs()
+        out.append(((d / bound.clamp(min=1e-30)).max().item(), d.max().item()))
+    return out
+
+
+def g2p_errors(out_k, out_p, ints, cparams, cell_width):
+    """Kernel B against its plain version, row by row, on occupied lanes
+    (empty lanes hold no particle; every consumer masks them). Returns
+    [(row, group, measure, tol)] with measure <= tol required:
+      kinematic (pos, vel, dt bound, drift, and copied rows): |err| over the
+        row's largest magnitude, tol 1e-5 (f32 rounding of the gather sums);
+      grad (velocity gradient): |err| over max(row max, invd·h·max|v|),
+        tol 2e-5: the gather sums w·dpt·v terms of size invd·h·|v| that
+        cancel, and f32 error follows their size;
+      F: |err| over the largest |F| entry (~1: F stays near the identity,
+        so an off-diagonal row's own maximum can be ~1e-7), tol 2e-5: where
+        the return map projects, F is rebuilt from the cardano SVD and
+        carries its f32 floor;
+      stress: |err| / (lambda + 2 mu), tol 2e-5: a strain-equivalent error
+        of the cardano SVD's f32 floor (~2e-5 relative on s). At rest
+        |s - 1| ~ 1e-4, so eigenvectors turn on ~1e-7 changes of F and the
+        stress, a product of (s - 1) and them, is not closer than that;
+      energy (psi_pos, par1 = psi_pos·m): |err| / (2 sqrt(mu·e_max)·m_max),
+        tol 2e-5: the same strain-equivalent floor through e = mu·Σ(s-1)²;
+      plastic (pdd, ph, lvg, all in strain units): |err|, tol 2e-5;
+      failed: equal (measure 0 or 1, tol 0)."""
+    import torch
+    from sparkl_tpu_torch.fused import layout as L
+    from sparkl_tpu_torch.math.kernel import inv_d
+
+    r = L.Rows(3)
+    occ = ((ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0)[:, None, :]
+    a = torch.where(occ, out_k, 0.0)
+    b = torch.where(occ, out_p, 0.0)
+    err = (a - b).abs().amax(dim=(0, 2))
+    rmax = b.abs().amax(dim=(0, 2)).clamp(min=1e-30)
+    lam = cparams[:, 0].max().item()
+    mu = cparams[:, 1].max().item()
+    vmax = b[:, r.vel : r.vel + 3].abs().max().item()
+    mmax = b[:, r.mass].abs().max().item()
+    emax = b[:, r.psi_pos].abs().max().item()
+    escale = max(2.0 * (mu * emax) ** 0.5, 1e-30)
+    fscale = b[:, r.defgrad : r.defgrad + 9].abs().max().item()
+    out = []
+    for k in range(r.nf):
+        e = err[k].item()
+        if k == r.failed:
+            out.append((k, "failed", float(not torch.equal(a[:, k], b[:, k])), 0.0))
+        elif r.grad <= k < r.grad + 9:
+            scale = max(rmax[k].item(), inv_d(cell_width) * cell_width * vmax)
+            out.append((k, "grad", e / scale, 2e-5))
+        elif r.defgrad <= k < r.defgrad + 9:
+            out.append((k, "F", e / fscale, 2e-5))
+        elif r.stress <= k < r.stress + r.nstress:
+            out.append((k, "stress", e / (lam + 2.0 * mu), 2e-5))
+        elif k == r.psi_pos:
+            out.append((k, "energy", e / escale, 2e-5))
+        elif k == r.par1:
+            out.append((k, "energy", e / (escale * max(mmax, 1e-30)), 2e-5))
+        elif k in (r.pdd, r.ph, r.lvg):
+            out.append((k, "plastic", e, 2e-5))
+        else:
+            out.append((k, "kinematic", e / rmax[k].item(), 1e-5))
+    return out
+
+
+def phase_kernels(pipe, state, dt):
+    """Each kernel against its plain version on the main path's tensors.
+    Returns {name: {max_abs_err, ms, plain_ms}}."""
+    import torch
+    from sparkl_tpu_torch.fused import kernels as K
+    from sparkl_tpu_torch.fused import layout as L
+    from sparkl_tpu_torch.sparse import transfer as T
+
+    grid, cfg = pipe.grid, pipe._cfg
+    nchunks = state.structure.num_chunks
+    res = {}
+
+    # Kernel A.
+    img_k = K.p2g_fused(grid, cfg, pipe._meta, state.slots, state.ints, dt, nchunks)
+    img_p = K.p2g_fused_reference(grid, state.slots, state.ints, dt, nchunks)
+    torch.cuda.synchronize()
+    err = (img_k - img_p).abs().max().item()
+    per_ch = p2g_errors(img_k, img_p)
+    res["p2g_fused"] = dict(max_abs_err=err)
+    say(3, f"p2g_fused images {tuple(img_k.shape)}: max|err| {err:.3e}; per channel "
+           f"max|err|/bound {[f'{m:.2e}' for m, _ in per_ch]} (pass <= 1)")
+    failures = []
+    if not (all(m <= 1.0 for m, _ in per_ch) and torch.isfinite(img_k).all().item()):
+        failures.append("p2g_fused disagrees with its plain version")
+    res["p2g_fused"]["ms"] = cuda_median_ms(
+        lambda: K.p2g_fused(grid, cfg, pipe._meta, state.slots, state.ints, dt, nchunks))
+    res["p2g_fused"]["plain_ms"] = cuda_median_ms(
+        lambda: K.p2g_fused_reference(grid, state.slots, state.ints, dt, nchunks))
+
+    # Merge, on the rows the main path hands it.
+    comb = T._merge_comb(3, 4, True, img_k.device)
+    rows = img_k.reshape(cfg.max_chunks, -1)[:, comb].reshape(cfg.max_chunks, 8, 256).contiguous()
+    first, nblk = state.structure.block_first_chunk, state.structure.block_num_chunks
+    m_k = K.merge_blocks(rows, first, nblk)
+    m_p = K.merge_blocks_reference(rows, first, nblk, T.MERGE_KMAX)
+    torch.cuda.synchronize()
+    err = (m_k - m_p).abs().max().item()
+    res["merge_blocks"] = dict(max_abs_err=err)
+    say(3, f"merge_blocks {tuple(m_k.shape)}: bit-equal {torch.equal(m_k, m_p)}, max|err| {err:.3e}")
+    if not torch.equal(m_k, m_p):
+        failures.append("merge_blocks is not bit-equal to its plain version")
+    res["merge_blocks"]["ms"] = cuda_median_ms(lambda: K.merge_blocks(rows, first, nblk))
+    res["merge_blocks"]["plain_ms"] = cuda_median_ms(
+        lambda: K.merge_blocks_reference(rows, first, nblk, T.MERGE_KMAX))
+
+    require(not failures, "; ".join(failures))
+
+    # Kernel B, on the windows the main path computes from these images.
+    res["g2p_fused"], (slots_in, windows, args) = check_g2p(pipe, state, dt, "one frame", 3)
+    scratch = slots_in.clone()
+    res["g2p_fused"]["ms"] = cuda_median_ms(
+        lambda: K.g2p_fused(grid, cfg, pipe._meta, pipe._kparams, scratch, state.ints,
+                            windows, dt, *args))
+    res["g2p_fused"]["plain_ms"] = cuda_median_ms(
+        lambda: K.g2p_fused_reference(grid, slots_in, state.ints, windows, dt, *args))
+    traffic = substep_bytes(state.structure, cfg)
+    for name, v in res.items():
+        v["bytes"] = traffic[name]
+        say(3, f"{name}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms (median of 20); "
+               f"{traffic[name] / 1e9:.4f} GB counted from shapes = "
+               f"{traffic[name] / v['ms'] / 1e6:.1f} GB/s")
+    return res
+
+
+def substep_bytes(structure, cfg):
+    """Bytes each substep kernel must move, counted from shapes: the slot
+    rows it reads for the live chunks (kernel A: 24 f32 + 4 i32 rows;
+    kernel B: 32 f32 + 5 i32 rows and the [3, 512] window), what it writes
+    (kernel A: every chunk's [4, 512] image; kernel B: the live chunks' 56
+    rows), and for the merge each block's chunk rows (at most 8) read and
+    its [8, 256] row written."""
+    from sparkl_tpu_torch.sparse import transfer as T
+
+    live, d_ = int(structure.num_chunks), cfg.max_chunks
+    row = 4 * cfg.chunk_size
+    block = 4 * 8 * 256
+    merged = int(structure.block_num_chunks.clamp(max=T.MERGE_KMAX).sum())
+    return {
+        "p2g_fused": live * (24 + 4) * row + d_ * 4 * 4 * 512,
+        "merge_blocks": (merged + structure.block_num_chunks.shape[0]) * block,
+        "g2p_fused": live * ((32 + 5 + 56) * row + 4 * 3 * 512),
+    }
+
+
+def check_g2p(pipe, state, dt, label, phase, need_plastic=False):
+    """Kernel B against its plain version on `state`, with the windows the
+    main path computes for it (kernel A, merge, grid update). Fails unless
+    every row group is within its tolerance and, with need_plastic, unless
+    Drucker-Prager plastic flow (a change of the hardening or plastic-volume
+    row) happened on some occupied lane in both. Returns ({max_abs_err, worst_over_tol, plastic_lanes},
+    (the input slots, the windows, the table arguments))."""
+    import torch
+    from sparkl_tpu_torch.fused import kernels as K
+    from sparkl_tpu_torch.fused import layout as L
+
+    grid, cfg = pipe.grid, pipe._cfg
+    r = L.Rows(3)
+    nchunks = state.structure.num_chunks
+    images = K.p2g_fused(grid, cfg, pipe._meta, state.slots, state.ints, dt, nchunks)
+    windows = pipe._grid_windows(state, images, dt)
+    args = (pipe._tab_f, pipe._tab_i, nchunks)
+    slots_in = state.slots.clone()
+    ints_in = state.ints.clone()
+    out_p = K.g2p_fused_reference(grid, slots_in, state.ints, windows, dt, *args,
+                                  velocity_clamp=pipe._kparams["gpu_velocity_clamp"])
+    out_k = K.g2p_fused(grid, cfg, pipe._meta, pipe._kparams, slots_in.clone(), state.ints,
+                        windows, dt, *args)
+    torch.cuda.synchronize()
+    require(torch.equal(state.ints, ints_in), "g2p_fused touched the int rows")
+    row_errs = g2p_errors(out_k, out_p, state.ints, pipe.models.cparams, grid.cell_width)
+    worst = {}
+    for k, group, m, tol in row_errs:
+        worst[group] = max(worst.get(group, 0.0), m / tol if tol else m)
+    with open(os.path.join(OUT_DIR, f"g2p_rows_{label.replace(' ', '_')}.txt"), "w") as f:
+        f.write("".join(f"row {k:2d} {g:9s} measure {m:.3e} tol {t:g}\n" for k, g, m, t in row_errs))
+    occ = (state.ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0
+
+    def plastic_lanes(out):
+        moved = (out[:, r.ph] != slots_in[:, r.ph]) | (out[:, r.pdd] != slots_in[:, r.pdd])
+        return int((moved & occ).sum())
+
+    plastic_k, plastic_p = plastic_lanes(out_k), plastic_lanes(out_p)
+    res = dict(max_abs_err=torch.where(occ[:, None, :], out_k - out_p, 0.0).abs().max().item(),
+               worst_over_tol=worst, plastic_lanes=plastic_k)
+    say(phase, f"g2p_fused on the {label} state, slots {tuple(out_k.shape)}: worst measure/tol "
+               f"per row group { {g: round(v, 4) for g, v in worst.items()} } (pass <= 1; "
+               f"failed row equal: {worst['failed'] == 0}); lanes with plastic flow: kernel "
+               f"{plastic_k}, plain {plastic_p} of {int(occ.sum())}")
+    failures = []
+    if not all(v <= 1.0 for v in worst.values()):
+        failures.append(f"g2p_fused disagrees with its plain version on the {label} state")
+    if not torch.isfinite(out_k).all().item():
+        failures.append(f"g2p_fused wrote non-finite values on the {label} state")
+    if need_plastic and min(plastic_k, plastic_p) == 0:
+        failures.append(f"no plastic flow on the {label} state: the return map went unchecked")
+    require(not failures, "; ".join(failures))
+    return res, (slots_in, windows, args)
+
+
+def phase_small_agreement():
+    """One frame of sand3 at nx=12, ny=6, nz=6 through the kernels on the
+    card against the port's CPU path (plain versions), per particle, with
+    the JAX package's fused-vs-dense tolerances."""
+    import torch
+    import sparkl_tpu_torch.scenes as scenes
+    from sparkl_tpu_torch.fused.pipeline import FusedMpmPipeline
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        b = scenes.build("sand3", nx=12, ny=6, nz=6, device=dev)
+        pipe = FusedMpmPipeline(b.grid, b.models, b.colliders, b.params, b.gravity, device=dev)
+        p, n = pipe.step_with_stats(b.particles)
+        out[dev] = (p.to("cpu"), n)
+    (pg, ng), (pc, nc) = out["cuda"], out["cpu"]
+    act = pc.active
+    dpos = (pg.position[act] - pc.position[act]).abs().max().item()
+    dvel = (pg.velocity[act] - pc.velocity[act]).abs().max().item()
+    df = (pg.deformation_gradient[act] - pc.deformation_gradient[act]).abs().max().item()
+    say(3, f"small sand3 frame, card vs CPU: substeps {ng}/{nc}, max|dpos| {dpos:.2e} "
+           f"(5e-5), max|dvel| {dvel:.2e} (5e-4), max|dF| {df:.2e} (5e-4)")
+    require(ng == nc and torch.equal(pg.active, pc.active)
+            and torch.equal(pg.failed[act], pc.failed[act]), "small frame: flags differ")
+    require(dpos <= 5e-5 and dvel <= 5e-4 and df <= 5e-4, "small frame: card and CPU disagree")
+
+
+def phase_resort(pipe, pre):
+    """The resort kernels against their plain versions on `pre`, the state
+    the main path's first resort started from, bit for bit; then that whole
+    resort on the card against the same resort of a CPU copy (the plain
+    versions and torch on the CPU), bit for bit, slots, ints and structure.
+    Returns ({name: {max_abs_err, ms, plain_ms, bytes}}, resort ms)."""
+    import torch
+    from sparkl_tpu_torch import interop
+    from sparkl_tpu_torch.fused import kernels as K
+    from sparkl_tpu_torch.fused import layout as L
+    from sparkl_tpu_torch.fused import structure as S
+
+    grid, cfg = pipe.grid, pipe._cfg
+    r = L.Rows(3)
+    c, d_ = cfg.chunk_size, cfg.max_chunks
+    dev = pre.slots.device
+    pos, active, occupied = L.slot_positions(pre, 3)
+    structure, sort_order, chunk_start = S.build_slot_structure(grid, cfg, pos, active, occupied)
+    order2, shifts = L.source_order_rows(cfg, sort_order, chunk_start)
+    src_k = K.src_rows_from_order(order2, shifts)
+    src_p = K.src_rows_from_order_reference(order2, shifts)
+    lanes = torch.arange(c, dtype=torch.int32, device=dev)[None, :]
+    valid = lanes < structure.chunk_count[:, None]
+    own = torch.arange(d_, dtype=torch.int32, device=dev)[:, None] * c + lanes
+    moved = int((valid & (src_p != own)).sum())
+    n_valid = int(valid.sum())
+    res = {"src_rows_from_order": dict(
+        max_abs_err=float((src_k - src_p).abs().max().item()), bytes=d_ * 3 * 4 * c)}
+    say(5, f"src_rows_from_order {tuple(src_k.shape)}: bit-equal {torch.equal(src_k, src_p)}; "
+           f"{moved} of {n_valid} occupied lanes take another slot's particle")
+    require(torch.equal(src_k, src_p), "src_rows_from_order is not equal to its plain version")
+    require(moved > 0, "the resort state moves no particle: the permute went unchecked")
+
+    src = torch.where(valid, src_k, -1)
+    args = (pre.slots, pre.ints, src, structure.chunk_origin, r.cumd)
+    out_k = K.permute_slots(*args)
+    out_p = K.permute_slots_reference(*args)
+    equal = all(torch.equal(x, y) for x, y in zip(out_k, out_p))
+    # Source chunks per live destination: the JAX package's DMA permute
+    # takes at most 8 and falls back to a per-slot gather past that.
+    src_chunk = torch.where(valid, src_k // c, -1)
+    sc = torch.sort(src_chunk, dim=1).values
+    nsrc = ((sc[:, 1:] != sc[:, :-1]) & (sc[:, 1:] >= 0)).sum(dim=1) + (sc[:, 0] >= 0)
+    nsrc = nsrc[structure.chunk_count > 0].float()
+    res["permute_slots"] = dict(
+        max_abs_err=max((out_k[0] - out_p[0]).abs().max().item(),
+                        float((out_k[1] - out_p[1]).abs().max().item())),
+        bytes=(n_valid + d_ * c) * 4 * (r.nf + L.NI))
+    say(5, f"permute_slots slots {tuple(out_k[0].shape)}: bit-equal to its plain version "
+           f"{equal}; source chunks per live destination mean {nsrc.mean().item():.3f}, "
+           f"max {int(nsrc.max().item())}, {int((nsrc > 8).sum())} destinations above 8")
+    require(equal, "permute_slots is not equal to its plain version")
+    for name, fn, plain in (
+            ("src_rows_from_order", lambda: K.src_rows_from_order(order2, shifts),
+             lambda: K.src_rows_from_order_reference(order2, shifts)),
+            ("permute_slots", lambda: K.permute_slots(*args),
+             lambda: K.permute_slots_reference(*args))):
+        v = res[name]
+        v["ms"], v["plain_ms"] = cuda_median_ms(fn), cuda_median_ms(plain)
+        say(5, f"{name}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms (median of 20); "
+               f"{v['bytes'] / 1e9:.4f} GB counted from shapes = {v['bytes'] / v['ms'] / 1e6:.1f} GB/s")
+
+    def run(state):
+        out, ov, branch = L.resort(grid, cfg, state, 3)
+        return out, bool(ov), branch
+
+    out_g, ov_g, branch_g = run(pre)
+    out_c, ov_c, branch_c = run(interop.slot_state_from_numpy(interop.slot_state_to_numpy(pre)))
+    pairs = dict(slots=(out_g.slots, out_c.slots), ints=(out_g.ints, out_c.ints))
+    pairs.update({k: (v, out_c.structure.tensors()[k])
+                  for k, v in out_g.structure.tensors().items()})
+    differ = {k: int((g.cpu() != c).sum()) for k, (g, c) in pairs.items()
+              if not torch.equal(g.cpu(), c)}
+    same = not differ
+    resort_ms = cuda_median_ms(lambda: L.resort(grid, cfg, pre, 3), reps=5)
+    say(5, f"whole resort, card against a CPU copy: branches {branch_g} / {branch_c}, overflow "
+           f"{ov_g} / {ov_c}, slots, ints and structure bit-equal {same}; card {resort_ms:.3f} ms "
+           f"(median of 5, host reads included)")
+    require(same and branch_g == branch_c and ov_g == ov_c and not ov_g,
+            f"the resort on the card differs from the CPU resort (elements differing: {differ})")
+    return res, resort_ms
+
+
+def perturbed_f(state, seed=7):
+    """`state` with F += 0.02·N(0, 1) (numpy seed) on occupied lanes: strains
+    of a few percent, past the Drucker-Prager cone on many lanes."""
+    import numpy as np
+    import torch
+    from sparkl_tpu_torch.fused import layout as L
+
+    r = L.Rows(3)
+    d_, _, c = state.slots.shape
+    noise = np.random.default_rng(seed).normal(scale=0.02, size=(d_, 9, c)).astype(np.float32)
+    occ = ((state.ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0)[:, None, :]
+    slots = state.slots.clone()
+    slots[:, r.defgrad : r.defgrad + 9] += torch.where(
+        occ, torch.from_numpy(noise).to(slots.device), 0.0)
+    return state.replace(slots=slots)
+
+
+def main():
+    if not os.path.isdir(os.path.join(HERE, "sparkl_tpu_torch")):
+        print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device: chip_smoke.py runs only on the GPU", file=sys.stderr)
+        return 1
+    os.makedirs(OUT_DIR, exist_ok=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # 1. Card and toolchain.
+    smi = card_line()
+    say(1, f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
+           f"nvcc: {nvcc_release()}")
+
+    # 2. Build.
+    from sparkl_tpu_torch import cuda_build
+
+    t0 = time.perf_counter()
+    path, log = cuda_build.build()
+    cuda_build.library()
+    build_s = time.perf_counter() - t0
+    with open(os.path.join(OUT_DIR, "nvcc_ptxas.log"), "w") as f:
+        f.write(log)
+    usage = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+    say(2, f"built {os.path.relpath(path, HERE)} in {build_s:.1f} s; ptxas: " + " | ".join(usage))
+
+    import sparkl_tpu_torch.scenes as scenes
+    from sparkl_tpu_torch.fused import kernels as K
+    from sparkl_tpu_torch.fused import layout as L
+    from sparkl_tpu_torch.fused.pipeline import FusedMpmPipeline
+
+    # 3. Kernels against their plain versions at the main path's shapes,
+    # on a state one frame into the fall (non-zero velocity and stress).
+    t0 = time.perf_counter()
+    b = scenes.build("sand3", nx=100, ny=50, nz=100, device="cuda")
+    n_active = int(b.particles.active.sum())
+    pipe = FusedMpmPipeline(b.grid, b.models, b.colliders, b.params, b.gravity, device="cuda")
+    state = pipe.pack_state(b.particles)
+    state, _ = pipe.run_frames_state(state, 1)
+    _, min_dtb = pipe._probe(state)
+    dt = float(min_dtb)
+    say(3, f"sand3 {n_active} particles, {pipe._cfg}, set-up {time.perf_counter() - t0:.1f} s, dt {dt:.3e}")
+    kres = phase_kernels(pipe, state, dt)
+    del state
+    phase_small_agreement()
+
+    # 4. The main path. A copy of the state the first resort starts from is
+    # kept for phase 5 (taken inside an untimed frame).
+    pre_resort = []
+    resort = L.resort
+
+    def keep_first(grid, cfg, st, dim, cache_fn=None):
+        if not pre_resort:
+            pre_resort.append(st.replace(slots=st.slots.clone(), ints=st.ints.clone()))
+        return resort(grid, cfg, st, dim, cache_fn=cache_fn)
+
+    L.resort = keep_first
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = FusedMpmPipeline(b.grid, b.models, b.colliders, b.params, b.gravity, device="cuda")
+    state = pipe.pack_state(b.particles)
+    mass0 = b.particles.mass[b.particles.active].double().sum().item()
+    K.reset_launch_counts()
+    substeps = resorts = 0
+    for _ in range(FRAMES - TIMED_FRAMES):
+        state, n = pipe.run_frames_state(state, 1)
+        substeps += n
+        resorts += pipe.last_resorts
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = 0
+    for _ in range(TIMED_FRAMES):
+        state, n = pipe.run_frames_state(state, 1)
+        timed += n
+        resorts += pipe.last_resorts
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    substeps += timed
+    launches = dict(K.LAUNCHES)
+    branches = dict(pipe.resort_branches)
+    L.resort = resort
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    p = pipe.unpack_state(state)
+    act = p.active
+    pos_ok = bool(torch.isfinite(p.position[act]).all())
+    deact = b.particles.mass[b.particles.active & ~act].double().sum().item()
+    mass = p.mass[act].double().sum().item()
+    pups = n_active * timed / seconds
+    say(4, f"{FRAMES} frames: {substeps} substeps, {resorts} resorts {branches}; last "
+           f"{TIMED_FRAMES} frames {timed} substeps in {seconds:.3f} s = {pups:.4g} "
+           f"particle-updates/s; peak memory {peak_gib:.2f} GiB; launches {launches}")
+    require(pos_ok, "non-finite positions")
+    require(abs(mass - (mass0 - deact)) <= 1e-6 * mass0, "active mass not conserved")
+    require(resorts >= 1 and sum(branches.values()) == resorts,
+            f"the main path took {resorts} lazy resorts, branches {branches}")
+    # Each substep launches A, the merge and B once; each resort that
+    # rebuilds the structure launches the source-row kernel once, and each
+    # mixed one the permute kernel once.
+    expect = dict(p2g_fused=substeps, merge_blocks=substeps, g2p_fused=substeps,
+                  src_rows_from_order=resorts - branches["relabel"],
+                  permute_slots=branches["mixed"])
+    require(launches == expect, f"launch counts {launches}, expected {expect}")
+    missing = [k for k in REPLACES if launches[k] == 0]
+    require(not missing, f"kernels the main path never launched: {missing}")
+    com = p.position[act].mean(0).tolist()
+    say(4, f"mass {mass:.6e} (initial {mass0:.6e}, deactivated {deact:.3e}); "
+           f"centre of mass {[round(x, 4) for x in com]}")
+
+    # 5. After the main path: the resort kernels and the whole resort on the
+    # state the first resort started from; kernel B with plastic flow.
+    rres, resort_ms = phase_resort(pipe, pre_resort[0])
+    kres.update(rres)
+    del pre_resort[:]
+    _, min_dtb = pipe._probe(state)
+    for label, st in (("landed", state), ("perturbed-F", perturbed_f(state))):
+        kres["g2p_fused"][label], _ = check_g2p(pipe, st, float(min_dtb), label, 5,
+                                                need_plastic=True)
+
+    # 6. Results.
+    kernels = [
+        dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
+             launches=launches[name], max_abs_err=kres[name]["max_abs_err"],
+             ms=kres[name]["ms"], plain_ms=kres[name]["plain_ms"])
+        for name in REPLACES
+    ]
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump(dict(card=smi, kernels=kernels, substeps=substeps, resorts=resorts,
+                       timed_substeps=timed, seconds=seconds, pups=pups,
+                       resort_branches=branches, resort_ms=resort_ms, peak_gib=peak_gib,
+                       build_s=build_s, kernel_checks=kres), f, indent=1)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeError as e:
+        print(f"chip_smoke failed: {e}", file=sys.stderr)
+        sys.exit(1)

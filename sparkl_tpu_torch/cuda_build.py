@@ -1,0 +1,113 @@
+"""Build and load the port's CUDA kernels (csrc/*.cu) with nvcc and ctypes.
+
+The sources compile into one shared library with a plain C interface
+(no PyTorch headers, so a build takes seconds), keyed by a hash of the
+sources and flags, under build/sparkl_tpu_torch/ at the repository root.
+The first call in a process builds if needed and loads; later calls return
+the loaded library. Only the machine with the card has nvcc: elsewhere
+`library()` raises.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "sparkl_tpu_torch")
+SOURCES = ("fused_kernels.cu", "particle_physics.cuh")
+# -fmad=false keeps the kernels' rounding that of the plain versions (no
+# contraction of a*b+c); never --use_fast_math (expf/logf/sinf, sqrtf).
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_lib = None
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # slots, ints, nchunks, out, max_chunks, dt, ox, oy, oz, h, invd, d_coeff,
+    # rx, ry, rz, stream
+    "sparkl_p2g_fused": [_VP, _VP, _VP, _VP, _I, _F, _F, _F, _F, _F, _F, _F,
+                         _I, _I, _I, _VP],
+    # rows, first, nchunks, out, max_blocks, width, kmax, stream
+    "sparkl_merge_blocks": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+    # slots, ints, windows, nchunks, tab_f, tab_i, m_count, max_chunks, dt,
+    # ox, oy, oz, h, invd, d_coeff, rx, ry, rz, velocity_clamp, stream
+    "sparkl_g2p_fused": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _F, _F, _F, _F,
+                         _F, _F, _F, _I, _I, _I, _I, _VP],
+    # order2, shifts, out, max_chunks, stream
+    "sparkl_src_rows_from_order": [_VP, _VP, _VP, _I, _VP],
+    # slots, ints, src, origin, out_f, out_i, max_chunks, dim, r_cumd, stream
+    "sparkl_permute_slots": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+}
+
+
+def _nvcc():
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
+    return path
+
+
+def _digest():
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def library_path():
+    return os.path.join(BUILD_DIR, f"libsparkl_fused_{_digest()}.so")
+
+
+def build():
+    """Compile the library if it is not built yet; returns (path, compiler
+    log). The log holds ptxas's registers / shared memory per kernel."""
+    path = library_path()
+    log_path = path + ".log"
+    if os.path.exists(path):
+        with open(log_path) as f:
+            return path, f.read()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, "fused_kernels.cu")]
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        log = res.stdout + res.stderr
+        with open(log_path, "w") as f:
+            f.write(log)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return path, log
+
+
+def library():
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path, _ = build()
+            lib = ctypes.CDLL(path)
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib

@@ -1,0 +1,579 @@
+"""The fused substep's kernels: kernel A (P2G images), the block merge,
+kernel B (G2P + particle update) and the resort's source-row and permute
+kernels, each a hand-written CUDA kernel (csrc/fused_kernels.cu) with its
+plain PyTorch version beside it.
+
+Port of sparkl_tpu/fused/kernels.py for the slice's configuration: 3D,
+corotated elasticity with optional Drucker-Prager, the stress cache on,
+no damage channels, no failure models, no fluids. A wrapper runs the plain
+version when its tensors lie on the CPU and launches the kernel when they
+lie on a CUDA device; anything else raises. There is no fallback from a
+kernel to its plain version. Each wrapper counts its kernel launches in
+LAUNCHES (the CPU path counts nothing).
+"""
+
+import numpy as np
+import torch
+
+from sparkl_tpu_torch.core.grid import GridParams
+from sparkl_tpu_torch.math import cmat, linalg
+from sparkl_tpu_torch.math.kernel import inv_d as kernel_inv_d, quadratic_weights_1d
+from sparkl_tpu_torch.math.svd import svd_c
+from sparkl_tpu_torch.models import constitutive as con
+from sparkl_tpu_torch.models import plasticity as plas
+from sparkl_tpu_torch.sparse.blocks import region_cells
+from sparkl_tpu_torch.fused import layout as L
+
+# Packed model-table columns: f32 [M, 16] = cparams(0:4) | pparams(4:12) |
+# fparams(12:14) | pad; i32 [M, 4] = ctype | ptype | ftype | pad.
+TAB_C = 0
+TAB_P = 4
+TAB_F = 12
+
+# Kernel launches per wrapper since the last reset_launch_counts().
+LAUNCHES = {"p2g_fused": 0, "merge_blocks": 0, "g2p_fused": 0,
+            "src_rows_from_order": 0, "permute_slots": 0}
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def pack_model_tables(models):
+    """ModelSet -> (tab_f f32 [M, 16], tab_i i32 [M, 4])."""
+    tab_f = torch.cat([models.cparams, models.pparams, models.fparams], dim=1)
+    pad = 16 - tab_f.shape[1]
+    if pad > 0:
+        tab_f = torch.cat([tab_f, tab_f.new_zeros((tab_f.shape[0], pad))], dim=1)
+    tab_i = torch.stack(
+        [models.ctype, models.ptype, models.ftype, torch.zeros_like(models.ctype)], dim=1
+    )
+    return tab_f.to(torch.float32).contiguous(), tab_i.to(torch.int32).contiguous()
+
+
+def kernel_meta(models, params):
+    """Static description of a scene for the kernels (the JAX package's
+    `meta` dict); the slice carries one configuration of it."""
+    return dict(
+        with_psi=False,
+        m_count=models.num_models,
+        present_c=models.present_c,
+        present_p=models.present_p,
+        present_f=models.present_f,
+        damage_model=int(params.damage_model),
+        stress_cache=True,
+    )
+
+
+def _check_meta(meta):
+    why = []
+    if meta["with_psi"]:
+        why.append("damage (psi) channels")
+    if meta["damage_model"] != 0:
+        why.append(f"damage model {meta['damage_model']}")
+    if not meta["stress_cache"]:
+        why.append("stress cache off")
+    if set(meta["present_c"]) - {con.COROTATED}:
+        why.append(f"constitutive types {meta['present_c']}")
+    if set(meta["present_p"]) - {plas.DRUCKER_PRAGER}:
+        why.append(f"plastic types {meta['present_p']}")
+    if meta["present_f"]:
+        why.append(f"failure models {meta['present_f']}")
+    if why:
+        raise NotImplementedError("fused kernels do not carry: " + ", ".join(why))
+
+
+def _check(name, t, dtype, shape, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def _route(device):
+    """'cpu' (plain version) or 'cuda' (kernel); anything else raises."""
+    if device.type in ("cpu", "cuda"):
+        return device.type
+    raise NotImplementedError(f"no kernel route for device {device}")
+
+
+def _grid_args(grid: GridParams):
+    if grid.dim != 3:
+        raise NotImplementedError("fused kernels: only 3D is ported")
+    h = grid.cell_width
+    # Constants derived from h in double, as the JAX kernels fold them.
+    return ([float(o) for o in grid.origin] + [h, kernel_inv_d(h), (h * h) / 4.0]
+            + [int(r) for r in grid.res])
+
+
+def _launch(lib_fn, *args):
+    err = lib_fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{lib_fn.__name__} launch failed: cudaError {err}")
+
+
+def _stream_ptr(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# Shared per-slot geometry of both kernels
+# ---------------------------------------------------------------------------
+
+
+def _slot_geometry(grid: GridParams, slots, ints):
+    """Per axis: base cell, fx, window-relative base `rel`, and the masks
+    in_window (rel in [0, 5]) and in_bounds (stencil inside the grid)."""
+    h = grid.cell_width
+    r = L.Rows(3)
+    base, fx, rel = [], [], []
+    in_window = in_bounds = None
+    for ax in range(3):
+        xg = linalg.div(slots[:, r.pos + ax, :] - grid.origin[ax], h)
+        b = torch.round(xg).to(torch.int32) - 1
+        f = xg - b.to(torch.float32)
+        rl = b - ints[:, L.I_ORIGIN + ax, :]
+        okw = (rl >= 0) & (rl <= 5)
+        okb = (b >= 0) & (b + 2 <= grid.res[ax] - 1)
+        in_window = okw if in_window is None else in_window & okw
+        in_bounds = okb if in_bounds is None else in_bounds & okb
+        base.append(b)
+        fx.append(f)
+        rel.append(rl)
+    return base, fx, rel, in_window, in_bounds
+
+
+def _taps(grid: GridParams, fx, rel):
+    """Per axis, per tap k in {0, 1, 2}: weight w[ax][k] and
+    dpt[ax][k] = (cell - px) * h, px = rel + fx (the JAX kernels' order
+    of operations)."""
+    h = grid.cell_width
+    w, dpt = [], []
+    for ax in range(3):
+        f = fx[ax]
+        px = rel[ax].to(torch.float32) + f
+        w.append(list(quadratic_weights_1d(f).unbind(-1)))
+        dpt.append([((rel[ax] + k).to(torch.float32) - px) * h for k in range(3)])
+    return w, dpt
+
+
+_TAPS = [(a, b, c) for a in range(3) for b in range(3) for c in range(3)]
+
+
+def _tap_cells(rel, contrib):
+    """[D, 27, C] z-major cell of every tap (0 where the slot does not
+    contribute)."""
+    q = torch.stack(
+        [(rel[2] + c) * 64 + (rel[0] + a) * 8 + (rel[1] + b) for a, b, c in _TAPS], dim=1
+    )
+    return torch.where(contrib[:, None, :], q, 0).long()
+
+
+def _live_count(nchunks, d_):
+    """Chunks the plain versions compute: [0, nchunks). A host read, which
+    the plain versions may make (they are not on the card's main path)."""
+    return min(max(int(nchunks), 0), d_)
+
+
+# ---------------------------------------------------------------------------
+# Kernel A: cached stress + APIC affine -> window images
+# ---------------------------------------------------------------------------
+
+
+def p2g_fused_reference(grid: GridParams, slots, ints, dt, nchunks):
+    """Plain version of kernel A: slots [D, 56, C] -> images [D, 4, 512]
+    (mass, momentum), z-major cells. Chunks >= nchunks are zero. Each slot
+    scatters its 27 taps, w·(m v + A·dpt) with the APIC affine
+    A = m ∇v − V0 D⁻¹ dt σ (σ from the stress-cache rows, zero for failed
+    particles), masked by active & in-window & in-grid."""
+    r = L.Rows(3)
+    d_all = slots.shape[0]
+    n_live = _live_count(nchunks, d_all)
+    slots, ints = slots[:n_live], ints[:n_live]
+    d_, _, c = slots.shape
+    invd = kernel_inv_d(grid.cell_width)
+
+    def row(k):
+        return slots[:, k, :]
+
+    active = (ints[:, L.I_FLAGS, :] & L.ACTIVE) != 0
+    failed = row(r.failed) != 0.0
+    mass = row(r.mass)
+    g = [[row(r.grad + 3 * i + j) for j in range(3)] for i in range(3)]
+    st = [row(r.stress + k) for k in range(6)]
+    stress = [[st[0], st[1], st[2]], [st[1], st[3], st[4]], [st[2], st[4], st[5]]]
+    coeff = row(r.vol0) * invd * dt
+    _, fx, rel, in_window, in_bounds = _slot_geometry(grid, slots, ints)
+    contrib = active & in_window & in_bounds
+    cf = contrib.to(torch.float32)
+    a = [
+        [cf * (mass * g[i][j] - torch.where(failed, 0.0, coeff * stress[i][j]))
+         for j in range(3)]
+        for i in range(3)
+    ]
+    m_c = mass * cf
+    p0 = [m_c] + [m_c * row(r.vel + ax) for ax in range(3)]
+    w, dpt = _taps(grid, fx, rel)
+
+    vals = []
+    for ta, tb, tc in _TAPS:
+        wxy = w[0][ta] * w[1][tb]
+        wz = w[2][tc]
+        wdx_y = (w[0][ta] * dpt[0][ta]) * w[1][tb]
+        wx_dy = w[0][ta] * (w[1][tb] * dpt[1][tb])
+        wdz = wz * dpt[2][tc]
+        ch = [(p0[0] * wz) * wxy]
+        for i in range(3):
+            ch.append((p0[1 + i] * wz) * wxy + (a[i][2] * wdz) * wxy
+                      + (a[i][0] * wz) * wdx_y + (a[i][1] * wz) * wx_dy)
+        vals.append(torch.stack(ch, dim=1))  # [D, 4, C]
+    vals = torch.stack(vals, dim=2).reshape(d_, 4, 27 * c)
+    q = _tap_cells(rel, contrib).reshape(d_, 1, 27 * c).expand(d_, 4, 27 * c)
+    out = torch.zeros((d_all, 4, region_cells(3)), dtype=torch.float32, device=slots.device)
+    out[:n_live].scatter_add_(2, q, vals)
+    return out
+
+
+def p2g_fused(grid: GridParams, cfg, meta, slots, ints, dt, nchunks):
+    """Kernel A (replaces sparkl_tpu/fused/kernels.py:p2g_fused): slots
+    [D, 56, 128] f32, ints [D, 8, 128] i32, dt (python float), nchunks []
+    i32 -> images [D, 4, 512] f32, z-major cells (q = z*64 + x*8 + y)."""
+    _check_meta(meta)
+    d_, c = cfg.max_chunks, cfg.chunk_size
+    dev = slots.device
+    r = L.Rows(3)
+    _check("slots", slots, torch.float32, (d_, r.nf, c), dev)
+    _check("ints", ints, torch.int32, (d_, L.NI, c), dev)
+    _check("nchunks", nchunks, torch.int32, (), dev)
+    if c != 128:
+        raise NotImplementedError(f"chunk size {c}: kernel A takes 128")
+    args = _grid_args(grid)
+    if _route(dev) == "cpu":
+        return p2g_fused_reference(grid, slots, ints, dt, nchunks)
+    from sparkl_tpu_torch.cuda_build import library
+
+    out = torch.empty((d_, 4, region_cells(3)), dtype=torch.float32, device=dev)
+    _launch(library().sparkl_p2g_fused, slots.data_ptr(), ints.data_ptr(),
+            nchunks.data_ptr(), out.data_ptr(), d_, float(dt), *args,
+            _stream_ptr(dev))
+    LAUNCHES["p2g_fused"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Block merge: per owner block, the sum of its contiguous chunk rows
+# ---------------------------------------------------------------------------
+
+
+def merge_blocks_reference(rows, first, nchunks, kmax):
+    """Plain version of the merge: rows [D, K, W], first/nchunks [MB] ->
+    [MB, K, W], block b = sum of rows[first[b] + k] for k < min(nchunks[b],
+    kmax), accumulated in ascending k from zero (bit-equal to the kernel and
+    to sparkl_tpu's merge_blocks_dma)."""
+    d_ = rows.shape[0]
+    pad = torch.cat([rows, rows.new_zeros((1,) + rows.shape[1:])], dim=0)
+    acc = rows.new_zeros((first.shape[0],) + rows.shape[1:])
+    for k in range(kmax):
+        idx = torch.where(k < nchunks, first + k, d_).long()
+        acc = acc + pad[idx]
+    return acc
+
+
+def merge_blocks(rows, first, nchunks, kmax=8):
+    """The merge kernel (replaces sparkl_tpu/fused/kernels.py:merge_blocks_dma):
+    rows [D, ncorners, W] f32, first/nchunks [MB] i32 -> [MB, ncorners, W]."""
+    dev = rows.device
+    d_, ncorners, w = rows.shape
+    mb = first.shape[0]
+    _check("rows", rows, torch.float32, (d_, ncorners, w), dev)
+    _check("first", first, torch.int32, (mb,), dev)
+    _check("nchunks", nchunks, torch.int32, (mb,), dev)
+    if _route(dev) == "cpu":
+        return merge_blocks_reference(rows, first, nchunks, kmax)
+    from sparkl_tpu_torch.cuda_build import library
+
+    out = torch.empty((mb, ncorners, w), dtype=torch.float32, device=dev)
+    _launch(library().sparkl_merge_blocks, rows.data_ptr(), first.data_ptr(),
+            nchunks.data_ptr(), out.data_ptr(), mb, ncorners * w, kmax,
+            _stream_ptr(dev))
+    LAUNCHES["merge_blocks"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Resort: each destination chunk's source slots, and the slot permute
+# ---------------------------------------------------------------------------
+
+
+def src_rows_from_order_reference(order2, shifts):
+    """Plain version of the source-row kernel: order2 [D, 2, C] (the two
+    rows of the sorted order a destination chunk's slice spans) + shifts
+    [D] -> [D, C], out[i, k] = concat(order2[i, 0], order2[i, 1])[shifts[i]
+    + k], 0 where that falls outside the two rows."""
+    d_, _, c = order2.shape
+    j = shifts[:, None].long() + torch.arange(c, device=order2.device)[None, :]
+    vals = torch.gather(order2.reshape(d_, 2 * c), 1, torch.clamp(j, 0, 2 * c - 1))
+    return torch.where((j >= 0) & (j < 2 * c), vals, 0)
+
+
+def src_rows_from_order(order2, shifts):
+    """The source-row kernel (replaces sparkl_tpu/fused/kernels.py:
+    src_rows_from_order, which returns [D, 1, C]): order2 [D, 2, 128] i32,
+    shifts [D] i32 -> [D, 128] i32."""
+    dev = order2.device
+    d_, _, c = order2.shape
+    _check("order2", order2, torch.int32, (d_, 2, c), dev)
+    _check("shifts", shifts, torch.int32, (d_,), dev)
+    if _route(dev) == "cpu":
+        return src_rows_from_order_reference(order2, shifts)
+    if c != 128:
+        raise NotImplementedError(f"chunk size {c}: the source-row kernel takes 128")
+    from sparkl_tpu_torch.cuda_build import library
+
+    out = torch.empty((d_, c), dtype=torch.int32, device=dev)
+    _launch(library().sparkl_src_rows_from_order, order2.data_ptr(), shifts.data_ptr(),
+            out.data_ptr(), d_, _stream_ptr(dev))
+    LAUNCHES["src_rows_from_order"] += 1
+    return out
+
+
+def permute_slots_reference(slots, ints, src, origin, r_cumd):
+    """Plain version of the permute kernel, the JAX package's `slow` form:
+    destination slot (chunk d, lane l) takes every row of source slot
+    src[d, l] (flat index chunk·C + lane; -1 leaves the slot zero). The
+    drift row `r_cumd` is zeroed and the window-origin int rows are set
+    from origin [D, dim]."""
+    d_, nf, c = slots.shape
+    ni = ints.shape[1]
+    dim = origin.shape[1]
+    ok = ((src >= 0) & (src < d_ * c)).reshape(-1)[:, None]
+    flat = torch.where(ok[:, 0], src.reshape(-1), 0).long()
+    out_f = torch.where(ok, slots.transpose(1, 2).reshape(-1, nf)[flat], 0.0)
+    out_i = torch.where(ok, ints.transpose(1, 2).reshape(-1, ni)[flat], 0)
+    out_f = out_f.reshape(d_, c, nf).transpose(1, 2).contiguous()
+    out_i = out_i.reshape(d_, c, ni).transpose(1, 2).contiguous()
+    out_f[:, r_cumd, :] = 0.0
+    out_i[:, L.I_ORIGIN : L.I_ORIGIN + dim, :] = origin[:, :, None]
+    return out_f, out_i
+
+
+def permute_slots(slots, ints, src, origin, r_cumd):
+    """The permute kernel (replaces sparkl_tpu/fused/kernels.py:
+    permute_chunks_dma): slots [D, 56, 128] f32, ints [D, 8, 128] i32,
+    src [D, 128] i32 source slot per destination slot (-1: empty), origin
+    [D, 3] i32 -> new (slots, ints), drift row zeroed and origin rows
+    written.
+
+    The TPU kernel takes the same permute as at most K = 8 whole source
+    chunks per destination (DMA) and a per-lane routing among them (MXU),
+    so its package computes that routing and falls back to a per-slot
+    gather past K. On the card each thread copies its own source slot, so
+    the kernel takes `src` directly and has no K limit."""
+    dev = slots.device
+    d_, nf, c = slots.shape
+    dim = origin.shape[1]
+    _check("slots", slots, torch.float32, (d_, nf, c), dev)
+    _check("ints", ints, torch.int32, (d_, L.NI, c), dev)
+    _check("src", src, torch.int32, (d_, c), dev)
+    _check("origin", origin, torch.int32, (d_, dim), dev)
+    if _route(dev) == "cpu":
+        return permute_slots_reference(slots, ints, src, origin, r_cumd)
+    if (nf, c, dim) != (L.Rows(3).nf, 128, 3):
+        raise NotImplementedError(f"slots {tuple(slots.shape)}, dim {dim}: the permute "
+                                  "kernel takes 3D slots [D, 56, 128]")
+    from sparkl_tpu_torch.cuda_build import library
+
+    out_f = torch.empty_like(slots)
+    out_i = torch.empty_like(ints)
+    _launch(library().sparkl_permute_slots, slots.data_ptr(), ints.data_ptr(),
+            src.data_ptr(), origin.data_ptr(), out_f.data_ptr(), out_i.data_ptr(),
+            d_, dim, int(r_cumd), _stream_ptr(dev))
+    LAUNCHES["permute_slots"] += 1
+    return out_f, out_i
+
+
+# ---------------------------------------------------------------------------
+# Kernel B: G2P + particle update + next dt bound
+# ---------------------------------------------------------------------------
+
+
+def g2p_fused_reference(grid: GridParams, slots, ints, windows, dt, tab_f, tab_i,
+                        nchunks, velocity_clamp=False):
+    """Plain version of kernel B: returns the new slot tensor [D, 56, C]
+    (chunks >= nchunks pass through). Gathers v and ∇v from the windows,
+    advects, updates F, runs one SVD shared by the Drucker-Prager return
+    map, the pos energy and the stress-cache epilogue, applies the static
+    and failure guards and the out-of-grid mark, and writes the next dt
+    bound and the accumulated drift."""
+    r = L.Rows(3)
+    n_live = _live_count(nchunks, slots.shape[0])
+    slots_all = slots
+    slots, ints, windows = slots[:n_live], ints[:n_live], windows[:n_live]
+    d_, _, c = slots.shape
+    h = grid.cell_width
+    invd = kernel_inv_d(h)
+
+    def row(k):
+        return slots[:, k, :]
+
+    mid = ints[:, L.I_MODEL, :].long()
+    flags = ints[:, L.I_FLAGS, :]
+    active = (flags & L.ACTIVE) != 0
+    is_static = (flags & L.STATIC) != 0
+    kinematic = (flags & L.KINEMATIC) != 0
+
+    # --- gather ---
+    _, fx, rel, in_window, in_bounds = _slot_geometry(grid, slots, ints)
+    contrib = active & in_window & in_bounds
+    cf = contrib.to(torch.float32)
+    w, dpt = _taps(grid, fx, rel)
+    q = _tap_cells(rel, contrib).reshape(d_, 1, 27 * c).expand(d_, 3, 27 * c)
+    win = torch.gather(windows, 2, q).reshape(d_, 3, 27, c)
+    sv = [0.0] * 3
+    sg = [[0.0] * 3 for _ in range(3)]
+    for t, (ta, tb, tc) in enumerate(_TAPS):
+        wz = w[2][tc]
+        wxy = w[0][ta] * w[1][tb]
+        wdx_y = (w[0][ta] * dpt[0][ta]) * w[1][tb]
+        wx_dy = w[0][ta] * (w[1][tb] * dpt[1][tb])
+        wdz = wz * dpt[2][tc]
+        for i in range(3):
+            v = win[:, i, t, :]
+            sv[i] = sv[i] + (v * wxy) * wz
+            sg[i][0] = sg[i][0] + (v * wdx_y) * wz
+            sg[i][1] = sg[i][1] + (v * wx_dy) * wz
+            sg[i][2] = sg[i][2] + (v * wxy) * wdz
+    vel = [cf * sv[i] for i in range(3)]
+    g = [[cf * (invd * sg[i][j]) for j in range(3)] for i in range(3)]
+
+    # --- particle update ---
+    tf = tab_f[mid]  # [D, C, 16]
+    ti = tab_i[mid]
+    ct, pt = ti[..., 0], ti[..., 1]
+    p = [tf[..., TAB_C + k] for k in range(4)]
+    pp = [tf[..., TAB_P + k] for k in range(8)]
+    phase = row(r.phase)
+    failed = row(r.failed) != 0.0
+    mass, vol0, eh = row(r.mass), row(r.vol0), row(r.eh)
+    f = [[row(r.defgrad + 3 * i + j) for j in range(3)] for i in range(3)]
+    kin = [row(r.kinvel + ax) for ax in range(3)]
+
+    vel = [torch.where(kinematic, kin[i], vel[i]) for i in range(3)]
+    if velocity_clamp:
+        over = (torch.abs(vel[0]) * dt >= h) | (torch.abs(vel[1]) * dt >= h) | (
+            torch.abs(vel[2]) * dt >= h)
+        vel = [torch.where(over, torch.sign(v) * (h / dt), v) for v in vel]
+    pos = [row(r.pos + ax) + vel[ax] * dt for ax in range(3)]
+
+    gf = cmat.matmul_c(g, f)
+    f = [[f[i][j] + dt * gf[i][j] for j in range(3)] for i in range(3)]
+
+    u, s, v = svd_c(f)
+    pdd, ph, lvg = row(r.pdd), row(r.ph), row(r.lvg)
+    # Every lane runs the return map; lanes of other plastic types keep
+    # their values (their zero DP parameters give NaN, which is masked).
+    f2, pdd2, ph2, lvg2, s_sel = plas.drucker_prager_update_with_svd_c(
+        pp, phase, f, pdd, ph, lvg, (u, s, v)
+    )
+    m = pt == plas.DRUCKER_PRAGER
+    s = [torch.where(m, a, b) for a, b in zip(s_sel, s)]
+    f = cmat.where_mat(m, f2, f)
+    pdd = torch.where(m, pdd2, pdd)
+    ph = torch.where(m, ph2, ph)
+    lvg = torch.where(m, lvg2, lvg)
+
+    vel = [torch.where(is_static, 0.0, x) for x in vel]
+    g = cmat.where_mat(is_static, cmat.zeros_like_mat(g), g)
+
+    broken = (cmat.det_c(f) == 0.0) | failed | (torch.abs(f[0][0]) > 1.0e4)
+    f = cmat.where_mat(broken, cmat.identity_c(3, mass), f)
+    g = cmat.where_mat(broken, cmat.zeros_like_mat(g), g)
+    failed_new = failed | broken
+    s = [torch.where(broken, 1.0, x) for x in s]
+
+    corot = ct == con.COROTATED
+    energy = torch.where(corot, con.corotated_pos_energy_from_s_c(p[0], p[1], eh, f, s), 0.0)
+    psi_pos = torch.maximum(row(r.psi_pos), energy)
+
+    oob = None
+    for ax in range(3):
+        b = torch.round(linalg.div(pos[ax] - grid.origin[ax], h)).to(torch.int32) - 1
+        o = ~((b >= 0) & (b + 2 <= grid.res[ax] - 1))
+        oob = o if oob is None else oob | o
+    failed_new = failed_new | (active & oob)
+
+    norm_b = (h * h) / 4.0 * torch.sqrt(cmat.frob2_c(g))
+    apic_v = linalg.div(norm_b * 6.0 * float(np.sqrt(3)), h)
+    vnorm = torch.sqrt(sum(x * x for x in vel))
+    vtot = vnorm + apic_v
+    vel_bound = torch.where(vtot > 0.0, h / torch.clamp(vtot, min=1e-20), float("inf"))
+    density0 = mass / torch.clamp(vol0, min=1e-30)
+    con_bound = torch.where(
+        corot, con.corotated_timestep_bound_c(p[0], p[1], p[2], eh, density0, vnorm, h),
+        float("inf"),
+    )
+    con_bound = torch.where(failed_new, float("inf"), con_bound)
+    bound = torch.where(active, torch.minimum(vel_bound, con_bound), float("inf"))
+    bound = torch.clamp(bound, max=L.BIGF)
+
+    step_disp = torch.maximum(
+        torch.maximum(torch.abs(vel[0]) * dt, torch.abs(vel[1]) * dt), torch.abs(vel[2]) * dt
+    )
+    cumd = row(r.cumd) + step_disp
+
+    st = con.corotated_kirchhoff_stress_from_svd_c(p[0], p[1], p[3], phase, eh, f, u, s, v)
+    st = [torch.where(corot, st[i][j], 0.0) for i in range(3) for j in range(i, 3)]
+
+    rows = list(pos) + vel
+    rows += [g[i][j] for i in range(3) for j in range(3)]
+    rows += [f[i][j] for i in range(3) for j in range(3)]
+    rows += [mass, vol0, phase, psi_pos, pdd, ph, eh, lvg, row(r.nacc)]
+    rows += kin
+    rows += [row(r.cpf), row(r.cthr), bound, failed_new.to(torch.float32), row(r.radius0),
+             psi_pos * mass, mass, row(r.m_c), row(r.g), row(r.debug), cumd]
+    rows += [torch.clamp(x, -L.BIGF, L.BIGF) for x in st]
+    zero = torch.zeros_like(mass)
+    rows += [zero] * (r.nf - len(rows))
+    # Dead chunks pass through unchanged.
+    return torch.cat([torch.stack(rows, dim=1), slots_all[n_live:]], dim=0)
+
+
+def g2p_fused(grid: GridParams, cfg, meta, kparams, slots, ints, windows, dt,
+              tab_f, tab_i, nchunks):
+    """Kernel B (replaces sparkl_tpu/fused/kernels.py:g2p_fused): slots
+    [D, 56, 128] f32 (updated IN PLACE on the card; the CPU path returns a
+    new tensor), ints [D, 8, 128] i32, windows [D, 3, 512] f32 z-major,
+    dt (python float), tables f32 [M, 16] / i32 [M, 4], nchunks [] i32.
+    Returns the new slot tensor."""
+    _check_meta(meta)
+    d_, c = cfg.max_chunks, cfg.chunk_size
+    dev = slots.device
+    r = L.Rows(3)
+    m = tab_f.shape[0]
+    _check("slots", slots, torch.float32, (d_, r.nf, c), dev)
+    _check("ints", ints, torch.int32, (d_, L.NI, c), dev)
+    _check("windows", windows, torch.float32, (d_, 3, region_cells(3)), dev)
+    _check("tab_f", tab_f, torch.float32, (m, 16), dev)
+    _check("tab_i", tab_i, torch.int32, (m, 4), dev)
+    _check("nchunks", nchunks, torch.int32, (), dev)
+    if c != 128:
+        raise NotImplementedError(f"chunk size {c}: kernel B takes 128")
+    args = _grid_args(grid)
+    clamp = bool(kparams["gpu_velocity_clamp"])
+    if _route(dev) == "cpu":
+        return g2p_fused_reference(grid, slots, ints, windows, dt, tab_f, tab_i,
+                                   nchunks, velocity_clamp=clamp)
+    from sparkl_tpu_torch.cuda_build import library
+
+    _launch(library().sparkl_g2p_fused, slots.data_ptr(), ints.data_ptr(),
+            windows.data_ptr(), nchunks.data_ptr(), tab_f.data_ptr(),
+            tab_i.data_ptr(), m, d_, float(dt), *args, int(clamp), _stream_ptr(dev))
+    LAUNCHES["g2p_fused"] += 1
+    return slots

@@ -1,0 +1,366 @@
+"""Fused MPM pipeline: persistent slot state + the fused substep kernels
+(port of sparkl_tpu/fused/pipeline.py for the slice's configuration).
+
+Particle state lives in chunk-slot layout between substeps; kernel A turns
+slots into window images, the merge kernel sums them into the block node
+table, the grid update applies gravity and the cached collider
+projections, and kernel B gathers, updates every particle and writes the
+next dt bound in place. The structure is rebuilt lazily, when accumulated
+drift reaches DRIFT_FRACTION of a cell (the off-by-two window tolerates
+one cell).
+
+Unlike the JAX package, which runs a frame span as one device program,
+this port runs eagerly with a host loop over substeps and one host read
+per substep (the drift trigger and the dt bound together), as the
+reference's CUDA pipeline does (cuda_mpm_pipeline.rs:393-398). Resort
+substeps read a few more scalars to choose their branch. Capturing the
+substep in a CUDA graph is later work.
+
+The slice carries 3D scenes with corotated elasticity (± Drucker-Prager),
+static heightfield colliders, no damage and the stress cache on. The
+constructor raises NotImplementedError for anything else (2D, damage,
+fluids, failure models, penalty colliders, boundary particle projection,
+GPU boundary semantics, collider pose functions and grid hooks): those
+wait for later ports and never fall back to another path.
+"""
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from sparkl_tpu_torch.core.grid import GridParams, GridState
+from sparkl_tpu_torch.core.params import DamageModel, SolverParameters
+from sparkl_tpu_torch.geometry.colliders import HEIGHTFIELD
+from sparkl_tpu_torch.math import linalg
+from sparkl_tpu_torch.models import registry
+from sparkl_tpu_torch.solver import dense
+from sparkl_tpu_torch.sparse import blocks as B
+from sparkl_tpu_torch.sparse import transfer as T
+from sparkl_tpu_torch.fused import kernels as K
+from sparkl_tpu_torch.fused import layout as L
+from sparkl_tpu_torch.fused import structure as S
+
+# Overflow flag bits (sparkl_tpu/sparse/pipeline.py).
+OVERFLOW_TABLES = 1
+OVERFLOW_MERGE = 2
+
+# Resort when accumulated displacement reaches this fraction of a cell.
+DRIFT_FRACTION = 0.9
+
+
+def _unsupported(grid, models, colliders, params, hooks, collider_pose_fn):
+    why = []
+    if grid.dim != 3:
+        why.append(f"{grid.dim}D grids")
+    m = models.unsupported()
+    if m:
+        why.append(m)
+    if params.damage_model != DamageModel.NONE:
+        why.append(f"damage model {params.damage_model.name}")
+    if params.force_fluids_volume_recomputation:
+        why.append("fluid volume recomputation")
+    if params.enable_boundary_particle_projection:
+        why.append("boundary particle projection")
+    if params.gpu_boundary_semantics:
+        why.append("GPU boundary semantics")
+    for c in colliders:
+        if c.shape_type != HEIGHTFIELD:
+            why.append(f"collider shape {c.shape_type}")
+        if float(c.penalty_stiffness) > 0.0:
+            why.append("penalty colliders")
+    if hooks is not None:
+        why.append("grid hooks")
+    if collider_pose_fn is not None:
+        why.append("collider pose functions")
+    return why
+
+
+class FusedMpmPipeline:
+    """step / run_frames on Particles, or pack_state -> run_frames_state ->
+    unpack_state on a resident SlotState."""
+
+    def __init__(
+        self,
+        grid: GridParams,
+        models: registry.ModelSet,
+        colliders=(),
+        params: SolverParameters = SolverParameters(),
+        gravity=None,
+        hooks=None,
+        config: Optional[B.BlockConfig] = None,
+        calibration_slack: float = 1.4,
+        collider_pose_fn=None,
+        device="cpu",
+    ):
+        why = _unsupported(grid, models, colliders, params, hooks, collider_pose_fn)
+        if why:
+            raise NotImplementedError(
+                "FusedMpmPipeline (torch port) does not carry: " + "; ".join(why)
+            )
+        self.device = torch.empty(0, device=device).device  # canonical, e.g. cuda:0
+        if models.ctype.device != self.device:
+            raise ValueError(f"models on {models.ctype.device}, pipeline on {self.device}")
+        self.grid = grid
+        self.models = models
+        self.colliders = tuple(colliders)
+        self.params = params
+        if gravity is None:
+            gravity = [0.0, -9.81, 0.0]
+        self.gravity = torch.tensor(gravity, dtype=torch.float32, device=self.device)
+        self._cfg = config
+        self._calibration_slack = calibration_slack
+        self._tab_f, self._tab_i = K.pack_model_tables(models)
+        self._meta = K.kernel_meta(models, params)
+        self._kparams = dict(gpu_velocity_clamp=params.gpu_velocity_clamp)
+        # Sticky scatter fallback for the merge, pinned (with a span retry)
+        # the first time a block exceeds MERGE_KMAX chunks.
+        self._merge_force_scatter = False
+        self._span_peak = 0  # most chunks in use during the current span
+        self.last_resorts = 0
+        # Resorts taken per branch; the source-row kernel runs on "pure"
+        # and "mixed" ones, the permute kernel on "mixed" ones.
+        self.resort_branches = {"relabel": 0, "pure": 0, "mixed": 0}
+
+    # -- capacity management --------------------------------------------------
+
+    def _ensure_cfg(self, p):
+        if self._cfg is None:
+            self._cfg = S.calibrate_ob2(
+                self.grid, p.position, p.active, slack=self._calibration_slack
+            )
+
+    def _grow(self, factor=1.6):
+        c = self._cfg
+
+        def q(x, step):
+            return -(-int(x) // step) * step
+
+        self._cfg = B.BlockConfig(
+            max_blocks=q(c.max_blocks * factor + 64, 256),
+            max_chunks=q(c.max_chunks * factor + 64, 512),
+            chunk_size=c.chunk_size,
+            max_grid_blocks=q(c.max_grid_blocks * factor + 64, 256),
+        )
+
+    @property
+    def _rows(self):
+        return L.Rows(self.grid.dim)
+
+    def _occupied(self, state):
+        return (state.ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0
+
+    # -- one substep -------------------------------------------------------------
+
+    def _substep(self, state, dt):
+        """P2G -> merge -> grid update -> windows -> G2P. `dt` is a host
+        float32. Returns the new state."""
+        nchunks = state.structure.num_chunks
+        images = K.p2g_fused(self.grid, self._cfg, self._meta, state.slots,
+                             state.ints, dt, nchunks)
+        windows = self._grid_windows(state, images, dt)
+        new_slots = K.g2p_fused(
+            self.grid, self._cfg, self._meta, self._kparams, state.slots, state.ints,
+            windows, dt, self._tab_f, self._tab_i, nchunks,
+        )
+        return state.replace(slots=new_slots,
+                             cum_disp=torch.max(new_slots[:, self._rows.cumd, :]))
+
+    def _grid_windows(self, state, images, dt):
+        """Window images -> node table (merge) -> grid velocity with gravity
+        and the collider boundary conditions -> per-chunk velocity windows
+        [D, 3, 512] in z-major cell order."""
+        grid, cfg, params = self.grid, self._cfg, self.params
+        dim = grid.dim
+        cpb = B.cells_per_block(dim)
+        node, _ = T.merge_images_to_grid(
+            grid, cfg, state.structure, images, cell_order=T.ZMAJOR_ORDER_3D,
+            force_scatter=self._merge_force_scatter,
+        )
+        node = node.reshape(cfg.max_grid_blocks + 1, 1 + dim, cpb)
+        mass = node[:, 0, :]
+        mom = node[:, 1 : 1 + dim, :].transpose(1, 2)
+
+        inv_mass = linalg.inv_exact(mass)
+        velocity = (mom + mass[..., None] * self.gravity * dt) * inv_mass[..., None]
+
+        node_pos, projections = state.grid_cache
+        zero = torch.zeros_like(mass)
+        gstate = GridState(mass=mass, momentum=mom, velocity=velocity,
+                           psi_momentum=zero, psi_mass=zero)
+        gstate = dense.grid_update(
+            grid, gstate, self.colliders, dt, params.boundary_handling,
+            params.simulation_dofs, node_positions=node_pos, projections=projections,
+        )
+        velocity = gstate.velocity
+        velocity[cfg.max_grid_blocks] = 0.0
+
+        win_fields = velocity.transpose(1, 2).reshape(cfg.max_grid_blocks + 1, dim * cpb)
+        return T.gather_grid_windows(
+            grid, cfg, state.structure, win_fields.contiguous(),
+            cell_order=T.ZMAJOR_ORDER_3D,
+        ).contiguous()
+
+    def _probe(self, state):
+        """The substep's one host read: (drift since the last sort, minimum
+        carried dt bound over occupied slots). A resort keeps every
+        occupied slot's row, so the minimum holds across it."""
+        dtb = torch.where(self._occupied(state), state.slots[:, self._rows.dtb, :],
+                          float("inf"))
+        cum, mdt = torch.stack([state.cum_disp, torch.min(dtb)]).cpu().numpy()
+        return np.float32(cum), np.float32(mdt)
+
+    def _resort(self, state):
+        """Lazy resort; returns (state, overflow flags) with the flags read
+        on the host (an overflowed structure must not reach the kernels)."""
+        state, ov, branch = L.resort(self.grid, self._cfg, state, self.grid.dim,
+                                     cache_fn=self._grid_cache)
+        self.resort_branches[branch] += 1
+        st = state.structure
+        ov, nc, kmax = torch.stack(
+            [ov.to(torch.int32), st.num_chunks, torch.max(st.block_num_chunks)]
+        ).tolist()
+        self._span_peak = max(self._span_peak, nc)
+        flags = OVERFLOW_TABLES if ov else 0
+        if not self._merge_force_scatter and kmax > T.MERGE_KMAX:
+            flags |= OVERFLOW_MERGE
+        return state, flags
+
+    def _step_body(self, state, remaining):
+        """One substep including the lazy resort. Returns (state, remaining,
+        resorted, flags); nonzero flags abort the span before any kernel
+        sees the overflowed structure."""
+        grid, params = self.grid, self.params
+        f32 = np.float32
+        min_dt = f32(params.dt / params.max_num_substeps)
+        cum_disp, min_dtb = self._probe(state)
+        resorted = bool(cum_disp >= f32(DRIFT_FRACTION * grid.cell_width))
+        if resorted:
+            state, flags = self._resort(state)
+            if flags:
+                return state, remaining, resorted, flags
+        max_dt = min(remaining, f32(params.max_substep_dt))
+        dt = min(min_dtb, max_dt)
+        if dt < min_dt and remaining > min_dt:
+            dt = min_dt
+        state = self._substep(state, float(dt))
+        remaining = f32(0.0) if params.stop_after_one_substep else f32(remaining - dt)
+        return state, remaining, resorted, 0
+
+    def _step_impl(self, state):
+        """One frame: substeps until params.dt is consumed. Returns (state,
+        substeps, resorts, flags)."""
+        remaining = np.float32(self.params.dt)
+        niter = nres = 0
+        while remaining > 0.0 and niter < self.params.max_num_substeps:
+            state, remaining, resorted, flags = self._step_body(state, remaining)
+            if flags:
+                return state, niter, nres, flags
+            niter += 1
+            nres += int(resorted)
+        return state, niter, nres, 0
+
+    def _frames_impl(self, state, num_frames):
+        total = nres = 0
+        for _ in range(num_frames):
+            state, n, r, flags = self._step_impl(state)
+            total += n
+            nres += r
+            if flags:
+                return state, total, nres, flags
+        return state, total, nres, 0
+
+    # -- packing ------------------------------------------------------------------
+
+    def _grid_cache(self, structure):
+        """Node positions + per-collider node projections of the block node
+        table, computed once per resort (the reference's projection cache,
+        reset_grid.rs:29-63). The trash row sits far outside the domain."""
+        cpb = B.cells_per_block(self.grid.dim)
+        node_pos = S.block_node_positions_ob2(self.grid, structure.grid_keys)
+        pad = torch.full((1, cpb, self.grid.dim), 1.0e10, dtype=torch.float32,
+                         device=node_pos.device)
+        node_pos = torch.cat([node_pos, pad], dim=0)
+        return node_pos, dense.grid_node_projections(self.colliders, node_pos)
+
+    def _pack(self, particles):
+        particles = dense.mark_out_of_grid_failed(self.grid, particles)
+        dtb = dense.particle_dt_bounds(self.grid, particles, self.models)
+        # Seed the stress-cache rows so the first kernel A reads valid stress.
+        stress = registry.kirchhoff_stress(
+            self.models, particles.model_id, particles.phase,
+            particles.elastic_hardening, particles.deformation_gradient,
+            particles.velocity_gradient, particles.mass, particles.volume0,
+        )
+        return L.pack(self.grid, self._cfg, particles, dtb,
+                      cache_fn=self._grid_cache, stress=stress)
+
+    def pack_state(self, particles):
+        """Particles -> resident SlotState (capacity-checked, regrown to
+        fit)."""
+        if particles.device != self.device:
+            raise ValueError(f"particles on {particles.device}, pipeline on {self.device}")
+        self._ensure_cfg(particles)
+        self._state_capacity = particles.capacity
+        for _attempt in range(6):
+            state = self._pack(particles)
+            s = state.structure
+            nb, ngb, nc, kmax = torch.stack(
+                [s.num_blocks, s.num_grid_blocks, s.num_chunks,
+                 torch.max(s.block_num_chunks)]
+            ).tolist()
+            if nb > self._cfg.max_blocks or ngb > self._cfg.max_grid_blocks or (
+                nc > self._cfg.max_chunks
+            ):
+                self._grow()
+                continue
+            if kmax > T.MERGE_KMAX:
+                self._merge_force_scatter = True
+            return state
+        raise RuntimeError("block table capacity still overflowing after regrows")
+
+    def unpack_state(self, state, capacity: Optional[int] = None):
+        """Resident SlotState -> Particles (original-order rows)."""
+        if capacity is None:
+            capacity = self._state_capacity
+        return L.unpack(self.grid, self._cfg, state, capacity, self.grid.dim)
+
+    def _repack_state(self, state):
+        particles = self.unpack_state(state)
+        self._grow()
+        return self._pack(particles)
+
+    def run_frames_state(self, state, num_frames: int):
+        """Advance a resident SlotState by `num_frames` frames; returns
+        (state, total_substeps). An overflow restores the pre-span copy,
+        regrows the tables or pins the scatter merge, and retries."""
+        for _attempt in range(6):
+            # Kernel B updates slots in place: keep a copy to retry from.
+            backup = state.replace(slots=state.slots.clone())
+            self._span_peak = int(state.structure.num_chunks)
+            state, total, nres, flags = self._frames_impl(state, num_frames)
+            if flags == 0:
+                self.last_resorts = nres
+                if self._span_peak > 0.85 * self._cfg.max_chunks:
+                    state = self._repack_state(state)
+                return state, total
+            state = backup
+            if flags & OVERFLOW_MERGE:
+                self._merge_force_scatter = True
+            if flags & OVERFLOW_TABLES:
+                state = self._repack_state(state)
+        raise RuntimeError("block table capacity still overflowing after regrows")
+
+    def run_frames(self, particles, num_frames: int):
+        """Pack, advance `num_frames` frames, unpack."""
+        capacity = particles.capacity
+        state = self.pack_state(particles)
+        state, total = self.run_frames_state(state, num_frames)
+        return self.unpack_state(state, capacity), total
+
+    def step_with_stats(self, particles):
+        return self.run_frames(particles, 1)
+
+    def step(self, particles):
+        p, _ = self.step_with_stats(particles)
+        return p

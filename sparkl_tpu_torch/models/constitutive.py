@@ -1,0 +1,70 @@
+"""Constitutive models (port of the corotated part of
+sparkl_tpu/models/constitutive.py).
+
+Component-wise functions on nested-list matrices of tensors, with raw
+parameter tensors. Ref: sparkl
+`src_core/dynamics/models/elasticity_corotated_linear.rs:12-147` and
+`src_core/dynamics/timestep/elasticity_sound_speed_timestep_bound.rs`.
+Neo-Hookean and the Monaghan EOS are not ported yet.
+"""
+
+import torch
+
+from sparkl_tpu_torch.math import cmat
+from sparkl_tpu_torch.math.svd import svd_c
+
+# Constitutive type codes (the JAX package's model-table ABI).
+COROTATED = 0
+NEO_HOOKEAN = 1
+EOS_MONAGHAN_SPH = 2
+CUSTOM_BASE = 16
+
+
+def corotated_kirchhoff_stress_c(lam, mu, split_on_failure, phase, hardening, f):
+    """2µh·U(Σ-1)Vᵀ·Fᵀ + λh(J-1)J·I with the positive/negative split when
+    fractured (phase == 0 and split_on_failure)."""
+    u, s, v = svd_c(f)
+    return corotated_kirchhoff_stress_from_svd_c(
+        lam, mu, split_on_failure, phase, hardening, f, u, s, v
+    )
+
+
+def corotated_kirchhoff_stress_from_svd_c(
+    lam, mu, split_on_failure, phase, hardening, f, u, s, v
+):
+    """corotated_kirchhoff_stress_c with a caller-supplied SVD of f."""
+    j = cmat.det_c(f)
+    pos = [torch.clamp(si - 1.0, min=0.0) for si in s]
+    neg = [torch.clamp(si - 1.0, max=0.0) for si in s]
+    coeff = 2.0 * mu * hardening
+    pos_dev = cmat.scale_c(cmat.matmul_nt_c(cmat.recompose_c(u, pos, v), f), coeff)
+    neg_dev = cmat.scale_c(cmat.matmul_nt_c(cmat.recompose_c(u, neg, v), f), coeff)
+    spherical = lam * hardening * (j - 1.0) * j
+    compressed = j < 1.0
+    sph_pos = torch.where(compressed, 0.0, spherical)
+    sph_neg = torch.where(compressed, spherical, 0.0)
+    pos_part = cmat.add_diag_c(pos_dev, sph_pos)
+    neg_part = cmat.add_diag_c(neg_dev, sph_neg)
+    phase_coeff = torch.where((split_on_failure != 0.0) & (phase == 0.0), 0.0, 1.0)
+    return cmat.add_c(cmat.scale_c(pos_part, phase_coeff), neg_part)
+
+
+def corotated_pos_energy_from_s_c(lam, mu, hardening, f, s):
+    """Tensile energy µh Σ max(σᵢ-1, 0)² (+ λh/2 (J-1)² when J ≥ 1) from the
+    singular values s of f (ref: `pos_energy`)."""
+    j = cmat.det_c(f)
+    pos_dev = mu * hardening * sum(torch.clamp(si - 1.0, min=0.0) ** 2 for si in s)
+    spherical = lam * hardening / 2.0 * (j - 1.0) ** 2
+    return torch.where(j < 1.0, pos_dev, pos_dev + spherical)
+
+
+def sound_speed_timestep_bound_c(alpha, bulk, shear, density0, vnorm, cell_width):
+    """dt ≤ α·h / max(‖v‖, c) with c = √((K + 4/3 G)/ρ₀)."""
+    c = torch.sqrt((bulk + 4.0 / 3.0 * shear) / density0)
+    return alpha * cell_width / torch.maximum(vnorm, c)
+
+
+def corotated_timestep_bound_c(lam, mu, cfl, hardening, density0, vnorm, cell_width):
+    bulk = (lam + 2.0 * mu / 3.0) * hardening
+    shear = mu * hardening
+    return sound_speed_timestep_bound_c(cfl, bulk, shear, density0, vnorm, cell_width)

@@ -1,0 +1,66 @@
+"""3D scenes (port of sparkl_tpu/scenes/scenes3d.py). Ref: examples3d/sand3.rs."""
+
+import numpy as np
+
+import sparkl_tpu_torch.scenes as sc
+from sparkl_tpu_torch.core.grid import GridParams
+from sparkl_tpu_torch.core.params import SolverParameters
+from sparkl_tpu_torch.core.particles import Particles, cube_particles
+from sparkl_tpu_torch.geometry.colliders import heightfield
+from sparkl_tpu_torch.models import registry as reg
+
+
+@sc.register_scene("sand3")
+def sand3(nx=100, ny=50, nz=50, device="cpu"):
+    """Sand column (corotated + Drucker-Prager) above a plain corotated
+    block on a sine-valley heightfield: E=1e7, nu=0.2, cell_width=0.2,
+    r=h/4, density 2700. 2·nx·ny·nz particles."""
+    e, nu = 1.0e7, 0.2
+    h = 0.2
+    r = h / 4.0
+
+    hf_n = 40
+    i = np.arange(hf_n + 1, dtype=np.float32)
+    heights = np.broadcast_to(
+        -np.sin(i[:, None] * np.pi / hf_n), (hf_n + 1, hf_n + 1)
+    ).astype(np.float32)
+    ground_half_side = 20.0
+    colliders = (
+        heightfield(
+            heights,
+            scale=(ground_half_side * 2.0, 10.0, ground_half_side * 2.0),
+            translation=(0.0, 10.0, 0.0),
+        ),
+    )
+
+    sand = reg.ParticleModel(
+        reg.corotated_linear_elasticity(e, nu),
+        reg.drucker_prager_plasticity(e, nu),
+    )
+    block = reg.ParticleModel(reg.corotated_linear_elasticity(e, nu))
+    models = reg.ModelSet.pack([sand, block], device)
+
+    y0 = h * 3.0 + 2.0 + r * 2.0 * ny
+    sand_particles = cube_particles(
+        origin=(0.0, y0, 0.0), counts=(nx, ny, nz), model_id=0,
+        particle_radius=r, density0=2700.0, device=device,
+    )
+    block_particles = cube_particles(
+        origin=(0.0, h * 3.0 + 2.0, 0.0), counts=(nx, ny, nz), model_id=1,
+        particle_radius=r, density0=2700.0, device=device,
+    )
+    particles = Particles.concatenate((sand_particles, block_particles))
+
+    x_hi = nx * 2 * r
+    grid = GridParams.for_domain(
+        (-6.0, -1.0, -6.0), (x_hi + 6.0, y0 + ny * 2 * r + 1.0, nz * 2 * r + 6.0), h, pad=2
+    )
+    return sc.SceneBundle(
+        name="sand3",
+        grid=grid,
+        models=models,
+        colliders=colliders,
+        particles=particles,
+        params=SolverParameters(dt=1.0 / 60.0),
+        gravity=(0.0, -9.81, 0.0),
+    )

@@ -1,0 +1,147 @@
+"""The port's fused sand3 slice end to end on the CPU (plain kernel
+versions): one frame against the JAX FusedMpmPipeline in interpret mode,
+a 4-frame replay of the sand3 golden, a state-resident run through the
+first lazy resort, and the constructor's refusals.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import sparkl_tpu.scenes as jscenes
+from sparkl_tpu.fused.pipeline import FusedMpmPipeline as JPipeline
+from sparkl_tpu.sparse.blocks import BlockConfig as JBlockConfig
+
+import sparkl_tpu_torch.scenes as tscenes
+from sparkl_tpu_torch import interop
+from sparkl_tpu_torch.core.grid import GridParams
+from sparkl_tpu_torch.core.params import DamageModel, SolverParameters
+from sparkl_tpu_torch.fused.pipeline import FusedMpmPipeline
+from sparkl_tpu_torch.geometry.colliders import heightfield
+from sparkl_tpu_torch.models import registry as treg
+from sparkl_tpu_torch.sparse.blocks import BlockConfig
+
+torch.set_num_threads(2)
+
+CFG = dict(max_blocks=64, max_chunks=32, chunk_size=128, max_grid_blocks=128)
+GOLD = json.load(open(os.path.join(os.path.dirname(__file__), "golden_scenes.json")))
+
+
+def _port_of(b):
+    """The JAX scene bundle carried across to the port through numpy."""
+    m = b.models
+    models = interop.modelset_from_numpy(m.ctype, m.cparams, m.ptype, m.pparams,
+                                         m.ftype, m.fparams)
+    colliders = tuple(
+        heightfield(c.data[0], c.data[1], translation=c.translation, rotation=c.rotation,
+                    friction=c.friction)
+        for c in b.colliders
+    )
+    grid = GridParams(origin=b.grid.origin, cell_width=b.grid.cell_width, res=b.grid.res)
+    particles = interop.particles_from_numpy(
+        {k: np.asarray(v) for k, v in vars(b.particles).items()})
+    return grid, models, colliders, particles
+
+
+def test_one_frame_matches_jax_fused_pipeline():
+    b = jscenes.build("sand3", nx=12, ny=6, nz=6)
+    jpipe = JPipeline(b.grid, b.models, b.colliders, b.params, b.gravity,
+                      config=JBlockConfig(**CFG), use_pallas="interpret")
+    pj, nj = jpipe.step_with_stats(b.particles)
+
+    grid, models, colliders, particles = _port_of(b)
+    tpipe = FusedMpmPipeline(grid, models, colliders, SolverParameters(dt=b.params.dt),
+                             b.gravity, config=BlockConfig(**CFG))
+    pt, nt = tpipe.step_with_stats(particles)
+    assert nt == int(nj)
+
+    # The tolerances of tests/test_fused.py::_compare (fused vs dense).
+    act = np.asarray(pj.active)
+    np.testing.assert_array_equal(pt.active.numpy(), act)
+    np.testing.assert_allclose(pt.position.numpy()[act], np.asarray(pj.position)[act], atol=5e-5)
+    np.testing.assert_allclose(pt.velocity.numpy()[act], np.asarray(pj.velocity)[act], atol=5e-4)
+    np.testing.assert_allclose(pt.deformation_gradient.numpy()[act],
+                               np.asarray(pj.deformation_gradient)[act], atol=5e-4)
+    np.testing.assert_array_equal(pt.failed.numpy()[act], np.asarray(pj.failed)[act])
+    assert np.abs(pt.velocity.numpy()[act]).max() > 0.1  # the column is falling
+
+
+def _stats(p):
+    act = p.active.numpy()
+    pos = p.position.numpy()[act]
+    vel = p.velocity.numpy()[act]
+    mass = p.mass.numpy()[act]
+    ke = float(0.5 * np.sum(mass[:, None] * vel**2))
+    failed = int(p.failed.numpy()[act].sum())
+    broken = int((p.phase.numpy()[act] == 0.0).sum())
+    return pos.mean(axis=0), pos.min(axis=0), pos.max(axis=0), ke, failed, broken, float(mass.sum())
+
+
+def test_golden_sand3_four_frames():
+    """Replays tests/golden_scenes.json (made by the JAX dense pipeline) with
+    the bounds of tests/test_regression.py::_replay for fused pipelines."""
+    gold = GOLD["sand3"]
+    b = tscenes.build("sand3", **gold["config"])
+    pipe = FusedMpmPipeline(b.grid, b.models, b.colliders, b.params, b.gravity)
+    p = b.particles
+    act0 = p.active.numpy()
+    per_mass = p.mass.numpy()
+    mass0 = float(per_mass[act0].sum())
+    n0 = int(act0.sum())
+    for rec in gold["frames"][:4]:
+        p, niter = pipe.step_with_stats(p)
+        frame = rec["frame"]
+        assert abs(int(niter) - rec["substeps"]) <= 1, f"frame {frame} substeps"
+        com, lo, hi, ke, failed, broken, mass = _stats(p)
+        deact = float(per_mass[act0 & ~p.active.numpy()].sum())
+        np.testing.assert_allclose(mass, mass0 - deact, rtol=1e-6, err_msg=f"{frame} mass")
+        np.testing.assert_allclose(com, rec["com"], atol=3e-3, rtol=1e-3, err_msg=f"{frame} com")
+        np.testing.assert_allclose(lo, rec["pos_min"], atol=8e-3, rtol=1e-3, err_msg=f"{frame} min")
+        np.testing.assert_allclose(hi, rec["pos_max"], atol=8e-3, rtol=1e-3, err_msg=f"{frame} max")
+        np.testing.assert_allclose(ke, rec["ke"], rtol=3e-2, atol=1e-8, err_msg=f"{frame} ke")
+        slack = max(2, int(0.02 * n0))
+        assert abs(failed - rec["failed"]) <= slack
+        assert abs(broken - rec["broken"]) <= slack
+
+
+def test_state_resident_run_takes_the_lazy_resort():
+    b = tscenes.build("sand3", nx=12, ny=6, nz=6)
+    pipe = FusedMpmPipeline(b.grid, b.models, b.colliders, b.params, b.gravity,
+                            config=BlockConfig(**CFG))
+    state = pipe.pack_state(b.particles)
+    mass0 = float(b.particles.mass.sum())
+    resorts = substeps = 0
+    for _ in range(13):
+        state, n = pipe.run_frames_state(state, 1)
+        substeps += n
+        resorts += pipe.last_resorts
+    assert resorts >= 1 and substeps >= 13 * 5
+    # The fall mixes particles across blocks: the resort takes the permute.
+    assert sum(pipe.resort_branches.values()) == resorts and pipe.resort_branches["mixed"] >= 1
+    p = pipe.unpack_state(state)
+    assert torch.isfinite(p.position).all()
+    np.testing.assert_allclose(float(p.mass[p.active].sum()), mass0, rtol=1e-6)
+
+
+def test_constructor_refuses_what_the_slice_does_not_carry():
+    b = tscenes.build("sand3", nx=4, ny=2, nz=2)
+    base = dict(grid=b.grid, models=b.models, colliders=b.colliders, params=b.params)
+    grid2 = GridParams(origin=(0.0, 0.0), cell_width=0.1, res=(32, 32))
+    neo = treg.ModelSet.pack([treg.ParticleModel((1, (1.0, 1.0, 0.5, 0.0)))], "cpu")
+    cases = [
+        dict(grid=grid2),
+        dict(models=neo),
+        dict(params=SolverParameters(damage_model=DamageModel.EIGENEROSION)),
+        dict(params=SolverParameters(force_fluids_volume_recomputation=True)),
+        dict(params=SolverParameters(enable_boundary_particle_projection=True)),
+        dict(params=SolverParameters(gpu_boundary_semantics=True)),
+        dict(colliders=(heightfield(np.zeros((3, 3)), (1.0, 1.0, 1.0), penalty_stiffness=1.0),)),
+        dict(hooks=object()),
+        dict(collider_pose_fn=lambda t: (None,)),
+    ]
+    for over in cases:
+        with pytest.raises(NotImplementedError):
+            FusedMpmPipeline(**dict(base, **over))
