@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's fused sand3 main path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's two sand3 paths on one NVIDIA GPU: the
+fused pipeline and the block-sparse pipeline.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It needs one CUDA device (written for an H100, sm_90a) and nvcc, and exits
@@ -22,8 +23,23 @@ Phases (one line each, longer logs under chiprun_out/):
      resort on the card against the same resort of a CPU copy, and kernel
      B on the landed final state and on that state with perturbed F, both
      with Drucker-Prager plastic flow;
-  6. a JSON line of per-kernel results, the card's nvidia-smi line, and
+  6. the block-sparse path's two window kernels against their plain
+     versions on the card, on the inputs of a substep one frame into the
+     fall at sand3@1M, without and with the psi channels, with times;
+  7. the sparse main path: SparseMpmPipeline.step_with_stats, then
+     run_frames, 6 frames at sand3@1M, with the kernels' launch counts held
+     against the substeps; one more frame timed, then under torch.profiler (the
+     frame's device-time split, written to chiprun_out/sparse_profile.txt);
+  8. one frame of sand3@1M through each path, sparse against fused, and a
+     small sand3 frame through the sparse path on the card against the
+     port's CPU path;
+  9. a JSON line of per-kernel results, the card's nvidia-smi line, and
      the final {"ok": true, "device": ...} line.
+
+Each kernel's bound_ms is the least time the card could take for its work
+at this run's shapes: the larger of the bytes it must move (each input read
+once, each output written once) over 3.35 TB/s and the f32 operations this
+run's data needs over 67 TFLOP/s (the H100 SXM's published peaks at 700 W).
 """
 
 import json
@@ -41,9 +57,30 @@ REPLACES = {
     "g2p_fused": "sparkl_tpu/fused/kernels.py:1510",
     "src_rows_from_order": "sparkl_tpu/fused/kernels.py:775",
     "permute_slots": "sparkl_tpu/fused/kernels.py:1008",
+    "p2g_windows": "sparkl_tpu/ops/transfer_kernels.py:198",
+    "g2p_windows": "sparkl_tpu/ops/transfer_kernels.py:245",
 }
-SOURCE = "sparkl_tpu_torch/csrc/fused_kernels.cu"
+FUSED_SOURCE = "sparkl_tpu_torch/csrc/fused_kernels.cu"
+WINDOW_SOURCE = "sparkl_tpu_torch/csrc/window_kernels.cu"
+SPARSE_KERNELS = ("p2g_windows", "g2p_windows")
 FRAMES, TIMED_FRAMES = 15, 3
+SPARSE_FRAMES, SPARSE_TIMED = 6, 2
+# Sparse against fused after one frame at sand3@1M (phase 8).
+# The first run gave 9.5e-7 and 6.8e-6 (NVIDIA H100 80GB HBM3, 700 W):
+# summation-order rounding over 6 substeps, which the float-atomic scatter
+# merge changes from run to run; the bounds leave 10x.
+SPARSE_FUSED_DX, SPARSE_FUSED_DV = 1e-5, 1e-4
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+# Useful f32 operations per stencil tap (27 per slot), counted from the
+# kernels' arithmetic: P2G forms W, W_x, W_y, W_z (7 products) and adds
+# mass, 3 momenta and 9 affine terms (2 each); G2P forms the same weights
+# and adds v and 3 gradient terms per velocity channel (2 each). Kernel A
+# adds the affine matrix per slot (~45); kernel B's particle update (F
+# update, cardano SVD, Drucker-Prager, stress, energy, dt bound) is
+# counted as 1500 per lane, a lower estimate.
+P2G_TAP_FLOPS, G2P_TAP_FLOPS = 7 + 2 * 13, 7 + 2 * 12
+A_SLOT_FLOPS, B_LANE_FLOPS = 45, 1500
 # Tolerances of the kernel-vs-plain checks (the plain versions run on the
 # same card on the same tensors); p2g_errors and g2p_errors state each one.
 
@@ -75,6 +112,14 @@ def nvcc_release():
     out = subprocess.run([_nvcc(), "--version"], capture_output=True, text=True,
                          timeout=60, check=True)
     return next(ln for ln in out.stdout.splitlines() if "release" in ln).strip()
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of bytes over the card's memory rate
+    and f32 operations over its peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def cuda_median_ms(fn, reps=20):
@@ -213,6 +258,16 @@ def phase_kernels(pipe, state, dt):
     res["merge_blocks"]["ms"] = cuda_median_ms(lambda: K.merge_blocks(rows, first, nblk))
     res["merge_blocks"]["plain_ms"] = cuda_median_ms(
         lambda: K.merge_blocks_reference(rows, first, nblk, T.MERGE_KMAX))
+    # The library yardstick: one segment sum over the valid chunks' rows
+    # (blocks own contiguous chunk ranges; none here holds more than kmax).
+    n_valid = int(nblk.sum())
+    require(int(nblk.max()) <= T.MERGE_KMAX, "a block holds more than MERGE_KMAX chunks")
+    flat, lengths = rows.reshape(cfg.max_chunks, -1)[:n_valid], nblk.long()
+    seg = torch.segment_reduce(flat, "sum", lengths=lengths, axis=0)
+    seg_err = (seg.reshape(m_k.shape) - m_k).abs().max().item()
+    res["merge_blocks"]["library_ms"] = cuda_median_ms(
+        lambda: torch.segment_reduce(flat, "sum", lengths=lengths, axis=0))
+    say(3, f"merge_blocks against torch.segment_reduce: max|diff| {seg_err:.3e}")
 
     require(not failures, "; ".join(failures))
 
@@ -225,11 +280,18 @@ def phase_kernels(pipe, state, dt):
     res["g2p_fused"]["plain_ms"] = cuda_median_ms(
         lambda: K.g2p_fused_reference(grid, slots_in, state.ints, windows, dt, *args))
     traffic = substep_bytes(state.structure, cfg)
+    lanes = int(((state.ints[:, L.I_FLAGS, :] & L.ACTIVE) != 0).sum())
+    flops = dict(p2g_fused=lanes * (27 * P2G_TAP_FLOPS + A_SLOT_FLOPS),
+                 merge_blocks=traffic["merge_blocks"] // 4,
+                 g2p_fused=lanes * (27 * G2P_TAP_FLOPS + B_LANE_FLOPS))
     for name, v in res.items():
-        v["bytes"] = traffic[name]
-        say(3, f"{name}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms (median of 20); "
-               f"{traffic[name] / 1e9:.4f} GB counted from shapes = "
-               f"{traffic[name] / v['ms'] / 1e6:.1f} GB/s")
+        v["bytes"], v["flops"] = traffic[name], flops[name]
+        v["bound_ms"], v["bound_by"] = bound(v["bytes"], v["flops"])
+        v.setdefault("library_ms", None)
+        say(3, f"{name}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, library "
+               f"{v['library_ms']} ms (median of 20); {traffic[name] / 1e9:.4f} GB counted from "
+               f"shapes = {traffic[name] / v['ms'] / 1e6:.1f} GB/s; bound {v['bound_ms']:.4f} ms "
+               f"({v['bound_by']})")
     return res
 
 
@@ -386,22 +448,34 @@ def phase_resort(pipe, pre):
            f"{equal}; source chunks per live destination mean {nsrc.mean().item():.3f}, "
            f"max {int(nsrc.max().item())}, {int((nsrc > 8).sum())} destinations above 8")
     require(equal, "permute_slots is not equal to its plain version")
-    for name, fn, plain in (
+    # The library yardsticks: one gather each, with the index precomputed.
+    j = torch.clamp(shifts[:, None].long() + torch.arange(c, device=dev)[None, :], 0, 2 * c - 1)
+    order_rows = order2.reshape(d_, 2 * c)
+    src_safe = torch.where(src >= 0, src, 0).long()
+    sc, sl = src_safe // c, src_safe % c
+    for name, fn, plain, lib in (
             ("src_rows_from_order", lambda: K.src_rows_from_order(order2, shifts),
-             lambda: K.src_rows_from_order_reference(order2, shifts)),
+             lambda: K.src_rows_from_order_reference(order2, shifts),
+             lambda: torch.gather(order_rows, 1, j)),
             ("permute_slots", lambda: K.permute_slots(*args),
-             lambda: K.permute_slots_reference(*args))):
+             lambda: K.permute_slots_reference(*args),
+             lambda: (pre.slots[sc, :, sl], pre.ints[sc, :, sl]))):
         v = res[name]
-        v["ms"], v["plain_ms"] = cuda_median_ms(fn), cuda_median_ms(plain)
-        say(5, f"{name}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms (median of 20); "
-               f"{v['bytes'] / 1e9:.4f} GB counted from shapes = {v['bytes'] / v['ms'] / 1e6:.1f} GB/s")
+        v["ms"], v["plain_ms"], v["library_ms"] = (
+            cuda_median_ms(fn), cuda_median_ms(plain), cuda_median_ms(lib))
+        v["flops"] = 0
+        v["bound_ms"], v["bound_by"] = bound(v["bytes"], 0)
+        say(5, f"{name}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, library (one "
+               f"gather) {v['library_ms']:.3f} ms (median of 20); {v['bytes'] / 1e9:.4f} GB counted "
+               f"from shapes = {v['bytes'] / v['ms'] / 1e6:.1f} GB/s; bound {v['bound_ms']:.4f} ms")
 
     def run(state):
         out, ov, branch = L.resort(grid, cfg, state, 3)
         return out, bool(ov), branch
 
     out_g, ov_g, branch_g = run(pre)
-    out_c, ov_c, branch_c = run(interop.slot_state_from_numpy(interop.slot_state_to_numpy(pre)))
+    out_c, ov_c, branch_c = run(interop.slot_state_from_numpy(interop.slot_state_to_numpy(pre),
+                                                              device="cpu"))
     pairs = dict(slots=(out_g.slots, out_c.slots), ints=(out_g.ints, out_c.ints))
     pairs.update({k: (v, out_c.structure.tensors()[k])
                   for k, v in out_g.structure.tensors().items()})
@@ -432,6 +506,329 @@ def perturbed_f(state, seed=7):
     slots[:, r.defgrad : r.defgrad + 9] += torch.where(
         occ, torch.from_numpy(noise).to(slots.device), 0.0)
     return state.replace(slots=slots)
+
+
+def capture_window_inputs(pipe, p):
+    """The window kernels' inputs (slot data, velocity windows) of the first
+    substep of one frame from `p` on the sparse path, recorded as the
+    pipeline hands them to the kernels."""
+    from sparkl_tpu_torch.ops import transfer_kernels as WK
+
+    got = {}
+    p2g, g2p = WK.p2g_windows, WK.g2p_windows
+
+    def rec_p2g(grid, cfg, slot_data, with_psi=True):
+        got.setdefault("slot_data", slot_data.clone())
+        return p2g(grid, cfg, slot_data, with_psi=with_psi)
+
+    def rec_g2p(grid, cfg, slot_data, windows, with_psi=True):
+        got.setdefault("windows", windows.clone())
+        return g2p(grid, cfg, slot_data, windows, with_psi=with_psi)
+
+    WK.p2g_windows, WK.g2p_windows = rec_p2g, rec_g2p
+    try:
+        pipe.step_with_stats(p)
+    finally:
+        WK.p2g_windows, WK.g2p_windows = p2g, g2p
+    return got["slot_data"], got["windows"]
+
+
+def g2p_window_errors(out_k, out_p, valid, win, cell_width):
+    """The G2P window kernel against its plain version, row by row over the
+    valid slots (padded slots hold no particle; no caller reads them):
+    max|kernel - plain| over the bound 2e-5 * scale + 1e-5 * |plain|. The
+    scale is the row's largest magnitude, and for a gradient row at least
+    invd·h·max|window velocity|: the gather sums w·dpt·v terms of that
+    size, which cancel. Both sum the same 27 products per slot in other
+    orders. Returns [(err/bound, max|err|)]."""
+    import torch
+    from sparkl_tpu_torch.math.kernel import inv_d
+
+    m = valid[:, None, :]
+    a, b = torch.where(m, out_k, 0.0), torch.where(m, out_p, 0.0)
+    vscale = inv_d(cell_width) * cell_width * win[:, :3].abs().max().item()
+    out = []
+    for r in range(b.shape[1]):
+        d = (a[:, r] - b[:, r]).abs()
+        scale = b[:, r].abs().max().item()
+        if 3 <= r < 12:
+            scale = max(scale, vscale)
+        bnd = 2e-5 * scale + 1e-5 * b[:, r].abs()
+        out.append(((d / bnd.clamp(min=1e-30)).max().item(), d.max().item()))
+    return out
+
+
+def phase_window_kernels(grid, cfg, slot_data, windows):
+    """Both window kernels against their plain versions on the sparse
+    path's own inputs, without the psi channels (the path) and with them
+    (numpy-seeded psi rows and window channel); times of the path's form.
+    Returns {name: {max_abs_err, ms, plain_ms, library_ms, bytes, flops,
+    bound_ms, bound_by, with_psi}}."""
+    import numpy as np
+    import torch
+    from sparkl_tpu_torch.ops import transfer_kernels as WK
+
+    dev = slot_data.device
+    d_, _, c = slot_data.shape
+    valid = slot_data[:, 3, :] != 0.0  # the mass row; padded slots are zero
+    n_valid = int(valid.sum())
+    rng = np.random.default_rng(5)
+    res = {name: {} for name in SPARSE_KERNELS}
+    for psi in (False, True):
+        sd, win = slot_data, windows
+        if psi:
+            sd = slot_data.clone()
+            noise = rng.uniform(0.5, 1.5, size=(d_, 2, c)).astype(np.float32)
+            sd[:, 16:18] = torch.from_numpy(noise).to(dev) * valid[:, None, :]
+            extra = rng.normal(size=(d_, 1, 512)).astype(np.float32)
+            win = torch.cat([windows, torch.from_numpy(extra).to(dev)], dim=1)
+        img_k = WK.p2g_windows(grid, cfg, sd, with_psi=psi)
+        img_p = WK.p2g_windows_reference(grid, sd, psi)
+        out_k = WK.g2p_windows(grid, cfg, sd, win, with_psi=psi)
+        out_p = WK.g2p_windows_reference(grid, sd, win, psi)
+        torch.cuda.synchronize()
+        per_ch = p2g_errors(img_k, img_p)
+        per_row = g2p_window_errors(out_k, out_p, valid, win, grid.cell_width)
+        errs = {"p2g_windows": per_ch, "g2p_windows": per_row}
+        finite = torch.isfinite(img_k).all().item() and torch.isfinite(
+            torch.where(valid[:, None, :], out_k, 0.0)).all().item()
+        for name, e in errs.items():
+            res[name]["with_psi" if psi else "path"] = dict(
+                max_abs_err=max(x for _, x in e), worst_over_bound=max(m for m, _ in e))
+            say(6, f"{name} with_psi={psi}: max|err| {max(x for _, x in e):.3e}; per "
+                   f"{'channel' if name == 'p2g_windows' else 'row'} max|err|/bound "
+                   f"{[f'{m:.2e}' for m, _ in e]} (pass <= 1)")
+        require(finite and all(m <= 1.0 for e in errs.values() for m, _ in e),
+                f"a window kernel disagrees with its plain version (with_psi={psi})")
+    sd0 = slot_data
+    res["p2g_windows"].update(
+        ms=cuda_median_ms(lambda: WK.p2g_windows(grid, cfg, sd0, with_psi=False)),
+        plain_ms=cuda_median_ms(lambda: WK.p2g_windows_reference(grid, sd0, False)),
+        bytes=d_ * (16 * c + 4 * 512) * 4, flops=n_valid * 27 * P2G_TAP_FLOPS)
+    res["g2p_windows"].update(
+        ms=cuda_median_ms(lambda: WK.g2p_windows(grid, cfg, sd0, windows, with_psi=False)),
+        plain_ms=cuda_median_ms(lambda: WK.g2p_windows_reference(grid, sd0, windows, False)),
+        bytes=d_ * (3 * c + 3 * 512 + 12 * c) * 4, flops=n_valid * 27 * G2P_TAP_FLOPS)
+    for name, v in res.items():
+        v["max_abs_err"] = v["path"]["max_abs_err"]
+        v["library_ms"] = None
+        v["bound_ms"], v["bound_by"] = bound(v["bytes"], v["flops"])
+        say(6, f"{name}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms (median of 20); "
+               f"{v['bytes'] / 1e9:.4f} GB counted from shapes = {v['bytes'] / v['ms'] / 1e6:.1f} "
+               f"GB/s; bound {v['bound_ms']:.4f} ms ({v['bound_by']}); {d_} chunks, "
+               f"{n_valid} valid slots")
+    return res
+
+
+def phase_sparse_main(b):
+    """The sparse main path: SPARSE_FRAMES frames of sand3@1M through
+    step_with_stats and then run_frames, the last SPARSE_TIMED timed, with
+    the window kernels' launches held against the substeps. Returns (the
+    pipeline, the particles, the window kernels' launches, results)."""
+    import torch
+    from sparkl_tpu_torch.ops import transfer_kernels as WK
+    from sparkl_tpu_torch.sparse.pipeline import SparseMpmPipeline
+
+    n_active = int(b.particles.active.sum())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = SparseMpmPipeline(b.grid, b.models, b.colliders, b.params, b.gravity, device="cuda")
+    mass0 = b.particles.mass[b.particles.active].double().sum().item()
+    p = b.particles
+    substeps = 0
+    WK.reset_launch_counts()
+    for _ in range(SPARSE_FRAMES - SPARSE_TIMED):
+        p, n = pipe.step_with_stats(p)
+        substeps += n
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, timed = pipe.run_frames(p, SPARSE_TIMED)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(WK.LAUNCHES)
+    substeps += timed
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    act = p.active
+    deact = b.particles.mass[b.particles.active & ~act].double().sum().item()
+    mass = p.mass[act].double().sum().item()
+    pups = n_active * timed / seconds
+    say(7, f"sparse path, {SPARSE_FRAMES} frames: {substeps} substeps, {pipe._cfg}; last "
+           f"{SPARSE_TIMED} frames {timed} substeps in {seconds:.3f} s = {pups:.4g} "
+           f"particle-updates/s; peak memory {peak_gib:.2f} GiB; launches {launches}; mass "
+           f"{mass:.6e} (initial {mass0:.6e}, deactivated {deact:.3e})")
+    require(bool(torch.isfinite(p.position[act]).all()), "sparse path: non-finite positions")
+    require(abs(mass - (mass0 - deact)) <= 1e-6 * mass0, "sparse path: active mass not conserved")
+    expect = {name: substeps for name in SPARSE_KERNELS}
+    require(launches == expect, f"sparse path launch counts {launches}, expected {expect}")
+    return pipe, p, launches, dict(substeps=substeps, timed_substeps=timed, seconds=seconds,
+                                   pups=pups, peak_gib=peak_gib, config=str(pipe._cfg))
+
+
+def profile_sparse_frame(pipe, p):
+    """One sparse frame under torch.profiler, with a named range around each
+    stage (set here, not in the library). Writes the table to
+    chiprun_out/sparse_profile.txt; returns {stage: device ms}, the device's
+    busy and wall ms and its idle share."""
+    import importlib
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    stages = [
+        ("sparkl_tpu_torch.solver.dense", "mark_out_of_grid_failed", "mark out of grid"),
+        ("sparkl_tpu_torch.sparse.blocks", "build_structure", "build_structure"),
+        ("sparkl_tpu_torch.solver.dense", "adaptive_timestep", "adaptive dt"),
+        ("sparkl_tpu_torch.models.registry", "kirchhoff_stress", "stress (SVD)"),
+        ("sparkl_tpu_torch.ops.transfer_kernels", "pack_p2g_inputs", "pack"),
+        ("sparkl_tpu_torch.ops.transfer_kernels", "gather_slot_data", "slot gather"),
+        ("sparkl_tpu_torch.ops.transfer_kernels", "p2g_windows", "p2g_windows kernel"),
+        ("sparkl_tpu_torch.sparse.transfer", "merge_images_to_grid", "scatter merge"),
+        ("sparkl_tpu_torch.solver.dense", "grid_update", "grid update"),
+        ("sparkl_tpu_torch.geometry.colliders", "Collider.project_point",
+         "heightfield projection (in grid update)"),
+        ("sparkl_tpu_torch.sparse.transfer", "gather_grid_windows", "window gather"),
+        ("sparkl_tpu_torch.ops.transfer_kernels", "g2p_windows", "g2p_windows kernel"),
+        ("sparkl_tpu_torch.sparse.transfer", "gather_slot_rows", "slot rows to particles"),
+        ("sparkl_tpu_torch.solver.dense", "particle_update_after_gather", "particle update"),
+        ("sparkl_tpu_torch.models.registry", "apply_plasticity",
+         "SVD + return map (in particle update)"),
+        ("sparkl_tpu_torch.models.registry", "pos_energy", "pos energy (in particle update)"),
+    ]
+    saved = []
+    for mod_name, attr, label in stages:
+        owner = importlib.import_module(mod_name)
+        if "." in attr:
+            cls, attr = attr.split(".")
+            owner = getattr(owner, cls)
+        fn = getattr(owner, attr)
+
+        def wrapped(*a, _fn=fn, _label=label, **kw):
+            with record_function(_label):
+                return _fn(*a, **kw)
+
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, wrapped)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, _ = pipe.step_with_stats(p)  # the same frame's wall time without the profiler
+        torch.cuda.synchronize()
+        plain_wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, n = pipe.step_with_stats(p)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+    # Device time from the device's own timeline. Each named range has
+    # device-side spans, each the hull of the kernels launched directly in
+    # it (a nested range's kernels lie outside its parent's hull when the
+    # parent launches nothing after them). So a kernel goes to the innermost
+    # range whose span holds its midpoint, and a stage's time adds its nested
+    # stages' (`nested`). The port's own kernels, launched through ctypes,
+    # belong to no torch op, so the host-side op tree would miss them.
+    nested = {"heightfield projection (in grid update)": "grid update",
+              "SVD + return map (in particle update)": "particle update",
+              "pos energy (in particle update)": "particle update"}
+    labels = [label for _, _, label in stages]
+    spans = {label: [] for label in labels}
+    kernels = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name in spans:
+            spans[e.name].append((e.time_range.start, e.time_range.end))
+        else:
+            us = e.time_range.elapsed_us()
+            kernels.append((e.time_range.start + us / 2, us, e.name))
+    require(all(spans.values()), "the profiler recorded no device spans for the named ranges")
+    flat = sorted((b - a, a, b, label) for label, ss in spans.items() for a, b in ss)
+    split = dict.fromkeys(labels + ["other"], 0.0)
+    for t, us, _ in kernels:
+        label = next((lb for _, a, b, lb in flat if a <= t <= b), "other")
+        while label:
+            split[label] += us / 1e3
+            label = nested.get(label)
+    busy_ms = sum(us for _, us, _ in kernels) / 1e3
+    split["of which sort kernels (in build_structure)"] = sum(
+        us for _, us, name in kernels if "sort" in name.lower()) / 1e3
+    idle = 1.0 - busy_ms / wall_ms
+    idle_plain = 1.0 - busy_ms / plain_wall_ms
+    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60)
+    with open(os.path.join(OUT_DIR, "sparse_profile.txt"), "w") as f:
+        f.write(f"{n} substeps; wall {wall_ms:.3f} ms profiled, {plain_wall_ms:.3f} ms not; "
+                f"device busy {busy_ms:.3f} ms; idle share {idle:.3f} profiled, "
+                f"{idle_plain:.3f} against the unprofiled wall\n")
+        f.write("".join(f"{k:45s} {v:9.3f} ms\n" for k, v in split.items()))
+        f.write(table)
+    say(7, f"profiled sparse frame: {n} substeps, wall {wall_ms:.2f} ms ({plain_wall_ms:.2f} ms "
+           f"unprofiled), device busy {busy_ms:.2f} ms, idle share {idle:.3f} "
+           f"({idle_plain:.3f} of the unprofiled wall); device ms per frame "
+           f"{ {k: round(v, 3) for k, v in split.items()} }")
+    require(busy_ms > 0.0, "the profiler saw no device time")
+    return dict(substeps=n, wall_ms=wall_ms, plain_wall_ms=plain_wall_ms, busy_ms=busy_ms,
+                idle_share=idle, idle_share_unprofiled=idle_plain, split_ms=split)
+
+
+def phase_sparse_vs_fused(b):
+    """One frame of sand3@1M from the same scene through each path on the
+    card. Both compute the same physics; they differ in summation orders
+    (the sparse merge is a float-atomic scatter, the fused one a fixed
+    segment sum) and in where the stress is formed (per substep, or cached
+    by kernel B), so positions and velocities agree to rounding that grows
+    over the frame's substeps."""
+    import torch
+    from sparkl_tpu_torch.fused.pipeline import FusedMpmPipeline
+    from sparkl_tpu_torch.sparse.pipeline import SparseMpmPipeline
+
+    args = (b.grid, b.models, b.colliders, b.params, b.gravity)
+    pf, nf = FusedMpmPipeline(*args, device="cuda").step_with_stats(b.particles)
+    ps, ns = SparseMpmPipeline(*args, device="cuda").step_with_stats(b.particles)
+    act = pf.active
+    dx = (ps.position[act] - pf.position[act]).abs().max().item()
+    dv = (ps.velocity[act] - pf.velocity[act]).abs().max().item()
+    vmax = pf.velocity[act].abs().max().item()
+    same = torch.equal(ps.active, pf.active) and torch.equal(ps.failed[act], pf.failed[act])
+    say(8, f"sand3@1M one frame, sparse against fused: substeps {ns}/{nf}, max|dx| {dx:.3e} "
+           f"({SPARSE_FUSED_DX:g}), max|dv| {dv:.3e} ({SPARSE_FUSED_DV:g}; max|v| {vmax:.3f}), "
+           f"active and failed equal {same}")
+    require(ns == nf and same, "sparse and fused paths: substeps or flags differ")
+    require(dx <= SPARSE_FUSED_DX and dv <= SPARSE_FUSED_DV, "sparse and fused paths disagree")
+    return dict(substeps=(ns, nf), max_dx=dx, max_dv=dv)
+
+
+def phase_small_sparse():
+    """One frame of sand3 at nx=12, ny=6, nz=6 through the sparse path on
+    the card against the port's CPU path (plain versions), per particle,
+    with the JAX package's fused-vs-dense tolerances."""
+    import torch
+    import sparkl_tpu_torch.scenes as scenes
+    from sparkl_tpu_torch.sparse.blocks import BlockConfig
+    from sparkl_tpu_torch.sparse.pipeline import SparseMpmPipeline
+
+    cfg = BlockConfig(max_blocks=32, max_chunks=32, chunk_size=128, max_grid_blocks=64)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        b = scenes.build("sand3", nx=12, ny=6, nz=6, device=dev)
+        pipe = SparseMpmPipeline(b.grid, b.models, b.colliders, b.params, b.gravity,
+                                 config=cfg, device=dev)
+        p, n = pipe.step_with_stats(b.particles)
+        out[dev] = (p.to("cpu"), n)
+    (pg, ng), (pc, nc) = out["cuda"], out["cpu"]
+    act = pc.active
+    dpos = (pg.position[act] - pc.position[act]).abs().max().item()
+    dvel = (pg.velocity[act] - pc.velocity[act]).abs().max().item()
+    df = (pg.deformation_gradient[act] - pc.deformation_gradient[act]).abs().max().item()
+    say(8, f"small sand3 frame, sparse path, card vs CPU: substeps {ng}/{nc}, max|dpos| "
+           f"{dpos:.2e} (5e-5), max|dvel| {dvel:.2e} (5e-4), max|dF| {df:.2e} (5e-4)")
+    require(ng == nc and torch.equal(pg.active, pc.active)
+            and torch.equal(pg.failed[act], pc.failed[act]), "small sparse frame: flags differ")
+    require(dpos <= 5e-5 and dvel <= 5e-4 and df <= 5e-4,
+            "small sparse frame: card and CPU disagree")
+    return dict(max_dpos=dpos, max_dvel=dvel, max_df=df)
 
 
 def main():
@@ -541,7 +938,7 @@ def main():
                   src_rows_from_order=resorts - branches["relabel"],
                   permute_slots=branches["mixed"])
     require(launches == expect, f"launch counts {launches}, expected {expect}")
-    missing = [k for k in REPLACES if launches[k] == 0]
+    missing = [k for k in K.LAUNCHES if launches[k] == 0]
     require(not missing, f"kernels the main path never launched: {missing}")
     com = p.position[act].mean(0).tolist()
     say(4, f"mass {mass:.6e} (initial {mass0:.6e}, deactivated {deact:.3e}); "
@@ -557,18 +954,44 @@ def main():
         kres["g2p_fused"][label], _ = check_g2p(pipe, st, float(min_dtb), label, 5,
                                                 need_plastic=True)
 
-    # 6. Results.
+    del pipe, state, pre_resort, p
+
+    # 6. The sparse path's window kernels against their plain versions, on
+    # the inputs of a substep one frame into the fall.
+    from sparkl_tpu_torch.sparse.pipeline import SparseMpmPipeline
+
+    spipe = SparseMpmPipeline(b.grid, b.models, b.colliders, b.params, b.gravity, device="cuda")
+    p1, _ = spipe.step_with_stats(b.particles)
+    slot_data, windows = capture_window_inputs(spipe, p1)
+    kres.update(phase_window_kernels(b.grid, spipe._cfg, slot_data, windows))
+    del spipe, p1, slot_data, windows
+
+    # 7. The sparse main path, then one profiled frame.
+    spipe, sp, sparse_launches, sparse_res = phase_sparse_main(b)
+    launches.update(sparse_launches)
+    sparse_res["profile"] = profile_sparse_frame(spipe, sp)
+    del spipe, sp
+
+    # 8. Sparse against fused at full size; the sparse path card vs CPU.
+    sparse_res["vs_fused"] = phase_sparse_vs_fused(b)
+    sparse_res["small_card_vs_cpu"] = phase_small_sparse()
+    missing = [k for k in REPLACES if launches[k] == 0]
+    require(not missing, f"kernels their main paths never launched: {missing}")
+
+    # 9. Results.
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
-        dict(name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-             launches=launches[name], max_abs_err=kres[name]["max_abs_err"],
-             ms=kres[name]["ms"], plain_ms=kres[name]["plain_ms"])
+        dict(name=name, route="cuda",
+             source=WINDOW_SOURCE if name in SPARSE_KERNELS else FUSED_SOURCE,
+             replaces=REPLACES[name], launches=launches[name],
+             **{k: kres[name][k] for k in keys})
         for name in REPLACES
     ]
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, kernels=kernels, substeps=substeps, resorts=resorts,
                        timed_substeps=timed, seconds=seconds, pups=pups,
                        resort_branches=branches, resort_ms=resort_ms, peak_gib=peak_gib,
-                       build_s=build_s, kernel_checks=kres), f, indent=1)
+                       build_s=build_s, kernel_checks=kres, sparse=sparse_res), f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

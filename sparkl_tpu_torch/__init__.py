@@ -8,9 +8,12 @@ kernels are hand-written CUDA C++ for sm_90a under csrc/, bound with ctypes
 tensors that lie on the CPU; for CUDA tensors it launches the kernel or
 raises.
 
-This first slice carries sand3's main path: 3D, corotated elasticity with
-optional Drucker-Prager plasticity, one heightfield collider, no damage, the
-stress cache on, driven by fused.pipeline.FusedMpmPipeline.
+The port carries sand3's configuration: 3D, corotated elasticity with
+optional Drucker-Prager plasticity, heightfield colliders and no damage, on
+two pipelines: fused.pipeline.FusedMpmPipeline (persistent slots, the stress
+cache on) and sparse.pipeline.SparseMpmPipeline (the block-sparse window
+transfers). Every entry point that takes a device defaults to "cuda" and
+raises without one; pass device="cpu" for the plain PyTorch versions.
 """
 
 from sparkl_tpu_torch.core.params import (
@@ -24,6 +27,24 @@ from sparkl_tpu_torch.core.particles import Particles, cube_particles
 from sparkl_tpu_torch.models.registry import ModelSet, ParticleModel
 from sparkl_tpu_torch.geometry.colliders import Collider, heightfield
 from sparkl_tpu_torch.fused.pipeline import FusedMpmPipeline
+from sparkl_tpu_torch.sparse.pipeline import SparseMpmPipeline
+
+
+def auto_pipeline(bundle, prefer="auto", device="cuda", **kw):
+    """Build a pipeline for a scene bundle. "auto" and "fused" build the
+    fused persistent-slot pipeline (the JAX package's "auto" takes it for
+    every configuration it supports, and the port's sparse pipeline carries
+    no configuration it does not); "sparse" builds the block-sparse one;
+    the dense pipeline is not ported."""
+    args = (bundle.grid, bundle.models, bundle.colliders, bundle.params, bundle.gravity)
+    if prefer == "dense":
+        raise NotImplementedError("auto_pipeline: the dense MpmPipeline is not ported")
+    if prefer == "sparse":
+        return SparseMpmPipeline(*args, device=device, **kw)
+    if prefer in ("auto", "fused"):
+        return FusedMpmPipeline(*args, device=device, **kw)
+    raise ValueError(f"auto_pipeline: prefer must be auto, fused, sparse or dense, not {prefer!r}")
+
 
 __all__ = [
     "BoundaryHandling",
@@ -37,6 +58,8 @@ __all__ = [
     "Particles",
     "SimulationDofs",
     "SolverParameters",
+    "SparseMpmPipeline",
+    "auto_pipeline",
     "cube_particles",
     "heightfield",
 ]

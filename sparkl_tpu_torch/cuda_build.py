@@ -1,11 +1,16 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) with nvcc and ctypes.
 
-The sources compile into one shared library with a plain C interface
-(no PyTorch headers, so a build takes seconds), keyed by a hash of the
-sources and flags, under build/sparkl_tpu_torch/ at the repository root.
+Each .cu source compiles to an object file, all at once in parallel nvcc
+processes, and the objects link into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), keyed by a hash of
+the sources and flags, under build/sparkl_tpu_torch/ at the repository root.
 The first call in a process builds if needed and loads; later calls return
 the loaded library. Only the machine with the card has nvcc: elsewhere
 `library()` raises.
+
+The kernel wrappers call in through `launch`, after `check_tensor` on each
+argument; `route` sends CPU tensors to the plain versions and CUDA tensors
+to the kernels, and refuses any other device.
 """
 
 import ctypes
@@ -16,15 +21,17 @@ import subprocess
 import tempfile
 import threading
 
+import torch
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "sparkl_tpu_torch")
-SOURCES = ("fused_kernels.cu", "particle_physics.cuh")
+SOURCES = ("fused_kernels.cu", "particle_physics.cuh", "window_kernels.cu")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false keeps the kernels' rounding that of the plain versions (no
 # contraction of a*b+c); never --use_fast_math (expf/logf/sinf, sqrtf).
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+    *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -48,6 +55,10 @@ _SIGNATURES = {
     "sparkl_src_rows_from_order": [_VP, _VP, _VP, _I, _VP],
     # slots, ints, src, origin, out_f, out_i, max_chunks, dim, r_cumd, stream
     "sparkl_permute_slots": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+    # slot_data, out, max_chunks, with_psi, ox, oy, oz, h, invd, stream
+    "sparkl_p2g_windows": [_VP, _VP, _I, _I, _F, _F, _F, _F, _F, _VP],
+    # slot_data, windows, out, max_chunks, with_psi, ox, oy, oz, h, invd, stream
+    "sparkl_g2p_windows": [_VP, _VP, _VP, _I, _I, _F, _F, _F, _F, _F, _VP],
 }
 
 
@@ -69,7 +80,7 @@ def _digest():
 
 
 def library_path():
-    return os.path.join(BUILD_DIR, f"libsparkl_fused_{_digest()}.so")
+    return os.path.join(BUILD_DIR, f"libsparkl_{_digest()}.so")
 
 
 def build():
@@ -81,20 +92,37 @@ def build():
         with open(log_path) as f:
             return path, f.read()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, "fused_kernels.cu")]
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        units = [name for name in SOURCES if name.endswith(".cu")]
+        objs = [os.path.join(tmp, name + ".o") for name in units]
+        procs = [
+            subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, os.path.join(_CSRC, name)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name, obj in zip(units, objs)
+        ]
+        log = ""
+        failed = []
+        try:
+            for name, proc in zip(units, procs):
+                out, _ = proc.communicate(timeout=600)
+                log += f"== {name}\n{out}"
+                if proc.returncode != 0:
+                    failed.append(f"{name} ({proc.returncode})")
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if failed:
+            raise RuntimeError(f"nvcc failed: {', '.join(failed)}\n{log}")
+        lib = os.path.join(tmp, "lib.so")
+        res = subprocess.run([_nvcc(), *ARCH, "-shared", "-o", lib, *objs],
+                             capture_output=True, text=True, timeout=600)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-        log = res.stdout + res.stderr
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
         with open(log_path, "w") as f:
             f.write(log)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        os.replace(lib, path)
     return path, log
 
 
@@ -111,3 +139,36 @@ def library():
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def check_tensor(name, t, dtype, shape, device):
+    """Raise unless `t` is a contiguous tensor of this dtype, shape and device."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: not contiguous")
+
+
+def route(device):
+    """'cpu' (plain version) or 'cuda' (kernel); anything else raises."""
+    if device.type in ("cpu", "cuda"):
+        return device.type
+    raise NotImplementedError(f"no kernel route for device {device}")
+
+
+def stream_ptr(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch(name, *args):
+    """Call the library's C launcher `name` (building the library on first
+    use); raise if the launch was refused."""
+    err = getattr(library(), name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from sparkl_tpu_torch.core.grid import GridParams
+from sparkl_tpu_torch.cuda_build import check_tensor, launch, route, stream_ptr
 from sparkl_tpu_torch.math import cmat, linalg
 from sparkl_tpu_torch.math.kernel import inv_d as kernel_inv_d, quadratic_weights_1d
 from sparkl_tpu_torch.math.svd import svd_c
@@ -84,26 +85,6 @@ def _check_meta(meta):
         raise NotImplementedError("fused kernels do not carry: " + ", ".join(why))
 
 
-def _check(name, t, dtype, shape, device):
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
-
-
-def _route(device):
-    """'cpu' (plain version) or 'cuda' (kernel); anything else raises."""
-    if device.type in ("cpu", "cuda"):
-        return device.type
-    raise NotImplementedError(f"no kernel route for device {device}")
-
-
 def _grid_args(grid: GridParams):
     if grid.dim != 3:
         raise NotImplementedError("fused kernels: only 3D is ported")
@@ -111,16 +92,6 @@ def _grid_args(grid: GridParams):
     # Constants derived from h in double, as the JAX kernels fold them.
     return ([float(o) for o in grid.origin] + [h, kernel_inv_d(h), (h * h) / 4.0]
             + [int(r) for r in grid.res])
-
-
-def _launch(lib_fn, *args):
-    err = lib_fn(*args)
-    if err != 0:
-        raise RuntimeError(f"{lib_fn.__name__} launch failed: cudaError {err}")
-
-
-def _stream_ptr(device):
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 # ---------------------------------------------------------------------------
@@ -249,20 +220,18 @@ def p2g_fused(grid: GridParams, cfg, meta, slots, ints, dt, nchunks):
     d_, c = cfg.max_chunks, cfg.chunk_size
     dev = slots.device
     r = L.Rows(3)
-    _check("slots", slots, torch.float32, (d_, r.nf, c), dev)
-    _check("ints", ints, torch.int32, (d_, L.NI, c), dev)
-    _check("nchunks", nchunks, torch.int32, (), dev)
+    check_tensor("slots", slots, torch.float32, (d_, r.nf, c), dev)
+    check_tensor("ints", ints, torch.int32, (d_, L.NI, c), dev)
+    check_tensor("nchunks", nchunks, torch.int32, (), dev)
     if c != 128:
         raise NotImplementedError(f"chunk size {c}: kernel A takes 128")
     args = _grid_args(grid)
-    if _route(dev) == "cpu":
+    if route(dev) == "cpu":
         return p2g_fused_reference(grid, slots, ints, dt, nchunks)
-    from sparkl_tpu_torch.cuda_build import library
-
     out = torch.empty((d_, 4, region_cells(3)), dtype=torch.float32, device=dev)
-    _launch(library().sparkl_p2g_fused, slots.data_ptr(), ints.data_ptr(),
-            nchunks.data_ptr(), out.data_ptr(), d_, float(dt), *args,
-            _stream_ptr(dev))
+    launch("sparkl_p2g_fused", slots.data_ptr(), ints.data_ptr(),
+           nchunks.data_ptr(), out.data_ptr(), d_, float(dt), *args,
+           stream_ptr(dev))
     LAUNCHES["p2g_fused"] += 1
     return out
 
@@ -292,17 +261,15 @@ def merge_blocks(rows, first, nchunks, kmax=8):
     dev = rows.device
     d_, ncorners, w = rows.shape
     mb = first.shape[0]
-    _check("rows", rows, torch.float32, (d_, ncorners, w), dev)
-    _check("first", first, torch.int32, (mb,), dev)
-    _check("nchunks", nchunks, torch.int32, (mb,), dev)
-    if _route(dev) == "cpu":
+    check_tensor("rows", rows, torch.float32, (d_, ncorners, w), dev)
+    check_tensor("first", first, torch.int32, (mb,), dev)
+    check_tensor("nchunks", nchunks, torch.int32, (mb,), dev)
+    if route(dev) == "cpu":
         return merge_blocks_reference(rows, first, nchunks, kmax)
-    from sparkl_tpu_torch.cuda_build import library
-
     out = torch.empty((mb, ncorners, w), dtype=torch.float32, device=dev)
-    _launch(library().sparkl_merge_blocks, rows.data_ptr(), first.data_ptr(),
-            nchunks.data_ptr(), out.data_ptr(), mb, ncorners * w, kmax,
-            _stream_ptr(dev))
+    launch("sparkl_merge_blocks", rows.data_ptr(), first.data_ptr(),
+           nchunks.data_ptr(), out.data_ptr(), mb, ncorners * w, kmax,
+           stream_ptr(dev))
     LAUNCHES["merge_blocks"] += 1
     return out
 
@@ -329,17 +296,15 @@ def src_rows_from_order(order2, shifts):
     shifts [D] i32 -> [D, 128] i32."""
     dev = order2.device
     d_, _, c = order2.shape
-    _check("order2", order2, torch.int32, (d_, 2, c), dev)
-    _check("shifts", shifts, torch.int32, (d_,), dev)
-    if _route(dev) == "cpu":
+    check_tensor("order2", order2, torch.int32, (d_, 2, c), dev)
+    check_tensor("shifts", shifts, torch.int32, (d_,), dev)
+    if route(dev) == "cpu":
         return src_rows_from_order_reference(order2, shifts)
     if c != 128:
         raise NotImplementedError(f"chunk size {c}: the source-row kernel takes 128")
-    from sparkl_tpu_torch.cuda_build import library
-
     out = torch.empty((d_, c), dtype=torch.int32, device=dev)
-    _launch(library().sparkl_src_rows_from_order, order2.data_ptr(), shifts.data_ptr(),
-            out.data_ptr(), d_, _stream_ptr(dev))
+    launch("sparkl_src_rows_from_order", order2.data_ptr(), shifts.data_ptr(),
+           out.data_ptr(), d_, stream_ptr(dev))
     LAUNCHES["src_rows_from_order"] += 1
     return out
 
@@ -379,22 +344,20 @@ def permute_slots(slots, ints, src, origin, r_cumd):
     dev = slots.device
     d_, nf, c = slots.shape
     dim = origin.shape[1]
-    _check("slots", slots, torch.float32, (d_, nf, c), dev)
-    _check("ints", ints, torch.int32, (d_, L.NI, c), dev)
-    _check("src", src, torch.int32, (d_, c), dev)
-    _check("origin", origin, torch.int32, (d_, dim), dev)
-    if _route(dev) == "cpu":
+    check_tensor("slots", slots, torch.float32, (d_, nf, c), dev)
+    check_tensor("ints", ints, torch.int32, (d_, L.NI, c), dev)
+    check_tensor("src", src, torch.int32, (d_, c), dev)
+    check_tensor("origin", origin, torch.int32, (d_, dim), dev)
+    if route(dev) == "cpu":
         return permute_slots_reference(slots, ints, src, origin, r_cumd)
     if (nf, c, dim) != (L.Rows(3).nf, 128, 3):
         raise NotImplementedError(f"slots {tuple(slots.shape)}, dim {dim}: the permute "
                                   "kernel takes 3D slots [D, 56, 128]")
-    from sparkl_tpu_torch.cuda_build import library
-
     out_f = torch.empty_like(slots)
     out_i = torch.empty_like(ints)
-    _launch(library().sparkl_permute_slots, slots.data_ptr(), ints.data_ptr(),
-            src.data_ptr(), origin.data_ptr(), out_f.data_ptr(), out_i.data_ptr(),
-            d_, dim, int(r_cumd), _stream_ptr(dev))
+    launch("sparkl_permute_slots", slots.data_ptr(), ints.data_ptr(),
+           src.data_ptr(), origin.data_ptr(), out_f.data_ptr(), out_i.data_ptr(),
+           d_, dim, int(r_cumd), stream_ptr(dev))
     LAUNCHES["permute_slots"] += 1
     return out_f, out_i
 
@@ -557,23 +520,21 @@ def g2p_fused(grid: GridParams, cfg, meta, kparams, slots, ints, windows, dt,
     dev = slots.device
     r = L.Rows(3)
     m = tab_f.shape[0]
-    _check("slots", slots, torch.float32, (d_, r.nf, c), dev)
-    _check("ints", ints, torch.int32, (d_, L.NI, c), dev)
-    _check("windows", windows, torch.float32, (d_, 3, region_cells(3)), dev)
-    _check("tab_f", tab_f, torch.float32, (m, 16), dev)
-    _check("tab_i", tab_i, torch.int32, (m, 4), dev)
-    _check("nchunks", nchunks, torch.int32, (), dev)
+    check_tensor("slots", slots, torch.float32, (d_, r.nf, c), dev)
+    check_tensor("ints", ints, torch.int32, (d_, L.NI, c), dev)
+    check_tensor("windows", windows, torch.float32, (d_, 3, region_cells(3)), dev)
+    check_tensor("tab_f", tab_f, torch.float32, (m, 16), dev)
+    check_tensor("tab_i", tab_i, torch.int32, (m, 4), dev)
+    check_tensor("nchunks", nchunks, torch.int32, (), dev)
     if c != 128:
         raise NotImplementedError(f"chunk size {c}: kernel B takes 128")
     args = _grid_args(grid)
     clamp = bool(kparams["gpu_velocity_clamp"])
-    if _route(dev) == "cpu":
+    if route(dev) == "cpu":
         return g2p_fused_reference(grid, slots, ints, windows, dt, tab_f, tab_i,
                                    nchunks, velocity_clamp=clamp)
-    from sparkl_tpu_torch.cuda_build import library
-
-    _launch(library().sparkl_g2p_fused, slots.data_ptr(), ints.data_ptr(),
-            windows.data_ptr(), nchunks.data_ptr(), tab_f.data_ptr(),
-            tab_i.data_ptr(), m, d_, float(dt), *args, int(clamp), _stream_ptr(dev))
+    launch("sparkl_g2p_fused", slots.data_ptr(), ints.data_ptr(),
+           windows.data_ptr(), nchunks.data_ptr(), tab_f.data_ptr(),
+           tab_i.data_ptr(), m, d_, float(dt), *args, int(clamp), stream_ptr(dev))
     LAUNCHES["g2p_fused"] += 1
     return slots

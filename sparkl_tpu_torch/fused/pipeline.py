@@ -29,51 +29,21 @@ from typing import Optional
 import numpy as np
 import torch
 
+from sparkl_tpu_torch import device as _device
 from sparkl_tpu_torch.core.grid import GridParams, GridState
-from sparkl_tpu_torch.core.params import DamageModel, SolverParameters
-from sparkl_tpu_torch.geometry.colliders import HEIGHTFIELD
+from sparkl_tpu_torch.core.params import SolverParameters
 from sparkl_tpu_torch.math import linalg
 from sparkl_tpu_torch.models import registry
 from sparkl_tpu_torch.solver import dense
 from sparkl_tpu_torch.sparse import blocks as B
 from sparkl_tpu_torch.sparse import transfer as T
+from sparkl_tpu_torch.sparse.pipeline import OVERFLOW_MERGE, OVERFLOW_TABLES, unsupported
 from sparkl_tpu_torch.fused import kernels as K
 from sparkl_tpu_torch.fused import layout as L
 from sparkl_tpu_torch.fused import structure as S
 
-# Overflow flag bits (sparkl_tpu/sparse/pipeline.py).
-OVERFLOW_TABLES = 1
-OVERFLOW_MERGE = 2
-
 # Resort when accumulated displacement reaches this fraction of a cell.
 DRIFT_FRACTION = 0.9
-
-
-def _unsupported(grid, models, colliders, params, hooks, collider_pose_fn):
-    why = []
-    if grid.dim != 3:
-        why.append(f"{grid.dim}D grids")
-    m = models.unsupported()
-    if m:
-        why.append(m)
-    if params.damage_model != DamageModel.NONE:
-        why.append(f"damage model {params.damage_model.name}")
-    if params.force_fluids_volume_recomputation:
-        why.append("fluid volume recomputation")
-    if params.enable_boundary_particle_projection:
-        why.append("boundary particle projection")
-    if params.gpu_boundary_semantics:
-        why.append("GPU boundary semantics")
-    for c in colliders:
-        if c.shape_type != HEIGHTFIELD:
-            why.append(f"collider shape {c.shape_type}")
-        if float(c.penalty_stiffness) > 0.0:
-            why.append("penalty colliders")
-    if hooks is not None:
-        why.append("grid hooks")
-    if collider_pose_fn is not None:
-        why.append("collider pose functions")
-    return why
 
 
 class FusedMpmPipeline:
@@ -91,14 +61,16 @@ class FusedMpmPipeline:
         config: Optional[B.BlockConfig] = None,
         calibration_slack: float = 1.4,
         collider_pose_fn=None,
-        device="cpu",
+        device="cuda",
     ):
-        why = _unsupported(grid, models, colliders, params, hooks, collider_pose_fn)
+        why = unsupported(grid, models, colliders, params, hooks)
+        if collider_pose_fn is not None:
+            why.append("collider pose functions")
         if why:
             raise NotImplementedError(
                 "FusedMpmPipeline (torch port) does not carry: " + "; ".join(why)
             )
-        self.device = torch.empty(0, device=device).device  # canonical, e.g. cuda:0
+        self.device = _device.resolve(device)
         if models.ctype.device != self.device:
             raise ValueError(f"models on {models.ctype.device}, pipeline on {self.device}")
         self.grid = grid

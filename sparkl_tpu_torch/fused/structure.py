@@ -20,21 +20,15 @@ from sparkl_tpu_torch.sparse.blocks import (
     BLOCK_SIDE,
     BlockConfig,
     _compact_flagged,
+    decode_block_coords,
     default_chunk_size,
+    grid_tables,
 )
 
 
 def block_space_ob2(grid: GridParams):
     """Blocks per axis in the off-by-two space: bc in [0, (res-4)//4 + 1]."""
     return tuple((r - 4) // BLOCK_SIDE + 2 for r in grid.res)
-
-
-def _strides(bspace):
-    dim = len(bspace)
-    strides = [1] * dim
-    for ax in range(dim - 2, -1, -1):
-        strides[ax] = strides[ax + 1] * bspace[ax + 1]
-    return strides
 
 
 @dataclass(frozen=True)
@@ -74,55 +68,12 @@ def particle_block_key_ob2(grid: GridParams, position, valid):
     return torch.where(ok, key, sentinel), ok
 
 
-def _decode_block_coords(block_keys, bspace):
-    """Linear ob2 keys -> [*, d] block coordinates."""
-    strides = _strides(bspace)
-    coords = []
-    rem = block_keys
-    for s in strides:
-        coords.append(rem // s)
-        rem = rem % s
-    return torch.stack(coords, dim=-1), strides
-
-
-def _corners(dim, device):
-    c = np.stack(np.meshgrid(*([[0, 1]] * dim), indexing="ij"), axis=-1).reshape(-1, dim)
-    return torch.as_tensor(c, dtype=torch.int32, device=device)
-
-
 def _grid_tables(cfg: BlockConfig, block_keys, bspace, dim):
-    """Grid-storage blocks (owners + 2^d upper corners) and the neighbour
-    index, from sorted block keys. Returns (coords, grid_keys,
-    num_grid_blocks, nbr_index)."""
-    dev = block_keys.device
-    sentinel = int(np.prod(bspace))
-    coords, strides = _decode_block_coords(block_keys, bspace)
-    nbr_coords = coords[:, None, :] + _corners(dim, dev)[None, :, :]
-    bs = torch.tensor(bspace, dtype=torch.int32, device=dev)
-    in_space = (
-        torch.all(nbr_coords < bs, dim=-1)
-        & torch.all(nbr_coords >= 0, dim=-1)
-        & (block_keys < sentinel)[:, None]
-    )
-    st = torch.tensor(strides, dtype=torch.int32, device=dev)
-    nbr_keys = (nbr_coords * st).sum(-1, dtype=torch.int32)
-    nbr_keys = torch.where(in_space, nbr_keys, sentinel).reshape(-1)
-
-    cand_sorted = torch.sort(nbr_keys).values
-    cand_prev = torch.cat([torch.full((1,), -1, dtype=torch.int32, device=dev),
-                           cand_sorted[:-1]])
-    cand_flag = (cand_sorted != cand_prev) & (cand_sorted < sentinel)
-    grid_keys, num_grid_blocks = _compact_flagged(
-        cand_sorted, cand_flag, cfg.max_grid_blocks, sentinel
-    )
-
-    found = torch.searchsorted(grid_keys, nbr_keys, side="left", out_int32=True)
-    found = torch.clamp(found, 0, cfg.max_grid_blocks - 1)
-    hit = (grid_keys[found.long()] == nbr_keys) & (nbr_keys < sentinel)
-    nbr_index = torch.where(hit, found, cfg.max_grid_blocks).reshape(
-        cfg.max_blocks, 2**dim
-    )
-    trash = torch.full((1, 2**dim), cfg.max_grid_blocks, dtype=torch.int32, device=dev)
+    """sparse.blocks.grid_tables with a trash row appended to nbr_index
+    (the row of tail and padding chunks)."""
+    coords, grid_keys, num_grid_blocks, nbr_index = grid_tables(cfg, block_keys, bspace, dim)
+    trash = torch.full((1, 2**dim), cfg.max_grid_blocks, dtype=torch.int32,
+                       device=block_keys.device)
     return coords, grid_keys, num_grid_blocks, torch.cat([nbr_index, trash], dim=0)
 
 
@@ -285,7 +236,7 @@ def structure_from_chunk_keys(grid: GridParams, cfg: BlockConfig, ckey, occ_coun
 
     _, grid_keys, num_grid_blocks, nbr_index = _grid_tables(cfg, block_keys, bspace, dim)
 
-    ck_coords, _ = _decode_block_coords(ckey, bspace)
+    ck_coords, _ = decode_block_coords(ckey, bspace)
     chunk_origin = torch.where(
         is_valid_chunk[:, None], (ck_coords - 1) * BLOCK_SIDE, 0
     ).to(torch.int32)
@@ -320,7 +271,7 @@ def block_node_positions_ob2(grid: GridParams, grid_keys):
     Block bc's node storage covers the 4-aligned cells [4(bc-1), 4bc)."""
     dim = grid.dim
     dev = grid_keys.device
-    bc, _ = _decode_block_coords(grid_keys, block_space_ob2(grid))
+    bc, _ = decode_block_coords(grid_keys, block_space_ob2(grid))
     bc = bc.to(torch.float32)
     rng = np.arange(BLOCK_SIDE)
     local = np.stack(np.meshgrid(*([rng] * dim), indexing="ij"), axis=-1).reshape(-1, dim)

@@ -4,6 +4,20 @@ the slice uses)."""
 import torch
 
 
+def det(m):
+    """Closed-form determinant of batched [..., d, d] matrices (d = 2, 3)."""
+    d = m.shape[-1]
+    if d == 2:
+        return m[..., 0, 0] * m[..., 1, 1] - m[..., 0, 1] * m[..., 1, 0]
+    if d == 3:
+        return (
+            m[..., 0, 0] * (m[..., 1, 1] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 1])
+            - m[..., 0, 1] * (m[..., 1, 0] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 0])
+            + m[..., 0, 2] * (m[..., 1, 0] * m[..., 2, 1] - m[..., 1, 1] * m[..., 2, 0])
+        )
+    raise ValueError(f"unsupported dim {d}")
+
+
 def inv_exact(e):
     """1/e with the exact-zero convention 1/0 := 0 (ref: physics.rs
     `inv_exact`): normalizes grid momentum by mass without NaNs on empty

@@ -235,8 +235,49 @@ def svd3x3_c(f):
 
 
 def svd_c(f):
-    """Component-core SVD dispatch; the slice carries 3x3 only."""
+    """Component-core SVD dispatch; the port carries 3x3 only."""
     if len(f) != 3:
         raise NotImplementedError("svd_c: only the 3x3 cardano path is ported")
     return svd3x3_c(f)
+
+
+def svd3x3(f):
+    """SVD of [..., 3, 3] matrices: (u, s [..., 3], v), f = u diag(s) v^T."""
+    u, s, v = svd3x3_c([[f[..., i, j] for j in range(3)] for i in range(3)])
+
+    def stack(rows):
+        return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+    return stack(u), torch.stack(s, dim=-1), stack(v)
+
+
+def svd(f):
+    """Dispatch on the trailing matrix size; the port carries 3x3 only."""
+    if f.shape[-1] != 3:
+        raise NotImplementedError("svd: only the 3x3 cardano path is ported")
+    return svd3x3(f)
+
+
+def sym_eigvals3x3_c(m):
+    """Eigenvalues of a symmetric 3x3 nested-list matrix (the cardano
+    backend): the trigonometric Cardano values of m scaled by its largest
+    diagonal magnitude."""
+    a00, a11, a22 = m[0][0], m[1][1], m[2][2]
+    a01, a02, a12 = m[0][1], m[0][2], m[1][2]
+    scale = torch.clamp(
+        torch.maximum(torch.maximum(torch.abs(a00), torch.abs(a11)), torch.abs(a22)), min=1e-30
+    )
+    inv = 1.0 / scale
+    lam = _cardano_trig_vals(a00 * inv, a01 * inv, a02 * inv, a11 * inv, a12 * inv, a22 * inv)
+    return [x * scale for x in lam]
+
+
+def svd_values_c(f):
+    """Singular values only (unordered) of a 3x3 nested-list matrix, from
+    the eigenvalues of F^T F, skipping the U/V construction (used where only
+    invariants of F are needed: the corotated pos energy)."""
+    if len(f) != 3:
+        raise NotImplementedError("svd_values_c: only 3x3 is ported")
+    a = [[sum(f[k][i] * f[k][j] for k in range(3)) for j in range(3)] for i in range(3)]
+    return [torch.sqrt(torch.clamp(x, min=0.0)) for x in sym_eigvals3x3_c(a)]
 

@@ -11,13 +11,20 @@ Neo-Hookean and the Monaghan EOS are not ported yet.
 import torch
 
 from sparkl_tpu_torch.math import cmat
-from sparkl_tpu_torch.math.svd import svd_c
+from sparkl_tpu_torch.math.svd import svd_c, svd_values_c
 
 # Constitutive type codes (the JAX package's model-table ABI).
 COROTATED = 0
 NEO_HOOKEAN = 1
 EOS_MONAGHAN_SPH = 2
 CUSTOM_BASE = 16
+
+
+def corotated_kirchhoff_stress(lam, mu, split_on_failure, phase, hardening, f):
+    """[..., 3, 3] form of corotated_kirchhoff_stress_c."""
+    return cmat.pack(
+        corotated_kirchhoff_stress_c(lam, mu, split_on_failure, phase, hardening, cmat.unpack(f))
+    )
 
 
 def corotated_kirchhoff_stress_c(lam, mu, split_on_failure, phase, hardening, f):
@@ -49,6 +56,16 @@ def corotated_kirchhoff_stress_from_svd_c(
     return cmat.add_c(cmat.scale_c(pos_part, phase_coeff), neg_part)
 
 
+def corotated_pos_energy(lam, mu, hardening, f):
+    """Tensile part of the energy of [..., 3, 3] matrices (ref: `pos_energy`)."""
+    return corotated_pos_energy_c(lam, mu, hardening, cmat.unpack(f))
+
+
+def corotated_pos_energy_c(lam, mu, hardening, f):
+    """corotated_pos_energy on nested lists, from the singular values alone."""
+    return corotated_pos_energy_from_s_c(lam, mu, hardening, f, svd_values_c(f))
+
+
 def corotated_pos_energy_from_s_c(lam, mu, hardening, f, s):
     """Tensile energy µh Σ max(σᵢ-1, 0)² (+ λh/2 (J-1)² when J ≥ 1) from the
     singular values s of f (ref: `pos_energy`)."""
@@ -58,10 +75,22 @@ def corotated_pos_energy_from_s_c(lam, mu, hardening, f, s):
     return torch.where(j < 1.0, pos_dev, pos_dev + spherical)
 
 
+def sound_speed_timestep_bound(alpha, bulk, shear, density0, velocity, cell_width):
+    """sound_speed_timestep_bound_c of velocities [..., d]."""
+    vnorm = torch.linalg.vector_norm(velocity, dim=-1)
+    return sound_speed_timestep_bound_c(alpha, bulk, shear, density0, vnorm, cell_width)
+
+
 def sound_speed_timestep_bound_c(alpha, bulk, shear, density0, vnorm, cell_width):
     """dt ≤ α·h / max(‖v‖, c) with c = √((K + 4/3 G)/ρ₀)."""
     c = torch.sqrt((bulk + 4.0 / 3.0 * shear) / density0)
     return alpha * cell_width / torch.maximum(vnorm, c)
+
+
+def corotated_timestep_bound(lam, mu, cfl, hardening, density0, velocity, cell_width):
+    bulk = (lam + 2.0 * mu / 3.0) * hardening
+    shear = mu * hardening
+    return sound_speed_timestep_bound(cfl, bulk, shear, density0, velocity, cell_width)
 
 
 def corotated_timestep_bound_c(lam, mu, cfl, hardening, density0, vnorm, cell_width):

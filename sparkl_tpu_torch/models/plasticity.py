@@ -10,6 +10,7 @@ import math
 import torch
 
 from sparkl_tpu_torch.math import cmat, linalg
+from sparkl_tpu_torch.math.svd import svd_c
 
 PLASTIC_NONE = 0
 DRUCKER_PRAGER = 1
@@ -27,6 +28,25 @@ def drucker_prager_alpha(h0, h1, h2, h3, q):
     angle = h0 + (h1 * q - h3) * torch.exp(-h2 * q)
     s = torch.sin(angle)
     return math.sqrt(2.0 / 3.0) * (2.0 * s) / (3.0 - s)
+
+
+def drucker_prager_update(params, phase, f, plastic_def_det, plastic_hardening, log_vol_gain):
+    """DP return map of [..., 3, 3] matrices; params [..., 8] rows [h0, h1,
+    h2, h3, lambda, mu, only_when_failed, vol_corr]. Returns (f, pdd, ph,
+    lvg)."""
+    fc, pdd, ph, lvg = drucker_prager_update_c(
+        [params[..., k] for k in range(8)], phase, cmat.unpack(f), plastic_def_det,
+        plastic_hardening, log_vol_gain,
+    )
+    return cmat.pack(fc), pdd, ph, lvg
+
+
+def drucker_prager_update_c(params, phase, f, plastic_def_det, plastic_hardening, log_vol_gain):
+    """Component-wise core; params = list of 8 scalars."""
+    out = drucker_prager_update_with_svd_c(
+        params, phase, f, plastic_def_det, plastic_hardening, log_vol_gain, svd_c(f)
+    )
+    return out[:4]
 
 
 def drucker_prager_project_s_c(

@@ -13,7 +13,6 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from sparkl_tpu_torch.math import cmat
 from sparkl_tpu_torch.math.lame import lame_lambda_mu
 from sparkl_tpu_torch.models import constitutive as con
 from sparkl_tpu_torch.models import plasticity as plas
@@ -134,6 +133,11 @@ class ModelSet:
     def num_models(self):
         return self.ctype.shape[0]
 
+    def is_fluid(self, model_id):
+        """bool [N]: the particle's constitutive model is a fluid (no custom
+        models are ported, so only the Monaghan EOS is)."""
+        return self.ctype[model_id] == con.EOS_MONAGHAN_SPH
+
     def unsupported(self):
         """Why the slice cannot run this model set, or '' if it can."""
         extra_c = set(self.present_c) - {con.COROTATED}
@@ -161,13 +165,18 @@ def kirchhoff_stress(ms: ModelSet, model_id, phase, elastic_hardening, f,
     _check(ms)
     ct = ms.ctype[model_id]
     cp = ms.cparams[model_id]
-    s = cmat.pack(
-        con.corotated_kirchhoff_stress_c(
-            cp[..., 0], cp[..., 1], cp[..., 3], phase, elastic_hardening,
-            cmat.unpack(f),
-        )
-    )
+    s = con.corotated_kirchhoff_stress(cp[..., 0], cp[..., 1], cp[..., 3], phase,
+                                       elastic_hardening, f)
     return torch.where((ct == con.COROTATED)[..., None, None], s, 0.0)
+
+
+def pos_energy(ms: ModelSet, model_id, phase, elastic_hardening, f):
+    """Per-particle tensile energy density for crack propagation."""
+    _check(ms)
+    ct = ms.ctype[model_id]
+    cp = ms.cparams[model_id]
+    e = con.corotated_pos_energy(cp[..., 0], cp[..., 1], elastic_hardening, f)
+    return torch.where(ct == con.COROTATED, e, 0.0)
 
 
 def timestep_bound(ms: ModelSet, model_id, phase, elastic_hardening, f, mass,
@@ -177,9 +186,31 @@ def timestep_bound(ms: ModelSet, model_id, phase, elastic_hardening, f, mass,
     ct = ms.ctype[model_id]
     cp = ms.cparams[model_id]
     density0 = mass / volume0
-    vnorm = torch.linalg.vector_norm(velocity, dim=-1)
-    b = con.corotated_timestep_bound_c(
-        cp[..., 0], cp[..., 1], cp[..., 2], elastic_hardening, density0, vnorm,
-        cell_width,
-    )
+    b = con.corotated_timestep_bound(cp[..., 0], cp[..., 1], cp[..., 2], elastic_hardening,
+                                     density0, velocity, cell_width)
     return torch.where(ct == con.COROTATED, b, float("inf"))
+
+
+def apply_plasticity(ms: ModelSet, model_id, phase, f, plastic_def_det, plastic_hardening,
+                     elastic_hardening, log_vol_gain, nacc_alpha):
+    """Run every present plastic return map, masked per particle. Returns
+    (f, plastic_def_det, plastic_hardening, elastic_hardening,
+    log_vol_gain, nacc_alpha)."""
+    _check(ms)
+    if plas.DRUCKER_PRAGER in ms.present_p:
+        f2, pdd2, ph2, lvg2 = plas.drucker_prager_update(
+            ms.pparams[model_id], phase, f, plastic_def_det, plastic_hardening, log_vol_gain
+        )
+        m = ms.ptype[model_id] == plas.DRUCKER_PRAGER
+        f = torch.where(m[..., None, None], f2, f)
+        plastic_def_det = torch.where(m, pdd2, plastic_def_det)
+        plastic_hardening = torch.where(m, ph2, plastic_hardening)
+        log_vol_gain = torch.where(m, lvg2, log_vol_gain)
+    return f, plastic_def_det, plastic_hardening, elastic_hardening, log_vol_gain, nacc_alpha
+
+
+def apply_failure(ms: ModelSet, model_id, phase, stress):
+    """phase := 0 where the failure model trips; no failure model is
+    ported, so a model set with one raises."""
+    _check(ms)
+    return phase

@@ -1,12 +1,14 @@
 """Example scenes (port of sparkl_tpu/scenes/__init__.py).
 
 Each builder returns a SceneBundle; `build(name, device=...)` is the scene
-registry. The slice carries the 3D sand scene only.
+registry. Scenes are built on the card unless device="cpu" is given. The
+port carries the 3D sand scene only.
 """
 
 from dataclasses import dataclass
 from typing import Callable, Dict
 
+from sparkl_tpu_torch import device as _device
 from sparkl_tpu_torch.core.grid import GridParams
 from sparkl_tpu_torch.core.params import SolverParameters
 from sparkl_tpu_torch.core.particles import Particles
@@ -35,8 +37,8 @@ def register_scene(name):
     return deco
 
 
-def build(name, device="cpu", **kw) -> SceneBundle:
-    return _REGISTRY[name](device=device, **kw)
+def build(name, device="cuda", **kw) -> SceneBundle:
+    return _REGISTRY[name](device=_device.resolve(device), **kw)
 
 
 from sparkl_tpu_torch.scenes import scenes3d  # noqa: E402,F401  (registration)

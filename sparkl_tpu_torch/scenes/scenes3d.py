@@ -3,6 +3,7 @@
 import numpy as np
 
 import sparkl_tpu_torch.scenes as sc
+from sparkl_tpu_torch import device as _device
 from sparkl_tpu_torch.core.grid import GridParams
 from sparkl_tpu_torch.core.params import SolverParameters
 from sparkl_tpu_torch.core.particles import Particles, cube_particles
@@ -11,10 +12,11 @@ from sparkl_tpu_torch.models import registry as reg
 
 
 @sc.register_scene("sand3")
-def sand3(nx=100, ny=50, nz=50, device="cpu"):
+def sand3(nx=100, ny=50, nz=50, device="cuda"):
     """Sand column (corotated + Drucker-Prager) above a plain corotated
     block on a sine-valley heightfield: E=1e7, nu=0.2, cell_width=0.2,
     r=h/4, density 2700. 2·nx·ny·nz particles."""
+    device = _device.resolve(device)
     e, nu = 1.0e7, 0.2
     h = 0.2
     r = h / 4.0

@@ -52,7 +52,8 @@ def state():
     pipe._ensure_cfg(p)
     js = pipe._jit_pack(p)
     m = b.models
-    models_t = interop.modelset_from_numpy(m.ctype, m.cparams, m.ptype, m.pparams, m.ftype, m.fparams)
+    models_t = interop.modelset_from_numpy(m.ctype, m.cparams, m.ptype, m.pparams, m.ftype,
+                                           m.fparams, device="cpu")
     t = dict(
         slots=torch.tensor(np.asarray(js.slots)),
         ints=torch.tensor(np.asarray(js.ints)),

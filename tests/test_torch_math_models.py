@@ -185,8 +185,9 @@ def test_kirchhoff_stress_and_dt_bounds_match_jax(sand3_small):
     a = _randomized(arrays)
     pj = b.particles.replace(**{k: jnp.asarray(v) for k, v in a.items()})
     m = b.models
-    mt = interop.modelset_from_numpy(m.ctype, m.cparams, m.ptype, m.pparams, m.ftype, m.fparams)
-    pt = interop.particles_from_numpy(a)
+    mt = interop.modelset_from_numpy(m.ctype, m.cparams, m.ptype, m.pparams, m.ftype, m.fparams,
+                                     device="cpu")
+    pt = interop.particles_from_numpy(a, device="cpu")
     sj = np.asarray(_jit(lambda q: jreg.kirchhoff_stress(
         m, q.model_id, q.phase, q.elastic_hardening, q.deformation_gradient,
         q.velocity_gradient, q.mass, q.volume0))(pj))
@@ -221,7 +222,7 @@ def test_scene_particles_bit_equal(sand3_small):
     _, arrays = sand3_small
     import sparkl_tpu_torch.scenes as tscenes
 
-    bt = tscenes.build("sand3", nx=6, ny=4, nz=4)
+    bt = tscenes.build("sand3", nx=6, ny=4, nz=4, device="cpu")
     for k, v in interop.particles_to_numpy(bt.particles).items():
         np.testing.assert_array_equal(v, arrays[k], err_msg=k)
 

@@ -34,7 +34,7 @@ def _port_of(b):
     """The JAX scene bundle carried across to the port through numpy."""
     m = b.models
     models = interop.modelset_from_numpy(m.ctype, m.cparams, m.ptype, m.pparams,
-                                         m.ftype, m.fparams)
+                                         m.ftype, m.fparams, device="cpu")
     colliders = tuple(
         heightfield(c.data[0], c.data[1], translation=c.translation, rotation=c.rotation,
                     friction=c.friction)
@@ -42,7 +42,7 @@ def _port_of(b):
     )
     grid = GridParams(origin=b.grid.origin, cell_width=b.grid.cell_width, res=b.grid.res)
     particles = interop.particles_from_numpy(
-        {k: np.asarray(v) for k, v in vars(b.particles).items()})
+        {k: np.asarray(v) for k, v in vars(b.particles).items()}, device="cpu")
     return grid, models, colliders, particles
 
 
@@ -54,7 +54,7 @@ def test_one_frame_matches_jax_fused_pipeline():
 
     grid, models, colliders, particles = _port_of(b)
     tpipe = FusedMpmPipeline(grid, models, colliders, SolverParameters(dt=b.params.dt),
-                             b.gravity, config=BlockConfig(**CFG))
+                             b.gravity, config=BlockConfig(**CFG), device="cpu")
     pt, nt = tpipe.step_with_stats(particles)
     assert nt == int(nj)
 
@@ -84,8 +84,8 @@ def test_golden_sand3_four_frames():
     """Replays tests/golden_scenes.json (made by the JAX dense pipeline) with
     the bounds of tests/test_regression.py::_replay for fused pipelines."""
     gold = GOLD["sand3"]
-    b = tscenes.build("sand3", **gold["config"])
-    pipe = FusedMpmPipeline(b.grid, b.models, b.colliders, b.params, b.gravity)
+    b = tscenes.build("sand3", device="cpu", **gold["config"])
+    pipe = FusedMpmPipeline(b.grid, b.models, b.colliders, b.params, b.gravity, device="cpu")
     p = b.particles
     act0 = p.active.numpy()
     per_mass = p.mass.numpy()
@@ -108,9 +108,9 @@ def test_golden_sand3_four_frames():
 
 
 def test_state_resident_run_takes_the_lazy_resort():
-    b = tscenes.build("sand3", nx=12, ny=6, nz=6)
+    b = tscenes.build("sand3", nx=12, ny=6, nz=6, device="cpu")
     pipe = FusedMpmPipeline(b.grid, b.models, b.colliders, b.params, b.gravity,
-                            config=BlockConfig(**CFG))
+                            config=BlockConfig(**CFG), device="cpu")
     state = pipe.pack_state(b.particles)
     mass0 = float(b.particles.mass.sum())
     resorts = substeps = 0
@@ -127,8 +127,9 @@ def test_state_resident_run_takes_the_lazy_resort():
 
 
 def test_constructor_refuses_what_the_slice_does_not_carry():
-    b = tscenes.build("sand3", nx=4, ny=2, nz=2)
-    base = dict(grid=b.grid, models=b.models, colliders=b.colliders, params=b.params)
+    b = tscenes.build("sand3", nx=4, ny=2, nz=2, device="cpu")
+    base = dict(grid=b.grid, models=b.models, colliders=b.colliders, params=b.params,
+                device="cpu")
     grid2 = GridParams(origin=(0.0, 0.0), cell_width=0.1, res=(32, 32))
     neo = treg.ModelSet.pack([treg.ParticleModel((1, (1.0, 1.0, 0.5, 0.0)))], "cpu")
     cases = [

@@ -86,7 +86,7 @@ def test_calibrate_ob2_matches_jax(packed):
 
 def test_pack_unpack_bit_equal(packed):
     b, _, tcfg, jstate, arrays, dtb, stress = packed
-    p = interop.particles_from_numpy(arrays)
+    p = interop.particles_from_numpy(arrays, device="cpu")
     tstate = TL.pack(b.grid, tcfg, p, torch.tensor(dtb), stress=torch.tensor(stress))
     np.testing.assert_array_equal(tstate.slots.numpy(), np.asarray(jstate.slots))
     np.testing.assert_array_equal(tstate.ints.numpy(), np.asarray(jstate.ints))
@@ -136,7 +136,7 @@ def test_resort_bit_equal(packed, kind):
 
     arrays = _structure_np(jstate.structure)
     arrays.update(slots=slots, ints=np.asarray(jstate.ints), cum_disp=np.float32(0.5))
-    ts = interop.slot_state_from_numpy(arrays)
+    ts = interop.slot_state_from_numpy(arrays, device="cpu")
     tout, tov, branch = TL.resort(b.grid, tcfg, ts, 3)
 
     # "mixed" runs the permute kernel's plain version; the JAX resort takes
@@ -149,5 +149,5 @@ def test_resort_bit_equal(packed, kind):
     assert float(tout.cum_disp) == 0.0
 
     out = interop.slot_state_to_numpy(tout)
-    back = interop.slot_state_from_numpy(out)
+    back = interop.slot_state_from_numpy(out, device="cpu")
     np.testing.assert_array_equal(back.slots.numpy(), out["slots"])
