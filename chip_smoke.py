@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two sand3 paths on one NVIDIA GPU: the
-fused pipeline and the block-sparse pipeline.
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU: its two sand3 paths (the
+fused pipeline and the block-sparse pipeline) and its fluid path (fluids3
+on the fused pipeline, with fluid volume recomputation).
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It needs one CUDA device (written for an H100, sm_90a) and nvcc, and exits
@@ -13,8 +14,9 @@ Phases (one line each, longer logs under chiprun_out/):
   2. build of the CUDA kernels from sparkl_tpu_torch/csrc;
   3. the substep kernels against their plain versions on the card, at the
      main path's shapes (sand3 at nx=100, ny=50, nz=100: ~1.02M particles),
-     with times; and a small sand3 frame on the card against the port's CPU
-     path;
+     with times, the scatter merge bit-equal to its plain version and to a
+     second launch; and a small sand3 frame on the card against the port's
+     CPU path;
   4. the main path: FusedMpmPipeline.pack_state -> 15 frames of
      run_frames_state -> unpack_state, with the kernels' launch counts
      held against the substeps and the resort branches taken;
@@ -30,10 +32,23 @@ Phases (one line each, longer logs under chiprun_out/):
      run_frames, 6 frames at sand3@1M, with the kernels' launch counts held
      against the substeps; one more frame timed, then under torch.profiler (the
      frame's device-time split, written to chiprun_out/sparse_profile.txt);
-  8. one frame of sand3@1M through each path, sparse against fused, and a
-     small sand3 frame through the sparse path on the card against the
-     port's CPU path;
-  9. a JSON line of per-kernel results, the card's nvidia-smi line, and
+  8. one frame of sand3@1M through each path, sparse against fused, two
+     sparse frames from the same particles bit-equal, and a small sand3
+     frame through the sparse path on the card against the port's CPU path;
+  9. the fluid path's kernels (mass P2G and G2P, kernels A and B with their
+     fluid branches, the scatter merge on both kinds of images) against
+     their plain versions on the card, on the packed state of fluids3 with
+     each axis of its particle counts x4 (972,800 particles) after its
+     first volume pass, with times;
+ 10. the fluid main path: pack_state -> 30 frames of run_frames_state
+     (through a lazy resort) -> unpack_state, launch counts against the
+     substeps, mass conservation, one profiled frame (written to
+     chiprun_out/fluid_profile.txt); then the fluid kernels again on the
+     state one frame into the run;
+ 11. fluids3 as published (15,200 particles), 3 frames on the card against
+     the port's CPU path, and two card runs bit-equal; the fluid kernels on
+     a mixed fluid/solid set;
+ 12. a JSON line of per-kernel results, the card's nvidia-smi line, and
      the final {"ok": true, "device": ...} line.
 
 Each kernel's bound_ms is the least time the card could take for its work
@@ -59,17 +74,38 @@ REPLACES = {
     "permute_slots": "sparkl_tpu/fused/kernels.py:1008",
     "p2g_windows": "sparkl_tpu/ops/transfer_kernels.py:198",
     "g2p_windows": "sparkl_tpu/ops/transfer_kernels.py:245",
+    "mass_p2g_fused": "sparkl_tpu/fused/kernels.py:686",
+    "mass_g2p_fused": "sparkl_tpu/fused/kernels.py:716",
+    # XLA glue, not a TPU kernel: the scatter-add merge.
+    "merge_scatter": "sparkl_tpu/sparse/transfer.py:237",
 }
+# The main path each kernel's launch count is read from.
+PATH_OF = dict.fromkeys(("p2g_fused", "merge_blocks", "g2p_fused", "src_rows_from_order",
+                         "permute_slots"), "fused")
+PATH_OF.update(p2g_windows="sparse", g2p_windows="sparse", mass_p2g_fused="fluid",
+               mass_g2p_fused="fluid", merge_scatter="fluid")
 FUSED_SOURCE = "sparkl_tpu_torch/csrc/fused_kernels.cu"
 WINDOW_SOURCE = "sparkl_tpu_torch/csrc/window_kernels.cu"
 SPARSE_KERNELS = ("p2g_windows", "g2p_windows")
 FRAMES, TIMED_FRAMES = 15, 3
 SPARSE_FRAMES, SPARSE_TIMED = 6, 2
+FLUID_FRAMES, FLUID_TIMED = 30, 5
+# fluids3 with each axis of its particle counts x4, the grid box grown by
+# the published margins (phases 9-10).
+FLUID_COUNTS = (152, 80, 80)
+FLUID_BOX = ((-8.0, -40.0, -8.0), (41.0, 20.0, 26.0))
 # Sparse against fused after one frame at sand3@1M (phase 8).
-# The first run gave 9.5e-7 and 6.8e-6 (NVIDIA H100 80GB HBM3, 700 W):
-# summation-order rounding over 6 substeps, which the float-atomic scatter
-# merge changes from run to run; the bounds leave 10x.
+# Measured 9.5e-7 and 6.7e-6 (NVIDIA H100 80GB HBM3, 700 W): summation-order
+# rounding over 6 substeps (the paths merge in other orders and form the
+# stress in other places), the same in every run now that no merge uses
+# float atomics; the bounds leave 10x.
 SPARSE_FUSED_DX, SPARSE_FUSED_DV = 1e-5, 1e-4
+# fluids3 after 3 frames, card against CPU (phase 11): the two sum kernel
+# A's images in other orders, and near J = 1 the EOS dt bound turns on the
+# last bits, so the substep counts may differ by one and the trajectories
+# by the splitting of a frame into substeps (~g dt^2 ~ 5e-5 m at dt ~
+# 2.25e-3 s); the bounds leave 20x for positions and allow 1e-3 in J.
+FLUIDS3_DX, FLUIDS3_DJ = 1e-3, 1e-3
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 # Useful f32 operations per stencil tap (27 per slot), counted from the
@@ -81,6 +117,11 @@ FP32_FLOPS = 67e12
 # counted as 1500 per lane, a lower estimate.
 P2G_TAP_FLOPS, G2P_TAP_FLOPS = 7 + 2 * 13, 7 + 2 * 12
 A_SLOT_FLOPS, B_LANE_FLOPS = 45, 1500
+# The fluid path: kernel A's EOS stress ~40 more per slot (exp and log
+# counted as one each); kernel B's fluid lane ~200 (J update, EOS bound);
+# the mass kernels 4 per tap (w products, the product with m or the window
+# value, the sum).
+EOS_SLOT_FLOPS, B_FLUID_LANE_FLOPS, MASS_TAP_FLOPS = 40, 200, 4
 # Tolerances of the kernel-vs-plain checks (the plain versions run on the
 # same card on the same tensors); p2g_errors and g2p_errors state each one.
 
@@ -153,7 +194,7 @@ def p2g_errors(img_k, img_p):
     return out
 
 
-def g2p_errors(out_k, out_p, ints, cparams, cell_width):
+def g2p_errors(out_k, out_p, ints, cparams, cell_width, skip_dtb=None):
     """Kernel B against its plain version, row by row, on occupied lanes
     (empty lanes hold no particle; every consumer masks them). Returns
     [(row, group, measure, tol)] with measure <= tol required:
@@ -173,7 +214,9 @@ def g2p_errors(out_k, out_p, ints, cparams, cell_width):
       energy (psi_pos, par1 = psi_pos·m): |err| / (2 sqrt(mu·e_max)·m_max),
         tol 2e-5: the same strain-equivalent floor through e = mu·Σ(s-1)²;
       plastic (pdd, ph, lvg, all in strain units): |err|, tol 2e-5;
-      failed: equal (measure 0 or 1, tol 0)."""
+      failed: equal (measure 0 or 1, tol 0).
+    skip_dtb [D, C] leaves lanes out of the dt-bound row: EOS lanes near J
+    = 1, which check_g2p holds to their own bound (eos_dtb_errors)."""
     import torch
     from sparkl_tpu_torch.fused import layout as L
     from sparkl_tpu_torch.math.kernel import inv_d
@@ -182,6 +225,9 @@ def g2p_errors(out_k, out_p, ints, cparams, cell_width):
     occ = ((ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0)[:, None, :]
     a = torch.where(occ, out_k, 0.0)
     b = torch.where(occ, out_p, 0.0)
+    if skip_dtb is not None:
+        a[:, r.dtb] = torch.where(skip_dtb, 0.0, a[:, r.dtb])
+        b[:, r.dtb] = torch.where(skip_dtb, 0.0, b[:, r.dtb])
     err = (a - b).abs().amax(dim=(0, 2))
     rmax = b.abs().amax(dim=(0, 2)).clamp(min=1e-30)
     lam = cparams[:, 0].max().item()
@@ -224,11 +270,12 @@ def phase_kernels(pipe, state, dt):
 
     grid, cfg = pipe.grid, pipe._cfg
     nchunks = state.structure.num_chunks
+    tables = (pipe._tab_f, pipe._tab_i)
     res = {}
 
     # Kernel A.
-    img_k = K.p2g_fused(grid, cfg, pipe._meta, state.slots, state.ints, dt, nchunks)
-    img_p = K.p2g_fused_reference(grid, state.slots, state.ints, dt, nchunks)
+    img_k = K.p2g_fused(grid, cfg, pipe._meta, state.slots, state.ints, dt, nchunks, tables)
+    img_p = K.p2g_fused_reference(grid, state.slots, state.ints, dt, nchunks, tables)
     torch.cuda.synchronize()
     err = (img_k - img_p).abs().max().item()
     per_ch = p2g_errors(img_k, img_p)
@@ -239,13 +286,13 @@ def phase_kernels(pipe, state, dt):
     if not (all(m <= 1.0 for m, _ in per_ch) and torch.isfinite(img_k).all().item()):
         failures.append("p2g_fused disagrees with its plain version")
     res["p2g_fused"]["ms"] = cuda_median_ms(
-        lambda: K.p2g_fused(grid, cfg, pipe._meta, state.slots, state.ints, dt, nchunks))
+        lambda: K.p2g_fused(grid, cfg, pipe._meta, state.slots, state.ints, dt, nchunks,
+                            tables))
     res["p2g_fused"]["plain_ms"] = cuda_median_ms(
-        lambda: K.p2g_fused_reference(grid, state.slots, state.ints, dt, nchunks))
+        lambda: K.p2g_fused_reference(grid, state.slots, state.ints, dt, nchunks, tables))
 
     # Merge, on the rows the main path hands it.
-    comb = T._merge_comb(3, 4, True, img_k.device)
-    rows = img_k.reshape(cfg.max_chunks, -1)[:, comb].reshape(cfg.max_chunks, 8, 256).contiguous()
+    rows = image_rows(cfg, img_k)
     first, nblk = state.structure.block_first_chunk, state.structure.block_num_chunks
     m_k = K.merge_blocks(rows, first, nblk)
     m_p = K.merge_blocks_reference(rows, first, nblk, T.MERGE_KMAX)
@@ -269,6 +316,10 @@ def phase_kernels(pipe, state, dt):
         lambda: torch.segment_reduce(flat, "sum", lengths=lengths, axis=0))
     say(3, f"merge_blocks against torch.segment_reduce: max|diff| {seg_err:.3e}")
 
+    # The scatter merge (the fluid and sparse paths' merge) on the same rows:
+    # each node-table row sums its updates in ascending update order, so the
+    # kernel, its plain version and a second launch are bit-equal.
+    res["merge_scatter"] = check_merge_scatter(cfg, state.structure, rows, 3, " (sand3)")
     require(not failures, "; ".join(failures))
 
     # Kernel B, on the windows the main path computes from these images.
@@ -284,7 +335,8 @@ def phase_kernels(pipe, state, dt):
     flops = dict(p2g_fused=lanes * (27 * P2G_TAP_FLOPS + A_SLOT_FLOPS),
                  merge_blocks=traffic["merge_blocks"] // 4,
                  g2p_fused=lanes * (27 * G2P_TAP_FLOPS + B_LANE_FLOPS))
-    for name, v in res.items():
+    for name in flops:
+        v = res[name]
         v["bytes"], v["flops"] = traffic[name], flops[name]
         v["bound_ms"], v["bound_by"] = bound(v["bytes"], v["flops"])
         v.setdefault("library_ms", None)
@@ -293,6 +345,65 @@ def phase_kernels(pipe, state, dt):
                f"shapes = {traffic[name] / v['ms'] / 1e6:.1f} GB/s; bound {v['bound_ms']:.4f} ms "
                f"({v['bound_by']})")
     return res
+
+
+def image_rows(cfg, images):
+    """Window images [D, nf, 512] (z-major) -> the merge's (chunk, corner)
+    rows [D, 8, nf·64], as merge_images_to_grid forms them."""
+    from sparkl_tpu_torch.sparse import transfer as T
+
+    nf = images.shape[1]
+    comb = T._merge_comb(3, nf, True, images.device)
+    return images.reshape(cfg.max_chunks, -1)[:, comb].reshape(
+        cfg.max_chunks, 8, nf * 64).contiguous()
+
+
+def check_merge_scatter(cfg, structure, rows, phase, label="", timed=True):
+    """The scatter merge kernel on `rows` [D, 8, W] (window images in
+    (chunk, corner) rows) over `structure`: bit-equal to its plain version
+    and to a second launch; with `timed`, times, with index_add (float
+    atomics) as the library yardstick. Returns {max_abs_err, ms, plain_ms,
+    library_ms, bytes, flops, bound_ms, bound_by}."""
+    import torch
+    from sparkl_tpu_torch.fused import kernels as K
+    from sparkl_tpu_torch.sparse import transfer as T
+
+    d_, ncorners, w = rows.shape
+    flat = rows.reshape(d_ * ncorners, w)
+    order, starts = T.scatter_plan(cfg, structure)
+    out_k = K.merge_scatter(flat, order, starts)
+    out_k2 = K.merge_scatter(flat, order, starts)
+    out_p = K.merge_scatter_reference(flat, order, starts)
+    dest = T._chunk_corners(structure).reshape(-1).long()
+    zeros = torch.zeros_like(out_k)
+    lib = torch.index_add(zeros, 0, dest, flat)
+    torch.cuda.synchronize()
+    same_p, same_k = torch.equal(out_k, out_p), torch.equal(out_k, out_k2)
+    lib_err = (lib - out_k).abs().max().item()
+    per_row = (starts[1:] - starts[:-1]).max().item()
+    g = starts.shape[0] - 1
+    v = dict(max_abs_err=(out_k - out_p).abs().max().item(), bit_equal_plain=same_p,
+             bit_equal_relaunch=same_k, max_updates_per_row=per_row)
+    say(phase, f"merge_scatter{label} {tuple(flat.shape)} -> {tuple(out_k.shape)}: bit-equal to "
+               f"its plain version {same_p}, to a second launch {same_k}; against index_add "
+               f"max|diff| {lib_err:.3e}; at most {per_row} updates per row")
+    require(same_p and same_k, "merge_scatter is not bit-equal to its plain version and itself")
+    if not timed:
+        return v
+    v["ms"] = cuda_median_ms(lambda: K.merge_scatter(flat, order, starts))
+    v["plain_ms"] = cuda_median_ms(lambda: K.merge_scatter_reference(flat, order, starts))
+    v["library_ms"] = cuda_median_ms(lambda: torch.index_add(zeros, 0, dest, flat))
+    # Every live update row read once (dead chunks' rows are left out of the
+    # plan), each node row written once, and the plan read.
+    v["bytes"] = (int(starts[-1]) * w + g * w) * 4 + (order.numel() + starts.numel()) * 4
+    v["flops"] = int(starts[-1]) * w
+    v["bound_ms"], v["bound_by"] = bound(v["bytes"], v["flops"])
+    say(phase, f"merge_scatter{label}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, "
+               f"library (index_add) {v['library_ms']:.3f} ms (median of 20); "
+               f"{v['bytes'] / 1e9:.4f} GB counted from shapes = "
+               f"{v['bytes'] / v['ms'] / 1e6:.1f} GB/s; bound {v['bound_ms']:.4f} ms "
+               f"({v['bound_by']})")
+    return v
 
 
 def substep_bytes(structure, cfg):
@@ -315,6 +426,40 @@ def substep_bytes(structure, cfg):
     }
 
 
+def eos_dtb_errors(out_k, out_p, own, fluid):
+    """Kernel B's dt-bound row on the EOS lanes of `fluid` [D, C], two ways.
+    (1) Against the plain version's row, on the lanes whose J (the plain
+    version's F00) lies within 1e-3 of 1. There the single-particle bound is
+    h/J·sqrt(ρ0(J - 1) / (18 p)) with p ~ 7 p0 (1 - J): two factors near
+    zero, each rounded on its own, so a few ulps of J and of ρ/ρ0 (~4e-7
+    together) move the bound by ~2e-7/|J - 1| relative. Held to |err| <=
+    |plain|·(1e-5 + 2e-6/|J - 1|), 10x that, where |J - 1| >= 1e-5; closer
+    to 1 the sign of J - 1 itself turns on the last bits, and with it
+    whether that bound is finite, so those lanes are required to hold a
+    positive bound in both. (2) On every fluid lane, against `own` [D, C],
+    the row the plain functions compute from the kernel's own output rows
+    (velocity, gradient, F00, mass, vol0, failed): the same J on both sides,
+    so held to 1e-5 relative, near J = 1 too. Returns (the near-1 lanes,
+    worst |err|/tol of (1), or inf if a close lane is not positive, worst
+    of (2), the count of lanes within 1e-5 of 1)."""
+    import torch
+    from sparkl_tpu_torch.fused import layout as L
+
+    r = L.Rows(3)
+    eps = (out_p[:, r.defgrad] - 1.0).abs()
+    near = fluid & (eps < 1e-3)
+    held = near & (eps >= 1e-5)
+    close = near & ~held
+    a, b = out_k[:, r.dtb], out_p[:, r.dtb]
+    tol = b.abs() * (1e-5 + 2e-6 / eps.clamp(min=1e-5))
+    measure = torch.where(held, (a - b).abs() / tol.clamp(min=1e-30), 0.0).max().item()
+    if not bool(((a > 0.0) & (b > 0.0))[close].all()):
+        measure = float("inf")
+    own_tol = (1e-5 * own.abs()).clamp(min=1e-30)
+    own_measure = torch.where(fluid, (a - own).abs() / own_tol, 0.0).max().item()
+    return near, measure, own_measure, int(close.sum())
+
+
 def check_g2p(pipe, state, dt, label, phase, need_plastic=False):
     """Kernel B against its plain version on `state`, with the windows the
     main path computes for it (kernel A, merge, grid update). Fails unless
@@ -329,7 +474,8 @@ def check_g2p(pipe, state, dt, label, phase, need_plastic=False):
     grid, cfg = pipe.grid, pipe._cfg
     r = L.Rows(3)
     nchunks = state.structure.num_chunks
-    images = K.p2g_fused(grid, cfg, pipe._meta, state.slots, state.ints, dt, nchunks)
+    tables = (pipe._tab_f, pipe._tab_i)
+    images = K.p2g_fused(grid, cfg, pipe._meta, state.slots, state.ints, dt, nchunks, tables)
     windows = pipe._grid_windows(state, images, dt)
     args = (pipe._tab_f, pipe._tab_i, nchunks)
     slots_in = state.slots.clone()
@@ -340,13 +486,22 @@ def check_g2p(pipe, state, dt, label, phase, need_plastic=False):
                         windows, dt, *args)
     torch.cuda.synchronize()
     require(torch.equal(state.ints, ints_in), "g2p_fused touched the int rows")
-    row_errs = g2p_errors(out_k, out_p, state.ints, pipe.models.cparams, grid.cell_width)
+    occ = (state.ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0
+    ct = pipe._tab_i[:, 0][state.ints[:, L.I_MODEL, :].long()]
+    # The dt-bound row the plain functions form from the kernel's own rows.
+    mirror = state.replace(slots=out_k.clone())
+    pipe._refresh_dtb_rows(mirror)
+    near_one, eos_measure, own_measure, close = eos_dtb_errors(
+        out_k, out_p, mirror.slots[:, r.dtb], occ & (ct == 2))
+    row_errs = g2p_errors(out_k, out_p, state.ints, pipe.models.cparams, grid.cell_width,
+                          skip_dtb=near_one)
+    row_errs.append((r.dtb, "eos dtb", eos_measure, 1.0))
+    row_errs.append((r.dtb, "eos dtb own rows", own_measure, 1.0))
     worst = {}
     for k, group, m, tol in row_errs:
         worst[group] = max(worst.get(group, 0.0), m / tol if tol else m)
     with open(os.path.join(OUT_DIR, f"g2p_rows_{label.replace(' ', '_')}.txt"), "w") as f:
         f.write("".join(f"row {k:2d} {g:9s} measure {m:.3e} tol {t:g}\n" for k, g, m, t in row_errs))
-    occ = (state.ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0
 
     def plastic_lanes(out):
         moved = (out[:, r.ph] != slots_in[:, r.ph]) | (out[:, r.pdd] != slots_in[:, r.pdd])
@@ -354,11 +509,15 @@ def check_g2p(pipe, state, dt, label, phase, need_plastic=False):
 
     plastic_k, plastic_p = plastic_lanes(out_k), plastic_lanes(out_p)
     res = dict(max_abs_err=torch.where(occ[:, None, :], out_k - out_p, 0.0).abs().max().item(),
-               worst_over_tol=worst, plastic_lanes=plastic_k)
+               worst_over_tol=worst, plastic_lanes=plastic_k,
+               eos_dtb_lanes=int(near_one.sum()), dtb_lanes_close=close)
     say(phase, f"g2p_fused on the {label} state, slots {tuple(out_k.shape)}: worst measure/tol "
                f"per row group { {g: round(v, 4) for g, v in worst.items()} } (pass <= 1; "
                f"failed row equal: {worst['failed'] == 0}); lanes with plastic flow: kernel "
-               f"{plastic_k}, plain {plastic_p} of {int(occ.sum())}")
+               f"{plastic_k}, plain {plastic_p} of {int(occ.sum())}; fluid lanes with |J - 1| "
+               f"< 1e-3 held to the EOS dt-bound tolerance: {int(near_one.sum())}, of them "
+               f"within 1e-5 of 1 (checked positive, and against the bound of the kernel's own "
+               f"rows as every fluid lane is): {close}")
     failures = []
     if not all(v <= 1.0 for v in worst.values()):
         failures.append(f"g2p_fused disagrees with its plain version on the {label} state")
@@ -626,6 +785,7 @@ def phase_sparse_main(b):
     the window kernels' launches held against the substeps. Returns (the
     pipeline, the particles, the window kernels' launches, results)."""
     import torch
+    from sparkl_tpu_torch.fused import kernels as K
     from sparkl_tpu_torch.ops import transfer_kernels as WK
     from sparkl_tpu_torch.sparse.pipeline import SparseMpmPipeline
 
@@ -637,6 +797,7 @@ def phase_sparse_main(b):
     p = b.particles
     substeps = 0
     WK.reset_launch_counts()
+    K.reset_launch_counts()
     for _ in range(SPARSE_FRAMES - SPARSE_TIMED):
         p, n = pipe.step_with_stats(p)
         substeps += n
@@ -645,7 +806,7 @@ def phase_sparse_main(b):
     p, timed = pipe.run_frames(p, SPARSE_TIMED)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(WK.LAUNCHES)
+    launches = dict(WK.LAUNCHES, merge_scatter=K.LAUNCHES["merge_scatter"])
     substeps += timed
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     act = p.active
@@ -658,7 +819,8 @@ def phase_sparse_main(b):
            f"{mass:.6e} (initial {mass0:.6e}, deactivated {deact:.3e})")
     require(bool(torch.isfinite(p.position[act]).all()), "sparse path: non-finite positions")
     require(abs(mass - (mass0 - deact)) <= 1e-6 * mass0, "sparse path: active mass not conserved")
-    expect = {name: substeps for name in SPARSE_KERNELS}
+    # The window kernels and the scatter merge once per substep.
+    expect = {name: substeps for name in SPARSE_KERNELS + ("merge_scatter",)}
     require(launches == expect, f"sparse path launch counts {launches}, expected {expect}")
     return pipe, p, launches, dict(substeps=substeps, timed_substeps=timed, seconds=seconds,
                                    pups=pups, peak_gib=peak_gib, config=str(pipe._cfg))
@@ -776,17 +938,27 @@ def profile_sparse_frame(pipe, p):
 def phase_sparse_vs_fused(b):
     """One frame of sand3@1M from the same scene through each path on the
     card. Both compute the same physics; they differ in summation orders
-    (the sparse merge is a float-atomic scatter, the fused one a fixed
-    segment sum) and in where the stress is formed (per substep, or cached
-    by kernel B), so positions and velocities agree to rounding that grows
-    over the frame's substeps."""
+    (the sparse merge sums each node row in update order, the fused one
+    per owner block and corner) and in where the stress is formed (per
+    substep, or cached by kernel B), so positions and velocities agree to
+    rounding that grows over the frame's substeps. The sparse frame runs
+    twice, and the two are bit-equal: no kernel or torch op on the path
+    sums with float atomics."""
     import torch
+    from sparkl_tpu_torch import interop
     from sparkl_tpu_torch.fused.pipeline import FusedMpmPipeline
     from sparkl_tpu_torch.sparse.pipeline import SparseMpmPipeline
 
     args = (b.grid, b.models, b.colliders, b.params, b.gravity)
     pf, nf = FusedMpmPipeline(*args, device="cuda").step_with_stats(b.particles)
     ps, ns = SparseMpmPipeline(*args, device="cuda").step_with_stats(b.particles)
+    ps2, ns2 = SparseMpmPipeline(*args, device="cuda").step_with_stats(b.particles)
+    a, a2 = interop.particles_to_numpy(ps), interop.particles_to_numpy(ps2)
+    differ = [k for k in a if not (a[k] == a2[k]).all()]
+    say(8, f"sand3@1M one sparse frame twice: substeps {ns}/{ns2}, bit-equal in every particle "
+           f"field {not differ} (differ: {differ})")
+    require(not differ and ns == ns2,
+            f"two sparse frames from the same particles differ in {differ}")
     act = pf.active
     dx = (ps.position[act] - pf.position[act]).abs().max().item()
     dv = (ps.velocity[act] - pf.velocity[act]).abs().max().item()
@@ -797,7 +969,7 @@ def phase_sparse_vs_fused(b):
            f"active and failed equal {same}")
     require(ns == nf and same, "sparse and fused paths: substeps or flags differ")
     require(dx <= SPARSE_FUSED_DX and dv <= SPARSE_FUSED_DV, "sparse and fused paths disagree")
-    return dict(substeps=(ns, nf), max_dx=dx, max_dv=dv)
+    return dict(substeps=(ns, nf), max_dx=dx, max_dv=dv, repeat_bit_equal=not differ)
 
 
 def phase_small_sparse():
@@ -829,6 +1001,318 @@ def phase_small_sparse():
     require(dpos <= 5e-5 and dvel <= 5e-4 and df <= 5e-4,
             "small sparse frame: card and CPU disagree")
     return dict(max_dpos=dpos, max_dvel=dvel, max_df=df)
+
+
+def fluid_blob(device="cuda"):
+    """fluids3 with each axis of its particle counts x4: 972,800 particles,
+    the same origin, radius, density and Monaghan EOS (p0 = 1e6, gamma 7,
+    viscosity 1.01e-3), cell width 0.8, fluid volume recomputation, the grid
+    box grown by fluids3's own margins around the larger blob. Built from
+    the port's public pieces; scenes.build("fluids3") keeps the published
+    size."""
+    import sparkl_tpu_torch as sk
+    from sparkl_tpu_torch import device as _device
+    from sparkl_tpu_torch.models import registry as reg
+    from sparkl_tpu_torch.scenes import SceneBundle
+
+    device = _device.resolve(device)
+    models = reg.ModelSet.pack(
+        [reg.ParticleModel(reg.monaghan_sph_eos(1.0e6, 7, 1.01e-3, 1.0))], device)
+    particles = sk.cube_particles(origin=(1.6, 1.6, 1.6), counts=FLUID_COUNTS, model_id=0,
+                                  particle_radius=0.1, density0=1000.0, device=device)
+    return SceneBundle(
+        name="fluids3x4", grid=sk.GridParams.for_domain(*FLUID_BOX, 0.8, pad=2), models=models,
+        colliders=(), particles=particles,
+        params=sk.SolverParameters(dt=1.0 / 60.0, force_fluids_volume_recomputation=True),
+        gravity=(0.0, -9.81, 0.0))
+
+
+def phase_fluid_kernels(pipe, state, dt, label, phase, timed):
+    """The fluid path's kernels against their plain versions on `state`:
+    the mass P2G (images), the mass gather (on the windows the volume pass
+    builds from the kernel's images), kernel A (fresh EOS stress) and
+    kernel B (fluid branch). With `timed`, each kernel's and plain
+    version's median time. Returns {name: {...}}."""
+    import torch
+    from sparkl_tpu_torch.fused import kernels as K
+    from sparkl_tpu_torch.fused import layout as L
+    from sparkl_tpu_torch.sparse import transfer as T
+
+    grid, cfg = pipe.grid, pipe._cfg
+    nch = state.structure.num_chunks
+    tables = (pipe._tab_f, pipe._tab_i)
+    sl, ints = state.slots, state.ints
+    m_k = K.mass_p2g_fused(grid, cfg, sl, ints, nch)
+    m_p = K.mass_p2g_fused_reference(grid, sl, ints, nch)
+    node, _ = T.merge_images_to_grid(grid, cfg, state.structure, m_k,
+                                     cell_order=T.ZMAJOR_ORDER_3D,
+                                     force_scatter=pipe._merge_force_scatter,
+                                     plan=state.grid_cache[2])
+    win = T.gather_grid_windows(grid, cfg, state.structure, node,
+                                cell_order=T.ZMAJOR_ORDER_3D).contiguous()
+    g_k = K.mass_g2p_fused(grid, cfg, sl, ints, win, nch)
+    g_p = K.mass_g2p_fused_reference(grid, sl, ints, win, nch)
+    a_k = K.p2g_fused(grid, cfg, pipe._meta, sl, ints, dt, nch, tables)
+    a_p = K.p2g_fused_reference(grid, sl, ints, dt, nch, tables)
+    torch.cuda.synchronize()
+    # Mass images: the same positive f32 terms summed in other orders (the
+    # plain version's scatter-add takes an arbitrary one on the card):
+    # p2g_errors's bound. The gather: the same products summed in the same
+    # order, so within 1e-6 of the largest value (f32 rounding only).
+    res = {}
+    m_err = p2g_errors(m_k, m_p)[0]
+    g_scale = g_p.abs().max().item()
+    g_err = (g_k - g_p).abs().max().item()
+    a_err = p2g_errors(a_k, a_p)
+    res["mass_p2g_fused"] = dict(max_abs_err=m_err[1], over_bound=m_err[0])
+    res["mass_g2p_fused"] = dict(max_abs_err=g_err, bit_equal=torch.equal(g_k, g_p),
+                                 rel_err=g_err / max(g_scale, 1e-30))
+    res["p2g_fused"] = dict(max_abs_err=max(e for _, e in a_err),
+                            over_bound=max(m for m, _ in a_err))
+    say(phase, f"fluid kernels on the {label} state: mass_p2g_fused max|err| {m_err[1]:.3e} "
+               f"({m_err[0]:.2e} of its bound); mass_g2p_fused max|err| {g_err:.3e} (relative "
+               f"{g_err / max(g_scale, 1e-30):.2e}, pass <= 1e-6; bit-equal "
+               f"{torch.equal(g_k, g_p)}); p2g_fused (EOS stress) per channel max|err|/bound "
+               f"{[f'{m:.2e}' for m, _ in a_err]} (pass <= 1)")
+    finite = all(torch.isfinite(x).all().item() for x in (m_k, g_k, a_k))
+    require(finite and m_err[0] <= 1.0 and g_err <= 1e-6 * g_scale
+            and all(m <= 1.0 for m, _ in a_err),
+            f"a fluid kernel disagrees with its plain version on the {label} state")
+    res["g2p_fused"], (slots_in, windows, args) = check_g2p(pipe, state, dt, label, phase)
+    # The scatter merge on the path's two kinds of rows: kernel A's images
+    # (nf = 4, the row the kernels line reports) and the mass images (nf = 1).
+    res["merge_scatter"] = check_merge_scatter(cfg, state.structure, image_rows(cfg, a_k),
+                                               phase, " (fluid, kernel A images)", timed)
+    res["merge_scatter"]["mass"] = check_merge_scatter(
+        cfg, state.structure, image_rows(cfg, m_k), phase, " (fluid, mass images)", timed)
+    if not timed:
+        return res
+    live = int(nch)
+    row = 4 * cfg.chunk_size
+    lanes = int(((ints[:, L.I_FLAGS, :] & L.ACTIVE) != 0).sum())
+    # Bytes counted from what the fluid branches need on the blob's
+    # all-fluid lanes, per live chunk: kernel A reads pos 3, vel 3, mass,
+    # vol0, grad 9, F00 and failed (19 f32 rows; no stress-cache row) and
+    # flags and the origin (4 i32 rows), and writes every chunk's [4, 512]
+    # image; kernel B reads pos 3, F00, mass, vol0, failed and the drift (8
+    # f32 rows), flags, model and origin (5 i32 rows) and the [3, 512]
+    # window, and changes pos 3, vel 3, grad 9, F00, the dt bound, failed
+    # and the drift (19 rows; the rest of F, the plastic, energy and
+    # stress-cache rows stay as they are for fluids).
+    a_rows, b_read, b_written = 19 + 4, 8 + 5, 19
+    for name, fn, plain, nbytes, flops in (
+            ("mass_p2g_fused", lambda: K.mass_p2g_fused(grid, cfg, sl, ints, nch),
+             lambda: K.mass_p2g_fused_reference(grid, sl, ints, nch),
+             live * 8 * row + cfg.max_chunks * 512 * 4, lanes * 27 * MASS_TAP_FLOPS),
+            ("mass_g2p_fused", lambda: K.mass_g2p_fused(grid, cfg, sl, ints, win, nch),
+             lambda: K.mass_g2p_fused_reference(grid, sl, ints, win, nch),
+             live * (8 * row + 512 * 4) + cfg.max_chunks * row, lanes * 27 * MASS_TAP_FLOPS),
+            ("p2g_fused", lambda: K.p2g_fused(grid, cfg, pipe._meta, sl, ints, dt, nch, tables),
+             lambda: K.p2g_fused_reference(grid, sl, ints, dt, nch, tables),
+             live * a_rows * row + cfg.max_chunks * 4 * 4 * 512,
+             lanes * (27 * P2G_TAP_FLOPS + A_SLOT_FLOPS + EOS_SLOT_FLOPS))):
+        v = res[name]
+        v["ms"], v["plain_ms"] = cuda_median_ms(fn), cuda_median_ms(plain)
+        v["bytes"], v["flops"], v["library_ms"] = nbytes, flops, None
+        v["bound_ms"], v["bound_by"] = bound(nbytes, flops)
+    scratch = slots_in.clone()
+    v = res["g2p_fused"]
+    v["ms"] = cuda_median_ms(lambda: K.g2p_fused(grid, cfg, pipe._meta, pipe._kparams, scratch,
+                                                 ints, windows, dt, *args))
+    v["plain_ms"] = cuda_median_ms(
+        lambda: K.g2p_fused_reference(grid, slots_in, ints, windows, dt, *args))
+    v["bytes"] = live * ((b_read + b_written) * row + 4 * 3 * 512)
+    v["flops"] = lanes * (27 * G2P_TAP_FLOPS + B_FLUID_LANE_FLOPS)
+    v["library_ms"] = None
+    v["bound_ms"], v["bound_by"] = bound(v["bytes"], v["flops"])
+    for name, v in res.items():
+        if name == "merge_scatter":
+            continue
+        say(phase, f"{name} (fluid): kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms "
+                   f"(median of 20); {v['bytes'] / 1e9:.4f} GB counted from shapes = "
+                   f"{v['bytes'] / v['ms'] / 1e6:.1f} GB/s; bound {v['bound_ms']:.4f} ms "
+                   f"({v['bound_by']})")
+    return res
+
+
+def phase_fluid_main(b):
+    """The fluid main path: pack_state -> FLUID_FRAMES frames of
+    run_frames_state (the last FLUID_TIMED timed) -> unpack_state on the
+    blob, with the kernels' launches held against the substeps and the
+    resort branches. Returns (the pipeline, a copy of the state after the
+    first frame, the final state, the launches, results)."""
+    import torch
+    from sparkl_tpu_torch.fused import kernels as K
+    from sparkl_tpu_torch.fused.pipeline import FusedMpmPipeline
+
+    n_active = int(b.particles.active.sum())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = FusedMpmPipeline(b.grid, b.models, b.colliders, b.params, b.gravity, device="cuda")
+    state = pipe.pack_state(b.particles)
+    mass0 = b.particles.mass[b.particles.active].double().sum().item()
+    K.reset_launch_counts()
+    substeps = resorts = 0
+    first = None
+    for i in range(FLUID_FRAMES - FLUID_TIMED):
+        state, n = pipe.run_frames_state(state, 1)
+        substeps += n
+        resorts += pipe.last_resorts
+        if first is None:
+            first = state.replace(slots=state.slots.clone())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = 0
+    for _ in range(FLUID_TIMED):
+        state, n = pipe.run_frames_state(state, 1)
+        timed += n
+        resorts += pipe.last_resorts
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    substeps += timed
+    launches = dict(K.LAUNCHES)
+    branches = dict(pipe.resort_branches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    p = pipe.unpack_state(state)
+    act = p.active
+    deact = b.particles.mass[b.particles.active & ~act].double().sum().item()
+    mass = p.mass[act].double().sum().item()
+    pups = n_active * timed / seconds
+    say(10, f"fluid path, {FLUID_FRAMES} frames: {substeps} substeps, {resorts} resorts "
+            f"{branches}; scatter merge pinned {pipe._merge_force_scatter}; {pipe._cfg}; peak "
+            f"memory {peak_gib:.2f} GiB; launches {launches}; mass {mass:.6e} (initial "
+            f"{mass0:.6e}, deactivated {deact:.3e})")
+    say(10, f"fluid path: last {FLUID_TIMED} frames {timed} substeps in {seconds:.3f} s = "
+            f"{pups:.4g} particle-updates/s")
+    require(bool(torch.isfinite(p.position[act]).all()), "fluid path: non-finite positions")
+    require(abs(mass - (mass0 - deact)) <= 1e-6 * mass0, "fluid path: active mass not conserved")
+    require(resorts >= 1 and sum(branches.values()) == resorts,
+            f"the fluid path took {resorts} lazy resorts, branches {branches}")
+    # Per substep: A, B and the two mass kernels once, the scatter merge
+    # twice (kernel A's images and the mass images: 4^3-cell blocks of 4096
+    # particles hold 32 chunks, past MERGE_KMAX, so the merge is pinned to
+    # the scatter and merge_blocks never runs); per resort the resort
+    # kernels, and the volume pass (two mass kernels, one merge) once more.
+    expect = dict(p2g_fused=substeps, merge_blocks=0, merge_scatter=2 * substeps + resorts,
+                  g2p_fused=substeps, mass_p2g_fused=substeps + resorts,
+                  mass_g2p_fused=substeps + resorts,
+                  src_rows_from_order=resorts - branches["relabel"],
+                  permute_slots=branches["mixed"])
+    require(launches == expect, f"fluid path launch counts {launches}, expected {expect}")
+    com = p.position[act].mean(0).tolist()
+    say(10, f"fluid path: centre of mass {[round(x, 4) for x in com]}")
+    return pipe, first, state, launches, dict(
+        substeps=substeps, resorts=resorts, branches=branches, timed_substeps=timed,
+        seconds=seconds, pups=pups, peak_gib=peak_gib, config=str(pipe._cfg))
+
+
+def profile_fluid_frame(pipe, state):
+    """One frame of the fluid path under torch.profiler: device busy time
+    against the wall, and device ms per kernel name (the port's kernels and
+    torch's), written to chiprun_out/fluid_profile.txt. Returns the state
+    and {substeps, wall_ms, busy_ms, idle_share, top}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, n = pipe.run_frames_state(state, 1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    with open(os.path.join(OUT_DIR, "fluid_profile.txt"), "w") as f:
+        f.write(f"{n} substeps; wall {wall_ms:.3f} ms profiled; device busy {busy_ms:.3f} ms; "
+                f"idle share {1.0 - busy_ms / wall_ms:.3f}\n")
+        f.write("".join(f"{v:9.3f} ms  {k}\n" for k, v in top))
+    short = [(k[:60], round(v, 3)) for k, v in top[:8]]
+    say(10, f"profiled fluid frame: {n} substeps, wall {wall_ms:.2f} ms, device busy "
+            f"{busy_ms:.2f} ms, idle share {1.0 - busy_ms / wall_ms:.3f}; top device ms {short}")
+    require(busy_ms > 0.0, "the profiler saw no device time on the fluid path")
+    return state, dict(substeps=n, wall_ms=wall_ms, busy_ms=busy_ms,
+                       idle_share=1.0 - busy_ms / wall_ms, top=top[:20])
+
+
+def phase_fluids3():
+    """fluids3 as published (15,200 particles), 3 frames through the fused
+    pipeline twice on the card and once on the CPU (plain versions): the
+    two card runs bit-equal in every particle field; card against CPU,
+    substeps equal or one apart per frame, equal flags, positions within
+    FLUIDS3_DX and J = F00 within FLUIDS3_DJ."""
+    import torch
+    import sparkl_tpu_torch.scenes as scenes
+    from sparkl_tpu_torch import interop
+    from sparkl_tpu_torch.fused.pipeline import FusedMpmPipeline
+
+    out = {}
+    for run, dev in (("card", "cuda"), ("card again", "cuda"), ("cpu", "cpu")):
+        b = scenes.build("fluids3", device=dev)
+        pipe = FusedMpmPipeline(b.grid, b.models, b.colliders, b.params, b.gravity, device=dev)
+        p, subs = b.particles, []
+        for _ in range(3):
+            p, n = pipe.step_with_stats(p)
+            subs.append(n)
+        out[run] = (p.to("cpu"), subs)
+    (pg, sg), (pg2, sg2), (pc, sc) = out["card"], out["card again"], out["cpu"]
+    a, a2 = interop.particles_to_numpy(pg), interop.particles_to_numpy(pg2)
+    differ = [k for k in a if not (a[k] == a2[k]).all()]
+    act = pc.active
+    dx = (pg.position[act] - pc.position[act]).abs().max().item()
+    j_cpu = pc.deformation_gradient[act, 0, 0]
+    dj_all = (pg.deformation_gradient[act, 0, 0] - j_cpu).abs()
+    dj, at = dj_all.max().item(), int(dj_all.argmax())
+    flags = torch.equal(pg.active, pc.active) and torch.equal(pg.failed[act], pc.failed[act])
+    say(11, f"fluids3, 3 frames: substeps card {sg}, again {sg2}, CPU {sc}; two card runs "
+            f"bit-equal {not differ and sg == sg2}; card against CPU max|dx| {dx:.3e} "
+            f"({FLUIDS3_DX:g}), max|dJ| {dj:.3e} ({FLUIDS3_DJ:g}) at J {j_cpu[at].item():.4f} "
+            f"(J over the blob {j_cpu.min().item():.4f}-{j_cpu.max().item():.4f}), flags equal "
+            f"{flags}")
+    require(not differ and sg == sg2, f"two card runs of fluids3 differ in {differ}")
+    require(all(abs(x - y) <= 1 for x, y in zip(sg, sc)) and flags,
+            "fluids3: card and CPU substeps or flags differ")
+    require(dx <= FLUIDS3_DX and dj <= FLUIDS3_DJ, "fluids3: card and CPU disagree")
+    return dict(substeps_card=sg, substeps_cpu=sc, max_dx=dx, max_dj=dj)
+
+
+def phase_mixed():
+    """A mixed fluid/solid set on the card: a corotated cube (model 1) beside
+    a fluid cube (model 0), touching, so that blocks and chunks hold both.
+    Kernels A and B branch per slot on the model's type; they, the mass
+    kernels and the scatter merge are held against their plain versions on
+    the packed state after its first volume pass and again one frame in."""
+    import sparkl_tpu_torch as sk
+    from sparkl_tpu_torch.core.particles import Particles
+    from sparkl_tpu_torch.fused.pipeline import FusedMpmPipeline
+    from sparkl_tpu_torch import device as _device
+    from sparkl_tpu_torch.models import registry as reg
+
+    dev = _device.resolve("cuda")
+    models = reg.ModelSet.pack(
+        [reg.ParticleModel(reg.monaghan_sph_eos(1.0e6, 7, 1.01e-3, 1.0)),
+         reg.ParticleModel(reg.corotated_linear_elasticity(1.0e6, 0.3))], dev)
+    cube = dict(counts=(16, 16, 16), particle_radius=0.1, density0=1000.0, device=dev)
+    p = Particles.concatenate((sk.cube_particles(origin=(1.6, 1.6, 1.6), model_id=1, **cube),
+                               sk.cube_particles(origin=(4.8, 1.6, 1.6), model_id=0, **cube)))
+    pipe = FusedMpmPipeline(sk.GridParams.for_domain((-8.0, -40.0, -8.0), (18.0, 8.0, 14.0),
+                                                     0.8, pad=2),
+                            models, (), sk.SolverParameters(
+                                dt=1.0 / 60.0, force_fluids_volume_recomputation=True),
+                            (0.0, -9.81, 0.0), device=dev)
+    state = pipe.pack_state(p)
+    res = {}
+    for label in ("packed mixed", "one-frame mixed"):
+        if label == "one-frame mixed":
+            state, _ = pipe.run_frames_state(state, 1)
+        st = pipe._recompute_fluids(state.replace(slots=state.slots.clone()))
+        res[label] = phase_fluid_kernels(pipe, st, float(pipe._min_dtb(st)), label, 11,
+                                         timed=False)
+    return res
 
 
 def main():
@@ -933,12 +1417,14 @@ def main():
             f"the main path took {resorts} lazy resorts, branches {branches}")
     # Each substep launches A, the merge and B once; each resort that
     # rebuilds the structure launches the source-row kernel once, and each
-    # mixed one the permute kernel once.
-    expect = dict(p2g_fused=substeps, merge_blocks=substeps, g2p_fused=substeps,
+    # mixed one the permute kernel once. The fluid pass's kernels and the
+    # scatter merge are not on this path.
+    expect = dict(p2g_fused=substeps, merge_blocks=substeps, merge_scatter=0,
+                  g2p_fused=substeps, mass_p2g_fused=0, mass_g2p_fused=0,
                   src_rows_from_order=resorts - branches["relabel"],
                   permute_slots=branches["mixed"])
     require(launches == expect, f"launch counts {launches}, expected {expect}")
-    missing = [k for k in K.LAUNCHES if launches[k] == 0]
+    missing = [k for k in K.LAUNCHES if PATH_OF[k] == "fused" and launches[k] == 0]
     require(not missing, f"kernels the main path never launched: {missing}")
     com = p.position[act].mean(0).tolist()
     say(4, f"mass {mass:.6e} (initial {mass0:.6e}, deactivated {deact:.3e}); "
@@ -968,17 +1454,56 @@ def main():
 
     # 7. The sparse main path, then one profiled frame.
     spipe, sp, sparse_launches, sparse_res = phase_sparse_main(b)
-    launches.update(sparse_launches)
     sparse_res["profile"] = profile_sparse_frame(spipe, sp)
     del spipe, sp
 
     # 8. Sparse against fused at full size; the sparse path card vs CPU.
     sparse_res["vs_fused"] = phase_sparse_vs_fused(b)
     sparse_res["small_card_vs_cpu"] = phase_small_sparse()
+
+    # 9. The fluid kernels at full size, on the blob's packed state.
+    t0 = time.perf_counter()
+    fb = fluid_blob()
+    fpipe = FusedMpmPipeline(fb.grid, fb.models, fb.colliders, fb.params, fb.gravity,
+                             device="cuda")
+    # The packed state after its first volume pass, as the first substep
+    # starts: at pack J = 1, so the EOS stress and bound would be trivial.
+    fstate = fpipe._recompute_fluids(fpipe.pack_state(fb.particles))
+    fdt = float(fpipe._min_dtb(fstate))
+    say(9, f"fluid blob {int(fb.particles.active.sum())} particles, {fpipe._cfg}, scatter merge "
+           f"pinned {fpipe._merge_force_scatter}, set-up {time.perf_counter() - t0:.1f} s, "
+           f"dt {fdt:.3e}")
+    fluid_res = {"packed": phase_fluid_kernels(fpipe, fstate, fdt, "packed fluid", 9,
+                                               timed=True)}
+    del fpipe, fstate
+
+    # 10. The fluid main path; then the fluid kernels one frame into it.
+    fpipe, first, fstate, fluid_launches, fluid_res["main"] = phase_fluid_main(fb)
+    _, fluid_res["profile"] = profile_fluid_frame(fpipe, fstate)
+    del fstate
+    first = fpipe._recompute_fluids(first)  # as the next substep starts
+    fdt = float(fpipe._min_dtb(first))
+    fluid_res["one frame"] = phase_fluid_kernels(fpipe, first, fdt, "one-frame fluid", 10,
+                                                 timed=False)
+    # The fluid kernels' numbers, and the scatter merge's, from the fluid
+    # blob: the path its launches are counted on (phase 3's sand3 check kept).
+    for name in ("mass_p2g_fused", "mass_g2p_fused"):
+        kres[name] = fluid_res["packed"][name]
+    kres["merge_scatter"] = dict(fluid_res["packed"]["merge_scatter"],
+                                 sand3=kres["merge_scatter"])
+    del fpipe, first, fb
+
+    # 11. fluids3 as published: card against CPU, two card runs bit-equal;
+    # a mixed fluid/solid set's kernels against their plain versions.
+    fluid_res["fluids3"] = phase_fluids3()
+    fluid_res["mixed"] = phase_mixed()
+
+    by_path = dict(fused=launches, sparse=sparse_launches, fluid=fluid_launches)
+    launches = {name: by_path[PATH_OF[name]][name] for name in REPLACES}
     missing = [k for k in REPLACES if launches[k] == 0]
     require(not missing, f"kernels their main paths never launched: {missing}")
 
-    # 9. Results.
+    # 12. Results.
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         dict(name=name, route="cuda",
@@ -988,10 +1513,11 @@ def main():
         for name in REPLACES
     ]
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump(dict(card=smi, kernels=kernels, substeps=substeps, resorts=resorts,
-                       timed_substeps=timed, seconds=seconds, pups=pups,
+        json.dump(dict(card=smi, kernels=kernels, launches_by_path=by_path, substeps=substeps,
+                       resorts=resorts, timed_substeps=timed, seconds=seconds, pups=pups,
                        resort_branches=branches, resort_ms=resort_ms, peak_gib=peak_gib,
-                       build_s=build_s, kernel_checks=kres, sparse=sparse_res), f, indent=1)
+                       build_s=build_s, kernel_checks=kres, sparse=sparse_res,
+                       fluid=fluid_res), f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

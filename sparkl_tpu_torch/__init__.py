@@ -12,7 +12,9 @@ The port carries sand3's configuration: 3D, corotated elasticity with
 optional Drucker-Prager plasticity, heightfield colliders and no damage, on
 two pipelines: fused.pipeline.FusedMpmPipeline (persistent slots, the stress
 cache on) and sparse.pipeline.SparseMpmPipeline (the block-sparse window
-transfers). Every entry point that takes a device defaults to "cuda" and
+transfers); and fluids3's, the Monaghan EOS fluid with fluid volume
+recomputation (alone or mixed with those solids), on the fused pipeline.
+Every entry point that takes a device defaults to "cuda" and
 raises without one; pass device="cpu" for the plain PyTorch versions.
 """
 

@@ -1,14 +1,21 @@
 // Hand-written Hopper (sm_90a) kernels of the fused sand3 substep.
 //
-// Five kernels, each with a plain PyTorch version beside its wrapper in
+// Eight kernels, each with a plain PyTorch version beside its wrapper in
 // sparkl_tpu_torch/fused/kernels.py:
 //
 //   p2g_fused_kernel  replaces sparkl_tpu/fused/kernels.py:p2g_fused
 //                     (_p2g_kernel), "kernel A";
 //   merge_blocks_kernel replaces sparkl_tpu/fused/kernels.py:merge_blocks_dma
 //                     (_merge_dma_kernel);
+//   merge_scatter_kernel replaces the XLA scatter-add of
+//                     sparkl_tpu/sparse/transfer.py:_merge_scatter (glue, not
+//                     a TPU kernel), deterministically;
 //   g2p_fused_kernel  replaces sparkl_tpu/fused/kernels.py:g2p_fused
 //                     (_g2p_kernel), "kernel B";
+//   mass_p2g_kernel   replaces sparkl_tpu/fused/kernels.py:mass_p2g_fused
+//                     (_mass_p2g_kernel), the fluid volume pass's images;
+//   mass_g2p_kernel   replaces sparkl_tpu/fused/kernels.py:mass_g2p_fused
+//                     (_mass_g2p_kernel), its per-slot grid-mass gather;
 //   src_rows_kernel   replaces sparkl_tpu/fused/kernels.py:src_rows_from_order
 //                     (_src_rows_kernel), resort source rows;
 //   permute_slots_kernel replaces sparkl_tpu/fused/kernels.py:
@@ -75,6 +82,7 @@ constexpr int FLAG_STATIC = 2;
 constexpr int FLAG_KINEMATIC = 4;
 
 constexpr int COROTATED = 0;
+constexpr int EOS_MONAGHAN_SPH = 2;
 constexpr int DRUCKER_PRAGER = 1;
 constexpr float BIGF = 3.4028234663852886e38f;
 
@@ -102,8 +110,14 @@ __device__ __forceinline__ void base_fx(const GridArgs& g, const float pos[3],
 }
 
 // ---------------------------------------------------------------------------
-// Kernel A: cached stress + APIC affine + quadratic weights -> the chunk's
-// 8^3 window image (mass, momentum).
+// Kernel A: cached stress (fresh for EOS fluids) + APIC affine + quadratic
+// weights -> the chunk's 8^3 window image (mass, momentum).
+//
+// An EOS slot's stress comes from J = F00, its mass, vol0 and the carried
+// velocity gradient, never from the cache rows (kernel B leaves those zero
+// for fluids). The JAX kernel folds the fluid test statically for
+// single-type model sets; this one branches per slot on the model's type,
+// so mixed fluid/solid sets take the same values.
 //
 // One 128-thread CTA per chunk. Each thread prepares its slot's weights,
 // tap offsets and payload in shared memory; then each thread owns 4 of the
@@ -117,8 +131,9 @@ __device__ __forceinline__ void base_fx(const GridArgs& g, const float pos[3],
 // ---------------------------------------------------------------------------
 __global__ void __launch_bounds__(C) p2g_fused_kernel(
     const float* __restrict__ slots, const int* __restrict__ ints,
-    const int* __restrict__ nchunks, float* __restrict__ out, float dt,
-    GridArgs g) {
+    const int* __restrict__ nchunks, const float* __restrict__ tab_f,
+    const int* __restrict__ tab_i, int m_count, float* __restrict__ out,
+    float dt, GridArgs g) {
   const int chunk = blockIdx.x;
   const int t = threadIdx.x;
   float* img = out + (size_t)chunk * 4 * RC;
@@ -156,17 +171,30 @@ __global__ void __launch_bounds__(C) p2g_fused_kernel(
   const bool contrib = active && in_window && in_bounds;
   const float cf = contrib ? 1.0f : 0.0f;
 
-  // Cached Kirchhoff stress (symmetric upper triangle rows).
-  float st[6];
-  for (int k = 0; k < 6; ++k) st[k] = SROW(ROW_STRESS + k);
-  const float stress[3][3] = {{st[0], st[1], st[2]},
-                              {st[1], st[3], st[4]},
-                              {st[2], st[4], st[5]}};
+  // Cached Kirchhoff stress (symmetric upper triangle rows), or the EOS
+  // stress for fluid slots (m_count = 0: no fluid in the scene).
+  float stress[3][3];
+  const int mid = I[I_MODEL * C + t];
+  if (mid >= 0 && mid < m_count && tab_i[mid * NTAB_I] == EOS_MONAGHAN_SPH) {
+    const float* p = tab_f + mid * NTAB_F;
+    float gv[3][3];
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j) gv[i][j] = SROW(ROW_GRAD + i * 3 + j);
+    const float fj = SROW(ROW_DEFGRAD);
+    const float density = (mass / fmaxf(vol0, 1e-30f)) / fmaxf(fj, 1e-20f);
+    sparkl::eos_stress(p[0], p[1], p[2], p[3], mass, vol0, density, fj, gv, stress);
+  } else {
+    float st[6];
+    for (int k = 0; k < 6; ++k) st[k] = SROW(ROW_STRESS + k);
+    stress[0][0] = st[0]; stress[0][1] = st[1]; stress[0][2] = st[2];
+    stress[1][0] = st[1]; stress[1][1] = st[3]; stress[1][2] = st[4];
+    stress[2][0] = st[2]; stress[2][1] = st[4]; stress[2][2] = st[5];
+  }
   const float coeff = vol0 * g.invd * dt;
   for (int i = 0; i < 3; ++i)
     for (int j = 0; j < 3; ++j) {
       float aff = mass * SROW(ROW_GRAD + i * 3 + j) - (failed ? 0.0f : coeff * stress[i][j]);
-      s_a[i * 3 + j][t] = cf * aff;
+      s_a[i * 3 + j][t] = contrib ? aff : 0.0f;  // an empty EOS lane's stress is NaN
     }
   const float m_c = mass * cf;
   s_p0[0][t] = m_c;
@@ -234,6 +262,155 @@ __global__ void merge_blocks_kernel(const float* __restrict__ rows,
 }
 
 // ---------------------------------------------------------------------------
+// Scatter merge: node-table row g = the sum of its updates rows[order[k]],
+// k in [starts[g], starts[g + 1]), in ascending k from zero. `order` holds
+// the flat (chunk, corner) update ids stably sorted by destination, so each
+// row sums in ascending update order: the JAX package's CPU scatter-add
+// order, bit-equal to it and to the plain version, and the same from run
+// to run (a float-atomic scatter is not). One CTA per node-table row, each
+// thread a strided set of the row's elements. Bound on this card: bytes
+// (every update row read once, coalesced; each node row written once).
+// ---------------------------------------------------------------------------
+__global__ void merge_scatter_kernel(const float* __restrict__ rows,
+                                     const int* __restrict__ order,
+                                     const int* __restrict__ starts,
+                                     float* __restrict__ out, int width) {
+  const int row = blockIdx.x;
+  const int k0 = starts[row], k1 = starts[row + 1];
+  float* dst = out + (size_t)row * width;
+  for (int e = threadIdx.x; e < width; e += blockDim.x) {
+    float acc = 0.0f;
+    for (int k = k0; k < k1; ++k) acc += rows[(size_t)order[k] * width + e];
+    dst[e] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Mass P2G (fluid volume pass): the chunk's 8^3 mass image, kernel A's
+// design with one channel. Each thread prepares its slot's weights and
+// m·contrib in shared memory; then each thread owns 4 of the 512 cells and
+// sums (m wz)(wx wy) of every slot whose stencil holds the cell, in
+// ascending lane order: no atomics, so the image is deterministic. Dead
+// chunks write zeros. Bound on this card: like kernel A, the owner loop's
+// shared-memory compares (128 slots x 4 cells per thread); the slot read
+// is 4 rows + 4 int rows x 512 B.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(C) mass_p2g_kernel(
+    const float* __restrict__ slots, const int* __restrict__ ints,
+    const int* __restrict__ nchunks, float* __restrict__ out, GridArgs g) {
+  const int chunk = blockIdx.x;
+  const int t = threadIdx.x;
+  float* img = out + (size_t)chunk * RC;
+  if (chunk >= *nchunks) {
+    for (int e = t; e < RC; e += C) img[e] = 0.0f;
+    return;
+  }
+  __shared__ int s_rel[3][C];
+  __shared__ float s_w[3][3][C];
+  __shared__ float s_m[C];
+
+  const float* S = slots + (size_t)chunk * NF * C;
+  const int* I = ints + (size_t)chunk * NI * C;
+  const bool active = (I[I_FLAGS * C + t] & FLAG_ACTIVE) != 0;
+  float pos[3];
+  for (int ax = 0; ax < 3; ++ax) pos[ax] = S[(ROW_POS + ax) * C + t];
+  int base[3];
+  float fx[3];
+  bool in_bounds;
+  base_fx(g, pos, base, fx, in_bounds);
+  int rel[3];
+  bool in_window = true;
+  for (int ax = 0; ax < 3; ++ax) {
+    rel[ax] = base[ax] - I[(I_ORIGIN + ax) * C + t];
+    in_window = in_window && rel[ax] >= 0 && rel[ax] <= 5;
+  }
+  const bool contrib = active && in_window && in_bounds;
+  s_m[t] = S[ROW_MASS * C + t] * (contrib ? 1.0f : 0.0f);
+  for (int ax = 0; ax < 3; ++ax) {
+    const float f = fx[ax];
+    s_w[ax][0][t] = 0.5f * ((1.5f - f) * (1.5f - f));
+    s_w[ax][1][t] = 0.75f - (f - 1.0f) * (f - 1.0f);
+    s_w[ax][2][t] = 0.5f * ((f - 0.5f) * (f - 0.5f));
+    s_rel[ax][t] = contrib ? rel[ax] : -1000;
+  }
+  __syncthreads();
+
+  for (int k = 0; k < RC / C; ++k) {
+    const int q = t + k * C;
+    const int z = q >> 6, x = (q >> 3) & 7, y = q & 7;
+    float acc = 0.0f;
+    for (int s = 0; s < C; ++s) {
+      const unsigned a = (unsigned)(x - s_rel[0][s]);
+      const unsigned b = (unsigned)(y - s_rel[1][s]);
+      const unsigned c = (unsigned)(z - s_rel[2][s]);
+      if (a > 2u || b > 2u || c > 2u) continue;
+      acc += (s_m[s] * s_w[2][c][s]) * (s_w[0][a][s] * s_w[1][b][s]);
+    }
+    img[q] = acc;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Mass G2P (fluid volume pass): each slot's sum of w·m over its 27 cells of
+// the chunk's mass window, masked by the transfer mask. One 128-thread CTA
+// per chunk: the window (2 KB) goes to shared memory and each thread
+// gathers its own slot, per z tap the xy sheet first, then the z weight (as
+// kernel B gathers). Dead chunks write zeros. Bound on this card: bytes
+// (4 slot rows + 4 int rows read, the window read and one row written per
+// chunk) and the launch.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(C) mass_g2p_kernel(
+    const float* __restrict__ slots, const int* __restrict__ ints,
+    const float* __restrict__ windows, const int* __restrict__ nchunks,
+    float* __restrict__ out, GridArgs g) {
+  const int chunk = blockIdx.x;
+  const int t = threadIdx.x;
+  if (chunk >= *nchunks) {
+    out[(size_t)chunk * C + t] = 0.0f;
+    return;
+  }
+  __shared__ float win[RC];
+  const float* W = windows + (size_t)chunk * RC;
+  for (int e = t; e < RC; e += C) win[e] = W[e];
+  __syncthreads();
+
+  const float* S = slots + (size_t)chunk * NF * C;
+  const int* I = ints + (size_t)chunk * NI * C;
+  const bool active = (I[I_FLAGS * C + t] & FLAG_ACTIVE) != 0;
+  float pos[3];
+  for (int ax = 0; ax < 3; ++ax) pos[ax] = S[(ROW_POS + ax) * C + t];
+  int base[3];
+  float fx[3];
+  bool in_bounds;
+  base_fx(g, pos, base, fx, in_bounds);
+  int rel[3];
+  bool in_window = true;
+  for (int ax = 0; ax < 3; ++ax) {
+    rel[ax] = base[ax] - I[(I_ORIGIN + ax) * C + t];
+    in_window = in_window && rel[ax] >= 0 && rel[ax] <= 5;
+  }
+  float m = 0.0f;
+  if (active && in_window && in_bounds) {
+    float w[3][3];
+    for (int ax = 0; ax < 3; ++ax) {
+      const float f = fx[ax];
+      w[ax][0] = 0.5f * ((1.5f - f) * (1.5f - f));
+      w[ax][1] = 0.75f - (f - 1.0f) * (f - 1.0f);
+      w[ax][2] = 0.5f * ((f - 0.5f) * (f - 0.5f));
+    }
+    for (int c = 0; c < 3; ++c) {
+      float tv = 0.0f;
+      const int zq = (rel[2] + c) * 64;
+      for (int a = 0; a < 3; ++a)
+        for (int b = 0; b < 3; ++b)
+          tv += win[zq + (rel[0] + a) * 8 + (rel[1] + b)] * (w[0][a] * w[1][b]);
+      m += tv * w[2][c];
+    }
+  }
+  out[(size_t)chunk * C + t] = m;
+}
+
+// ---------------------------------------------------------------------------
 // Resort source rows: out[i, k] = concat(order2[i, 0], order2[i, 1])[shift_i
 // + k], the destination chunk's slice of the sorted order. One 128-thread
 // CTA per chunk, one thread per lane. The TPU kernel routes lanes with f32
@@ -289,6 +466,11 @@ __global__ void __launch_bounds__(C) permute_slots_kernel(
 // Kernel B: window gather, advection, F update, one SVD shared by the
 // Drucker-Prager return map, the pos-energy and the stress-cache epilogue,
 // guards, out-of-grid mark, next dt bound, drift; written IN PLACE.
+//
+// EOS fluid slots (branch per slot on the model's type) update only J =
+// F00 by tr(grad v), take no SVD and no return map, skip the |F00| blowup
+// guard (the det = 0 guard stays), bound dt with the EOS bound and write
+// zero stress-cache rows: kernel A forms their stress fresh.
 //
 // One 128-thread CTA per chunk: the chunk's windows [3, 512] (6 KB) go to
 // shared memory, each thread gathers its 27 nodes and runs the particle
@@ -424,16 +606,28 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
   float npos[3];
   for (int ax = 0; ax < 3; ++ax) npos[ax] = pos[ax] + vel[ax] * dt;
 
-  // F += dt * (grad v) F.
+  // F += dt * (grad v) F; fluids: F00 += tr(grad v) dt F00, the rest kept.
+  const bool fluid = ti[0] == EOS_MONAGHAN_SPH;
   float fnew[3][3];
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j)
-      fnew[i][j] = f[i][j] + dt * (gm[i][0] * f[0][j] + gm[i][1] * f[1][j] + gm[i][2] * f[2][j]);
+  if (fluid) {
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j) fnew[i][j] = f[i][j];
+    const float tr = gm[0][0] + gm[1][1] + gm[2][2];
+    fnew[0][0] = f[0][0] + tr * dt * f[0][0];
+  } else {
+    for (int i = 0; i < 3; ++i)
+      for (int j = 0; j < 3; ++j)
+        fnew[i][j] = f[i][j] + dt * (gm[i][0] * f[0][j] + gm[i][1] * f[1][j] + gm[i][2] * f[2][j]);
+  }
 
   // One SVD serves the return map, the pos energy and the cached stress.
-  float u[3][3], s[3], v[3][3];
-  sparkl::svd3(fnew, u, s, v);
-  if (ti[1] == DRUCKER_PRAGER) sparkl::dp_update(tf + 4, phase, fnew, u, s, v, pdd, ph, lvg);
+  float u[3][3] = {{1.0f, 0.0f, 0.0f}, {0.0f, 1.0f, 0.0f}, {0.0f, 0.0f, 1.0f}};
+  float v[3][3] = {{1.0f, 0.0f, 0.0f}, {0.0f, 1.0f, 0.0f}, {0.0f, 0.0f, 1.0f}};
+  float s[3] = {1.0f, 1.0f, 1.0f};
+  if (!fluid) {
+    sparkl::svd3(fnew, u, s, v);
+    if (ti[1] == DRUCKER_PRAGER) sparkl::dp_update(tf + 4, phase, fnew, u, s, v, pdd, ph, lvg);
+  }
 
   // Static particles.
   if (is_static) {
@@ -443,9 +637,9 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
     }
   }
 
-  // Failure guards: det(F) = 0, already failed, |F00| blowup.
+  // Failure guards: det(F) = 0, already failed, |F00| blowup (solids only).
   const float detf = sparkl::det3(fnew);
-  const bool broken = (detf == 0.0f) || failed || (fabsf(fnew[0][0]) > 1.0e4f);
+  const bool broken = (detf == 0.0f) || failed || (!fluid && fabsf(fnew[0][0]) > 1.0e4f);
   bool failed_new = failed || broken;
   if (broken) {
     for (int i = 0; i < 3; ++i) {
@@ -485,11 +679,16 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
   const float vtot = vnorm + apic_v;
   const float vel_bound = vtot > 0.0f ? g.h / fmaxf(vtot, 1e-20f) : INFINITY;
   float con_bound = INFINITY;
+  const float density0 = mass / fmaxf(vol0, 1e-30f);
   if (corot) {
-    const float density0 = mass / fmaxf(vol0, 1e-30f);
     const float bulk = (lam + 2.0f * mu / 3.0f) * eh;
     const float shear = mu * eh;
     con_bound = sparkl::sound_speed_bound(cfl, bulk, shear, density0, vnorm, g.h);
+  } else if (fluid) {
+    const float fj = fnew[0][0];
+    const float density = density0 / fmaxf(fj, 1e-20f);
+    con_bound = sparkl::eos_timestep_bound(tf[0], tf[1], tf[3], fj, mass, vol0, density, vsq,
+                                           g.h);
   }
   if (failed_new) con_bound = INFINITY;
   float bound = fminf(vel_bound, con_bound);
@@ -564,11 +763,38 @@ GridArgs grid_args(float ox, float oy, float oz, float h, float invd,
 extern "C" {
 
 int sparkl_p2g_fused(const float* slots, const int* ints, const int* nchunks,
-                     float* out, int max_chunks, float dt, float ox, float oy,
-                     float oz, float h, float invd, float d_coeff, int rx, int ry, int rz,
-                     void* stream) {
+                     const float* tab_f, const int* tab_i, int m_count, float* out,
+                     int max_chunks, float dt, float ox, float oy, float oz, float h,
+                     float invd, float d_coeff, int rx, int ry, int rz, void* stream) {
   p2g_fused_kernel<<<max_chunks, C, 0, (cudaStream_t)stream>>>(
-      slots, ints, nchunks, out, dt, grid_args(ox, oy, oz, h, invd, d_coeff, rx, ry, rz));
+      slots, ints, nchunks, tab_f, tab_i, m_count, out, dt,
+      grid_args(ox, oy, oz, h, invd, d_coeff, rx, ry, rz));
+  return (int)cudaGetLastError();
+}
+
+int sparkl_merge_scatter(const float* rows, const int* order, const int* starts,
+                         float* out, int n_rows, int width, void* stream) {
+  const int threads = width >= 256 ? 256 : ((width + 31) / 32) * 32;
+  if (n_rows > 0)
+    merge_scatter_kernel<<<n_rows, threads, 0, (cudaStream_t)stream>>>(rows, order, starts,
+                                                                        out, width);
+  return (int)cudaGetLastError();
+}
+
+int sparkl_mass_p2g_fused(const float* slots, const int* ints, const int* nchunks,
+                          float* out, int max_chunks, float ox, float oy, float oz, float h,
+                          float invd, float d_coeff, int rx, int ry, int rz, void* stream) {
+  mass_p2g_kernel<<<max_chunks, C, 0, (cudaStream_t)stream>>>(
+      slots, ints, nchunks, out, grid_args(ox, oy, oz, h, invd, d_coeff, rx, ry, rz));
+  return (int)cudaGetLastError();
+}
+
+int sparkl_mass_g2p_fused(const float* slots, const int* ints, const float* windows,
+                          const int* nchunks, float* out, int max_chunks, float ox, float oy,
+                          float oz, float h, float invd, float d_coeff, int rx, int ry, int rz,
+                          void* stream) {
+  mass_g2p_kernel<<<max_chunks, C, 0, (cudaStream_t)stream>>>(
+      slots, ints, windows, nchunks, out, grid_args(ox, oy, oz, h, invd, d_coeff, rx, ry, rz));
   return (int)cudaGetLastError();
 }
 

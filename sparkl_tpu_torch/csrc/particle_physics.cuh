@@ -11,6 +11,9 @@
 //                     corotated_kirchhoff_stress_from_svd_c,
 //                     corotated_pos_energy_from_s_c,
 //                     sound_speed_timestep_bound_c
+//   eos_* ........... sparkl_tpu/models/constitutive.py eos_pressure,
+//                     eos_kirchhoff_stress_c, eos_timestep_bound_c (with
+//                     math/cmat.py pow_pos, strain_rate_c, deviatoric_c)
 // The plain PyTorch versions are the same functions in
 // sparkl_tpu_torch/math/svd.py and sparkl_tpu_torch/models/. Expressions
 // keep the JAX package's operand order, so results differ from the plain
@@ -348,6 +351,61 @@ __device__ __forceinline__ float sound_speed_bound(float alpha, float bulk,
                                                    float vnorm, float h) {
   float c = sqrtf((bulk + 1.3333333333333333f * shear) / density0);
   return alpha * h / fmaxf(vnorm, c);
+}
+
+// x^p for x > 0 as exp(p log(max(x, 1e-30))), cmat.pow_pos's form (not
+// powf: the EOS pressure multiplies its rounding by p0).
+__device__ __forceinline__ float pow_pos(float x, float p) {
+  return expf(p * logf(fmaxf(x, 1e-30f)));
+}
+
+// Monaghan SPH pressure max(p0 ((rho/rho0)^gamma - 1), -max_neg).
+__device__ __forceinline__ float eos_pressure(float p0, float gamma,
+                                              float max_neg, float mass,
+                                              float volume0,
+                                              float density_fluid) {
+  float density0 = mass / volume0;
+  float ratio = density_fluid / density0;
+  return fmaxf(p0 * (pow_pos(ratio, gamma) - 1.0f), -max_neg);
+}
+
+// Kirchhoff stress -p J I + 2 mu_visc J dev(sym(g)) of the EOS fluid.
+__device__ __forceinline__ void eos_stress(float p0, float gamma, float visc,
+                                           float max_neg, float mass,
+                                           float volume0, float density_fluid,
+                                           float fluid_j, const float g[3][3],
+                                           float out[3][3]) {
+  float p = eos_pressure(p0, gamma, max_neg, mass, volume0, density_fluid);
+  float sr[3][3];
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) sr[i][j] = 0.5f * (g[i][j] + g[j][i]);
+  float sph = (sr[0][0] + sr[1][1] + sr[2][2]) / 3.0f;
+  float vcoef = visc != 0.0f ? 2.0f * visc * fluid_j : 0.0f;
+  float diag = -p * fluid_j;
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) {
+      float dev = i == j ? sr[i][j] + (-sph) : sr[i][j];
+      out[i][j] = i == j ? dev * vcoef + diag : dev * vcoef;
+    }
+}
+
+// EOS dt bound: the single-particle stability bound (+inf where its
+// argument is not positive or J <= 0) and the CFL bound.
+__device__ __forceinline__ float eos_timestep_bound(float p0, float gamma,
+                                                    float max_neg,
+                                                    float fluid_j, float mass,
+                                                    float volume0,
+                                                    float density_fluid,
+                                                    float vsq, float h) {
+  float density0 = mass / volume0;
+  float p = -eos_pressure(p0, gamma, max_neg, mass, volume0, density_fluid);
+  float arg = safe_div(density0 * (fluid_j - 1.0f), 6.0f * p * 3.0f);
+  float safe_j = fluid_j > 0.0f ? fluid_j : 1.0f;
+  float single = (h / safe_j) * sqrtf(fmaxf(arg, 0.0f));
+  if (!(arg > 0.0f && fluid_j > 0.0f)) single = INFINITY;
+  float c_sq = fmaxf(vsq, 1.0f) / 0.1f;
+  float cfl = h / sqrtf(c_sq);
+  return fminf(single, cfl);
 }
 
 }  // namespace sparkl

@@ -41,12 +41,22 @@ _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # slots, ints, nchunks, out, max_chunks, dt, ox, oy, oz, h, invd, d_coeff,
-    # rx, ry, rz, stream
-    "sparkl_p2g_fused": [_VP, _VP, _VP, _VP, _I, _F, _F, _F, _F, _F, _F, _F,
-                         _I, _I, _I, _VP],
+    # slots, ints, nchunks, tab_f, tab_i, m_count, out, max_chunks, dt, ox, oy,
+    # oz, h, invd, d_coeff, rx, ry, rz, stream
+    "sparkl_p2g_fused": [_VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _F, _F, _F, _F, _F,
+                         _F, _F, _I, _I, _I, _VP],
     # rows, first, nchunks, out, max_blocks, width, kmax, stream
     "sparkl_merge_blocks": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+    # rows, order, starts, out, n_rows, width, stream
+    "sparkl_merge_scatter": [_VP, _VP, _VP, _VP, _I, _I, _VP],
+    # slots, ints, nchunks, out, max_chunks, ox, oy, oz, h, invd, d_coeff, rx,
+    # ry, rz, stream
+    "sparkl_mass_p2g_fused": [_VP, _VP, _VP, _VP, _I, _F, _F, _F, _F, _F, _F,
+                              _I, _I, _I, _VP],
+    # slots, ints, windows, nchunks, out, max_chunks, ox, oy, oz, h, invd,
+    # d_coeff, rx, ry, rz, stream
+    "sparkl_mass_g2p_fused": [_VP, _VP, _VP, _VP, _VP, _I, _F, _F, _F, _F, _F,
+                              _F, _I, _I, _I, _VP],
     # slots, ints, windows, nchunks, tab_f, tab_i, m_count, max_chunks, dt,
     # ox, oy, oz, h, invd, d_coeff, rx, ry, rz, velocity_clamp, stream
     "sparkl_g2p_fused": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _F, _F, _F, _F,

@@ -7,21 +7,27 @@ table, the grid update applies gravity and the cached collider
 projections, and kernel B gathers, updates every particle and writes the
 next dt bound in place. The structure is rebuilt lazily, when accumulated
 drift reaches DRIFT_FRACTION of a cell (the off-by-two window tolerates
-one cell).
+one cell). With force_fluids_volume_recomputation, each substep first
+recomputes every fluid particle's volume from the grid mass (the mass
+kernels, the merge and the window gather), sets J = F00 = V/V0 and
+refreshes the carried dt bound, as the JAX package does.
 
 Unlike the JAX package, which runs a frame span as one device program,
 this port runs eagerly with a host loop over substeps and one host read
 per substep (the drift trigger and the dt bound together), as the
 reference's CUDA pipeline does (cuda_mpm_pipeline.rs:393-398). Resort
-substeps read a few more scalars to choose their branch. Capturing the
-substep in a CUDA graph is later work.
+substeps read a few more scalars to choose their branch. The fluid path
+runs the volume pass, which rewrites the dt bound, before that read, and
+on resort substeps runs it again after the resort and reads the bound
+again, which gives the reference's order (resort, volume pass, dt).
+Capturing the substep in a CUDA graph is later work.
 
-The slice carries 3D scenes with corotated elasticity (± Drucker-Prager),
-static heightfield colliders, no damage and the stress cache on. The
-constructor raises NotImplementedError for anything else (2D, damage,
-fluids, failure models, penalty colliders, boundary particle projection,
-GPU boundary semantics, collider pose functions and grid hooks): those
-wait for later ports and never fall back to another path.
+The port carries 3D scenes with corotated elasticity (± Drucker-Prager)
+and Monaghan EOS fluids, static heightfield colliders, no damage and the
+stress cache on. The constructor raises NotImplementedError for anything
+else (2D, damage, failure models, penalty colliders, boundary particle
+projection, GPU boundary semantics, collider pose functions and grid
+hooks): those wait for later ports and never fall back to another path.
 """
 
 from typing import Optional
@@ -33,6 +39,7 @@ from sparkl_tpu_torch import device as _device
 from sparkl_tpu_torch.core.grid import GridParams, GridState
 from sparkl_tpu_torch.core.params import SolverParameters
 from sparkl_tpu_torch.math import linalg
+from sparkl_tpu_torch.models import constitutive as con
 from sparkl_tpu_torch.models import registry
 from sparkl_tpu_torch.solver import dense
 from sparkl_tpu_torch.sparse import blocks as B
@@ -63,7 +70,7 @@ class FusedMpmPipeline:
         collider_pose_fn=None,
         device="cuda",
     ):
-        why = unsupported(grid, models, colliders, params, hooks)
+        why = unsupported(grid, models, colliders, params, hooks, fluids=True)
         if collider_pose_fn is not None:
             why.append("collider pose functions")
         if why:
@@ -122,6 +129,9 @@ class FusedMpmPipeline:
     def _occupied(self, state):
         return (state.ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0
 
+    def _active(self, state):
+        return (state.ints[:, L.I_FLAGS, :] & L.ACTIVE) != 0
+
     # -- one substep -------------------------------------------------------------
 
     def _substep(self, state, dt):
@@ -129,7 +139,7 @@ class FusedMpmPipeline:
         float32. Returns the new state."""
         nchunks = state.structure.num_chunks
         images = K.p2g_fused(self.grid, self._cfg, self._meta, state.slots,
-                             state.ints, dt, nchunks)
+                             state.ints, dt, nchunks, tables=(self._tab_f, self._tab_i))
         windows = self._grid_windows(state, images, dt)
         new_slots = K.g2p_fused(
             self.grid, self._cfg, self._meta, self._kparams, state.slots, state.ints,
@@ -147,7 +157,7 @@ class FusedMpmPipeline:
         cpb = B.cells_per_block(dim)
         node, _ = T.merge_images_to_grid(
             grid, cfg, state.structure, images, cell_order=T.ZMAJOR_ORDER_3D,
-            force_scatter=self._merge_force_scatter,
+            force_scatter=self._merge_force_scatter, plan=state.grid_cache[2],
         )
         node = node.reshape(cfg.max_grid_blocks + 1, 1 + dim, cpb)
         mass = node[:, 0, :]
@@ -156,7 +166,7 @@ class FusedMpmPipeline:
         inv_mass = linalg.inv_exact(mass)
         velocity = (mom + mass[..., None] * self.gravity * dt) * inv_mass[..., None]
 
-        node_pos, projections = state.grid_cache
+        node_pos, projections, _ = state.grid_cache
         zero = torch.zeros_like(mass)
         gstate = GridState(mass=mass, momentum=mom, velocity=velocity,
                            psi_momentum=zero, psi_mass=zero)
@@ -173,14 +183,76 @@ class FusedMpmPipeline:
             cell_order=T.ZMAJOR_ORDER_3D,
         ).contiguous()
 
+    def _min_dtb(self, state):
+        """Minimum carried dt bound over occupied slots, on the device."""
+        return torch.min(torch.where(self._occupied(state), state.slots[:, self._rows.dtb, :],
+                                     float("inf")))
+
     def _probe(self, state):
         """The substep's one host read: (drift since the last sort, minimum
         carried dt bound over occupied slots). A resort keeps every
         occupied slot's row, so the minimum holds across it."""
-        dtb = torch.where(self._occupied(state), state.slots[:, self._rows.dtb, :],
-                          float("inf"))
-        cum, mdt = torch.stack([state.cum_disp, torch.min(dtb)]).cpu().numpy()
+        cum, mdt = torch.stack([state.cum_disp, self._min_dtb(state)]).cpu().numpy()
         return np.float32(cum), np.float32(mdt)
+
+    # -- fluid volume pass -------------------------------------------------------
+
+    def _recompute_fluids(self, state):
+        """Fluid volume recomputation on slot rows (ref: fluids_volume.rs
+        recompute_fluids_volumes): mass-only window images, the merge, the
+        window gather, the per-slot grid-mass gather, then F00 = V/V0 on
+        active fluid slots and the dt-bound row refreshed, both rows
+        written in place (as kernel B writes its slots)."""
+        grid, cfg, r = self.grid, self._cfg, self._rows
+        nchunks = state.structure.num_chunks
+        images = K.mass_p2g_fused(grid, cfg, state.slots, state.ints, nchunks)
+        node, _ = T.merge_images_to_grid(
+            grid, cfg, state.structure, images, cell_order=T.ZMAJOR_ORDER_3D,
+            force_scatter=self._merge_force_scatter, plan=state.grid_cache[2],
+        )
+        windows = T.gather_grid_windows(grid, cfg, state.structure, node,
+                                        cell_order=T.ZMAJOR_ORDER_3D).contiguous()
+        new_mass = K.mass_g2p_fused(grid, cfg, state.slots, state.ints, windows,
+                                    nchunks)[:, 0, :]
+
+        new_density = linalg.div(new_mass, grid.cell_width ** grid.dim)
+        slots = state.slots
+        new_volume = slots[:, r.mass, :] / torch.clamp(new_density, min=1e-20)
+        models = self._slot_models(state)
+        is_fluid = (models[0] == con.EOS_MONAGHAN_SPH) & self._active(state)
+        slots[:, r.defgrad, :] = torch.where(
+            is_fluid, new_volume / torch.clamp(slots[:, r.vol0, :], min=1e-30),
+            slots[:, r.defgrad, :],
+        )
+        # The EOS dt bound depends on F00: refresh the carried bound row.
+        self._refresh_dtb_rows(state, models)
+        return state
+
+    def _slot_models(self, state):
+        """Per slot [D, C]: the model's constitutive type and its four
+        constitutive parameters."""
+        (ct,), p = K.model_columns(self._tab_f, self._tab_i, state.ints,
+                                   range(K.TAB_C, K.TAB_C + 4))
+        return ct, p
+
+    def _refresh_dtb_rows(self, state, models=None):
+        """Recompute the dt-bound row in place from the current slot rows
+        (ref: timestep_estimator.rs). models: _slot_models(state), if the
+        caller has it."""
+        r, h = self._rows, self.grid.cell_width
+        slots = state.slots
+
+        def row(k):
+            return slots[:, k, :]
+
+        ct, p = self._slot_models(state) if models is None else models
+        g = [[row(r.grad + 3 * i + j) for j in range(3)] for i in range(3)]
+        f = [[row(r.defgrad + 3 * i + j) for j in range(3)] for i in range(3)]
+        vel = [row(r.vel + ax) for ax in range(3)]
+        con_bound = K.timestep_bound_c(ct, p, row(r.eh), f, row(r.mass), row(r.vol0), vel, h,
+                                       self.models.present_c)
+        slots[:, r.dtb, :] = K.dt_bound_row(h, vel, g, con_bound, row(r.failed) != 0.0,
+                                            self._active(state))
 
     def _resort(self, state):
         """Lazy resort; returns (state, overflow flags) with the flags read
@@ -199,18 +271,30 @@ class FusedMpmPipeline:
         return state, flags
 
     def _step_body(self, state, remaining):
-        """One substep including the lazy resort. Returns (state, remaining,
-        resorted, flags); nonzero flags abort the span before any kernel
-        sees the overflowed structure."""
+        """One substep including the lazy resort and, for fluids, the
+        volume pass. Returns (state, remaining, resorted, flags); nonzero
+        flags abort the span before any kernel sees the overflowed
+        structure."""
         grid, params = self.grid, self.params
         f32 = np.float32
         min_dt = f32(params.dt / params.max_num_substeps)
+        fluids = params.force_fluids_volume_recomputation
+        if fluids:
+            # The volume pass runs ahead of the read, on the structure in
+            # place, so that the read carries the bound it refreshed.
+            state = self._recompute_fluids(state)
         cum_disp, min_dtb = self._probe(state)
         resorted = bool(cum_disp >= f32(DRIFT_FRACTION * grid.cell_width))
         if resorted:
             state, flags = self._resort(state)
             if flags:
                 return state, remaining, resorted, flags
+            if fluids:
+                # The reference order is resort, then volume pass: redo it
+                # on the new structure (it overwrites every row the first
+                # pass wrote) and read the bound again.
+                state = self._recompute_fluids(state)
+                min_dtb = f32(self._min_dtb(state).item())
         max_dt = min(remaining, f32(params.max_substep_dt))
         dt = min(min_dtb, max_dt)
         if dt < min_dt and remaining > min_dt:
@@ -246,14 +330,16 @@ class FusedMpmPipeline:
 
     def _grid_cache(self, structure):
         """Node positions + per-collider node projections of the block node
-        table, computed once per resort (the reference's projection cache,
-        reset_grid.rs:29-63). The trash row sits far outside the domain."""
+        table (the reference's projection cache, reset_grid.rs:29-63) + the
+        scatter merge's index plan, computed once per resort. The trash row
+        sits far outside the domain."""
         cpb = B.cells_per_block(self.grid.dim)
         node_pos = S.block_node_positions_ob2(self.grid, structure.grid_keys)
         pad = torch.full((1, cpb, self.grid.dim), 1.0e10, dtype=torch.float32,
                          device=node_pos.device)
         node_pos = torch.cat([node_pos, pad], dim=0)
-        return node_pos, dense.grid_node_projections(self.colliders, node_pos)
+        return (node_pos, dense.grid_node_projections(self.colliders, node_pos),
+                T.scatter_plan(self._cfg, structure))
 
     def _pack(self, particles):
         particles = dense.mark_out_of_grid_failed(self.grid, particles)

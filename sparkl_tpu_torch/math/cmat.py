@@ -97,6 +97,30 @@ def frob2_c(m):
     return sum(sum(x * x for x in row) for row in m)
 
 
+def trace_c(m):
+    return sum(m[i][i] for i in range(len(m)))
+
+
+def deviatoric_c(m):
+    """m - (tr(m)/d) I. Ref: physics.rs `deviatoric_part`."""
+    d = len(m)
+    tr = trace_c(m)
+    sph = tr / torch.full((), float(d), dtype=tr.dtype, device=tr.device)
+    return add_diag_c(m, -sph)
+
+
+def strain_rate_c(g):
+    """Symmetric part. Ref: physics.rs `strain_rate`."""
+    d = len(g)
+    return [[0.5 * (g[i][j] + g[j][i]) for j in range(d)] for i in range(d)]
+
+
 def safe_div(a, b, eps=1e-20):
     good = torch.abs(b) > eps
     return torch.where(good, a / torch.where(good, b, 1.0), 0.0)
+
+
+def pow_pos(x, p, tiny=1e-30):
+    """x**p for x > 0 as exp(p·log(max(x, tiny))), the JAX package's form
+    (not torch.pow: the EOS pressure multiplies this rounding by p₀)."""
+    return torch.exp(p * torch.log(torch.clamp(x, min=tiny)))

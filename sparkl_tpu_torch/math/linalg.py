@@ -33,3 +33,9 @@ def div(x, s):
     CPU, the JAX package and the CUDA kernels take; a base cell or a block
     key then changes where x / s lies within an ulp of a rounding edge."""
     return x / torch.full((), s, dtype=x.dtype, device=x.device)
+
+
+def rdiv(s, x):
+    """s / x for a Python number s, as one division (`s / x` on a tensor is
+    x.reciprocal() * s in PyTorch, which rounds twice)."""
+    return torch.full((), s, dtype=x.dtype, device=x.device) / x

@@ -1,16 +1,17 @@
-"""Constitutive models (port of the corotated part of
+"""Constitutive models (port of the corotated and Monaghan EOS parts of
 sparkl_tpu/models/constitutive.py).
 
 Component-wise functions on nested-list matrices of tensors, with raw
 parameter tensors. Ref: sparkl
-`src_core/dynamics/models/elasticity_corotated_linear.rs:12-147` and
+`src_core/dynamics/models/elasticity_corotated_linear.rs:12-147`,
+`eos_monaghan_sph.rs` and
 `src_core/dynamics/timestep/elasticity_sound_speed_timestep_bound.rs`.
-Neo-Hookean and the Monaghan EOS are not ported yet.
+Neo-Hookean is not ported yet.
 """
 
 import torch
 
-from sparkl_tpu_torch.math import cmat
+from sparkl_tpu_torch.math import cmat, linalg
 from sparkl_tpu_torch.math.svd import svd_c, svd_values_c
 
 # Constitutive type codes (the JAX package's model-table ABI).
@@ -97,3 +98,62 @@ def corotated_timestep_bound_c(lam, mu, cfl, hardening, density0, vnorm, cell_wi
     bulk = (lam + 2.0 * mu / 3.0) * hardening
     shear = mu * hardening
     return sound_speed_timestep_bound_c(cfl, bulk, shear, density0, vnorm, cell_width)
+
+
+# ---------------------------------------------------------------------------
+# Monaghan SPH equation of state (weakly-compressible fluid)
+# ---------------------------------------------------------------------------
+
+
+def eos_pressure(pressure0, gamma, max_neg_pressure, mass, volume0, density_fluid):
+    """p = max(p₀((ρ/ρ₀)^γ - 1), -p_neg_max). Ref: eos_monaghan_sph.rs `pressure`."""
+    density0 = mass / volume0
+    ratio = density_fluid / density0
+    return torch.maximum(pressure0 * (cmat.pow_pos(ratio, gamma) - 1.0), -max_neg_pressure)
+
+
+def eos_kirchhoff_stress(pressure0, gamma, viscosity, max_neg_pressure, mass, volume0,
+                         density_fluid, fluid_j, velocity_gradient):
+    """[..., 3, 3] form of eos_kirchhoff_stress_c."""
+    return cmat.pack(eos_kirchhoff_stress_c(
+        pressure0, gamma, viscosity, max_neg_pressure, mass, volume0, density_fluid,
+        fluid_j, cmat.unpack(velocity_gradient),
+    ))
+
+
+def eos_kirchhoff_stress_c(pressure0, gamma, viscosity, max_neg_pressure, mass, volume0,
+                           density_fluid, fluid_j, velocity_gradient):
+    """-p·J·I + 2µ_visc·J·dev(strain rate). Ref: eos_monaghan_sph.rs `kirchhoff_stress`."""
+    p = eos_pressure(pressure0, gamma, max_neg_pressure, mass, volume0, density_fluid)
+    sr_dev = cmat.deviatoric_c(cmat.strain_rate_c(velocity_gradient))
+    visc = torch.where(viscosity != 0.0, 2.0 * viscosity * fluid_j, 0.0)
+    out = cmat.scale_c(sr_dev, visc)
+    return cmat.add_diag_c(out, -p * fluid_j)
+
+
+def eos_timestep_bound(pressure0, gamma, max_neg_pressure, fluid_j, mass, volume0,
+                       density_fluid, velocity, cell_width):
+    """eos_timestep_bound_c of velocities [..., d]."""
+    vsq = sum(velocity[..., ax] * velocity[..., ax] for ax in range(velocity.shape[-1]))
+    return eos_timestep_bound_c(pressure0, gamma, max_neg_pressure, fluid_j, mass, volume0,
+                                density_fluid, vsq, cell_width, velocity.shape[-1])
+
+
+def eos_timestep_bound_c(pressure0, gamma, max_neg_pressure, fluid_j, mass, volume0,
+                         density_fluid, velocity_sq, cell_width, dim):
+    """Single-particle stability and CFL bound, +inf where the stability
+    argument is not positive or J <= 0. Ref: eos_monaghan_sph.rs
+    `timestep_bound` (whose f32 sqrt of a negative is NaN, which min()
+    then drops)."""
+    j = fluid_j
+    density0 = mass / volume0
+    k = 6.0  # quadratic splines
+    p = -eos_pressure(pressure0, gamma, max_neg_pressure, mass, volume0, density_fluid)
+    arg = cmat.safe_div(density0 * (j - 1.0), k * p * dim)
+    safe_j = torch.where(j > 0.0, j, 1.0)
+    single = linalg.rdiv(cell_width, safe_j) * torch.sqrt(torch.clamp(arg, min=0.0))
+    single = torch.where((arg > 0.0) & (j > 0.0), single, float("inf"))
+    density_fluctuation = 0.1
+    c_sq = linalg.div(torch.clamp(velocity_sq, min=1.0), density_fluctuation)
+    cfl = linalg.rdiv(cell_width, torch.sqrt(c_sq))
+    return torch.minimum(single, cfl)

@@ -1,6 +1,7 @@
 """Model registry: per-model parameters packed into small tables, per-particle
 dispatch by model id (port of sparkl_tpu/models/registry.py for the models
-the slice carries: corotated elasticity with optional Drucker-Prager).
+the port carries: corotated elasticity with optional Drucker-Prager, and
+the Monaghan SPH equation of state for fluids).
 
 The table layout is the JAX package's: ctype [M] i32, cparams [M, 4] f32,
 ptype [M] i32, pparams [M, 8] f32, ftype [M] i32, fparams [M, 2] f32.
@@ -33,6 +34,11 @@ def corotated_linear_elasticity(
         con.COROTATED,
         (lam, mu, cfl_coeff, 1.0 if split_stress_on_failure else 0.0),
     )
+
+
+def monaghan_sph_eos(pressure0, gamma, viscosity, max_neg_pressure=1.0):
+    """Ref: eos_monaghan_sph.rs `MonaghanSphEos::new`."""
+    return (con.EOS_MONAGHAN_SPH, (pressure0, float(gamma), viscosity, max_neg_pressure))
 
 
 def drucker_prager_plasticity(
@@ -139,10 +145,11 @@ class ModelSet:
         return self.ctype[model_id] == con.EOS_MONAGHAN_SPH
 
     def unsupported(self):
-        """Why the slice cannot run this model set, or '' if it can."""
-        extra_c = set(self.present_c) - {con.COROTATED}
+        """Why the port cannot run this model set, or '' if it can."""
+        extra_c = set(self.present_c) - {con.COROTATED, con.EOS_MONAGHAN_SPH}
         if extra_c:
-            return f"constitutive model types {sorted(extra_c)} (only corotated is ported)"
+            return (f"constitutive model types {sorted(extra_c)} (only corotated and the "
+                    "Monaghan EOS are ported)")
         extra_p = set(self.present_p) - {plas.DRUCKER_PRAGER}
         if extra_p:
             return f"plastic model types {sorted(extra_p)} (only Drucker-Prager is ported)"
@@ -159,24 +166,36 @@ def _check(ms):
 
 def kirchhoff_stress(ms: ModelSet, model_id, phase, elastic_hardening, f,
                      velocity_gradient, mass, volume0):
-    """Per-particle Kirchhoff stress [N, d, d]. velocity_gradient, mass and
-    volume0 feed the fluid models of the JAX package, which the slice does
-    not carry; they are kept for the same signature."""
+    """Per-particle Kirchhoff stress [N, d, d]. Fluids read J from F[0, 0]
+    (ref: particle.rs `fluid_deformation_gradient_det`)."""
     _check(ms)
     ct = ms.ctype[model_id]
     cp = ms.cparams[model_id]
-    s = con.corotated_kirchhoff_stress(cp[..., 0], cp[..., 1], cp[..., 3], phase,
-                                       elastic_hardening, f)
-    return torch.where((ct == con.COROTATED)[..., None, None], s, 0.0)
+    out = torch.zeros_like(f)
+    if con.COROTATED in ms.present_c:
+        s = con.corotated_kirchhoff_stress(cp[..., 0], cp[..., 1], cp[..., 3], phase,
+                                           elastic_hardening, f)
+        out = torch.where((ct == con.COROTATED)[..., None, None], s, out)
+    if con.EOS_MONAGHAN_SPH in ms.present_c:
+        fluid_j = f[..., 0, 0]
+        density_fluid = (mass / volume0) / torch.clamp(fluid_j, min=1e-20)
+        s = con.eos_kirchhoff_stress(cp[..., 0], cp[..., 1], cp[..., 2], cp[..., 3], mass,
+                                     volume0, density_fluid, fluid_j, velocity_gradient)
+        out = torch.where((ct == con.EOS_MONAGHAN_SPH)[..., None, None], s, out)
+    return out
 
 
 def pos_energy(ms: ModelSet, model_id, phase, elastic_hardening, f):
-    """Per-particle tensile energy density for crack propagation."""
+    """Per-particle tensile energy density for crack propagation (0 for
+    fluids)."""
     _check(ms)
     ct = ms.ctype[model_id]
     cp = ms.cparams[model_id]
-    e = con.corotated_pos_energy(cp[..., 0], cp[..., 1], elastic_hardening, f)
-    return torch.where(ct == con.COROTATED, e, 0.0)
+    out = torch.zeros(f.shape[:-2], dtype=f.dtype, device=f.device)
+    if con.COROTATED in ms.present_c:
+        e = con.corotated_pos_energy(cp[..., 0], cp[..., 1], elastic_hardening, f)
+        out = torch.where(ct == con.COROTATED, e, out)
+    return out
 
 
 def timestep_bound(ms: ModelSet, model_id, phase, elastic_hardening, f, mass,
@@ -186,9 +205,18 @@ def timestep_bound(ms: ModelSet, model_id, phase, elastic_hardening, f, mass,
     ct = ms.ctype[model_id]
     cp = ms.cparams[model_id]
     density0 = mass / volume0
-    b = con.corotated_timestep_bound(cp[..., 0], cp[..., 1], cp[..., 2], elastic_hardening,
-                                     density0, velocity, cell_width)
-    return torch.where(ct == con.COROTATED, b, float("inf"))
+    out = torch.full(model_id.shape, float("inf"), dtype=velocity.dtype, device=velocity.device)
+    if con.COROTATED in ms.present_c:
+        b = con.corotated_timestep_bound(cp[..., 0], cp[..., 1], cp[..., 2],
+                                         elastic_hardening, density0, velocity, cell_width)
+        out = torch.where(ct == con.COROTATED, b, out)
+    if con.EOS_MONAGHAN_SPH in ms.present_c:
+        fluid_j = f[..., 0, 0]
+        density_fluid = density0 / torch.clamp(fluid_j, min=1e-20)
+        b = con.eos_timestep_bound(cp[..., 0], cp[..., 1], cp[..., 3], fluid_j, mass,
+                                   volume0, density_fluid, velocity, cell_width)
+        out = torch.where(ct == con.EOS_MONAGHAN_SPH, b, out)
+    return out
 
 
 def apply_plasticity(ms: ModelSet, model_id, phase, f, plastic_def_det, plastic_hardening,

@@ -2,7 +2,7 @@
 
 Each builder returns a SceneBundle; `build(name, device=...)` is the scene
 registry. Scenes are built on the card unless device="cpu" is given. The
-port carries the 3D sand scene only.
+port carries the 3D sand scene and the 3D fluid blob.
 """
 
 from dataclasses import dataclass

@@ -1,4 +1,5 @@
-"""3D scenes (port of sparkl_tpu/scenes/scenes3d.py). Ref: examples3d/sand3.rs."""
+"""3D scenes (port of sparkl_tpu/scenes/scenes3d.py). Ref:
+examples3d/{sand3,fluids3}.rs."""
 
 import numpy as np
 
@@ -64,5 +65,34 @@ def sand3(nx=100, ny=50, nz=50, device="cuda"):
         colliders=colliders,
         particles=particles,
         params=SolverParameters(dt=1.0 / 60.0),
+        gravity=(0.0, -9.81, 0.0),
+    )
+
+
+@sc.register_scene("fluids3")
+def fluids3(device="cuda"):
+    """15.2k-particle free-falling EOS fluid blob, no colliders: cell_width
+    0.8, particle radius 0.1 (not h/4), p0 = 1e6, gamma 7, viscosity
+    1.01e-3, origin (1.6, 1.6, 1.6), density 1000, fluid volume
+    recomputation forced; the grid leaves fall room below. Ref:
+    examples3d/fluids3.rs."""
+    device = _device.resolve(device)
+    h = 0.8
+    r = 0.1
+    models = reg.ModelSet.pack(
+        [reg.ParticleModel(reg.monaghan_sph_eos(1.0e6, 7, 1.01e-3, 1.0))], device
+    )
+    particles = cube_particles(
+        origin=(1.6, 1.6, 1.6), counts=(38, 20, 20), model_id=0,
+        particle_radius=r, density0=1000.0, device=device,
+    )
+    grid = GridParams.for_domain((-8.0, -40.0, -8.0), (18.0, 8.0, 14.0), h, pad=2)
+    return sc.SceneBundle(
+        name="fluids3",
+        grid=grid,
+        models=models,
+        colliders=(),
+        particles=particles,
+        params=SolverParameters(dt=1.0 / 60.0, force_fluids_volume_recomputation=True),
         gravity=(0.0, -9.81, 0.0),
     )

@@ -12,6 +12,7 @@ import torch
 from sparkl_tpu_torch.core.grid import GridParams, GridState
 from sparkl_tpu_torch.core.params import BoundaryHandling, DamageModel, SimulationDofs
 from sparkl_tpu_torch.math import cmat, linalg
+from sparkl_tpu_torch.models import constitutive as con
 from sparkl_tpu_torch.models import registry
 
 
@@ -142,9 +143,11 @@ def particle_update_after_gather(
     broken-F guards and the pos-energy accumulation. With
     compute_dt_bound, also returns the next substep's dt bounds. The
     modified-eigenerosion trip, boundary particle projection and runtime
-    poses are not ported and raise; so do fluid and failure model sets
-    (registry.apply_plasticity refuses them), which is why neither the fluid
-    J update nor the failure check appears here."""
+    poses are not ported and raise; so do fluid model sets (the fluid J
+    update is carried by the fused pipeline's kernel B only) and failure
+    model sets (registry.apply_plasticity refuses them)."""
+    if con.EOS_MONAGHAN_SPH in models.present_c:
+        raise NotImplementedError("the particle update's fluid J update is not ported")
     if damage_model == DamageModel.MODIFIED_EIGENEROSION:
         raise NotImplementedError("modified eigenerosion is not ported")
     if enable_boundary_particle_projection:

@@ -19,8 +19,8 @@ frame is retried from its unchanged input with grown capacities.
 
 The port carries 3D scenes with corotated elasticity (± Drucker-Prager),
 static heightfield colliders and no damage. The constructor raises
-NotImplementedError for anything else (2D, damage models, fluid volume
-recomputation, failure models, other constitutive or plastic models,
+NotImplementedError for anything else (2D, damage models, fluid models and
+fluid volume recomputation, failure models, other constitutive or plastic models,
 penalty colliders, other collider shapes, boundary particle projection,
 GPU boundary semantics, grid hooks), and step_with_stats for runtime
 collider poses: those wait for later ports and never fall back to another
@@ -38,6 +38,7 @@ from sparkl_tpu_torch.core.params import DamageModel, SolverParameters
 from sparkl_tpu_torch.geometry.colliders import HEIGHTFIELD
 from sparkl_tpu_torch.math import linalg
 from sparkl_tpu_torch.math.kernel import inv_d as kernel_inv_d
+from sparkl_tpu_torch.models import constitutive as con
 from sparkl_tpu_torch.models import registry
 from sparkl_tpu_torch.ops import transfer_kernels as K
 from sparkl_tpu_torch.solver import dense
@@ -52,18 +53,22 @@ OVERFLOW_EIGEN = 2  # eigenerosion per-cell neighbour buckets (not ported)
 OVERFLOW_MERGE = 4  # a block compressed past MERGE_KMAX chunks (fused merge)
 
 
-def unsupported(grid, models, colliders, params, hooks):
+def unsupported(grid, models, colliders, params, hooks, fluids=False):
     """Why the port's pipelines cannot run this configuration: a list of
-    reasons, empty if they can."""
+    reasons, empty if they can. Fluids (EOS models and fluid volume
+    recomputation) only with `fluids`: the fused pipeline carries them, the
+    sparse one not yet."""
     why = []
     if grid.dim != 3:
         why.append(f"{grid.dim}D grids")
     m = models.unsupported()
     if m:
         why.append(m)
+    if not fluids and con.EOS_MONAGHAN_SPH in models.present_c:
+        why.append("fluid models")
     if params.damage_model != DamageModel.NONE:
         why.append(f"damage model {params.damage_model.name}")
-    if params.force_fluids_volume_recomputation:
+    if not fluids and params.force_fluids_volume_recomputation:
         why.append("fluid volume recomputation")
     if params.enable_boundary_particle_projection:
         why.append("boundary particle projection")

@@ -6,7 +6,8 @@ block node table [MAX_GRID_BLOCKS + 1, F * 4^d] (last row = trash);
 gather_grid_windows is its inverse read. The per-owner-block segment sum is
 the merge kernel (fused/kernels.merge_blocks); the index reorders and the
 2^d inverse-corner gather stay torch indexing, as the JAX caller keeps them
-(transfer.py:284-297).
+(transfer.py:284-297). The scatter form of the merge sums each node-table
+row's updates in a fixed order (fused/kernels.merge_scatter).
 
 p2g_images and g2p_from_windows are the JAX package's einsum form of the
 window transfers: per group of chunks, the dense [C, 8^d] tensor-product
@@ -237,15 +238,37 @@ def _chunk_corners(structure):
     return nbr[torch.clamp(structure.chunk_block, max=nbr.shape[0] - 1).long()]
 
 
-def _merge_scatter(cfg, structure, rows, nf, cpb, ncorners):
+def scatter_plan(cfg, structure):
+    """Index plan of the scatter merge for `structure`: the flat (chunk,
+    corner) update ids stably sorted by destination node-table row, so in
+    ascending update order within a row ([D·2^d] i32), and each row's
+    segment start ([MAX_GRID_BLOCKS + 2] i32). Built once per structure.
+    Dead chunks' updates (their images are zero) and the trash row's are
+    left out, so the trash row sums to zero, as the merge then sets it: a
+    row otherwise gathers the thousands of padding updates alone."""
+    dest = _chunk_corners(structure).reshape(-1)
+    trash = cfg.max_grid_blocks
+    chunk = torch.arange(dest.shape[0], device=dest.device) // (dest.shape[0] // cfg.max_chunks)
+    dest = torch.where((chunk < structure.num_chunks) & (dest < trash), dest, trash)
+    order = torch.sort(dest, stable=True).indices
+    rows = torch.arange(trash + 2, dtype=dest.dtype, device=dest.device)
+    starts = torch.searchsorted(dest[order], rows)
+    starts[trash + 1] = starts[trash]
+    return order.to(torch.int32), starts.to(torch.int32)
+
+
+def _merge_scatter(cfg, structure, rows, nf, cpb, ncorners, plan=None):
     """Duplicate-index row scatter-add: the block-sparse pipeline's merge,
     and the fused pipeline's fallback for blocks denser than MERGE_KMAX
-    chunks. On a CUDA device index_add_ sums with atomics, in no fixed
-    order."""
-    dest = _chunk_corners(structure).reshape(-1).long()
-    out = torch.zeros((cfg.max_grid_blocks + 1, nf * cpb), dtype=torch.float32,
-                      device=rows.device)
-    return out.index_add_(0, dest, rows.reshape(cfg.max_chunks * ncorners, nf * cpb))
+    chunks. Each node-table row is the sum of its updates in ascending
+    flat (chunk, corner) order from zero, the order of the JAX package's
+    CPU scatter (`.at[dest].add`), so it is deterministic and bit-equal to
+    it on every row but the trash row (zero here; scatter_plan); the sum is
+    the merge_scatter kernel (fused/kernels.py)."""
+    from sparkl_tpu_torch.fused import kernels as FK
+
+    order, starts = scatter_plan(cfg, structure) if plan is None else plan
+    return FK.merge_scatter(rows.reshape(cfg.max_chunks * ncorners, nf * cpb), order, starts)
 
 
 def _merge_gather(cfg, structure, rows, nf, cpb, ncorners):
@@ -278,13 +301,14 @@ def _merge_gather(cfg, structure, rows, nf, cpb, ncorners):
 
 
 def merge_images_to_grid(grid: GridParams, cfg: BlockConfig, structure, images,
-                         cell_order=None, force_scatter=False):
+                         cell_order=None, force_scatter=False, plan=None):
     """images [D, F, 8^d] -> (node table [MAX_GRID_BLOCKS + 1, F * 4^d],
     overflow [] bool). The segment-sum form always runs unless
     `force_scatter`; `overflow` flags a block denser than MERGE_KMAX chunks,
     whose sum the segment form truncated (the caller discards the span and
     retries with the scatter pinned). cell_order: ZMAJOR_ORDER_3D for the
-    fused 3D kernels' image layout, or None for row-major."""
+    fused 3D kernels' image layout, or None for row-major. plan: the
+    structure's scatter_plan, if the caller keeps one."""
     dim = grid.dim
     nf = images.shape[1]
     cpb = cells_per_block(dim)
@@ -297,7 +321,7 @@ def merge_images_to_grid(grid: GridParams, cfg: BlockConfig, structure, images,
     )
     if force_scatter:
         ovf = torch.zeros((), dtype=torch.bool, device=images.device)
-        out = _merge_scatter(cfg, structure, rows, nf, cpb, ncorners)
+        out = _merge_scatter(cfg, structure, rows, nf, cpb, ncorners, plan)
     else:
         ovf = torch.max(structure.block_num_chunks) > MERGE_KMAX
         out = _merge_gather(cfg, structure, rows, nf, cpb, ncorners)

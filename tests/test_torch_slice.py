@@ -136,7 +136,8 @@ def test_constructor_refuses_what_the_slice_does_not_carry():
         dict(grid=grid2),
         dict(models=neo),
         dict(params=SolverParameters(damage_model=DamageModel.EIGENEROSION)),
-        dict(params=SolverParameters(force_fluids_volume_recomputation=True)),
+        dict(models=treg.ModelSet.from_tables([0], [[1.0, 1.0, 0.5, 0.0]], [0], np.zeros((1, 8)),
+                                              [1], [[1.0, 1.0]], "cpu")),  # a failure model
         dict(params=SolverParameters(enable_boundary_particle_projection=True)),
         dict(params=SolverParameters(gpu_boundary_semantics=True)),
         dict(colliders=(heightfield(np.zeros((3, 3)), (1.0, 1.0, 1.0), penalty_stiffness=1.0),)),
@@ -146,3 +147,8 @@ def test_constructor_refuses_what_the_slice_does_not_carry():
     for over in cases:
         with pytest.raises(NotImplementedError):
             FusedMpmPipeline(**dict(base, **over))
+    # Fluids are carried: EOS models and fluid volume recomputation (the
+    # sparse pipeline still refuses both, tests/test_torch_sparse.py).
+    fluid = treg.ModelSet.pack([treg.ParticleModel(treg.monaghan_sph_eos(1e6, 7, 1e-3))], "cpu")
+    FusedMpmPipeline(**dict(base, models=fluid,
+                            params=SolverParameters(force_fluids_volume_recomputation=True)))

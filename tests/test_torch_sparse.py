@@ -287,7 +287,10 @@ def test_matrix_forms_match_jax(name):
         np.testing.assert_allclose(tlinalg.det(ft).numpy(), np.asarray(jlinalg.det(fj)), rtol=1e-6)
     else:
         # Per-particle model queries on a table with a fluid among solids:
-        # is_fluid reads the table; the others refuse what is not ported.
+        # is_fluid reads the table, pos_energy is the corotated energy and 0
+        # for fluids (f32 rounding of the singular values: rtol 1e-5 of the
+        # largest energy), and apply_failure refuses a failure model, which
+        # is not ported.
         models = [jreg.ParticleModel(jreg.corotated_linear_elasticity(1.0e7, 0.2)),
                   jreg.ParticleModel(jreg.monaghan_sph_eos(1.0e5, 7, 0.1))]
         jm = jreg.ModelSet.pack(models)
@@ -296,10 +299,14 @@ def test_matrix_forms_match_jax(name):
         np.testing.assert_array_equal(tm.is_fluid(torch.from_numpy(ids)).numpy(),
                                       np.asarray(jm.is_fluid(jnp.asarray(ids))))
         phase = torch.ones(n)
+        e_t = treg.pos_energy(tm, torch.from_numpy(ids), phase, phase, ft).numpy()
+        e_j = np.asarray(jreg.pos_energy(jm, jnp.asarray(ids), jnp.ones(n), jnp.ones(n), fj))
+        np.testing.assert_allclose(e_t, e_j, rtol=1e-5, atol=1e-5 * np.abs(e_j).max())
+        assert not e_t[ids == 1].any() and e_t[ids == 0].max() > 0
+        failing = treg.ModelSet.from_tables([0], [[1.0, 1.0, 0.5, 0.0]], [0], np.zeros((1, 8)),
+                                            [1], [[1.0, 1.0]], "cpu")
         with pytest.raises(NotImplementedError):
-            treg.pos_energy(tm, torch.from_numpy(ids), phase, phase, ft)
-        with pytest.raises(NotImplementedError):
-            treg.apply_failure(tm, torch.from_numpy(ids), phase, ft)
+            treg.apply_failure(failing, torch.zeros(n, dtype=torch.int32), phase, ft)
         solid = treg.ModelSet.pack(models[:1], "cpu")
         zeros = torch.zeros(n, dtype=torch.int32)
         assert torch.equal(treg.apply_failure(solid, zeros, phase, ft), phase)
@@ -438,6 +445,8 @@ def test_constructor_refuses_what_the_port_does_not_carry():
         dict(models=neo),
         dict(params=SolverParameters(damage_model=DamageModel.EIGENEROSION)),
         dict(params=SolverParameters(force_fluids_volume_recomputation=True)),
+        dict(models=treg.ModelSet.pack([treg.ParticleModel(treg.monaghan_sph_eos(1e6, 7, 1e-3))],
+                                       "cpu")),
         dict(params=SolverParameters(enable_boundary_particle_projection=True)),
         dict(params=SolverParameters(gpu_boundary_semantics=True)),
         dict(colliders=(heightfield(np.zeros((3, 3)), (1.0, 1.0, 1.0), penalty_stiffness=1.0),)),
