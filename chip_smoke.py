@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: its two sand3 paths (the
-fused pipeline and the block-sparse pipeline) and its fluid path (fluids3
-on the fused pipeline, with fluid volume recomputation).
+fused pipeline and the block-sparse pipeline), its fluid path (fluids3 on
+the fused pipeline, with fluid volume recomputation) and its 2D fracture
+path (l_panel2 on the fused pipeline: eigenerosion, maximum-stress
+failure, a STICK cuboid ground and a Dirichlet velocity hook).
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It needs one CUDA device (written for an H100, sm_90a) and nvcc, and exits
@@ -48,7 +50,24 @@ Phases (one line each, longer logs under chiprun_out/):
  11. fluids3 as published (15,200 particles), 3 frames on the card against
      the port's CPU path, and two card runs bit-equal; the fluid kernels on
      a mixed fluid/solid set;
- 12. a JSON line of per-kernel results, the card's nvidia-smi line, and
+ 12. l_panel2's kernels against their plain versions, at the reference
+     settings (60,000 particles) and at cell width 0.0025 (240,000), on the
+     path's state 20 substeps in, with times: the eigenerosion pooling (and
+     on a perturbed state whose crack energies straddle the threshold),
+     kernels A and B in their 2D damage forms and the merge at C = 64
+     (kernel B also on a state with F perturbed so that maximum stress
+     trips), and the resort's source-row and permute kernels at C = 64 (the
+     whole resort on the card against a CPU copy);
+ 13. the fracture main path: scenes.build("l_panel2") -> auto_pipeline ->
+     pack_state -> 10 frames of run_frames_state (~124 substeps each) ->
+     unpack_state, launch counts against the substeps, per frame the broken
+     and failed counts, candidate-list regrows and mass; one profiled frame
+     (fracture_profile.txt in the output directory);
+ 14. l_panel2, 3 substeps on the card against the port's CPU path, and one
+     frame twice on the card, bit-equal; the eigenerosion candidate list's
+     regrow and retry on a denser crack panel, bit-equal to a run that
+     needed none;
+ 15. a JSON line of per-kernel results, the card's nvidia-smi line, and
      the final {"ok": true, "device": ...} line.
 
 Each kernel's bound_ms is the least time the card could take for its work
@@ -78,12 +97,13 @@ REPLACES = {
     "mass_g2p_fused": "sparkl_tpu/fused/kernels.py:716",
     # XLA glue, not a TPU kernel: the scatter-add merge.
     "merge_scatter": "sparkl_tpu/sparse/transfer.py:237",
+    "eigen_pool_fused": "sparkl_tpu/fused/kernels.py:851",
 }
 # The main path each kernel's launch count is read from.
 PATH_OF = dict.fromkeys(("p2g_fused", "merge_blocks", "g2p_fused", "src_rows_from_order",
                          "permute_slots"), "fused")
 PATH_OF.update(p2g_windows="sparse", g2p_windows="sparse", mass_p2g_fused="fluid",
-               mass_g2p_fused="fluid", merge_scatter="fluid")
+               mass_g2p_fused="fluid", merge_scatter="fluid", eigen_pool_fused="fracture")
 FUSED_SOURCE = "sparkl_tpu_torch/csrc/fused_kernels.cu"
 WINDOW_SOURCE = "sparkl_tpu_torch/csrc/window_kernels.cu"
 SPARSE_KERNELS = ("p2g_windows", "g2p_windows")
@@ -106,6 +126,18 @@ SPARSE_FUSED_DX, SPARSE_FUSED_DV = 1e-5, 1e-4
 # by the splitting of a frame into substeps (~g dt^2 ~ 5e-5 m at dt ~
 # 2.25e-3 s); the bounds leave 20x for positions and allow 1e-3 in J.
 FLUIDS3_DX, FLUIDS3_DJ = 1e-3, 1e-3
+# l_panel2 (phases 12-14): frames of the main path (~124 substeps each at
+# dt 1/6000 s), the finer configuration of the kernel checks, the substeps
+# run before them, and the card-against-CPU tolerances after 3 substeps
+# (the JAX package's fused-vs-dense ones, tests/test_fused.py::_compare).
+FRACTURE_FRAMES, FRACTURE_TIMED = 10, 3
+FRACTURE_FINE_CELL = 0.0025
+FRACTURE_SUBSTEPS_IN = 20
+FRACTURE_DX, FRACTURE_DV, FRACTURE_DF = 5e-5, 5e-4, 5e-4
+# Trip decisions (eigenerosion energy, the maximum-stress envelope) may
+# differ between a kernel and its plain version only where the decided
+# quantity lies within this relative distance of its threshold.
+TIE = 1e-5
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 # Useful f32 operations per stencil tap (27 per slot), counted from the
@@ -122,6 +154,15 @@ A_SLOT_FLOPS, B_LANE_FLOPS = 45, 1500
 # the mass kernels 4 per tap (w products, the product with m or the window
 # value, the sum).
 EOS_SLOT_FLOPS, B_FLUID_LANE_FLOPS, MASS_TAP_FLOPS = 40, 200, 4
+# The 2D damage forms: P2G per tap (9 per slot) the x/y weight products and
+# mass, 2 momenta (with the affine columns) and 2 psi channels; kernel A per
+# slot the 2x2 SVD, the corotated stress and the affine (~100); G2P per tap
+# the y-sheet and x sums of 2 velocity channels; kernel B per lane the F
+# update, SVD, energy, fresh stress, its eigenvalues and the dt bound
+# (~200, a lower estimate); the pooling ~10 per pair test (2 differences, 2
+# products, a sum, the compare and 2 adds).
+P2G2_TAP_FLOPS, A2_SLOT_FLOPS, G2P2_TAP_FLOPS, B2_LANE_FLOPS = 27, 100, 14, 200
+EIG_PAIR_FLOPS = 10
 # Tolerances of the kernel-vs-plain checks (the plain versions run on the
 # same card on the same tensors); p2g_errors and g2p_errors state each one.
 
@@ -194,7 +235,7 @@ def p2g_errors(img_k, img_p):
     return out
 
 
-def g2p_errors(out_k, out_p, ints, cparams, cell_width, skip_dtb=None):
+def g2p_errors(out_k, out_p, ints, cparams, cell_width, skip_dtb=None, skip_rows=()):
     """Kernel B against its plain version, row by row, on occupied lanes
     (empty lanes hold no particle; every consumer masks them). Returns
     [(row, group, measure, tol)] with measure <= tol required:
@@ -216,12 +257,15 @@ def g2p_errors(out_k, out_p, ints, cparams, cell_width, skip_dtb=None):
       plastic (pdd, ph, lvg, all in strain units): |err|, tol 2e-5;
       failed: equal (measure 0 or 1, tol 0).
     skip_dtb [D, C] leaves lanes out of the dt-bound row: EOS lanes near J
-    = 1, which check_g2p holds to their own bound (eos_dtb_errors)."""
+    = 1, which check_g2p holds to their own bound (eos_dtb_errors);
+    skip_rows leaves rows out (the 2D phase row, held to its trips). 3D
+    (56 rows) or 2D (40)."""
     import torch
     from sparkl_tpu_torch.fused import layout as L
     from sparkl_tpu_torch.math.kernel import inv_d
 
-    r = L.Rows(3)
+    dim = 3 if out_k.shape[1] == L.Rows(3).nf else 2
+    r = L.Rows(dim)
     occ = ((ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0)[:, None, :]
     a = torch.where(occ, out_k, 0.0)
     b = torch.where(occ, out_p, 0.0)
@@ -232,20 +276,22 @@ def g2p_errors(out_k, out_p, ints, cparams, cell_width, skip_dtb=None):
     rmax = b.abs().amax(dim=(0, 2)).clamp(min=1e-30)
     lam = cparams[:, 0].max().item()
     mu = cparams[:, 1].max().item()
-    vmax = b[:, r.vel : r.vel + 3].abs().max().item()
+    vmax = b[:, r.vel : r.vel + dim].abs().max().item()
     mmax = b[:, r.mass].abs().max().item()
     emax = b[:, r.psi_pos].abs().max().item()
     escale = max(2.0 * (mu * emax) ** 0.5, 1e-30)
-    fscale = b[:, r.defgrad : r.defgrad + 9].abs().max().item()
+    fscale = b[:, r.defgrad : r.defgrad + dim * dim].abs().max().item()
     out = []
     for k in range(r.nf):
         e = err[k].item()
+        if k in skip_rows:
+            continue
         if k == r.failed:
             out.append((k, "failed", float(not torch.equal(a[:, k], b[:, k])), 0.0))
-        elif r.grad <= k < r.grad + 9:
+        elif r.grad <= k < r.grad + dim * dim:
             scale = max(rmax[k].item(), inv_d(cell_width) * cell_width * vmax)
             out.append((k, "grad", e / scale, 2e-5))
-        elif r.defgrad <= k < r.defgrad + 9:
+        elif r.defgrad <= k < r.defgrad + dim * dim:
             out.append((k, "F", e / fscale, 2e-5))
         elif r.stress <= k < r.stress + r.nstress:
             out.append((k, "stress", e / (lam + 2.0 * mu), 2e-5))
@@ -348,14 +394,16 @@ def phase_kernels(pipe, state, dt):
 
 
 def image_rows(cfg, images):
-    """Window images [D, nf, 512] (z-major) -> the merge's (chunk, corner)
-    rows [D, 8, nf·64], as merge_images_to_grid forms them."""
+    """Window images [D, nf, 8^d] (z-major in 3D, row-major in 2D) -> the
+    merge's (chunk, corner) rows [D, 2^d, nf·4^d], as merge_images_to_grid
+    forms them."""
     from sparkl_tpu_torch.sparse import transfer as T
 
     nf = images.shape[1]
-    comb = T._merge_comb(3, nf, True, images.device)
+    dim = 3 if images.shape[2] == 512 else 2
+    comb = T._merge_comb(dim, nf, dim == 3, images.device)
     return images.reshape(cfg.max_chunks, -1)[:, comb].reshape(
-        cfg.max_chunks, 8, nf * 64).contiguous()
+        cfg.max_chunks, 2**dim, nf * 4**dim).contiguous()
 
 
 def check_merge_scatter(cfg, structure, rows, phase, label="", timed=True):
@@ -555,12 +603,13 @@ def phase_small_agreement():
     require(dpos <= 5e-5 and dvel <= 5e-4 and df <= 5e-4, "small frame: card and CPU disagree")
 
 
-def phase_resort(pipe, pre):
+def phase_resort(pipe, pre, phase=5):
     """The resort kernels against their plain versions on `pre`, the state
     the main path's first resort started from, bit for bit; then that whole
     resort on the card against the same resort of a CPU copy (the plain
     versions and torch on the CPU), bit for bit, slots, ints and structure.
-    Returns ({name: {max_abs_err, ms, plain_ms, bytes}}, resort ms)."""
+    3D or 2D (the pipeline's grid). Returns ({name: {max_abs_err, ms,
+    plain_ms, bytes}}, resort ms)."""
     import torch
     from sparkl_tpu_torch import interop
     from sparkl_tpu_torch.fused import kernels as K
@@ -568,10 +617,11 @@ def phase_resort(pipe, pre):
     from sparkl_tpu_torch.fused import structure as S
 
     grid, cfg = pipe.grid, pipe._cfg
-    r = L.Rows(3)
+    dim = grid.dim
+    r = L.Rows(dim)
     c, d_ = cfg.chunk_size, cfg.max_chunks
     dev = pre.slots.device
-    pos, active, occupied = L.slot_positions(pre, 3)
+    pos, active, occupied = L.slot_positions(pre, dim)
     structure, sort_order, chunk_start = S.build_slot_structure(grid, cfg, pos, active, occupied)
     order2, shifts = L.source_order_rows(cfg, sort_order, chunk_start)
     src_k = K.src_rows_from_order(order2, shifts)
@@ -583,7 +633,7 @@ def phase_resort(pipe, pre):
     n_valid = int(valid.sum())
     res = {"src_rows_from_order": dict(
         max_abs_err=float((src_k - src_p).abs().max().item()), bytes=d_ * 3 * 4 * c)}
-    say(5, f"src_rows_from_order {tuple(src_k.shape)}: bit-equal {torch.equal(src_k, src_p)}; "
+    say(phase, f"src_rows_from_order {tuple(src_k.shape)}: bit-equal {torch.equal(src_k, src_p)}; "
            f"{moved} of {n_valid} occupied lanes take another slot's particle")
     require(torch.equal(src_k, src_p), "src_rows_from_order is not equal to its plain version")
     require(moved > 0, "the resort state moves no particle: the permute went unchecked")
@@ -603,7 +653,7 @@ def phase_resort(pipe, pre):
         max_abs_err=max((out_k[0] - out_p[0]).abs().max().item(),
                         float((out_k[1] - out_p[1]).abs().max().item())),
         bytes=(n_valid + d_ * c) * 4 * (r.nf + L.NI))
-    say(5, f"permute_slots slots {tuple(out_k[0].shape)}: bit-equal to its plain version "
+    say(phase, f"permute_slots slots {tuple(out_k[0].shape)}: bit-equal to its plain version "
            f"{equal}; source chunks per live destination mean {nsrc.mean().item():.3f}, "
            f"max {int(nsrc.max().item())}, {int((nsrc > 8).sum())} destinations above 8")
     require(equal, "permute_slots is not equal to its plain version")
@@ -624,12 +674,12 @@ def phase_resort(pipe, pre):
             cuda_median_ms(fn), cuda_median_ms(plain), cuda_median_ms(lib))
         v["flops"] = 0
         v["bound_ms"], v["bound_by"] = bound(v["bytes"], 0)
-        say(5, f"{name}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, library (one "
+        say(phase, f"{name}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, library (one "
                f"gather) {v['library_ms']:.3f} ms (median of 20); {v['bytes'] / 1e9:.4f} GB counted "
                f"from shapes = {v['bytes'] / v['ms'] / 1e6:.1f} GB/s; bound {v['bound_ms']:.4f} ms")
 
     def run(state):
-        out, ov, branch = L.resort(grid, cfg, state, 3)
+        out, ov, branch = L.resort(grid, cfg, state, dim)
         return out, bool(ov), branch
 
     out_g, ov_g, branch_g = run(pre)
@@ -641,8 +691,8 @@ def phase_resort(pipe, pre):
     differ = {k: int((g.cpu() != c).sum()) for k, (g, c) in pairs.items()
               if not torch.equal(g.cpu(), c)}
     same = not differ
-    resort_ms = cuda_median_ms(lambda: L.resort(grid, cfg, pre, 3), reps=5)
-    say(5, f"whole resort, card against a CPU copy: branches {branch_g} / {branch_c}, overflow "
+    resort_ms = cuda_median_ms(lambda: L.resort(grid, cfg, pre, dim), reps=5)
+    say(phase, f"whole resort, card against a CPU copy: branches {branch_g} / {branch_c}, overflow "
            f"{ov_g} / {ov_c}, slots, ints and structure bit-equal {same}; card {resort_ms:.3f} ms "
            f"(median of 5, host reads included)")
     require(same and branch_g == branch_c and ov_g == ov_c and not ov_g,
@@ -650,20 +700,22 @@ def phase_resort(pipe, pre):
     return res, resort_ms
 
 
-def perturbed_f(state, seed=7):
-    """`state` with F += 0.02·N(0, 1) (numpy seed) on occupied lanes: strains
-    of a few percent, past the Drucker-Prager cone on many lanes."""
+def perturbed_f(state, seed=7, scale=0.02):
+    """`state` with F += scale·N(0, 1) (numpy seed) on occupied lanes: at
+    0.02, strains of a few percent, past the Drucker-Prager cone on many
+    lanes of sand3. 3D or 2D slots."""
     import numpy as np
     import torch
     from sparkl_tpu_torch.fused import layout as L
 
-    r = L.Rows(3)
-    d_, _, c = state.slots.shape
-    noise = np.random.default_rng(seed).normal(scale=0.02, size=(d_, 9, c)).astype(np.float32)
+    d_, nf, c = state.slots.shape
+    dim = 3 if nf == L.Rows(3).nf else 2
+    r = L.Rows(dim)
+    noise = np.random.default_rng(seed).normal(scale=scale, size=(d_, dim * dim, c))
     occ = ((state.ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0)[:, None, :]
     slots = state.slots.clone()
-    slots[:, r.defgrad : r.defgrad + 9] += torch.where(
-        occ, torch.from_numpy(noise).to(slots.device), 0.0)
+    slots[:, r.defgrad : r.defgrad + dim * dim] += torch.where(
+        occ, torch.from_numpy(noise.astype(np.float32)).to(slots.device), 0.0)
     return state.replace(slots=slots)
 
 
@@ -1197,7 +1249,7 @@ def phase_fluid_main(b):
                   g2p_fused=substeps, mass_p2g_fused=substeps + resorts,
                   mass_g2p_fused=substeps + resorts,
                   src_rows_from_order=resorts - branches["relabel"],
-                  permute_slots=branches["mixed"])
+                  permute_slots=branches["mixed"], eigen_pool_fused=0)
     require(launches == expect, f"fluid path launch counts {launches}, expected {expect}")
     com = p.position[act].mean(0).tolist()
     say(10, f"fluid path: centre of mass {[round(x, 4) for x in com]}")
@@ -1206,11 +1258,28 @@ def phase_fluid_main(b):
         seconds=seconds, pups=pups, peak_gib=peak_gib, config=str(pipe._cfg))
 
 
-def profile_fluid_frame(pipe, state):
-    """One frame of the fluid path under torch.profiler: device busy time
+def kernel_group(name):
+    """A device kernel's group in a frame's split: the port's kernels by
+    name, torch's by kind."""
+    port = ("p2g_fused", "g2p_fused", "merge_blocks", "merge_scatter", "mass_p2g",
+            "mass_g2p", "eigen_pool", "src_rows", "permute_slots")
+    for k in port:
+        if f"{k}_kernel" in name:
+            return k
+    if "Memcpy" in name or "Memset" in name:
+        return "host copies"
+    if any(k in name for k in ("index_elementwise", "gather", "scatter", "index_put")):
+        return "torch gathers and scatters"
+    if "reduce_kernel" in name or "sort" in name.lower() or "scan" in name.lower():
+        return "torch reductions, sorts and scans"
+    return "torch elementwise ops and copies"
+
+
+def profile_frame(pipe, state, fname, phase, label):
+    """One frame of a fused path under torch.profiler: device busy time
     against the wall, and device ms per kernel name (the port's kernels and
-    torch's), written to chiprun_out/fluid_profile.txt. Returns the state
-    and {substeps, wall_ms, busy_ms, idle_share, top}."""
+    torch's), written to <fname> in OUT_DIR. Returns the state and
+    {substeps, wall_ms, busy_ms, idle_share, top}."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1222,21 +1291,31 @@ def profile_fluid_frame(pipe, state):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
+    launched = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            launched += 1
     busy_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
-    with open(os.path.join(OUT_DIR, "fluid_profile.txt"), "w") as f:
+    split = {}
+    for k, v in top:
+        group = kernel_group(k)
+        split[group] = split.get(group, 0.0) + v
+    with open(os.path.join(OUT_DIR, fname), "w") as f:
         f.write(f"{n} substeps; wall {wall_ms:.3f} ms profiled; device busy {busy_ms:.3f} ms; "
-                f"idle share {1.0 - busy_ms / wall_ms:.3f}\n")
+                f"idle share {1.0 - busy_ms / wall_ms:.3f}; {launched} device operations\n")
+        f.write("".join(f"{v:9.3f} ms  {k}\n" for k, v in split.items()))
         f.write("".join(f"{v:9.3f} ms  {k}\n" for k, v in top))
     short = [(k[:60], round(v, 3)) for k, v in top[:8]]
-    say(10, f"profiled fluid frame: {n} substeps, wall {wall_ms:.2f} ms, device busy "
-            f"{busy_ms:.2f} ms, idle share {1.0 - busy_ms / wall_ms:.3f}; top device ms {short}")
-    require(busy_ms > 0.0, "the profiler saw no device time on the fluid path")
+    say(phase, f"profiled {label} frame: {n} substeps, wall {wall_ms:.2f} ms, device busy "
+               f"{busy_ms:.2f} ms, idle share {1.0 - busy_ms / wall_ms:.3f}, {launched} device "
+               f"operations ({launched / max(n, 1):.1f} per substep); top device ms {short}")
+    require(busy_ms > 0.0, f"the profiler saw no device time on the {label} path")
+    say(phase, f"{label} frame device ms by group: { {k: round(v, 3) for k, v in split.items()} }")
     return state, dict(substeps=n, wall_ms=wall_ms, busy_ms=busy_ms,
-                       idle_share=1.0 - busy_ms / wall_ms, top=top[:20])
+                       idle_share=1.0 - busy_ms / wall_ms, device_ops=launched, split=split,
+                       top=top[:20])
 
 
 def phase_fluids3():
@@ -1313,6 +1392,522 @@ def phase_mixed():
         res[label] = phase_fluid_kernels(pipe, st, float(pipe._min_dtb(st)), label, 11,
                                          timed=False)
     return res
+
+
+def fracture_bundle(cell_width=None, device="cuda"):
+    """scenes.build("l_panel2") at the reference settings (60,000
+    particles), or at a finer cell width (0.0025: 240,000)."""
+    import sparkl_tpu_torch.scenes as scenes
+
+    kw = {} if cell_width is None else dict(cell_width=cell_width)
+    return scenes.build("l_panel2", device=device, **kw)
+
+
+def fracture_state(b, substeps):
+    """(pipeline, state): `b` packed through auto_pipeline and advanced by
+    `substeps` single substeps (so that psi_pos, the velocities and the
+    stress are the path's own, not the packed zeros)."""
+    from dataclasses import replace
+    import sparkl_tpu_torch as sk
+
+    pipe = sk.auto_pipeline(replace(b, params=replace(b.params, stop_after_one_substep=True)))
+    state = pipe.pack_state(b.particles)
+    for _ in range(substeps):
+        state, _ = pipe.run_frames_state(state, 1)
+    return pipe, state
+
+
+def perturbed_eigen(state, h, seed=13):
+    """`state` with positions jittered by up to 0.3 h, psi_pos drawn so that
+    crack energies straddle the threshold (energy ~ cpf·h·mean psi, so psi
+    uniform in [0, 2·threshold/(cpf·h)]), and a quarter of the lanes broken
+    (ineligible)."""
+    import numpy as np
+    import torch
+    from sparkl_tpu_torch.fused import layout as L
+
+    r = L.Rows(2)
+    d_, _, c = state.slots.shape
+    rng = np.random.default_rng(seed)
+    occ = (state.ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0
+    crack = occ & (state.slots[:, r.cpf] != 0.0)
+    psi_max = 2.0 * (state.slots[:, r.cthr][crack].max()
+                     / (state.slots[:, r.cpf][crack].max() * h)).item()
+    slots = state.slots.clone()
+
+    def dev(x):
+        return torch.from_numpy(x.astype(np.float32)).to(slots.device)
+
+    slots[:, r.pos : r.pos + 2] += torch.where(
+        occ[:, None, :], dev(rng.uniform(-0.3 * h, 0.3 * h, size=(d_, 2, c))), 0.0)
+    slots[:, r.psi_pos] = torch.where(occ, dev(rng.uniform(0.0, psi_max, size=(d_, c))), 0.0)
+    slots[:, r.phase] = torch.where(occ & dev(rng.uniform(size=(d_, c)) < 0.25).bool(), 0.0,
+                                    slots[:, r.phase])
+    return state.replace(slots=slots)
+
+
+def jittered(state, h, seed=17):
+    """`state` with positions moved by up to one cell at random: its resort
+    takes the mixed branch (every kernel of the resort runs)."""
+    import numpy as np
+    import torch
+    from sparkl_tpu_torch.fused import layout as L
+
+    d_, _, c = state.slots.shape
+    occ = (state.ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0
+    noise = np.random.default_rng(seed).uniform(-h, h, size=(d_, 2, c)).astype(np.float32)
+    slots = state.slots.clone()
+    slots[:, 0:2] += torch.where(occ[:, None, :], torch.from_numpy(noise).to(slots.device), 0.0)
+    return state.replace(slots=slots)
+
+
+def check_eigen(pipe, state, label, phase, timed=False):
+    """The pooling kernel against its plain version on `state`: the same
+    mask (the distance tests round alike), sums of non-negative terms in
+    other orders within 2e-6 relative, bit-equal to a second launch; the
+    eigenerosion trips each pool gives equal but on lanes whose energy
+    lies within TIE of the threshold (counted). With `timed`, times, the
+    library yardstick (torch.cdist and a masked torch.bmm over the same
+    candidate tiles) and the bound."""
+    import torch
+    from sparkl_tpu_torch.fused import kernels as K
+    from sparkl_tpu_torch.fused import layout as L
+
+    grid, cfg = pipe.grid, pipe._cfg
+    r = L.Rows(2)
+    e, elig = pipe._eigen_rows(state)
+    cand, _ = pipe._eigen_candidates(state.structure)
+    out_k = K.eigen_pool_fused(grid, cfg, e, cand)
+    out_k2 = K.eigen_pool_fused(grid, cfg, e, cand)
+    g = K.eigen_candidate_rows(e, cand)
+    out_p = K.eigen_pool_fused_reference(grid, e, g)[:, :2]
+    torch.cuda.synchronize()
+    same_mask = torch.equal(out_k != 0, out_p != 0)
+    rel = torch.where(out_p > 0, (out_k - out_p).abs() / out_p.clamp(min=1e-30), 0.0).max().item()
+    par1_k, trip_k = pipe._eigen_update(state, out_k, elig)
+    _, trip_p = pipe._eigen_update(state, out_p, elig)
+    cthr = state.slots[:, r.cthr]
+    tie = (par1_k - cthr).abs() <= TIE * cthr.abs()
+    differ = trip_k != trip_p
+    res = dict(max_abs_err=(out_k - out_p).abs().max().item(), rel_err=rel,
+               bit_equal_relaunch=torch.equal(out_k, out_k2), eligible=int(elig.sum()),
+               pooled_lanes=int((out_k[:, 1] > 0).sum()), trips_kernel=int(trip_k.sum()),
+               trips_plain=int(trip_p.sum()), tie_lanes=int((tie & elig).sum()),
+               trips_differ=int(differ.sum()))
+    say(phase, f"eigen_pool_fused on the {label} state: {res['eligible']} eligible lanes, "
+               f"{res['pooled_lanes']} with neighbours; mask equal {same_mask}, max rel err "
+               f"{rel:.2e} (2e-6), bit-equal to a second launch {res['bit_equal_relaunch']}; "
+               f"trips kernel {res['trips_kernel']} / plain {res['trips_plain']}, differing "
+               f"{res['trips_differ']}, lanes within {TIE:g} of the threshold {res['tie_lanes']}")
+    require(same_mask and rel <= 2e-6 and res["bit_equal_relaunch"]
+            and not bool((differ & ~tie).any()),
+            f"eigen_pool_fused disagrees with its plain version on the {label} state")
+    if not timed:
+        return res
+    d_, kn = cand.shape
+    c = cfg.chunk_size
+    own = e[:, 0:2].transpose(1, 2).contiguous()  # [D, C, 2]
+    cpos = g[:, :, 0:2, :].permute(0, 1, 3, 2).reshape(d_, kn * c, 2)
+    vals = g[:, :, 2:4, :].permute(0, 1, 3, 2).reshape(d_, kn * c, 2)
+    c_el = g[:, :, 4, :].reshape(d_, 1, kn * c) != 0
+    self_lane = (g[:, :, K.EIG_SELF, :].reshape(d_, 1, kn * c) != 0) & (
+        torch.arange(kn * c, device=e.device) % c == torch.arange(c, device=e.device)[:, None])
+
+    def library():
+        near = torch.cdist(own, cpos) <= grid.cell_width
+        mask = near & c_el & elig[:, :, None] & ~self_lane
+        return torch.bmm(mask.to(torch.float32), vals)
+
+    lib_err = (library().transpose(1, 2) - out_k).abs().max().item()
+    res["ms"] = cuda_median_ms(lambda: K.eigen_pool_fused(grid, cfg, e, cand))
+    res["plain_ms"] = cuda_median_ms(
+        lambda: K.eigen_pool_fused_reference(grid, e, K.eigen_candidate_rows(e, cand)))
+    res["library_ms"] = cuda_median_ms(library)
+    live = int(state.structure.num_chunks)
+    valid = (cand < d_).sum(dim=1)
+    res["pairs"] = int((elig.sum(dim=1) * valid).sum()) * c
+    res["bytes"] = live * K.EIG_ROWS * c * 4 + d_ * kn * 4 + d_ * 2 * c * 4
+    res["flops"] = res["pairs"] * EIG_PAIR_FLOPS
+    res["bound_ms"], res["bound_by"] = bound(res["bytes"], res["flops"])
+    say(phase, f"eigen_pool_fused ({label}): kernel {res['ms']:.3f} ms, plain "
+               f"{res['plain_ms']:.3f} ms, library (cdist + masked bmm) {res['library_ms']:.3f} ms "
+               f"(median of 20; library max|diff| {lib_err:.2e}); {res['pairs']} pair tests; "
+               f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+    return res
+
+
+def check_kernels_2d(pipe, state, dt, label, phase, timed=False):
+    """Kernel A (fresh stress, psi channels), the merge on its images and
+    kernel B (2x2 SVD, energy, maximum-stress trips) against their plain
+    versions on the 2D `state`, on the windows the path computes, and A and
+    B without the psi channels too. A: the images within p2g_errors's
+    bound; the merge bit-equal; B: g2p_errors's row tolerances on occupied
+    lanes, and the phase row equal but on lanes whose largest principal
+    stress (from B's own output F) lies within TIE of the threshold. With
+    `timed`, times and bounds. Returns {name: {...}}."""
+    import torch
+    from sparkl_tpu_torch.fused import kernels as K
+    from sparkl_tpu_torch.fused import layout as L
+    from sparkl_tpu_torch.math import svd
+    from sparkl_tpu_torch.models import failure as fail
+    from sparkl_tpu_torch.sparse import transfer as T
+
+    grid, cfg = pipe.grid, pipe._cfg
+    r = L.Rows(2)
+    nch = state.structure.num_chunks
+    tables = (pipe._tab_f, pipe._tab_i)
+    img_k = K.p2g_fused(grid, cfg, pipe._meta, state.slots, state.ints, dt, nch, tables)
+    img_p = K.p2g_fused_reference(grid, state.slots, state.ints, dt, nch, tables,
+                                  stress_cache=False, with_psi=True)
+    rows = image_rows(cfg, img_k)
+    first, nblk = state.structure.block_first_chunk, state.structure.block_num_chunks
+    m_k = K.merge_blocks(rows, first, nblk)
+    m_p = K.merge_blocks_reference(rows, first, nblk, T.MERGE_KMAX)
+    windows = pipe._grid_windows(state, img_k, dt)
+    slots_in = state.slots.clone()
+    args = (pipe._tab_f, pipe._tab_i, nch)
+    out_p = K.g2p_fused_reference(grid, slots_in, state.ints, windows, dt, *args,
+                                  velocity_clamp=pipe._kparams["gpu_velocity_clamp"],
+                                  stress_cache=False)
+    out_k = K.g2p_fused(grid, cfg, pipe._meta, pipe._kparams, slots_in.clone(), state.ints,
+                        windows, dt, *args)
+    # The forms without the psi channels (2D failure without eigenerosion):
+    # kernel A's 3-channel instance and B on the velocity windows alone.
+    meta0 = dict(pipe._meta, with_psi=False)
+    img0_k = K.p2g_fused(grid, cfg, meta0, state.slots, state.ints, dt, nch, tables)
+    img0_p = K.p2g_fused_reference(grid, state.slots, state.ints, dt, nch, tables,
+                                   stress_cache=False, with_psi=False)
+    out0_k = K.g2p_fused(grid, cfg, meta0, pipe._kparams, slots_in.clone(), state.ints,
+                         windows[:, :2].contiguous(), dt, *args)
+    torch.cuda.synchronize()
+    per_ch = p2g_errors(img_k, img_p) + p2g_errors(img0_k, img0_p)
+    occ = (state.ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0
+    row_errs = g2p_errors(out_k, out_p, state.ints, pipe.models.cparams, grid.cell_width,
+                          skip_rows=(r.phase,))
+    row_errs += g2p_errors(out0_k, out_p, state.ints, pipe.models.cparams, grid.cell_width,
+                           skip_rows=(r.phase,))
+    worst = {}
+    for _, grp, m, tol in row_errs:
+        worst[grp] = max(worst.get(grp, 0.0), m / tol if tol else m)
+    # The stress envelope on B's own output F: ties lie within TIE of it.
+    (ct, ft), p = K.model_columns(pipe._tab_f, pipe._tab_i, state.ints, range(16), (0, 2))
+    f = [[out_k[:, r.defgrad + 2 * i + j] for j in range(2)] for i in range(2)]
+    st = K.kirchhoff_stress_c(ct, p[0:4], slots_in[:, r.phase], slots_in[:, r.eh], f, None, None,
+                              None, (0,))
+    emax = svd.sym_eigvals2x2_c([[0.5 * (st[i][j] + st[j][i]) for j in range(2)]
+                                 for i in range(2)])[1]
+    mp = p[K.TAB_F]
+    tie = (ft == fail.MAXIMUM_STRESS) & ((emax - mp).abs() <= TIE * mp.abs())
+    differ = occ & (out_k[:, r.phase] != out_p[:, r.phase])
+    trips = occ & (out_p[:, r.phase] == 0.0) & (slots_in[:, r.phase] != 0.0)
+    res = {
+        "p2g_fused": dict(max_abs_err=max(e for _, e in per_ch),
+                          over_bound=max(m for m, _ in per_ch)),
+        "merge_blocks": dict(max_abs_err=(m_k - m_p).abs().max().item(),
+                             bit_equal=torch.equal(m_k, m_p)),
+        "g2p_fused": dict(max_abs_err=torch.where(occ[:, None, :], out_k - out_p,
+                                                  0.0).abs().max().item(),
+                          worst_over_tol=worst, trips=int(trips.sum()),
+                          trips_differ=int(differ.sum()), tie_lanes=int((tie & occ).sum())),
+    }
+    say(phase, f"2D kernels on the {label} state: p2g_fused images {tuple(img_k.shape)} and "
+               f"without psi {tuple(img0_k.shape)}, per channel max|err|/bound "
+               f"{[f'{m:.2e}' for m, _ in per_ch]} (pass <= 1); "
+               f"merge_blocks {tuple(m_k.shape)} bit-equal {res['merge_blocks']['bit_equal']}; "
+               f"g2p_fused worst measure/tol {({g: round(v, 4) for g, v in worst.items()})}; "
+               f"maximum-stress trips {res['g2p_fused']['trips']}, phase differing "
+               f"{res['g2p_fused']['trips_differ']} (lanes within {TIE:g} of the envelope "
+               f"{res['g2p_fused']['tie_lanes']})")
+    failures = []
+    if not (all(m <= 1.0 for m, _ in per_ch) and torch.isfinite(img_k).all().item()):
+        failures.append("p2g_fused")
+    if not res["merge_blocks"]["bit_equal"]:
+        failures.append("merge_blocks")
+    if not (all(v <= 1.0 for v in worst.values()) and not bool((differ & ~tie).any())
+            and torch.isfinite(torch.where(occ[:, None, :], out_k, 0.0)).all().item()):
+        failures.append("g2p_fused")
+    require(not failures, f"{failures} disagree with their plain versions on the {label} state")
+    if not timed:
+        return res
+    live, row = int(nch), 4 * cfg.chunk_size
+    lanes = int(((state.ints[:, L.I_FLAGS, :] & L.ACTIVE) != 0).sum())
+    merged = int(nblk.clamp(max=T.MERGE_KMAX).sum())
+    block = 4 * 4 * img_k.shape[1] * 16
+    scratch = slots_in.clone()
+    # The library yardstick of the merge: one segment sum over the valid
+    # chunks' rows (blocks own contiguous chunk ranges).
+    require(int(nblk.max()) <= T.MERGE_KMAX, "a block holds more than MERGE_KMAX chunks")
+    flat, lengths = rows.reshape(cfg.max_chunks, -1)[:int(nblk.sum())], nblk.long()
+    # Bytes counted from what the 2D damage forms read and write per live
+    # chunk: A reads pos 2, vel 2, grad 4, F 4, mass, vol0, phase, failed,
+    # eh, cpf, psi_pos (19 f32 rows) and flags, model, origin 2 (4 i32) and
+    # writes every chunk's [5, 64] image; B reads 26 f32 rows (pos, F, the
+    # scalar state, kinematic velocity, crack and bookkeeping rows), 4 i32
+    # rows and the [2, 64] velocity window, and writes all 40 rows.
+    for name, fn, plain, lib, nbytes, flops in (
+            ("p2g_fused", lambda: K.p2g_fused(grid, cfg, pipe._meta, state.slots, state.ints,
+                                              dt, nch, tables),
+             lambda: K.p2g_fused_reference(grid, state.slots, state.ints, dt, nch, tables,
+                                           stress_cache=False, with_psi=True), None,
+             live * 23 * row + cfg.max_chunks * 5 * 64 * 4,
+             lanes * (9 * P2G2_TAP_FLOPS + A2_SLOT_FLOPS)),
+            ("merge_blocks", lambda: K.merge_blocks(rows, first, nblk),
+             lambda: K.merge_blocks_reference(rows, first, nblk, T.MERGE_KMAX),
+             lambda: torch.segment_reduce(flat, "sum", lengths=lengths, axis=0),
+             (merged + nblk.shape[0]) * block, merged * block // 4),
+            ("g2p_fused", lambda: K.g2p_fused(grid, cfg, pipe._meta, pipe._kparams, scratch,
+                                              state.ints, windows, dt, *args),
+             lambda: K.g2p_fused_reference(grid, slots_in, state.ints, windows, dt, *args,
+                                           stress_cache=False), None,
+             live * ((26 + 4 + 40) * row + 2 * 64 * 4),
+             lanes * (9 * G2P2_TAP_FLOPS + B2_LANE_FLOPS))):
+        v = res[name]
+        v["ms"], v["plain_ms"] = cuda_median_ms(fn), cuda_median_ms(plain)
+        v["library_ms"] = cuda_median_ms(lib) if lib else None
+        v["bytes"], v["flops"] = nbytes, flops
+        v["bound_ms"], v["bound_by"] = bound(nbytes, flops)
+        say(phase, f"{name} (2D, {label}): kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, "
+                   f"library {v['library_ms']} ms (median of 20); {nbytes / 1e9:.4f} GB counted "
+                   f"from shapes; bound {v['bound_ms']:.4f} ms ({v['bound_by']})")
+    return res
+
+
+def phase_fracture_kernels():
+    """l_panel2's kernels against their plain versions on the card, at the
+    reference settings and at cell width 0.0025, on the path's state
+    FRACTURE_SUBSTEPS_IN substeps in: the pooling (and on a perturbed state
+    whose energies straddle the threshold), kernels A and B and the merge
+    (and B on a state with F perturbed so that maximum stress trips), and
+    the resort's source-row and permute kernels at C = 64 on a state
+    jittered by a cell (their resort on the card against a CPU copy).
+    Returns {config: {name: {...}}}."""
+    import torch
+
+    out = {}
+    for label, cell in (("reference", None), ("fine", FRACTURE_FINE_CELL)):
+        t0 = time.perf_counter()
+        b = fracture_bundle(cell)
+        pipe, state = fracture_state(b, FRACTURE_SUBSTEPS_IN)
+        dt = float(pipe._min_dtb(state))
+        h = b.grid.cell_width
+        say(12, f"l_panel2 {label}: {int(b.particles.active.sum())} particles, {pipe._cfg}, grid "
+                f"{b.grid.res}, {FRACTURE_SUBSTEPS_IN} substeps in, dt {dt:.3e}, set-up "
+                f"{time.perf_counter() - t0:.1f} s")
+        res = {"eigen_pool_fused": check_eigen(pipe, state, label, 12, timed=True)}
+        res["eigen_pool_fused"]["perturbed"] = check_eigen(
+            pipe, perturbed_eigen(state, h), f"{label} perturbed", 12)
+        res.update(check_kernels_2d(pipe, state, dt, label, 12, timed=True))
+        res["g2p_fused"]["perturbed"] = check_kernels_2d(
+            pipe, perturbed_f(state, seed=11, scale=2e-4), dt, f"{label} perturbed-F",
+            12)["g2p_fused"]
+        require(res["g2p_fused"]["perturbed"]["trips"] > 0,
+                "no maximum-stress trip on the perturbed-F state: the trip went unchecked")
+        require(res["eigen_pool_fused"]["perturbed"]["trips_kernel"] > 0,
+                "no eigenerosion trip on the perturbed state: the trip went unchecked")
+        rres, _ = phase_resort(pipe, jittered(state, h), phase=12)
+        res.update(rres)
+        out[label] = res
+        del pipe, state, b
+        torch.cuda.empty_cache()
+    return out
+
+
+def slot_stats(state):
+    """(broken, failed, mass) over the occupied slots of a 2D state: phase 0
+    (eigenerosion or maximum-stress trips), the failed flag, the active
+    mass in double."""
+    import torch
+    from sparkl_tpu_torch.fused import layout as L
+
+    r = L.Rows(2)
+    flags = state.ints[:, L.I_FLAGS, :]
+    occ = (flags & L.OCCUPIED) != 0
+    act = (flags & L.ACTIVE) != 0
+    broken = int((occ & (state.slots[:, r.phase] == 0.0)).sum())
+    failed = int((occ & (state.slots[:, r.failed] != 0.0)).sum())
+    mass = torch.where(act, state.slots[:, r.mass], 0.0).double().sum().item()
+    return broken, failed, mass
+
+
+def phase_fracture_main():
+    """The l_panel2 main path at the reference settings: scenes.build ->
+    auto_pipeline -> pack_state -> FRACTURE_FRAMES frames of
+    run_frames_state (the last FRACTURE_TIMED timed) -> unpack_state, with
+    each kernel's launches held against the substeps the pipeline ran
+    (retried spans included) and the resort branches; per frame the broken
+    and failed counts, the candidate-list regrows and the mass. Returns
+    (the pipeline, the final state, the launches, results)."""
+    import torch
+    import sparkl_tpu_torch as sk
+    from sparkl_tpu_torch.fused import kernels as K
+
+    b = fracture_bundle()
+    n_active = int(b.particles.active.sum())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = sk.auto_pipeline(b)
+    state = pipe.pack_state(b.particles)
+    mass0 = b.particles.mass[b.particles.active].double().sum().item()
+    # Substeps the pipeline runs, an aborted span's included.
+    ran = [0]
+    substep = pipe._substep
+
+    def counted(st, dt):
+        ran[0] += 1
+        return substep(st, dt)
+
+    pipe._substep = counted
+    K.reset_launch_counts()
+    substeps = resorts = 0
+    frames = []
+    for i in range(FRACTURE_FRAMES - FRACTURE_TIMED):
+        regrows = pipe.eigen_regrows
+        state, n = pipe.run_frames_state(state, 1)
+        substeps += n
+        resorts += pipe.last_resorts
+        broken, failed, mass = slot_stats(state)
+        frames.append(dict(frame=i, substeps=n, broken=broken, failed=failed, mass=mass,
+                           eigen_regrow=pipe.eigen_regrows > regrows))
+        require(abs(mass - mass0) <= 1e-6 * mass0, f"fracture path frame {i}: mass {mass} "
+                                                   f"against {mass0}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = 0
+    for _ in range(FRACTURE_TIMED):
+        state, n = pipe.run_frames_state(state, 1)
+        timed += n
+        resorts += pipe.last_resorts
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    substeps += timed
+    pipe._substep = substep
+    launches = dict(K.LAUNCHES)
+    branches = dict(pipe.resort_branches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    broken, failed, mass = slot_stats(state)
+    frames.append(dict(frame=FRACTURE_FRAMES - 1, timed_substeps=timed, broken=broken,
+                       failed=failed, mass=mass))
+    p = pipe.unpack_state(state)
+    act = p.active
+    pups = n_active * timed / seconds
+    for fr in frames:
+        say(13, f"fracture frame {fr['frame']}: " + ", ".join(
+            f"{k} {v}" for k, v in fr.items() if k != "frame"))
+    say(13, f"fracture path, {FRACTURE_FRAMES} frames: {substeps} substeps "
+            f"({substeps / FRACTURE_FRAMES:.1f} per frame), {ran[0]} run (with aborted spans), "
+            f"{resorts} resorts {branches}; eigen candidate list {pipe._eigen_mcb} per block, "
+            f"regrown {pipe.eigen_regrows} times (OVERFLOW_EIGEN fired: {pipe.eigen_regrows > 0}); "
+            f"scatter merge pinned {pipe._merge_force_scatter}; {pipe._cfg}; peak memory "
+            f"{peak_gib:.2f} GiB; launches {launches}")
+    say(13, f"fracture path: last {FRACTURE_TIMED} frames {timed} substeps in {seconds:.3f} s = "
+            f"{pups:.4g} particle-updates/s; broken {broken}, failed {failed} at the end"
+            + ("" if broken or failed else " (no trip within the frames run: the trips are "
+                                             "exercised by phase 12's perturbed states)"))
+    require(bool(torch.isfinite(p.position[act]).all()), "fracture path: non-finite positions")
+    require(abs(mass - mass0) <= 1e-6 * mass0, "fracture path: active mass not conserved")
+    require(sum(branches.values()) == resorts, f"resorts {resorts}, branches {branches}")
+    require(ran[0] >= substeps and (ran[0] == substeps or pipe.eigen_regrows > 0),
+            f"the pipeline ran {ran[0]} substeps for {substeps} kept, with no regrow")
+    # Per substep run: the pooling, A, B and the merge once; per resort the
+    # resort kernels by branch; no fluid kernel.
+    merge = "merge_scatter" if pipe._merge_force_scatter else "merge_blocks"
+    expect = dict(p2g_fused=ran[0], g2p_fused=ran[0], eigen_pool_fused=ran[0],
+                  merge_blocks=0, merge_scatter=0, mass_p2g_fused=0, mass_g2p_fused=0,
+                  src_rows_from_order=resorts - branches["relabel"],
+                  permute_slots=branches["mixed"])
+    expect[merge] = ran[0]
+    require(launches == expect, f"fracture path launch counts {launches}, expected {expect}")
+    return pipe, state, launches, dict(
+        substeps=substeps, substeps_run=ran[0], resorts=resorts, branches=branches,
+        timed_substeps=timed, seconds=seconds, pups=pups, peak_gib=peak_gib,
+        eigen_regrows=pipe.eigen_regrows, eigen_mcb=pipe._eigen_mcb, frames=frames,
+        config=str(pipe._cfg))
+
+
+def phase_fracture_agreement():
+    """l_panel2 at the reference settings: three single substeps on the
+    card against the port's CPU path (plain versions), with the JAX
+    package's fused-vs-dense tolerances, equal flags and phase; and one
+    frame run twice on the card, bit-equal in every particle field."""
+    from dataclasses import replace
+    import torch
+    import sparkl_tpu_torch as sk
+    from sparkl_tpu_torch import interop
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        b = fracture_bundle(device=dev)
+        pipe = sk.auto_pipeline(replace(b, params=replace(b.params, stop_after_one_substep=True)),
+                                device=dev)
+        state = pipe.pack_state(b.particles)
+        for _ in range(3):
+            state, _ = pipe.run_frames_state(state, 1)
+        out[dev] = pipe.unpack_state(state).to("cpu")
+    pg, pc = out["cuda"], out["cpu"]
+    act = pc.active
+    dx = (pg.position[act] - pc.position[act]).abs().max().item()
+    dv = (pg.velocity[act] - pc.velocity[act]).abs().max().item()
+    df = (pg.deformation_gradient[act] - pc.deformation_gradient[act]).abs().max().item()
+    flags = (torch.equal(pg.active, pc.active) and torch.equal(pg.failed[act], pc.failed[act])
+             and torch.equal(pg.phase[act], pc.phase[act]))
+    say(14, f"l_panel2, 3 substeps, card against CPU: max|dx| {dx:.3e} ({FRACTURE_DX:g}), "
+            f"max|dv| {dv:.3e} ({FRACTURE_DV:g}; max|v| "
+            f"{pc.velocity[act].abs().max().item():.4f}), max|dF| {df:.3e} ({FRACTURE_DF:g}), "
+            f"active, failed and phase equal {flags}")
+    require(flags, "l_panel2 card and CPU: flags or phase differ")
+    require(dx <= FRACTURE_DX and dv <= FRACTURE_DV and df <= FRACTURE_DF,
+            "l_panel2 card and CPU disagree")
+    runs = []
+    for _ in range(2):
+        b = fracture_bundle()
+        p, n = sk.auto_pipeline(b).step_with_stats(b.particles)
+        runs.append((interop.particles_to_numpy(p), n))
+    (a, na), (a2, na2) = runs
+    differ = [k for k in a if not (a[k] == a2[k]).all()]
+    say(14, f"l_panel2 one frame twice on the card: substeps {na}/{na2}, bit-equal in every "
+            f"particle field {not differ} (differ: {differ})")
+    require(not differ and na == na2, f"two card frames of l_panel2 differ in {differ}")
+    return dict(max_dx=dx, max_dv=dv, max_df=df, frame_substeps=na, repeat_bit_equal=not differ)
+
+
+def phase_fracture_regrow():
+    """The eigenerosion candidate list's regrow and retry on the card:
+    l_panel2's crack panel sampled at r = h/6 (9 particles per cell, 3
+    chunks to a block, past the list's 2) overflows at the span's start,
+    doubles the list and retries; one frame of it is bit-equal to the same
+    frame of a pipeline whose list held 4 from the start."""
+    from dataclasses import replace
+    import numpy as np
+    import sparkl_tpu_torch as sk
+    from sparkl_tpu_torch import interop
+    from sparkl_tpu_torch.scenes import scenes2d
+
+    b = fracture_bundle()
+    h = b.grid.cell_width
+    poly = np.array([[0.0, 0.0], [0.25, 0.0], [0.25, 0.25], [0.5, 0.25], [0.5, 0.5],
+                     [0.0, 0.5]], np.float32)
+    p = scenes2d._sample_polygon(poly, (40.0 * h, 40.0 * h), 0, h / 6.0, 2500.0,
+                                 b.particles.device, crack_propagation_factor=4.5,
+                                 crack_threshold=89.0, m_c=0.0, g=10.0)
+    b = replace(b, particles=p)
+    runs = []
+    for mcb in (2, 4):
+        pipe = sk.auto_pipeline(b)
+        pipe._eigen_mcb = mcb
+        q, n = pipe.step_with_stats(b.particles)
+        runs.append((interop.particles_to_numpy(q), n, pipe.eigen_regrows, pipe._eigen_mcb))
+    (a2, n2, g2, m2), (a4, n4, g4, m4) = runs
+    differ = [k for k in a2 if not (a2[k] == a4[k]).all()]
+    kmax = int(pipe.pack_state(b.particles).structure.block_num_chunks.max())
+    say(14, f"eigenerosion regrow on the card: {p.capacity} crack particles at r = h/6, up to "
+            f"{kmax} chunks per block; list of 2: regrown {g2} time(s) to {m2}, {n2} substeps; "
+            f"list of 4 from the start: regrown {g4} times, {n4} substeps; bit-equal in every "
+            f"particle field {not differ} (differ: {differ}); broken "
+            f"{int((a2['phase'] == 0).sum())}")
+    require(kmax > 2 and (g2, m2, g4, m4) == (1, 4, 0, 4),
+            "the eigenerosion candidate list did not regrow as required")
+    require(not differ and n2 == n4, f"the regrown run differs from the unregrown one in {differ}")
+    return dict(particles=p.capacity, kmax=kmax, regrows=g2, substeps=n2, bit_equal=not differ)
 
 
 def main():
@@ -1417,12 +2012,12 @@ def main():
             f"the main path took {resorts} lazy resorts, branches {branches}")
     # Each substep launches A, the merge and B once; each resort that
     # rebuilds the structure launches the source-row kernel once, and each
-    # mixed one the permute kernel once. The fluid pass's kernels and the
-    # scatter merge are not on this path.
+    # mixed one the permute kernel once. The fluid pass's kernels, the
+    # scatter merge and the pooling are not on this path.
     expect = dict(p2g_fused=substeps, merge_blocks=substeps, merge_scatter=0,
                   g2p_fused=substeps, mass_p2g_fused=0, mass_g2p_fused=0,
                   src_rows_from_order=resorts - branches["relabel"],
-                  permute_slots=branches["mixed"])
+                  permute_slots=branches["mixed"], eigen_pool_fused=0)
     require(launches == expect, f"launch counts {launches}, expected {expect}")
     missing = [k for k in K.LAUNCHES if PATH_OF[k] == "fused" and launches[k] == 0]
     require(not missing, f"kernels the main path never launched: {missing}")
@@ -1479,7 +2074,7 @@ def main():
 
     # 10. The fluid main path; then the fluid kernels one frame into it.
     fpipe, first, fstate, fluid_launches, fluid_res["main"] = phase_fluid_main(fb)
-    _, fluid_res["profile"] = profile_fluid_frame(fpipe, fstate)
+    _, fluid_res["profile"] = profile_frame(fpipe, fstate, "fluid_profile.txt", 10, "fluid")
     del fstate
     first = fpipe._recompute_fluids(first)  # as the next substep starts
     fdt = float(fpipe._min_dtb(first))
@@ -1498,12 +2093,33 @@ def main():
     fluid_res["fluids3"] = phase_fluids3()
     fluid_res["mixed"] = phase_mixed()
 
-    by_path = dict(fused=launches, sparse=sparse_launches, fluid=fluid_launches)
+    # 12. The l_panel2 kernels against their plain versions, at the
+    # reference settings and at cell width 0.0025.
+    fracture_res = {"kernels": phase_fracture_kernels()}
+    ref = fracture_res["kernels"]["reference"]
+    kres["eigen_pool_fused"] = ref["eigen_pool_fused"]
+
+    # 13. The l_panel2 main path; one profiled frame.
+    frpipe, frstate, fracture_launches, fracture_res["main"] = phase_fracture_main()
+    _, fracture_res["profile"] = profile_frame(frpipe, frstate, "fracture_profile.txt", 13,
+                                               "fracture")
+    missing = [k for k in ("eigen_pool_fused", "p2g_fused", "g2p_fused") if
+               fracture_launches[k] == 0]
+    require(not missing, f"kernels the fracture path never launched: {missing}")
+    del frpipe, frstate
+
+    # 14. l_panel2 card against CPU, and card against card; the candidate
+    # list's regrow and retry.
+    fracture_res["agreement"] = phase_fracture_agreement()
+    fracture_res["regrow"] = phase_fracture_regrow()
+
+    by_path = dict(fused=launches, sparse=sparse_launches, fluid=fluid_launches,
+                   fracture=fracture_launches)
     launches = {name: by_path[PATH_OF[name]][name] for name in REPLACES}
     missing = [k for k in REPLACES if launches[k] == 0]
     require(not missing, f"kernels their main paths never launched: {missing}")
 
-    # 12. Results.
+    # 15. Results.
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         dict(name=name, route="cuda",
@@ -1517,7 +2133,7 @@ def main():
                        resorts=resorts, timed_substeps=timed, seconds=seconds, pups=pups,
                        resort_branches=branches, resort_ms=resort_ms, peak_gib=peak_gib,
                        build_s=build_s, kernel_checks=kres, sparse=sparse_res,
-                       fluid=fluid_res), f, indent=1, default=str)
+                       fluid=fluid_res, fracture=fracture_res), f, indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

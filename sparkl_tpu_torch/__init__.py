@@ -12,10 +12,13 @@ The port carries sand3's configuration: 3D, corotated elasticity with
 optional Drucker-Prager plasticity, heightfield colliders and no damage, on
 two pipelines: fused.pipeline.FusedMpmPipeline (persistent slots, the stress
 cache on) and sparse.pipeline.SparseMpmPipeline (the block-sparse window
-transfers); and fluids3's, the Monaghan EOS fluid with fluid volume
-recomputation (alone or mixed with those solids), on the fused pipeline.
-Every entry point that takes a device defaults to "cuda" and
-raises without one; pass device="cpu" for the plain PyTorch versions.
+transfers); fluids3's, the Monaghan EOS fluid with fluid volume
+recomputation (alone or mixed with those solids), on the fused pipeline;
+and l_panel2's, 2D corotated fracture with eigenerosion and maximum-stress
+failure, a cuboid ground, STICK handling and a Dirichlet velocity hook, on
+the fused pipeline. Every entry point that takes a device defaults to
+"cuda" and raises without one; pass device="cpu" for the plain PyTorch
+versions.
 """
 
 from sparkl_tpu_torch.core.params import (
@@ -27,18 +30,19 @@ from sparkl_tpu_torch.core.params import (
 from sparkl_tpu_torch.core.grid import GridParams, GridState
 from sparkl_tpu_torch.core.particles import Particles, cube_particles
 from sparkl_tpu_torch.models.registry import ModelSet, ParticleModel
-from sparkl_tpu_torch.geometry.colliders import Collider, heightfield
+from sparkl_tpu_torch.geometry.colliders import Collider, cuboid, heightfield
 from sparkl_tpu_torch.fused.pipeline import FusedMpmPipeline
 from sparkl_tpu_torch.sparse.pipeline import SparseMpmPipeline
 
 
 def auto_pipeline(bundle, prefer="auto", device="cuda", **kw):
-    """Build a pipeline for a scene bundle. "auto" and "fused" build the
-    fused persistent-slot pipeline (the JAX package's "auto" takes it for
-    every configuration it supports, and the port's sparse pipeline carries
-    no configuration it does not); "sparse" builds the block-sparse one;
-    the dense pipeline is not ported."""
-    args = (bundle.grid, bundle.models, bundle.colliders, bundle.params, bundle.gravity)
+    """Build a pipeline for a scene bundle, with its hooks. "auto" and
+    "fused" build the fused persistent-slot pipeline (the JAX package's
+    "auto" takes it for every configuration it supports, and the port's
+    sparse pipeline carries no configuration it does not); "sparse" builds
+    the block-sparse one; the dense pipeline is not ported."""
+    args = (bundle.grid, bundle.models, bundle.colliders, bundle.params, bundle.gravity,
+            bundle.hooks)
     if prefer == "dense":
         raise NotImplementedError("auto_pipeline: the dense MpmPipeline is not ported")
     if prefer == "sparse":
@@ -63,5 +67,6 @@ __all__ = [
     "SparseMpmPipeline",
     "auto_pipeline",
     "cube_particles",
+    "cuboid",
     "heightfield",
 ]

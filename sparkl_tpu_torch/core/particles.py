@@ -120,10 +120,11 @@ class Particles:
 
     @staticmethod
     def from_positions(positions, model_id, radius, density0, device,
-                       capacity=None) -> "Particles":
+                       capacity=None, **overrides) -> "Particles":
         """Particles at the given positions: volume0 = (2r)^d,
         mass = volume0 * density0 (ref: particle.rs
-        `Particle::with_internal_energy`)."""
+        `Particle::with_internal_energy`); `overrides` set other fields of
+        the new rows to a value (e.g. crack_threshold=89.0)."""
         positions = np.asarray(positions, np.float32)
         n, d = positions.shape
         capacity = capacity or n
@@ -138,6 +139,8 @@ class Particles:
         p.radius0[:n] = radius
         p.model_id[:n] = int(model_id)
         p.active[:n] = True
+        for k, v in overrides.items():
+            getattr(p, k)[:n] = v
         return p
 
     @staticmethod

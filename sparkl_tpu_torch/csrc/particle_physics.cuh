@@ -1,16 +1,22 @@
-// Per-particle physics of kernel B, one particle per thread, in registers.
+// Per-particle physics of kernels A and B, one particle per thread, in
+// registers.
 //
 // A scalar CUDA copy of the JAX package's component-wise ("_c") functions
-// that kernel B (sparkl_tpu/fused/kernels.py:_g2p_kernel) composes:
+// that kernels A and B (sparkl_tpu/fused/kernels.py:_p2g_kernel,
+// _g2p_kernel) compose:
 //   svd3 ............ sparkl_tpu/math/svd.py svd3x3_c, cardano path
 //                     (_cardano_trig_vals, _cardano_refined_vals,
 //                     _sym_eig3x3_cardano, _svd3x3_from_eig)
+//   svd2 ............ sparkl_tpu/math/svd.py svd2x2_c (polar decomposition
+//                     and one algebraic Givens rotation)
 //   dp_update ....... sparkl_tpu/models/plasticity.py
 //                     drucker_prager_project_s_c + _update_with_svd_c
 //   corotated_* ..... sparkl_tpu/models/constitutive.py
 //                     corotated_kirchhoff_stress_from_svd_c,
-//                     corotated_pos_energy_from_s_c,
+//                     corotated_pos_energy_from_s_c (2D and 3D),
 //                     sound_speed_timestep_bound_c
+//   maximum_stress_failed2  sparkl_tpu/models/failure.py
+//                     maximum_stress_failed_c in 2D (sym_eigvals2x2_c)
 //   eos_* ........... sparkl_tpu/models/constitutive.py eos_pressure,
 //                     eos_kirchhoff_stress_c, eos_timestep_bound_c (with
 //                     math/cmat.py pow_pos, strain_rate_c, deviatoric_c)
@@ -19,18 +25,24 @@
 // keep the JAX package's operand order, so results differ from the plain
 // versions by rounding only (the library's expf/logf/sinf, and FMA
 // contraction, which the build turns off). 1/sqrtf stands for rsqrt, as
-// PyTorch's and XLA's CPU backends compute it.
+// PyTorch's and XLA's CPU backends compute it. The 2D functions are
+// __host__ __device__; the rest serve the kernels only.
 #pragma once
 
 #include <math.h>
 
 namespace sparkl {
 
-__device__ __forceinline__ float det3(const float m[3][3]) {
+__host__ __device__ inline float det3(const float m[3][3]) {
   return m[0][0] * (m[1][1] * m[2][2] - m[1][2] * m[2][1]) -
          m[0][1] * (m[1][0] * m[2][2] - m[1][2] * m[2][0]) +
          m[0][2] * (m[1][0] * m[2][1] - m[1][1] * m[2][0]);
 }
+
+__host__ __device__ inline float det(const float m[2][2]) {
+  return m[0][0] * m[1][1] - m[0][1] * m[1][0];
+}
+__host__ __device__ inline float det(const float m[3][3]) { return det3(m); }
 
 __device__ __forceinline__ void cross3(const float x[3], const float y[3],
                                        float o[3]) {
@@ -238,13 +250,67 @@ __device__ __forceinline__ void svd3(const float f[3][3], float u[3][3],
   }
 }
 
+// f = u diag(s) v^T, s >= 0 unsorted (svd.py svd2x2_c): F = R S with R a
+// rotation, S = G diag(l) G^T by one algebraic Givens rotation, V = G, U =
+// R G, and a negative eigenvalue's sign flipped into U.
+__host__ __device__ inline void svd2(const float f[2][2], float u[2][2], float s[2],
+                                     float v[2][2]) {
+  const float a = f[0][0], b = f[0][1], c = f[1][0], d = f[1][1];
+  const float x = a + d, y = c - b;
+  const float r = sqrtf(x * x + y * y);
+  const bool ok = r > 1e-20f;
+  const float r_safe = ok ? r : 1.0f;
+  const float cr = ok ? x / r_safe : 1.0f;
+  const float sr = ok ? y / r_safe : 0.0f;
+  const float s00 = cr * a + sr * c;
+  const float s01 = cr * b + sr * d;
+  const float s11 = -sr * b + cr * d;
+
+  const float diff = s00 - s11;
+  const bool denom_ok = fabsf(s01) > 1e-30f;
+  const float tau = diff / (denom_ok ? 2.0f * s01 : 1.0f);
+  const float sgn = tau > 0.0f ? 1.0f : (tau < 0.0f ? -1.0f : 0.0f);
+  float t = sgn / (fabsf(tau) + sqrtf(1.0f + tau * tau));
+  if (tau == 0.0f) t = 1.0f;
+  if (!denom_ok) t = 0.0f;
+  const float ct = 1.0f / sqrtf(1.0f + t * t);
+  const float st = t * ct;
+  const float l0 = ct * ct * s00 + 2.0f * ct * st * s01 + st * st * s11;
+  const float l1 = st * st * s00 - 2.0f * ct * st * s01 + ct * ct * s11;
+
+  const float sign0 = l0 < 0.0f ? -1.0f : 1.0f;
+  const float sign1 = l1 < 0.0f ? -1.0f : 1.0f;
+  v[0][0] = ct;
+  v[0][1] = -st;
+  v[1][0] = st;
+  v[1][1] = ct;
+  u[0][0] = (cr * v[0][0] - sr * v[1][0]) * sign0;
+  u[0][1] = (cr * v[0][1] - sr * v[1][1]) * sign1;
+  u[1][0] = (sr * v[0][0] + cr * v[1][0]) * sign0;
+  u[1][1] = (sr * v[0][1] + cr * v[1][1]) * sign1;
+  s[0] = l0 * sign0;
+  s[1] = l1 * sign1;
+}
+
+__device__ __forceinline__ void svd(const float f[2][2], float u[2][2], float s[2],
+                                    float v[2][2]) {
+  svd2(f, u, s, v);
+}
+__device__ __forceinline__ void svd(const float f[3][3], float u[3][3], float s[3],
+                                    float v[3][3]) {
+  svd3(f, u, s, v);
+}
+
 // u diag(s) v^T.
-__device__ __forceinline__ void recompose3(const float u[3][3], const float s[3],
-                                           const float v[3][3], float o[3][3]) {
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j)
-      o[i][j] = u[i][0] * s[0] * v[j][0] + u[i][1] * s[1] * v[j][1] +
-                u[i][2] * s[2] * v[j][2];
+template <int D>
+__host__ __device__ inline void recompose(const float u[D][D], const float s[D],
+                                          const float v[D][D], float o[D][D]) {
+  for (int i = 0; i < D; ++i)
+    for (int j = 0; j < D; ++j) {
+      float acc = u[i][0] * s[0] * v[j][0];
+      for (int k = 1; k < D; ++k) acc = acc + u[i][k] * s[k] * v[j][k];
+      o[i][j] = acc;
+    }
 }
 
 __device__ __forceinline__ float safe_div(float a, float b) {
@@ -290,38 +356,44 @@ __device__ __forceinline__ void dp_update(const float pp[8], float phase,
     lvg = lvg + (logf(fmaxf(prev_det, 1e-30f)) - logf(fmaxf(new_det, 1e-30f)));
     ph = ph + dq;
     for (int k = 0; k < 3; ++k) s[k] = new_s[k];
-    recompose3(u, s, v, f);
+    recompose<3>(u, s, v, f);
   }
 }
 
-// Kirchhoff stress of corotated linear elasticity from an SVD of f.
-__device__ __forceinline__ void corotated_stress(float lam, float mu,
-                                                 float split_on_failure,
+// Kirchhoff stress of corotated linear elasticity from an SVD of f, 2D or
+// 3D: 2 mu h (U (s-1)+ V^T F^T, U (s-1)- V^T F^T) plus the spherical part
+// lam h (J-1) J on the side its sign selects, the positive part dropped
+// when the particle is broken (phase 0) and split_on_failure is set.
+template <int D>
+__host__ __device__ inline void corotated_stress(float lam, float mu, float split_on_failure,
                                                  float phase, float hardening,
-                                                 const float f[3][3],
-                                                 const float u[3][3],
-                                                 const float s[3],
-                                                 const float v[3][3],
-                                                 float out[3][3]) {
-  float j = det3(f);
-  float pos[3], neg[3];
-  for (int k = 0; k < 3; ++k) {
+                                                 const float f[D][D], const float u[D][D],
+                                                 const float s[D], const float v[D][D],
+                                                 float out[D][D]) {
+  float j = det(f);
+  float pos[D], neg[D];
+  for (int k = 0; k < D; ++k) {
     pos[k] = fmaxf(s[k] - 1.0f, 0.0f);
     neg[k] = fminf(s[k] - 1.0f, 0.0f);
   }
-  float rp[3][3], rn[3][3];
-  recompose3(u, pos, v, rp);
-  recompose3(u, neg, v, rn);
+  float rp[D][D], rn[D][D];
+  recompose<D>(u, pos, v, rp);
+  recompose<D>(u, neg, v, rn);
   float coeff = 2.0f * mu * hardening;
   float spherical = lam * hardening * (j - 1.0f) * j;
   bool compressed = j < 1.0f;
   float sph_pos = compressed ? 0.0f : spherical;
   float sph_neg = compressed ? spherical : 0.0f;
   float phase_coeff = (split_on_failure != 0.0f && phase == 0.0f) ? 0.0f : 1.0f;
-  for (int i = 0; i < 3; ++i) {
-    for (int jj = 0; jj < 3; ++jj) {
-      float pd = (rp[i][0] * f[jj][0] + rp[i][1] * f[jj][1] + rp[i][2] * f[jj][2]) * coeff;
-      float nd = (rn[i][0] * f[jj][0] + rn[i][1] * f[jj][1] + rn[i][2] * f[jj][2]) * coeff;
+  for (int i = 0; i < D; ++i) {
+    for (int jj = 0; jj < D; ++jj) {
+      float pd = rp[i][0] * f[jj][0], nd = rn[i][0] * f[jj][0];
+      for (int k = 1; k < D; ++k) {
+        pd = pd + rp[i][k] * f[jj][k];
+        nd = nd + rn[i][k] * f[jj][k];
+      }
+      pd = pd * coeff;
+      nd = nd * coeff;
       if (i == jj) {
         pd = pd + sph_pos;
         nd = nd + sph_neg;
@@ -331,18 +403,35 @@ __device__ __forceinline__ void corotated_stress(float lam, float mu,
   }
 }
 
-// Tensile energy from the singular values s of f.
-__device__ __forceinline__ float corotated_pos_energy(float lam, float mu,
-                                                      float hardening,
-                                                      const float f[3][3],
-                                                      const float s[3]) {
-  float j = det3(f);
-  float t0 = fmaxf(s[0] - 1.0f, 0.0f), t1 = fmaxf(s[1] - 1.0f, 0.0f),
-        t2 = fmaxf(s[2] - 1.0f, 0.0f);
-  float pos_dev = mu * hardening * (t0 * t0 + t1 * t1 + t2 * t2);
+// Tensile energy from the singular values s of f, 2D or 3D.
+template <int D>
+__host__ __device__ inline float corotated_pos_energy(float lam, float mu, float hardening,
+                                                      const float f[D][D], const float s[D]) {
+  float j = det(f);
+  float sq = 0.0f;
+  for (int k = 0; k < D; ++k) {
+    const float tk = fmaxf(s[k] - 1.0f, 0.0f);
+    sq = sq + tk * tk;
+  }
+  float pos_dev = mu * hardening * sq;
   float jm = j - 1.0f;
   float spherical = lam * hardening / 2.0f * (jm * jm);
   return j < 1.0f ? pos_dev : pos_dev + spherical;
+}
+
+// Maximum-stress failure in 2D: the eigenvalues of sym(stress) in closed
+// form; failed where the larger exceeds max_principal or half their spread
+// exceeds max_shear.
+__host__ __device__ inline bool maximum_stress_failed2(float max_principal, float max_shear,
+                                                       const float st[2][2]) {
+  const float a = 0.5f * (st[0][0] + st[0][0]);
+  const float b = 0.5f * (st[0][1] + st[1][0]);
+  const float c = 0.5f * (st[1][1] + st[1][1]);
+  const float mean = 0.5f * (a + c);
+  const float r = sqrtf(fmaxf(0.25f * ((a - c) * (a - c)) + b * b, 0.0f));
+  const float e0 = mean - r, e1 = mean + r;
+  const float emin = fminf(e0, e1), emax = fmaxf(e0, e1);
+  return (emax > max_principal) || ((emax - emin) / 2.0f > max_shear);
 }
 
 // dt <= alpha h / max(|v|, c), c = sqrt((K + 4/3 G) / rho0).

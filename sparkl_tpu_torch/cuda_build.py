@@ -42,9 +42,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     # slots, ints, nchunks, tab_f, tab_i, m_count, out, max_chunks, dt, ox, oy,
-    # oz, h, invd, d_coeff, rx, ry, rz, stream
+    # oz, h, invd, d_coeff, rx, ry, rz, dim, opts, stream
     "sparkl_p2g_fused": [_VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _F, _F, _F, _F, _F,
-                         _F, _F, _I, _I, _I, _VP],
+                         _F, _F, _I, _I, _I, _I, _I, _VP],
     # rows, first, nchunks, out, max_blocks, width, kmax, stream
     "sparkl_merge_blocks": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     # rows, order, starts, out, n_rows, width, stream
@@ -58,13 +58,16 @@ _SIGNATURES = {
     "sparkl_mass_g2p_fused": [_VP, _VP, _VP, _VP, _VP, _I, _F, _F, _F, _F, _F,
                               _F, _I, _I, _I, _VP],
     # slots, ints, windows, nchunks, tab_f, tab_i, m_count, max_chunks, dt,
-    # ox, oy, oz, h, invd, d_coeff, rx, ry, rz, velocity_clamp, stream
+    # ox, oy, oz, h, invd, d_coeff, rx, ry, rz, dim, n_win, opts, stream
     "sparkl_g2p_fused": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _F, _F, _F, _F,
-                         _F, _F, _F, _I, _I, _I, _I, _VP],
-    # order2, shifts, out, max_chunks, stream
-    "sparkl_src_rows_from_order": [_VP, _VP, _VP, _I, _VP],
-    # slots, ints, src, origin, out_f, out_i, max_chunks, dim, r_cumd, stream
-    "sparkl_permute_slots": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
+                         _F, _F, _F, _I, _I, _I, _I, _I, _I, _VP],
+    # order2, shifts, out, max_chunks, c, stream
+    "sparkl_src_rows_from_order": [_VP, _VP, _VP, _I, _I, _VP],
+    # slots, ints, src, origin, out_f, out_i, max_chunks, dim, r_cumd, nf, c,
+    # stream
+    "sparkl_permute_slots": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+    # e, cand, out, max_chunks, kn, r2, stream
+    "sparkl_eigen_pool": [_VP, _VP, _VP, _I, _I, _F, _VP],
     # slot_data, out, max_chunks, with_psi, ox, oy, oz, h, invd, stream
     "sparkl_p2g_windows": [_VP, _VP, _I, _I, _F, _F, _F, _F, _F, _VP],
     # slot_data, windows, out, max_chunks, with_psi, ox, oy, oz, h, invd, stream

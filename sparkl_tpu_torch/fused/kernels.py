@@ -1,30 +1,34 @@
 """The fused substep's kernels: kernel A (P2G images), the block merge,
 the scatter merge, kernel B (G2P + particle update), the fluid volume
-pass's mass-only P2G and G2P, and the resort's source-row and permute
-kernels, each a hand-written CUDA kernel (csrc/fused_kernels.cu) with its
-plain PyTorch version beside it.
+pass's mass-only P2G and G2P, the eigenerosion pooling, and the resort's
+source-row and permute kernels, each a hand-written CUDA kernel
+(csrc/fused_kernels.cu) with its plain PyTorch version beside it.
 
 Port of sparkl_tpu/fused/kernels.py for the configurations the port
-carries: 3D, corotated elasticity with optional Drucker-Prager and the
+carries: in 3D, corotated elasticity with optional Drucker-Prager and the
 Monaghan EOS fluid (alone or mixed with solids), the stress cache on, no
-damage channels, no failure models. A wrapper runs the plain version when
-its tensors lie on the CPU and launches the kernel when they lie on a CUDA
-device; anything else raises. There is no fallback from a kernel to its
-plain version. Each wrapper counts its kernel launches in LAUNCHES (the CPU
-path counts nothing).
+damage, no failure models; in 2D (chunks of 64 slots, row-major window
+cells), corotated elasticity with the stress cache off (kernel A forms the
+stress from F), the eigenerosion psi channels and maximum-stress failure.
+A wrapper runs the plain version when its tensors lie on the CPU and
+launches the kernel when they lie on a CUDA device; anything else raises.
+There is no fallback from a kernel to its plain version. Each wrapper
+counts its kernel launches in LAUNCHES (the CPU path counts nothing).
 """
 
 import numpy as np
 import torch
 
 from sparkl_tpu_torch.core.grid import GridParams
+from sparkl_tpu_torch.core.params import DamageModel
 from sparkl_tpu_torch.cuda_build import check_tensor, launch, route, stream_ptr
 from sparkl_tpu_torch.math import cmat, linalg
 from sparkl_tpu_torch.math.kernel import inv_d as kernel_inv_d, quadratic_weights_1d
 from sparkl_tpu_torch.math.svd import svd_c
 from sparkl_tpu_torch.models import constitutive as con
+from sparkl_tpu_torch.models import failure as fail
 from sparkl_tpu_torch.models import plasticity as plas
-from sparkl_tpu_torch.sparse.blocks import region_cells
+from sparkl_tpu_torch.sparse.blocks import default_chunk_size, region_cells
 from sparkl_tpu_torch.fused import layout as L
 
 # Packed model-table columns: f32 [M, 16] = cparams(0:4) | pparams(4:12) |
@@ -36,7 +40,12 @@ TAB_F = 12
 # Kernel launches per wrapper since the last reset_launch_counts().
 LAUNCHES = {"p2g_fused": 0, "merge_blocks": 0, "merge_scatter": 0, "g2p_fused": 0,
             "mass_p2g_fused": 0, "mass_g2p_fused": 0, "src_rows_from_order": 0,
-            "permute_slots": 0}
+            "permute_slots": 0, "eigen_pool_fused": 0}
+
+# Rows of the packed eigen tensor: pos (d), m·psi_pos, m, eligible; row 7
+# of the candidate tensor flags "candidate == own chunk".
+EIG_ROWS = 8
+EIG_SELF = 7
 
 
 def reset_launch_counts():
@@ -58,43 +67,72 @@ def pack_model_tables(models):
 
 def kernel_meta(models, params):
     """Static description of a scene for the kernels (the JAX package's
-    `meta` dict); _check_meta says which of them the port carries."""
+    `meta` dict, sparkl_tpu/fused/pipeline.py:102-119); meta_unsupported
+    says which of them the port carries. The stress cache is off for damage
+    and failure scenes, whose phase changes between the kernels."""
+    damage = params.damage_model
     return dict(
-        with_psi=False,
+        with_psi=damage in (DamageModel.EIGENEROSION, DamageModel.MODIFIED_EIGENEROSION),
         m_count=models.num_models,
         present_c=models.present_c,
         present_p=models.present_p,
         present_f=models.present_f,
-        damage_model=int(params.damage_model),
-        stress_cache=True,
+        damage_model=int(damage),
+        stress_cache=damage == DamageModel.NONE and not models.present_f,
     )
 
 
-def _check_meta(meta):
+def meta_unsupported(meta, dim):
+    """Why the fused kernels cannot run this scene in `dim` dimensions: a
+    list of reasons, empty if they can. 3D runs with the stress cache on
+    (no damage, no failure model); 2D runs with it off (damage or failure),
+    corotated only."""
     why = []
-    if meta["with_psi"]:
-        why.append("damage (psi) channels")
-    if meta["damage_model"] != 0:
-        why.append(f"damage model {meta['damage_model']}")
-    if not meta["stress_cache"]:
-        why.append("stress cache off")
+    if meta["damage_model"] not in (DamageModel.NONE, DamageModel.EIGENEROSION):
+        why.append(f"damage model {DamageModel(meta['damage_model']).name}")
     if set(meta["present_c"]) - {con.COROTATED, con.EOS_MONAGHAN_SPH}:
         why.append(f"constitutive types {meta['present_c']}")
     if set(meta["present_p"]) - {plas.DRUCKER_PRAGER}:
         why.append(f"plastic types {meta['present_p']}")
-    if meta["present_f"]:
-        why.append(f"failure models {meta['present_f']}")
+    if set(meta["present_f"]) - {fail.MAXIMUM_STRESS}:
+        why.append(f"failure types {meta['present_f']}")
+    if dim == 3 and not meta["stress_cache"]:
+        why.append("3D damage or failure models (the stress cache off)")
+    if dim == 2:
+        if meta["stress_cache"]:
+            why.append("2D without damage or failure (the stress cache on)")
+        if con.EOS_MONAGHAN_SPH in meta["present_c"]:
+            why.append("2D fluids")
+        if meta["present_p"]:
+            why.append("2D plasticity")
+    if dim not in (2, 3):
+        why.append(f"{dim}D")
+    return why
+
+
+def _check_meta(meta, dim):
+    why = meta_unsupported(meta, dim)
     if why:
         raise NotImplementedError("fused kernels do not carry: " + ", ".join(why))
 
 
 def _grid_args(grid: GridParams):
-    if grid.dim != 3:
-        raise NotImplementedError("fused kernels: only 3D is ported")
+    """The kernels' grid constants, padded to three axes (a 2D grid passes
+    z origin 0 and resolution 1)."""
     h = grid.cell_width
+    pad = 3 - grid.dim
     # Constants derived from h in double, as the JAX kernels fold them.
-    return ([float(o) for o in grid.origin] + [h, kernel_inv_d(h), (h * h) / 4.0]
-            + [int(r) for r in grid.res])
+    return ([float(o) for o in grid.origin] + [0.0] * pad
+            + [h, kernel_inv_d(h), (h * h) / 4.0]
+            + [int(r) for r in grid.res] + [1] * pad)
+
+
+def _check_shape_route(name, dim, c):
+    """The CUDA kernels are built for the two layouts the port carries:
+    3D chunks of 128 slots and 2D chunks of 64."""
+    if c != default_chunk_size(dim):
+        raise NotImplementedError(
+            f"{name}: chunk size {c} in {dim}D (the kernel takes {default_chunk_size(dim)})")
 
 
 # ---------------------------------------------------------------------------
@@ -106,10 +144,10 @@ def _slot_geometry(grid: GridParams, slots, ints):
     """Per axis: base cell, fx, window-relative base `rel`, and the masks
     in_window (rel in [0, 5]) and in_bounds (stencil inside the grid)."""
     h = grid.cell_width
-    r = L.Rows(3)
+    r = L.Rows(grid.dim)
     base, fx, rel = [], [], []
     in_window = in_bounds = None
-    for ax in range(3):
+    for ax in range(grid.dim):
         xg = linalg.div(slots[:, r.pos + ax, :] - grid.origin[ax], h)
         b = torch.round(xg).to(torch.int32) - 1
         f = xg - b.to(torch.float32)
@@ -130,7 +168,7 @@ def _taps(grid: GridParams, fx, rel):
     of operations)."""
     h = grid.cell_width
     w, dpt = [], []
-    for ax in range(3):
+    for ax in range(grid.dim):
         f = fx[ax]
         px = rel[ax].to(torch.float32) + f
         w.append(list(quadratic_weights_1d(f).unbind(-1)))
@@ -139,15 +177,18 @@ def _taps(grid: GridParams, fx, rel):
 
 
 _TAPS = [(a, b, c) for a in range(3) for b in range(3) for c in range(3)]
+_TAPS2 = [(a, b) for a in range(3) for b in range(3)]
 
 
 def _tap_cells(rel, contrib):
-    """[D, 27, C] z-major cell of every tap (0 where the slot does not
-    contribute)."""
-    q = torch.stack(
-        [(rel[2] + c) * 64 + (rel[0] + a) * 8 + (rel[1] + b) for a, b, c in _TAPS], dim=1
-    )
-    return torch.where(contrib[:, None, :], q, 0).long()
+    """[D, 3^d, C] window cell of every tap (0 where the slot does not
+    contribute): z-major q = z*64 + x*8 + y in 3D, row-major q = x*8 + y
+    in 2D."""
+    if len(rel) == 3:
+        q = [(rel[2] + c) * 64 + (rel[0] + a) * 8 + (rel[1] + b) for a, b, c in _TAPS]
+    else:
+        q = [(rel[0] + a) * 8 + (rel[1] + b) for a, b in _TAPS2]
+    return torch.where(contrib[:, None, :], torch.stack(q, dim=1), 0).long()
 
 
 def _live_count(nchunks, d_):
@@ -173,7 +214,7 @@ def timestep_bound_c(ct, p, eh, f, mass, vol0, vel, h, present_c):
     """Per-slot constitutive dt bound (the JAX package's _timestep_bound_c):
     the corotated sound-speed bound, the EOS bound from J = F00, +inf for
     other model types. ct [D, C] model types, p the four constitutive
-    parameter rows, vel the three velocity rows; present_c the model set's
+    parameter rows, vel the d velocity rows; present_c the model set's
     types (only their bounds are formed, with no host read)."""
     vnorm, vsq = _vnorm(vel)
     density0 = mass / torch.clamp(vol0, min=1e-30)
@@ -185,7 +226,7 @@ def timestep_bound_c(ct, p, eh, f, mass, vol0, vel, h, present_c):
         fluid_j = f[0][0]
         density_fluid = density0 / torch.clamp(fluid_j, min=1e-20)
         b = con.eos_timestep_bound_c(p[0], p[1], p[3], fluid_j, mass, vol0, density_fluid,
-                                     vsq, h, 3)
+                                     vsq, h, len(vel))
         out = torch.where(ct == con.EOS_MONAGHAN_SPH, b, out)
     return out
 
@@ -200,13 +241,36 @@ def dt_bound_row(h, vel, g, con_bound, failed, active):
     constitutive one (+inf for failed slots), +inf on inactive slots,
     clipped to BIGF (slot rows are inf-free). Ref: timestep_estimator.rs."""
     norm_b = (h * h) / 4.0 * torch.sqrt(cmat.frob2_c(g))
-    apic_v = linalg.div(norm_b * 6.0 * float(np.sqrt(3)), h)
+    apic_v = linalg.div(norm_b * 6.0 * float(np.sqrt(len(vel))), h)
     vtot = _vnorm(vel)[0] + apic_v
     vel_bound = torch.where(vtot > 0.0, linalg.rdiv(h, torch.clamp(vtot, min=1e-20)),
                             float("inf"))
     con_bound = torch.where(failed, float("inf"), con_bound)
     bound = torch.where(active, torch.minimum(vel_bound, con_bound), float("inf"))
     return torch.clamp(bound, max=L.BIGF)
+
+
+def kirchhoff_stress_c(ct, p, phase, eh, f, g, mass, vol0, present_c, usv=None):
+    """Fresh per-slot Kirchhoff stress (the JAX package's
+    _kirchhoff_stress_c): corotated from an SVD of f (`usv`, if the caller
+    has one), EOS from J = F00, zero for other model types. ct [D, C] model
+    types, p the four constitutive parameter rows."""
+    out = cmat.zeros_like_mat(f)
+    if con.COROTATED in present_c:
+        u, s, v = svd_c(f) if usv is None else usv
+        st = con.corotated_kirchhoff_stress_from_svd_c(p[0], p[1], p[3], phase, eh, f, u, s, v)
+        out = cmat.where_mat(ct == con.COROTATED, st, out)
+    if con.EOS_MONAGHAN_SPH in present_c:
+        out = cmat.where_mat(ct == con.EOS_MONAGHAN_SPH,
+                             _eos_stress_c(p, mass, vol0, f[0][0], g), out)
+    return out
+
+
+def _sym_expand(st, dim):
+    """Upper-triangle stress rows -> the full nested-list matrix."""
+    if dim == 2:
+        return [[st[0], st[1]], [st[1], st[2]]]
+    return [[st[0], st[1], st[2]], [st[1], st[3], st[4]], [st[2], st[4], st[5]]]
 
 
 def model_columns(tab_f, tab_i, ints, f_cols, i_cols=(0,)):
@@ -229,14 +293,19 @@ def model_columns(tab_f, tab_i, ints, f_cols, i_cols=(0,)):
 # ---------------------------------------------------------------------------
 
 
-def p2g_fused_reference(grid: GridParams, slots, ints, dt, nchunks, tables=None):
-    """Plain version of kernel A: slots [D, 56, C] -> images [D, 4, 512]
-    (mass, momentum), z-major cells. Chunks >= nchunks are zero. Each slot
-    scatters its 27 taps, w·(m v + A·dpt) with the APIC affine
-    A = m ∇v − V0 D⁻¹ dt σ (σ from the stress-cache rows, or fresh from J =
-    F00 for EOS slots when the model `tables` (tab_f, tab_i) are given;
-    zero for failed particles), masked by active & in-window & in-grid."""
-    r = L.Rows(3)
+def p2g_fused_reference(grid: GridParams, slots, ints, dt, nchunks, tables=None,
+                        stress_cache=True, with_psi=False):
+    """Plain version of kernel A: slots [D, NF, C] -> images [D, nf, 8^d]
+    (mass, momentum d, and with `with_psi` the psi momentum and psi mass),
+    z-major cells in 3D, row-major in 2D. Chunks >= nchunks are zero. Each
+    slot scatters its 3^d taps, w·(m v + A·dpt) with the APIC affine
+    A = m ∇v − V0 D⁻¹ dt σ (zero stress for failed particles), masked by
+    active & in-window & in-grid. σ comes from the stress-cache rows (with
+    a fresh EOS stress for EOS slots when the model `tables` (tab_f, tab_i)
+    are given), or, with `stress_cache` off, fresh from F through the
+    tables (corotated through the SVD of F)."""
+    dim = grid.dim
+    r = L.Rows(dim)
     d_all = slots.shape[0]
     n_live = _live_count(nchunks, d_all)
     slots, ints = slots[:n_live], ints[:n_live]
@@ -249,15 +318,20 @@ def p2g_fused_reference(grid: GridParams, slots, ints, dt, nchunks, tables=None)
     active = (ints[:, L.I_FLAGS, :] & L.ACTIVE) != 0
     failed = row(r.failed) != 0.0
     mass = row(r.mass)
-    g = [[row(r.grad + 3 * i + j) for j in range(3)] for i in range(3)]
-    st = [row(r.stress + k) for k in range(6)]
-    stress = [[st[0], st[1], st[2]], [st[1], st[3], st[4]], [st[2], st[4], st[5]]]
-    if tables is not None:
+    g = [[row(r.grad + dim * i + j) for j in range(dim)] for i in range(dim)]
+    if stress_cache:
+        stress = _sym_expand([row(r.stress + k) for k in range(r.nstress)], dim)
+        if tables is not None:
+            (ct,), p = model_columns(*tables, ints, range(TAB_C, TAB_C + 4))
+            fluid = ct == con.EOS_MONAGHAN_SPH
+            if bool(fluid.any()):
+                s_eos = _eos_stress_c(p, mass, row(r.vol0), row(r.defgrad), g)
+                stress = cmat.where_mat(fluid, s_eos, stress)
+    else:
         (ct,), p = model_columns(*tables, ints, range(TAB_C, TAB_C + 4))
-        fluid = ct == con.EOS_MONAGHAN_SPH
-        if bool(fluid.any()):
-            s_eos = _eos_stress_c(p, mass, row(r.vol0), row(r.defgrad), g)
-            stress = cmat.where_mat(fluid, s_eos, stress)
+        f = [[row(r.defgrad + dim * i + j) for j in range(dim)] for i in range(dim)]
+        stress = kirchhoff_stress_c(ct, p, row(r.phase), row(r.eh), f, g, mass, row(r.vol0),
+                                    tables[1][:, 0].tolist())
     coeff = row(r.vol0) * invd * dt
     _, fx, rel, in_window, in_bounds = _slot_geometry(grid, slots, ints)
     contrib = active & in_window & in_bounds
@@ -267,28 +341,46 @@ def p2g_fused_reference(grid: GridParams, slots, ints, dt, nchunks, tables=None)
     a = [
         [torch.where(contrib, mass * g[i][j] - torch.where(failed, 0.0, coeff * stress[i][j]),
                      0.0)
-         for j in range(3)]
-        for i in range(3)
+         for j in range(dim)]
+        for i in range(dim)
     ]
     m_c = mass * cf
-    p0 = [m_c] + [m_c * row(r.vel + ax) for ax in range(3)]
+    p0 = [m_c] + [m_c * row(r.vel + ax) for ax in range(dim)]
+    if with_psi:
+        phase, cpf = row(r.phase), row(r.cpf)
+        psi_mass = torch.where((phase > 0.0) & (cpf != 0.0) & ~failed, mass, 0.0)
+        p0 += [psi_mass * row(r.psi_pos) * cf, psi_mass * cf]
     w, dpt = _taps(grid, fx, rel)
 
     vals = []
-    for ta, tb, tc in _TAPS:
-        wxy = w[0][ta] * w[1][tb]
-        wz = w[2][tc]
-        wdx_y = (w[0][ta] * dpt[0][ta]) * w[1][tb]
-        wx_dy = w[0][ta] * (w[1][tb] * dpt[1][tb])
-        wdz = wz * dpt[2][tc]
-        ch = [(p0[0] * wz) * wxy]
-        for i in range(3):
-            ch.append((p0[1 + i] * wz) * wxy + (a[i][2] * wdz) * wxy
-                      + (a[i][0] * wz) * wdx_y + (a[i][1] * wz) * wx_dy)
-        vals.append(torch.stack(ch, dim=1))  # [D, 4, C]
-    vals = torch.stack(vals, dim=2).reshape(d_, 4, 27 * c)
-    q = _tap_cells(rel, contrib).reshape(d_, 1, 27 * c).expand(d_, 4, 27 * c)
-    out = torch.zeros((d_all, 4, region_cells(3)), dtype=torch.float32, device=slots.device)
+    for tap in _TAPS if dim == 3 else _TAPS2:
+        if dim == 3:
+            ta, tb, tc = tap
+            wxy = w[0][ta] * w[1][tb]
+            wz = w[2][tc]
+            wdx_y = (w[0][ta] * dpt[0][ta]) * w[1][tb]
+            wx_dy = w[0][ta] * (w[1][tb] * dpt[1][tb])
+            wdz = wz * dpt[2][tc]
+            ch = [(p0[0] * wz) * wxy]
+            for i in range(3):
+                ch.append((p0[1 + i] * wz) * wxy + (a[i][2] * wdz) * wxy
+                          + (a[i][0] * wz) * wdx_y + (a[i][1] * wz) * wx_dy)
+            ch += [(x * wz) * wxy for x in p0[4:]]
+        else:
+            # Rows x, lanes y, as the JAX kernel's 2D form contracts them:
+            # the affine x column rides the x taps, the y column the y taps.
+            ta, tb = tap
+            wx, wy = w[0][ta], w[1][tb]
+            wdx, wdy = wx * dpt[0][ta], wy * dpt[1][tb]
+            ch = [(p0[0] * wx) * wy]
+            for i in range(2):
+                ch.append((p0[1 + i] * wx + a[i][0] * wdx) * wy + (a[i][1] * wx) * wdy)
+            ch += [(x * wx) * wy for x in p0[3:]]
+        vals.append(torch.stack(ch, dim=1))  # [D, nf, C]
+    nf, ntaps = len(p0), len(vals)
+    vals = torch.stack(vals, dim=2).reshape(d_, nf, ntaps * c)
+    q = _tap_cells(rel, contrib).reshape(d_, 1, ntaps * c).expand(d_, nf, ntaps * c)
+    out = torch.zeros((d_all, nf, region_cells(dim)), dtype=torch.float32, device=slots.device)
     out[:n_live].scatter_add_(2, q, vals)
     return out
 
@@ -303,30 +395,35 @@ def _check_tables(tables, dev):
 
 def p2g_fused(grid: GridParams, cfg, meta, slots, ints, dt, nchunks, tables=None):
     """Kernel A (replaces sparkl_tpu/fused/kernels.py:p2g_fused): slots
-    [D, 56, 128] f32, ints [D, 8, 128] i32, dt (python float), nchunks []
-    i32, the model tables (tab_f f32 [M, 16], tab_i i32 [M, 4]; needed when
-    the scene has EOS fluids, whose stress kernel A forms fresh) -> images
-    [D, 4, 512] f32, z-major cells (q = z*64 + x*8 + y)."""
-    _check_meta(meta)
+    [D, NF, C] f32 (3D: NF 56, C 128; 2D: 40, 64), ints [D, 8, C] i32, dt
+    (python float), nchunks [] i32, the model tables (tab_f f32 [M, 16],
+    tab_i i32 [M, 4]; needed when the scene has EOS fluids or the stress
+    cache is off, when kernel A forms the stress itself) -> images
+    [D, 1+d(+2), 8^d] f32, z-major cells in 3D (q = z*64 + x*8 + y),
+    row-major in 2D (q = x*8 + y); the psi channels with meta["with_psi"]."""
+    dim = grid.dim
+    _check_meta(meta, dim)
     d_, c = cfg.max_chunks, cfg.chunk_size
     dev = slots.device
-    r = L.Rows(3)
+    r = L.Rows(dim)
     check_tensor("slots", slots, torch.float32, (d_, r.nf, c), dev)
     check_tensor("ints", ints, torch.int32, (d_, L.NI, c), dev)
     check_tensor("nchunks", nchunks, torch.int32, (), dev)
-    if c != 128:
-        raise NotImplementedError(f"chunk size {c}: kernel A takes 128")
-    if _has_eos(meta) and tables is None:
-        raise ValueError("kernel A needs the model tables for EOS fluids")
+    stress_cache, with_psi = bool(meta["stress_cache"]), bool(meta["with_psi"])
+    if (_has_eos(meta) or not stress_cache) and tables is None:
+        raise ValueError("kernel A needs the model tables for EOS fluids or fresh stress")
     tab_f, tab_i, m = _check_tables(tables, dev) if tables is not None else (None, None, 0)
     args = _grid_args(grid)
+    nf = 1 + dim + (2 if with_psi else 0)
     if route(dev) == "cpu":
-        return p2g_fused_reference(grid, slots, ints, dt, nchunks, tables=tables)
-    out = torch.empty((d_, 4, region_cells(3)), dtype=torch.float32, device=dev)
+        return p2g_fused_reference(grid, slots, ints, dt, nchunks, tables=tables,
+                                   stress_cache=stress_cache, with_psi=with_psi)
+    _check_shape_route("kernel A", dim, c)
+    out = torch.empty((d_, nf, region_cells(dim)), dtype=torch.float32, device=dev)
     launch("sparkl_p2g_fused", slots.data_ptr(), ints.data_ptr(),
            nchunks.data_ptr(), tab_f.data_ptr() if m else None,
            tab_i.data_ptr() if m else None, m, out.data_ptr(), d_, float(dt), *args,
-           stream_ptr(dev))
+           dim, int(with_psi) | 2 * int(stress_cache), stream_ptr(dev))
     LAUNCHES["p2g_fused"] += 1
     return out
 
@@ -538,19 +635,19 @@ def src_rows_from_order_reference(order2, shifts):
 
 def src_rows_from_order(order2, shifts):
     """The source-row kernel (replaces sparkl_tpu/fused/kernels.py:
-    src_rows_from_order, which returns [D, 1, C]): order2 [D, 2, 128] i32,
-    shifts [D] i32 -> [D, 128] i32."""
+    src_rows_from_order, which returns [D, 1, C]): order2 [D, 2, C] i32,
+    shifts [D] i32 -> [D, C] i32, C = 128 (3D) or 64 (2D)."""
     dev = order2.device
     d_, _, c = order2.shape
     check_tensor("order2", order2, torch.int32, (d_, 2, c), dev)
     check_tensor("shifts", shifts, torch.int32, (d_,), dev)
     if route(dev) == "cpu":
         return src_rows_from_order_reference(order2, shifts)
-    if c != 128:
-        raise NotImplementedError(f"chunk size {c}: the source-row kernel takes 128")
+    if c not in (64, 128):
+        raise NotImplementedError(f"chunk size {c}: the source-row kernel takes 64 or 128")
     out = torch.empty((d_, c), dtype=torch.int32, device=dev)
     launch("sparkl_src_rows_from_order", order2.data_ptr(), shifts.data_ptr(),
-           out.data_ptr(), d_, stream_ptr(dev))
+           out.data_ptr(), d_, c, stream_ptr(dev))
     LAUNCHES["src_rows_from_order"] += 1
     return out
 
@@ -577,10 +674,10 @@ def permute_slots_reference(slots, ints, src, origin, r_cumd):
 
 def permute_slots(slots, ints, src, origin, r_cumd):
     """The permute kernel (replaces sparkl_tpu/fused/kernels.py:
-    permute_chunks_dma): slots [D, 56, 128] f32, ints [D, 8, 128] i32,
-    src [D, 128] i32 source slot per destination slot (-1: empty), origin
-    [D, 3] i32 -> new (slots, ints), drift row zeroed and origin rows
-    written.
+    permute_chunks_dma): slots [D, NF, C] f32 (3D: NF 56, C 128; 2D: 40,
+    64), ints [D, 8, C] i32, src [D, C] i32 source slot per destination
+    slot (-1: empty), origin [D, d] i32 -> new (slots, ints), drift row
+    zeroed and origin rows written.
 
     The TPU kernel takes the same permute as at most K = 8 whole source
     chunks per destination (DMA) and a per-lane routing among them (MXU),
@@ -596,14 +693,14 @@ def permute_slots(slots, ints, src, origin, r_cumd):
     check_tensor("origin", origin, torch.int32, (d_, dim), dev)
     if route(dev) == "cpu":
         return permute_slots_reference(slots, ints, src, origin, r_cumd)
-    if (nf, c, dim) != (L.Rows(3).nf, 128, 3):
+    if dim not in (2, 3) or (nf, c) != (L.Rows(dim).nf, default_chunk_size(dim)):
         raise NotImplementedError(f"slots {tuple(slots.shape)}, dim {dim}: the permute "
-                                  "kernel takes 3D slots [D, 56, 128]")
+                                  "kernel takes slots [D, 56, 128] in 3D, [D, 40, 64] in 2D")
     out_f = torch.empty_like(slots)
     out_i = torch.empty_like(ints)
     launch("sparkl_permute_slots", slots.data_ptr(), ints.data_ptr(),
            src.data_ptr(), origin.data_ptr(), out_f.data_ptr(), out_i.data_ptr(),
-           d_, dim, int(r_cumd), stream_ptr(dev))
+           d_, dim, int(r_cumd), nf, c, stream_ptr(dev))
     LAUNCHES["permute_slots"] += 1
     return out_f, out_i
 
@@ -613,22 +710,72 @@ def permute_slots(slots, ints, src, origin, r_cumd):
 # ---------------------------------------------------------------------------
 
 
+def _gather(grid: GridParams, w, dpt, win, cf):
+    """Kernel B's gather: velocity [d] and gradient [d][d] rows from the
+    window values at each tap, win [D, n, 3^d, C] (n >= d channels), in
+    the kernel's order of sums."""
+    dim = grid.dim
+    invd = kernel_inv_d(grid.cell_width)
+    if dim == 3:
+        sv = [0.0] * 3
+        sg = [[0.0] * 3 for _ in range(3)]
+        for t, (ta, tb, tc) in enumerate(_TAPS):
+            wz = w[2][tc]
+            wxy = w[0][ta] * w[1][tb]
+            wdx_y = (w[0][ta] * dpt[0][ta]) * w[1][tb]
+            wx_dy = w[0][ta] * (w[1][tb] * dpt[1][tb])
+            wdz = wz * dpt[2][tc]
+            for i in range(3):
+                v = win[:, i, t, :]
+                sv[i] = sv[i] + (v * wxy) * wz
+                sg[i][0] = sg[i][0] + (v * wdx_y) * wz
+                sg[i][1] = sg[i][1] + (v * wx_dy) * wz
+                sg[i][2] = sg[i][2] + (v * wxy) * wdz
+    else:
+        # Per x tap the y taps first (the lanes of the JAX kernel's
+        # [n*8, 8] @ [8, C] contraction), then the x weights.
+        sv = [0.0] * 2
+        sg = [[0.0] * 2 for _ in range(2)]
+        for ta in range(3):
+            wx = w[0][ta]
+            wdx = wx * dpt[0][ta]
+            for i in range(2):
+                tv = ty = 0.0
+                for tb in range(3):
+                    v = win[:, i, ta * 3 + tb, :]
+                    tv = tv + v * w[1][tb]
+                    ty = ty + v * (w[1][tb] * dpt[1][tb])
+                sv[i] = sv[i] + tv * wx
+                sg[i][0] = sg[i][0] + tv * wdx
+                sg[i][1] = sg[i][1] + ty * wx
+    vel = [cf * sv[i] for i in range(dim)]
+    g = [[cf * (invd * sg[i][j]) for j in range(dim)] for i in range(dim)]
+    return vel, g
+
+
 def g2p_fused_reference(grid: GridParams, slots, ints, windows, dt, tab_f, tab_i,
-                        nchunks, velocity_clamp=False):
-    """Plain version of kernel B: returns the new slot tensor [D, 56, C]
-    (chunks >= nchunks pass through). Gathers v and ∇v from the windows,
-    advects, updates F (for EOS fluids only J = F00, by tr(∇v)), runs one
-    SVD shared by the Drucker-Prager return map, the pos energy and the
-    stress-cache epilogue (zero stress rows for fluids), applies the static
-    and failure guards (no |F00| guard for fluids) and the out-of-grid mark,
-    and writes the next dt bound and the accumulated drift."""
-    r = L.Rows(3)
+                        nchunks, velocity_clamp=False, stress_cache=True):
+    """Plain version of kernel B: returns the new slot tensor [D, NF, C]
+    (chunks >= nchunks pass through). Gathers v and ∇v from the windows
+    [D, n_win, 8^d] (a psi channel after the velocity, if present, feeds
+    only modified eigenerosion, which the port does not carry), advects,
+    updates F (for EOS fluids only J = F00, by tr(∇v)), applies the static
+    and failure guards (no |F00| guard for fluids), accumulates the
+    positive energy and par1 = psi_pos·m, par2 = m, trips maximum-stress
+    failure (phase = 0) on a fresh stress of the final F, marks particles
+    out of the grid, and writes the next dt bound and the accumulated
+    drift. With the stress cache on (3D), one SVD serves the
+    Drucker-Prager return map, the energy and the stress-cache epilogue
+    (zero stress rows for fluids); with it off, one SVD of the final F
+    serves the energy and the failure stress, and the stress rows are
+    zero."""
+    dim = grid.dim
+    r = L.Rows(dim)
     n_live = _live_count(nchunks, slots.shape[0])
     slots_all = slots
     slots, ints, windows = slots[:n_live], ints[:n_live], windows[:n_live]
     d_, _, c = slots.shape
     h = grid.cell_width
-    invd = kernel_inv_d(h)
 
     def row(k):
         return slots[:, k, :]
@@ -641,105 +788,101 @@ def g2p_fused_reference(grid: GridParams, slots, ints, windows, dt, tab_f, tab_i
     # --- gather ---
     _, fx, rel, in_window, in_bounds = _slot_geometry(grid, slots, ints)
     contrib = active & in_window & in_bounds
-    cf = contrib.to(torch.float32)
     w, dpt = _taps(grid, fx, rel)
-    q = _tap_cells(rel, contrib).reshape(d_, 1, 27 * c).expand(d_, 3, 27 * c)
-    win = torch.gather(windows, 2, q).reshape(d_, 3, 27, c)
-    sv = [0.0] * 3
-    sg = [[0.0] * 3 for _ in range(3)]
-    for t, (ta, tb, tc) in enumerate(_TAPS):
-        wz = w[2][tc]
-        wxy = w[0][ta] * w[1][tb]
-        wdx_y = (w[0][ta] * dpt[0][ta]) * w[1][tb]
-        wx_dy = w[0][ta] * (w[1][tb] * dpt[1][tb])
-        wdz = wz * dpt[2][tc]
-        for i in range(3):
-            v = win[:, i, t, :]
-            sv[i] = sv[i] + (v * wxy) * wz
-            sg[i][0] = sg[i][0] + (v * wdx_y) * wz
-            sg[i][1] = sg[i][1] + (v * wx_dy) * wz
-            sg[i][2] = sg[i][2] + (v * wxy) * wdz
-    vel = [cf * sv[i] for i in range(3)]
-    g = [[cf * (invd * sg[i][j]) for j in range(3)] for i in range(3)]
+    ntaps = 3**dim
+    q = _tap_cells(rel, contrib).reshape(d_, 1, ntaps * c).expand(d_, dim, ntaps * c)
+    win = torch.gather(windows[:, :dim], 2, q).reshape(d_, dim, ntaps, c)
+    vel, g = _gather(grid, w, dpt, win, contrib.to(torch.float32))
 
     # --- particle update ---
-    (ct, pt), cols = model_columns(tab_f, tab_i, ints, range(TAB_C, TAB_P + 8), (0, 1))
+    present_c = tab_i[:, 0].tolist()  # a host read: the plain version is off the main path
+    (ct, pt, ft), cols = model_columns(tab_f, tab_i, ints, range(16), (0, 1, 2))
     is_fluid = ct == con.EOS_MONAGHAN_SPH
-    p, pp = cols[TAB_C : TAB_C + 4], cols[TAB_P : TAB_P + 8]
+    p, pp, fp = cols[TAB_C : TAB_C + 4], cols[TAB_P : TAB_P + 8], cols[TAB_F : TAB_F + 2]
     phase = row(r.phase)
     failed = row(r.failed) != 0.0
     mass, vol0, eh = row(r.mass), row(r.vol0), row(r.eh)
-    f = [[row(r.defgrad + 3 * i + j) for j in range(3)] for i in range(3)]
-    kin = [row(r.kinvel + ax) for ax in range(3)]
+    f = [[row(r.defgrad + dim * i + j) for j in range(dim)] for i in range(dim)]
+    kin = [row(r.kinvel + ax) for ax in range(dim)]
 
-    vel = [torch.where(kinematic, kin[i], vel[i]) for i in range(3)]
+    vel = [torch.where(kinematic, kin[i], vel[i]) for i in range(dim)]
     if velocity_clamp:
-        over = (torch.abs(vel[0]) * dt >= h) | (torch.abs(vel[1]) * dt >= h) | (
-            torch.abs(vel[2]) * dt >= h)
+        over = torch.abs(vel[0]) * dt >= h
+        for v in vel[1:]:
+            over = over | (torch.abs(v) * dt >= h)
         vel = [torch.where(over, torch.sign(v) * (h / dt), v) for v in vel]
-    pos = [row(r.pos + ax) + vel[ax] * dt for ax in range(3)]
+    pos = [row(r.pos + ax) + vel[ax] * dt for ax in range(dim)]
 
     gf = cmat.matmul_c(g, f)
-    f_solid = [[f[i][j] + dt * gf[i][j] for j in range(3)] for i in range(3)]
+    f_solid = [[f[i][j] + dt * gf[i][j] for j in range(dim)] for i in range(dim)]
     # Fluids: J = F00 += tr(∇v)·dt·F00, the rest of F kept.
-    det = sum(g[j][j] for j in range(3))
+    det = sum(g[j][j] for j in range(dim))
     f00_fluid = f[0][0] + det * dt * f[0][0]
     f = cmat.where_mat(is_fluid, f, f_solid)
     f[0][0] = torch.where(is_fluid, f00_fluid, f[0][0])
 
-    u, s, v = svd_c(f)
     pdd, ph, lvg = row(r.pdd), row(r.ph), row(r.lvg)
-    # Every lane runs the return map; lanes of other plastic types keep
-    # their values (their zero DP parameters give NaN, which is masked).
-    f2, pdd2, ph2, lvg2, s_sel = plas.drucker_prager_update_with_svd_c(
-        pp, phase, f, pdd, ph, lvg, (u, s, v)
-    )
-    m = pt == plas.DRUCKER_PRAGER
-    s = [torch.where(m, a, b) for a, b in zip(s_sel, s)]
-    f = cmat.where_mat(m, f2, f)
-    pdd = torch.where(m, pdd2, pdd)
-    ph = torch.where(m, ph2, ph)
-    lvg = torch.where(m, lvg2, lvg)
+    if stress_cache:
+        u, s, v = svd_c(f)
+        # Every lane runs the return map; lanes of other plastic types keep
+        # their values (their zero DP parameters give NaN, which is masked).
+        f2, pdd2, ph2, lvg2, s_sel = plas.drucker_prager_update_with_svd_c(
+            pp, phase, f, pdd, ph, lvg, (u, s, v)
+        )
+        m = pt == plas.DRUCKER_PRAGER
+        s = [torch.where(m, a, b) for a, b in zip(s_sel, s)]
+        f = cmat.where_mat(m, f2, f)
+        pdd = torch.where(m, pdd2, pdd)
+        ph = torch.where(m, ph2, ph)
+        lvg = torch.where(m, lvg2, lvg)
 
     vel = [torch.where(is_static, 0.0, x) for x in vel]
     g = cmat.where_mat(is_static, cmat.zeros_like_mat(g), g)
 
     broken = (cmat.det_c(f) == 0.0) | failed | (~is_fluid & (torch.abs(f[0][0]) > 1.0e4))
-    f = cmat.where_mat(broken, cmat.identity_c(3, mass), f)
+    f = cmat.where_mat(broken, cmat.identity_c(dim, mass), f)
     g = cmat.where_mat(broken, cmat.zeros_like_mat(g), g)
     failed_new = failed | broken
-    s = [torch.where(broken, 1.0, x) for x in s]
+    if stress_cache:
+        s = [torch.where(broken, 1.0, x) for x in s]
+    else:
+        u, s, v = svd_c(f)
 
     corot = ct == con.COROTATED
     energy = torch.where(corot, con.corotated_pos_energy_from_s_c(p[0], p[1], eh, f, s), 0.0)
     psi_pos = torch.maximum(row(r.psi_pos), energy)
 
+    if bool((ft == fail.MAXIMUM_STRESS).any()):
+        st_f = kirchhoff_stress_c(ct, p, phase, eh, f, g, mass, vol0, present_c, (u, s, v))
+        trip = (ft == fail.MAXIMUM_STRESS) & fail.maximum_stress_failed_c(fp[0], fp[1], st_f)
+        phase = torch.where(trip, 0.0, phase)
+
     oob = None
-    for ax in range(3):
+    for ax in range(dim):
         b = torch.round(linalg.div(pos[ax] - grid.origin[ax], h)).to(torch.int32) - 1
         o = ~((b >= 0) & (b + 2 <= grid.res[ax] - 1))
         oob = o if oob is None else oob | o
     failed_new = failed_new | (active & oob)
 
-    con_bound = timestep_bound_c(ct, p, eh, f, mass, vol0, vel, h, tab_i[:, 0].tolist())
+    con_bound = timestep_bound_c(ct, p, eh, f, mass, vol0, vel, h, present_c)
     bound = dt_bound_row(h, vel, g, con_bound, failed_new, active)
 
-    step_disp = torch.maximum(
-        torch.maximum(torch.abs(vel[0]) * dt, torch.abs(vel[1]) * dt), torch.abs(vel[2]) * dt
-    )
+    step_disp = torch.abs(vel[0]) * dt
+    for x in vel[1:]:
+        step_disp = torch.maximum(step_disp, torch.abs(x) * dt)
     cumd = row(r.cumd) + step_disp
 
-    st = con.corotated_kirchhoff_stress_from_svd_c(p[0], p[1], p[3], phase, eh, f, u, s, v)
-    st = [torch.where(corot, st[i][j], 0.0) for i in range(3) for j in range(i, 3)]
-
     rows = list(pos) + vel
-    rows += [g[i][j] for i in range(3) for j in range(3)]
-    rows += [f[i][j] for i in range(3) for j in range(3)]
+    rows += [g[i][j] for i in range(dim) for j in range(dim)]
+    rows += [f[i][j] for i in range(dim) for j in range(dim)]
     rows += [mass, vol0, phase, psi_pos, pdd, ph, eh, lvg, row(r.nacc)]
     rows += kin
     rows += [row(r.cpf), row(r.cthr), bound, failed_new.to(torch.float32), row(r.radius0),
              psi_pos * mass, mass, row(r.m_c), row(r.g), row(r.debug), cumd]
-    rows += [torch.clamp(x, -L.BIGF, L.BIGF) for x in st]
+    if stress_cache:
+        st = con.corotated_kirchhoff_stress_from_svd_c(p[0], p[1], p[3], phase, eh, f, u, s, v)
+        rows += [torch.clamp(torch.where(corot, st[i][j], 0.0), -L.BIGF, L.BIGF)
+                 for i in range(dim) for j in range(i, dim)]
     zero = torch.zeros_like(mass)
     rows += [zero] * (r.nf - len(rows))
     # Dead chunks pass through unchanged.
@@ -749,28 +892,112 @@ def g2p_fused_reference(grid: GridParams, slots, ints, windows, dt, tab_f, tab_i
 def g2p_fused(grid: GridParams, cfg, meta, kparams, slots, ints, windows, dt,
               tab_f, tab_i, nchunks):
     """Kernel B (replaces sparkl_tpu/fused/kernels.py:g2p_fused): slots
-    [D, 56, 128] f32 (updated IN PLACE on the card; the CPU path returns a
-    new tensor), ints [D, 8, 128] i32, windows [D, 3, 512] f32 z-major,
-    dt (python float), tables f32 [M, 16] / i32 [M, 4], nchunks [] i32.
-    Returns the new slot tensor."""
-    _check_meta(meta)
+    [D, NF, C] f32 (3D: NF 56, C 128; 2D: 40, 64; updated IN PLACE on the
+    card, the CPU path returns a new tensor), ints [D, 8, C] i32, windows
+    [D, d(+1), 8^d] f32 (z-major cells in 3D, row-major in 2D; the psi
+    channel with meta["with_psi"]), dt (python float), tables f32 [M, 16] /
+    i32 [M, 4], nchunks [] i32. Returns the new slot tensor."""
+    dim = grid.dim
+    _check_meta(meta, dim)
     d_, c = cfg.max_chunks, cfg.chunk_size
     dev = slots.device
-    r = L.Rows(3)
+    r = L.Rows(dim)
+    n_win = dim + (1 if meta["with_psi"] else 0)
     check_tensor("slots", slots, torch.float32, (d_, r.nf, c), dev)
     check_tensor("ints", ints, torch.int32, (d_, L.NI, c), dev)
-    check_tensor("windows", windows, torch.float32, (d_, 3, region_cells(3)), dev)
+    check_tensor("windows", windows, torch.float32, (d_, n_win, region_cells(dim)), dev)
     tab_f, tab_i, m = _check_tables((tab_f, tab_i), dev)
     check_tensor("nchunks", nchunks, torch.int32, (), dev)
-    if c != 128:
-        raise NotImplementedError(f"chunk size {c}: kernel B takes 128")
     args = _grid_args(grid)
     clamp = bool(kparams["gpu_velocity_clamp"])
+    stress_cache = bool(meta["stress_cache"])
     if route(dev) == "cpu":
         return g2p_fused_reference(grid, slots, ints, windows, dt, tab_f, tab_i,
-                                   nchunks, velocity_clamp=clamp)
+                                   nchunks, velocity_clamp=clamp, stress_cache=stress_cache)
+    _check_shape_route("kernel B", dim, c)
     launch("sparkl_g2p_fused", slots.data_ptr(), ints.data_ptr(),
            windows.data_ptr(), nchunks.data_ptr(), tab_f.data_ptr(),
-           tab_i.data_ptr(), m, d_, float(dt), *args, int(clamp), stream_ptr(dev))
+           tab_i.data_ptr(), m, d_, float(dt), *args, dim, n_win,
+           int(clamp) | 2 * int(stress_cache), stream_ptr(dev))
     LAUNCHES["g2p_fused"] += 1
     return slots
+
+
+# ---------------------------------------------------------------------------
+# Eigenerosion pooling: per eligible slot, the sums of m·psi_pos and m over
+# the eligible slots of its candidate chunks within one cell width
+# ---------------------------------------------------------------------------
+
+
+def eigen_candidate_rows(e, cand):
+    """The JAX package's candidate tensor g [D, KN, 8, C] from the eigen
+    rows e [D, 8, C] and the candidate chunk ids cand [D, KN] (D = none):
+    each candidate chunk's rows, zero for none, and row EIG_SELF = 1 where
+    the candidate is the own chunk (sparkl_tpu/fused/pipeline.py:416-429)."""
+    d_, _, c = e.shape
+    e_pad = torch.cat([e, e.new_zeros((1, EIG_ROWS, c))], dim=0)
+    g = e_pad[cand.long()]
+    own = torch.arange(d_, dtype=cand.dtype, device=cand.device)[:, None]
+    g[:, :, EIG_SELF, :] = (cand == own).to(torch.float32)[:, :, None]
+    return g
+
+
+def eigen_pool_fused_reference(grid: GridParams, e, g, group=64):
+    """Plain version of the pooling, with the JAX package's signature
+    (sparkl_tpu/fused/kernels.py:eigen_pool_fused): e [D, 8, C] own rows
+    (pos d, m·psi_pos, m, eligible), g [D, KN, 8, C] candidate rows ->
+    [D, 8, C], rows 0 and 1 the pooled m·psi_pos and m of each eligible own
+    lane over the eligible candidate lanes with squared distance <= h²,
+    the lane itself excluded; zero elsewhere. Each candidate's lanes are
+    summed first, then the candidates in ascending order, as the TPU
+    kernel's loop does. Runs `group` chunks at a time, and skips a group
+    with no eligible lane on either side (its pool is zero)."""
+    dim = grid.dim
+    d_, kn, _, c = g.shape
+    r2 = float(np.float32(grid.cell_width * grid.cell_width))  # h² rounded to f32, as JAX compares
+    eye = torch.eye(c, dtype=torch.float32, device=e.device)
+    out = torch.zeros_like(e)
+    for g0 in range(0, d_, group):
+        eg, gg = e[g0 : g0 + group], g[g0 : g0 + group]
+        if not (bool(eg[:, dim + 2].any()) and bool(gg[:, :, dim + 2].any())):
+            continue
+        d2 = None
+        for ax in range(dim):
+            diff = gg[:, :, ax, :, None] - eg[:, None, ax, None, :]  # [G, KN, C cand, C own]
+            d2 = diff * diff if d2 is None else d2 + diff * diff
+        pf = ((d2 <= r2).to(torch.float32) * eg[:, None, None, dim + 2, :]
+              * gg[:, :, dim + 2, :, None])
+        pf = pf * (1.0 - eye * gg[:, :, EIG_SELF, 0][:, :, None, None])
+        for ch in range(2):
+            part = (pf * gg[:, :, dim + ch, :, None]).sum(dim=2)  # [G, KN, C own]
+            acc = torch.zeros_like(part[:, 0])
+            for k in range(kn):
+                acc = acc + part[:, k]
+            out[g0 : g0 + group, ch] = acc
+    return out
+
+
+def eigen_pool_fused(grid: GridParams, cfg, e, cand):
+    """The pooling kernel (replaces sparkl_tpu/fused/kernels.py:
+    eigen_pool_fused): e [D, 8, C] f32 eigen rows, cand [D, KN] i32
+    candidate chunk ids (D = none) -> [D, 2, C] f32, the pooled m·psi_pos
+    and m. The TPU kernel takes the candidates' rows gathered in XLA
+    ([D, KN, 8, C]); the CUDA kernel reads e and cand directly, and on the
+    CPU eigen_candidate_rows builds that tensor for the plain version."""
+    dim = grid.dim
+    d_, c = cfg.max_chunks, cfg.chunk_size
+    dev = e.device
+    kn = cand.shape[1]
+    check_tensor("e", e, torch.float32, (d_, EIG_ROWS, c), dev)
+    check_tensor("cand", cand, torch.int32, (d_, kn), dev)
+    if route(dev) == "cpu":
+        pooled = eigen_pool_fused_reference(grid, e, eigen_candidate_rows(e, cand))
+        return pooled[:, :2].contiguous()
+    if (dim, c) != (2, 64):
+        raise NotImplementedError(f"the pooling kernel takes 2D chunks of 64, not {dim}D of {c}")
+    out = torch.empty((d_, 2, c), dtype=torch.float32, device=dev)
+    r2 = float(np.float32(grid.cell_width * grid.cell_width))
+    launch("sparkl_eigen_pool", e.data_ptr(), cand.data_ptr(), out.data_ptr(), d_, kn, r2,
+           stream_ptr(dev))
+    LAUNCHES["eigen_pool_fused"] += 1
+    return out

@@ -10,7 +10,11 @@ drift reaches DRIFT_FRACTION of a cell (the off-by-two window tolerates
 one cell). With force_fluids_volume_recomputation, each substep first
 recomputes every fluid particle's volume from the grid mass (the mass
 kernels, the merge and the window gather), sets J = F00 = V/V0 and
-refreshes the carried dt bound, as the JAX package does.
+refreshes the carried dt bound, as the JAX package does. With eigenerosion
+(2D), each substep pools m·psi_pos and m over every eligible slot's
+neighbours within one cell width (the pooling kernel over the chunks of the
+3^d neighbouring blocks) before the kernels, after the dt is taken; kernel
+A then scatters the psi channels and kernel B trips maximum-stress failure.
 
 Unlike the JAX package, which runs a frame span as one device program,
 this port runs eagerly with a host loop over substeps and one host read
@@ -23,11 +27,15 @@ again, which gives the reference's order (resort, volume pass, dt).
 Capturing the substep in a CUDA graph is later work.
 
 The port carries 3D scenes with corotated elasticity (± Drucker-Prager)
-and Monaghan EOS fluids, static heightfield colliders, no damage and the
-stress cache on. The constructor raises NotImplementedError for anything
-else (2D, damage, failure models, penalty colliders, boundary particle
-projection, GPU boundary semantics, collider pose functions and grid
-hooks): those wait for later ports and never fall back to another path.
+and Monaghan EOS fluids, static heightfield or cuboid colliders, no damage
+and the stress cache on; and 2D scenes with corotated elasticity,
+eigenerosion and maximum-stress failure (the stress cache off), cuboid
+colliders and grid hooks (sparse.pipeline.unsupported lists the rest). The
+constructor raises NotImplementedError for anything else (3D damage and
+failure, modified eigenerosion, CD-MPM, other models, penalty colliders,
+boundary particle projection, GPU boundary semantics, collider pose
+functions): those wait for later ports and never fall back to another
+path.
 """
 
 from typing import Optional
@@ -37,14 +45,20 @@ import torch
 
 from sparkl_tpu_torch import device as _device
 from sparkl_tpu_torch.core.grid import GridParams, GridState
-from sparkl_tpu_torch.core.params import SolverParameters
+from sparkl_tpu_torch.core.params import DamageModel, SolverParameters
 from sparkl_tpu_torch.math import linalg
 from sparkl_tpu_torch.models import constitutive as con
 from sparkl_tpu_torch.models import registry
 from sparkl_tpu_torch.solver import dense
+from sparkl_tpu_torch.solver.pipeline import MpmHooks
 from sparkl_tpu_torch.sparse import blocks as B
 from sparkl_tpu_torch.sparse import transfer as T
-from sparkl_tpu_torch.sparse.pipeline import OVERFLOW_MERGE, OVERFLOW_TABLES, unsupported
+from sparkl_tpu_torch.sparse.pipeline import (
+    OVERFLOW_EIGEN,
+    OVERFLOW_MERGE,
+    OVERFLOW_TABLES,
+    unsupported,
+)
 from sparkl_tpu_torch.fused import kernels as K
 from sparkl_tpu_torch.fused import layout as L
 from sparkl_tpu_torch.fused import structure as S
@@ -70,7 +84,7 @@ class FusedMpmPipeline:
         collider_pose_fn=None,
         device="cuda",
     ):
-        why = unsupported(grid, models, colliders, params, hooks, fluids=True)
+        why = unsupported(grid, models, colliders, params, hooks, fused=True)
         if collider_pose_fn is not None:
             why.append("collider pose functions")
         if why:
@@ -85,8 +99,9 @@ class FusedMpmPipeline:
         self.colliders = tuple(colliders)
         self.params = params
         if gravity is None:
-            gravity = [0.0, -9.81, 0.0]
+            gravity = [0.0, -9.81] if grid.dim == 2 else [0.0, -9.81, 0.0]
         self.gravity = torch.tensor(gravity, dtype=torch.float32, device=self.device)
+        self.hooks = hooks or MpmHooks()
         self._cfg = config
         self._calibration_slack = calibration_slack
         self._tab_f, self._tab_i = K.pack_model_tables(models)
@@ -96,6 +111,13 @@ class FusedMpmPipeline:
         # the first time a block exceeds MERGE_KMAX chunks.
         self._merge_force_scatter = False
         self._span_peak = 0  # most chunks in use during the current span
+        # Candidate chunks per neighbour block for the eigenerosion pooling
+        # (nominal packing fills a block with <= 2 chunks in 2D, 4 in 3D); a
+        # denser block raises OVERFLOW_EIGEN and the span is retried with
+        # the list doubled. eigen_regrows counts those retries.
+        self._eigen = params.damage_model == DamageModel.EIGENEROSION
+        self._eigen_mcb = 2 if grid.dim == 2 else 4
+        self.eigen_regrows = 0
         self.last_resorts = 0
         # Resorts taken per branch; the source-row kernel runs on "pure"
         # and "mixed" ones, the permute kernel on "mixed" ones.
@@ -134,6 +156,11 @@ class FusedMpmPipeline:
 
     # -- one substep -------------------------------------------------------------
 
+    def _cell_order(self):
+        """The fused kernels' window cell order: z-major in 3D, row-major
+        (None) in 2D."""
+        return T.ZMAJOR_ORDER_3D if self.grid.dim == 3 else None
+
     def _substep(self, state, dt):
         """P2G -> merge -> grid update -> windows -> G2P. `dt` is a host
         float32. Returns the new state."""
@@ -149,38 +176,45 @@ class FusedMpmPipeline:
                              cum_disp=torch.max(new_slots[:, self._rows.cumd, :]))
 
     def _grid_windows(self, state, images, dt):
-        """Window images -> node table (merge) -> grid velocity with gravity
-        and the collider boundary conditions -> per-chunk velocity windows
-        [D, 3, 512] in z-major cell order."""
+        """Window images -> node table (merge) -> grid velocity with gravity,
+        the collider boundary conditions and the hooks -> per-chunk windows
+        [D, d (+1), 8^d]: the velocity, and with the psi channels the psi
+        ratio psi_mom / psi_mass."""
         grid, cfg, params = self.grid, self._cfg, self.params
         dim = grid.dim
         cpb = B.cells_per_block(dim)
+        with_psi = self._meta["with_psi"]
         node, _ = T.merge_images_to_grid(
-            grid, cfg, state.structure, images, cell_order=T.ZMAJOR_ORDER_3D,
+            grid, cfg, state.structure, images, cell_order=self._cell_order(),
             force_scatter=self._merge_force_scatter, plan=state.grid_cache[2],
         )
-        node = node.reshape(cfg.max_grid_blocks + 1, 1 + dim, cpb)
+        node = node.reshape(cfg.max_grid_blocks + 1, images.shape[1], cpb)
         mass = node[:, 0, :]
         mom = node[:, 1 : 1 + dim, :].transpose(1, 2)
+        zero = torch.zeros_like(mass)
+        psi_mom, psi_mass = (node[:, 1 + dim, :], node[:, 2 + dim, :]) if with_psi else (zero,
+                                                                                        zero)
 
         inv_mass = linalg.inv_exact(mass)
         velocity = (mom + mass[..., None] * self.gravity * dt) * inv_mass[..., None]
 
         node_pos, projections, _ = state.grid_cache
-        zero = torch.zeros_like(mass)
         gstate = GridState(mass=mass, momentum=mom, velocity=velocity,
-                           psi_momentum=zero, psi_mass=zero)
+                           psi_momentum=psi_mom, psi_mass=psi_mass)
         gstate = dense.grid_update(
             grid, gstate, self.colliders, dt, params.boundary_handling,
             params.simulation_dofs, node_positions=node_pos, projections=projections,
         )
+        gstate = self.hooks.post_grid_update(gstate, grid, dt, node_pos)
         velocity = gstate.velocity
         velocity[cfg.max_grid_blocks] = 0.0
 
-        win_fields = velocity.transpose(1, 2).reshape(cfg.max_grid_blocks + 1, dim * cpb)
+        parts = [velocity.transpose(1, 2)]
+        if with_psi:
+            parts.append((psi_mom * linalg.inv_exact(psi_mass))[:, None, :])
+        win_fields = torch.cat(parts, dim=1).reshape(cfg.max_grid_blocks + 1, -1)
         return T.gather_grid_windows(
-            grid, cfg, state.structure, win_fields.contiguous(),
-            cell_order=T.ZMAJOR_ORDER_3D,
+            grid, cfg, state.structure, win_fields.contiguous(), cell_order=self._cell_order(),
         ).contiguous()
 
     def _min_dtb(self, state):
@@ -254,6 +288,112 @@ class FusedMpmPipeline:
         slots[:, r.dtb, :] = K.dt_bound_row(h, vel, g, con_bound, row(r.failed) != 0.0,
                                             self._active(state))
 
+    # -- eigenerosion ----------------------------------------------------------
+
+    def _eigen_candidates(self, structure):
+        """Per chunk, the candidate chunk ids of the pooling: every chunk of
+        the 3^d neighbouring blocks (own included), up to _eigen_mcb per
+        block. Returns ([D, KN] i32, D for none; overflow [] bool, a block
+        holds more chunks than the list takes). Port of
+        sparkl_tpu/fused/pipeline.py:_eigen_candidates."""
+        grid, cfg = self.grid, self._cfg
+        dim = grid.dim
+        d_, mb = cfg.max_chunks, cfg.max_blocks
+        dev = structure.block_keys.device
+        bspace = S.block_space_ob2(grid)
+        strides = [1] * dim
+        for ax in range(dim - 2, -1, -1):
+            strides[ax] = strides[ax + 1] * bspace[ax + 1]
+        sentinel = int(np.prod(bspace))
+
+        bk = structure.block_keys  # [MB] sorted, sentinel pad
+        rem, coords = bk, []
+        for ax in range(dim):
+            coords.append(rem // strides[ax])
+            rem = rem % strides[ax]
+        coords = torch.stack(coords, dim=-1)  # [MB, d]
+        offs = torch.tensor(np.stack(np.meshgrid(*[[0, 1, 2]] * dim, indexing="ij"), -1)
+                            .reshape(-1, dim) - 1, dtype=torch.int32, device=dev)  # {-1,0,1}^d
+        nco = coords[:, None, :] + offs[None, :, :]  # [MB, 3^d, d]
+        in_space = (torch.all(nco >= 0, dim=-1)
+                    & torch.all(nco < torch.tensor(bspace, dtype=torch.int32, device=dev), dim=-1)
+                    & (bk < sentinel)[:, None])
+        nkeys = (nco * torch.tensor(strides, dtype=torch.int32, device=dev)).sum(-1,
+                                                                               dtype=torch.int32)
+        nkeys = torch.where(in_space, nkeys, sentinel).reshape(-1)
+        found = torch.clamp(torch.searchsorted(bk, nkeys, out_int32=True), 0, mb - 1)
+        hit = (bk[found.long()] == nkeys) & (nkeys < sentinel)
+        nblk = torch.where(hit, found, mb).reshape(mb, -1).long()  # [MB, 3^d]
+
+        mcb = self._eigen_mcb
+        i32 = dict(dtype=torch.int32, device=dev)
+        first = torch.cat([structure.block_first_chunk, torch.full((1,), d_, **i32)])[nblk]
+        nch = torch.cat([structure.block_num_chunks, torch.zeros((1,), **i32)])[nblk]
+        overflow = torch.any(nch > mcb)
+        t = torch.arange(mcb, **i32)
+        cand_blk = torch.where(t[None, None, :] < nch[:, :, None],
+                               first[:, :, None] + t[None, None, :], d_).reshape(mb, -1)
+        cand_blk = torch.cat([cand_blk, torch.full((1, cand_blk.shape[1]), d_, **i32)])
+        cand = cand_blk[torch.clamp(structure.chunk_block, 0, mb).long()]  # [D, KN]
+        return cand.contiguous(), overflow
+
+    def _eigen_rows(self, state):
+        """The pooling's inputs: the eigen rows e [D, 8, C] (pos d,
+        m·psi_pos, m, eligible) and the eligible mask [D, C] (a crack
+        factor, unbroken, not failed, active)."""
+        r, dim = self._rows, self.grid.dim
+        slots = state.slots
+        cpf, phase, mass = slots[:, r.cpf, :], slots[:, r.phase, :], slots[:, r.mass, :]
+        eligible = ((cpf != 0.0) & (phase > 0.0) & (slots[:, r.failed, :] == 0.0)
+                    & self._active(state))
+        e_rows = [slots[:, r.pos + ax, :] for ax in range(dim)]
+        e_rows += [mass * slots[:, r.psi_pos, :], mass, eligible.to(torch.float32)]
+        e_rows += [torch.zeros_like(mass)] * (K.EIG_ROWS - len(e_rows))
+        return torch.stack(e_rows, dim=1), eligible
+
+    def _eigen_update(self, state, pooled, eligible):
+        """(par1, trip) from the pooled sums [D, 2, C]: par1 = the slot's own
+        m·psi_pos (kernel B's) plus its pool, replaced by the energy
+        par1·cpf·h/par2 on crack slots; trip where that energy exceeds the
+        crack threshold."""
+        r = self._rows
+        slots = state.slots
+        cpf = slots[:, r.cpf, :]
+        par1 = slots[:, r.par1, :] + torch.where(eligible, pooled[:, 0, :], 0.0)
+        par2 = slots[:, r.par2, :] + torch.where(eligible, pooled[:, 1, :], 0.0)
+        has_crack = cpf != 0.0
+        safe2 = torch.where(par2 > 0.0, par2, 1.0)
+        energy = par1 * cpf * self.grid.cell_width / safe2
+        return torch.where(has_crack, energy, par1), has_crack & (energy > slots[:, r.cthr, :])
+
+    def _evolve_eigenerosion(self, state):
+        """Eigenerosion on slot rows by exact pairwise pooling (port of
+        sparkl_tpu/fused/pipeline.py:_evolve_eigenerosion; ref:
+        eigenerosion.rs:9-58): eligible slots pool the m·psi_pos and m of
+        their eligible neighbours within h (the pooling kernel), and a
+        crack slot whose energy exceeds its threshold breaks (phase 0).
+        The par1 and phase rows are written in place; par2 keeps kernel
+        B's value, as in the JAX package."""
+        r = self._rows
+        e, eligible = self._eigen_rows(state)
+        cand, _ = self._eigen_candidates(state.structure)
+        pooled = K.eigen_pool_fused(self.grid, self._cfg, e, cand)
+        par1, trip = self._eigen_update(state, pooled, eligible)
+        state.slots[:, r.par1, :] = par1
+        state.slots[:, r.phase, :] = torch.where(trip, 0.0, state.slots[:, r.phase, :])
+        return state
+
+    def _structure_flags(self, kmax):
+        """Overflow flags of a structure whose densest block holds `kmax`
+        chunks (a host int): the merge past MERGE_KMAX, the eigenerosion
+        candidate list past _eigen_mcb."""
+        flags = 0
+        if not self._merge_force_scatter and kmax > T.MERGE_KMAX:
+            flags |= OVERFLOW_MERGE
+        if self._eigen and kmax > self._eigen_mcb:
+            flags |= OVERFLOW_EIGEN
+        return flags
+
     def _resort(self, state):
         """Lazy resort; returns (state, overflow flags) with the flags read
         on the host (an overflowed structure must not reach the kernels)."""
@@ -265,15 +405,13 @@ class FusedMpmPipeline:
             [ov.to(torch.int32), st.num_chunks, torch.max(st.block_num_chunks)]
         ).tolist()
         self._span_peak = max(self._span_peak, nc)
-        flags = OVERFLOW_TABLES if ov else 0
-        if not self._merge_force_scatter and kmax > T.MERGE_KMAX:
-            flags |= OVERFLOW_MERGE
-        return state, flags
+        return state, (OVERFLOW_TABLES if ov else 0) | self._structure_flags(kmax)
 
     def _step_body(self, state, remaining):
-        """One substep including the lazy resort and, for fluids, the
-        volume pass. Returns (state, remaining, resorted, flags); nonzero
-        flags abort the span before any kernel sees the overflowed
+        """One substep including the lazy resort, for fluids the volume
+        pass, and for eigenerosion the pooling after dt is taken (the JAX
+        package's order). Returns (state, remaining, resorted, flags);
+        nonzero flags abort the span before any kernel sees the overflowed
         structure."""
         grid, params = self.grid, self.params
         f32 = np.float32
@@ -299,6 +437,8 @@ class FusedMpmPipeline:
         dt = min(min_dtb, max_dt)
         if dt < min_dt and remaining > min_dt:
             dt = min_dt
+        if self._eigen:
+            state = self._evolve_eigenerosion(state)
         state = self._substep(state, float(dt))
         remaining = f32(0.0) if params.stop_after_one_substep else f32(remaining - dt)
         return state, remaining, resorted, 0
@@ -344,12 +484,14 @@ class FusedMpmPipeline:
     def _pack(self, particles):
         particles = dense.mark_out_of_grid_failed(self.grid, particles)
         dtb = dense.particle_dt_bounds(self.grid, particles, self.models)
-        # Seed the stress-cache rows so the first kernel A reads valid stress.
-        stress = registry.kirchhoff_stress(
-            self.models, particles.model_id, particles.phase,
-            particles.elastic_hardening, particles.deformation_gradient,
-            particles.velocity_gradient, particles.mass, particles.volume0,
-        )
+        stress = None
+        if self._meta["stress_cache"]:
+            # Seed the stress-cache rows so the first kernel A reads valid stress.
+            stress = registry.kirchhoff_stress(
+                self.models, particles.model_id, particles.phase,
+                particles.elastic_hardening, particles.deformation_gradient,
+                particles.velocity_gradient, particles.mass, particles.volume0,
+            )
         return L.pack(self.grid, self._cfg, particles, dtb,
                       cache_fn=self._grid_cache, stress=stress)
 
@@ -391,18 +533,28 @@ class FusedMpmPipeline:
     def run_frames_state(self, state, num_frames: int):
         """Advance a resident SlotState by `num_frames` frames; returns
         (state, total_substeps). An overflow restores the pre-span copy,
-        regrows the tables or pins the scatter merge, and retries."""
+        regrows the tables, pins the scatter merge or doubles the
+        eigenerosion candidate list, and retries. The span's starting
+        structure is checked first (one host read), as each resort's is."""
         for _attempt in range(6):
-            # Kernel B updates slots in place: keep a copy to retry from.
+            # Kernel B and the pooling update slots in place: keep a copy
+            # to retry from.
             backup = state.replace(slots=state.slots.clone())
-            self._span_peak = int(state.structure.num_chunks)
-            state, total, nres, flags = self._frames_impl(state, num_frames)
+            st = state.structure
+            self._span_peak, kmax = torch.stack(
+                [st.num_chunks, torch.max(st.block_num_chunks)]).tolist()
+            flags = self._structure_flags(kmax)
+            if not flags:
+                state, total, nres, flags = self._frames_impl(state, num_frames)
             if flags == 0:
                 self.last_resorts = nres
                 if self._span_peak > 0.85 * self._cfg.max_chunks:
                     state = self._repack_state(state)
                 return state, total
             state = backup
+            if flags & OVERFLOW_EIGEN:
+                self._eigen_mcb *= 2
+                self.eigen_regrows += 1
             if flags & OVERFLOW_MERGE:
                 self._merge_force_scatter = True
             if flags & OVERFLOW_TABLES:

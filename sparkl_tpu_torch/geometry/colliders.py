@@ -1,11 +1,11 @@
-"""Rigid colliders as analytic point projections (port of the heightfield
-part of sparkl_tpu/geometry/colliders.py).
+"""Rigid colliders as analytic point projections (port of the cuboid and
+heightfield parts of sparkl_tpu/geometry/colliders.py).
 
 `project_point(points) -> (proj, is_inside)`: `proj` is the closest point
 on the boundary (parry's solid=false convention), vectorized over any
-leading axes. Ref: sparkl `src_kernels/gpu_collider.rs:43-95`. Cuboid,
-halfspace, ball, capsule, polyline and trimesh shapes and runtime poses are
-not ported yet.
+leading axes. Ref: sparkl `src_kernels/gpu_collider.rs:43-95`. Halfspace,
+ball, capsule, polyline and trimesh shapes, the 2D heightfield and
+runtime poses are not ported yet.
 """
 
 from dataclasses import dataclass
@@ -38,17 +38,28 @@ class Collider:
 
     def project_point(self, points):
         """(closest boundary point [..., d], is_inside [...])."""
-        if self.shape_type != HEIGHTFIELD:
+        projections = {CUBOID: _project_cuboid, HEIGHTFIELD: _project_heightfield}
+        if self.shape_type not in projections:
             raise NotImplementedError(
-                f"collider shape {self.shape_type}: only the heightfield is ported"
+                f"collider shape {self.shape_type}: only the cuboid and the heightfield are ported"
             )
         dev = points.device
         t = torch.as_tensor(self.translation, dtype=torch.float32, device=dev)
         r = torch.as_tensor(self.rotation, dtype=torch.float32, device=dev)
-        proj, inside = _project_heightfield((points - t) @ r, *self.data)
+        proj, inside = projections[self.shape_type]((points - t) @ r, *self.data)
         if self.flip_interior:
             inside = ~inside
         return proj @ r.T + t, inside
+
+
+def cuboid(half_extents, translation=None, rotation=None, friction=0.0, **kw):
+    """Box with these half extents in its local frame, 2D or 3D (ref: the
+    reference scenes' rapier cuboid colliders)."""
+    he = np.asarray(half_extents, np.float32)
+    dim = len(he)
+    t = np.zeros(dim, np.float32) if translation is None else np.asarray(translation, np.float32)
+    r = np.eye(dim, dtype=np.float32) if rotation is None else np.asarray(rotation, np.float32)
+    return Collider(CUBOID, (he,), t, r, friction, **kw)
 
 
 def heightfield(heights, scale, translation=None, rotation=None, friction=0.0, **kw):
@@ -63,6 +74,18 @@ def heightfield(heights, scale, translation=None, rotation=None, friction=0.0, *
     t = np.zeros(dim, np.float32) if translation is None else np.asarray(translation, np.float32)
     r = np.eye(dim, dtype=np.float32) if rotation is None else np.asarray(rotation, np.float32)
     return Collider(HEIGHTFIELD, (h, s), t, r, friction, **kw)
+
+
+def _project_cuboid(p, half_extents):
+    """Outside: the clamp into the box. Inside: the point with its axis of
+    smallest gap to a face (the first on ties) snapped onto that face."""
+    he = torch.as_tensor(half_extents, dtype=p.dtype, device=p.device)
+    clamped = torch.clamp(p, min=-he, max=he)
+    outside = torch.any(torch.abs(p) > he, dim=-1)
+    axis = torch.argmin(he - torch.abs(p), dim=-1)
+    onehot = (axis[..., None] == torch.arange(p.shape[-1], device=p.device)).to(p.dtype)
+    inner = p * (1.0 - onehot) + torch.sign(p) * he * onehot
+    return torch.where(outside[..., None], clamped, inner), ~outside
 
 
 def _point_triangle_closest(pf, a, b, c):

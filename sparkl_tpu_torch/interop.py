@@ -4,8 +4,9 @@ arrays (the port's "weights carried across").
 Callers convert sparkl_tpu objects to numpy themselves (np.asarray on each
 field); this module never imports jax. Field names and dtypes are the JAX
 package's: float32 floats, int32 ids, bool masks. Like every entry point of
-the port, each function puts its tensors on the card unless given
-device="cpu".
+the port, each function that makes tensors puts them on the card unless
+given device="cpu"; colliders and hooks keep their geometry in numpy, as in
+both packages.
 """
 
 from dataclasses import fields
@@ -15,7 +16,9 @@ import torch
 
 from sparkl_tpu_torch import device as _device
 from sparkl_tpu_torch.core.particles import Particles
+from sparkl_tpu_torch.geometry.colliders import Collider
 from sparkl_tpu_torch.models.registry import ModelSet
+from sparkl_tpu_torch.solver.pipeline import DirichletVelocityHook
 from sparkl_tpu_torch.fused.layout import SlotState
 from sparkl_tpu_torch.fused.structure import SlotStructure
 
@@ -48,6 +51,27 @@ def modelset_from_numpy(ctype, cparams, ptype, pparams, ftype, fparams,
     from the tables, as ModelSet.pack derives them)."""
     device = _device.resolve(device)
     return ModelSet.from_tables(ctype, cparams, ptype, pparams, ftype, fparams, device)
+
+
+def collider_from_numpy(shape_type, data, translation, rotation, friction=0.0,
+                        penalty_stiffness=0.0, boundary_handling=None,
+                        flip_interior=False) -> Collider:
+    """A JAX Collider's fields (its `data` tuple of arrays, the pose) ->
+    Collider; the shape's projection is the port's (cuboid or
+    heightfield)."""
+    return Collider(
+        int(shape_type), tuple(np.asarray(a, np.float32) for a in data),
+        np.asarray(translation, np.float32), np.asarray(rotation, np.float32),
+        float(friction), float(penalty_stiffness),
+        None if boundary_handling is None else int(boundary_handling), bool(flip_interior),
+    )
+
+
+def dirichlet_hook_from_numpy(points, velocities) -> DirichletVelocityHook:
+    """A JAX DirichletVelocityHook's points [K, d] and velocities [K, d] ->
+    the port's hook."""
+    return DirichletVelocityHook(np.asarray(points, np.float32),
+                                 np.asarray(velocities, np.float32))
 
 
 def slot_state_from_numpy(arrays, cache_fn=None, device="cuda") -> SlotState:

@@ -1,5 +1,10 @@
-"""Branch-free 3x3 SVD on component matrices (port of the cardano path of
-sparkl_tpu/math/svd.py: `svd_c` -> `svd3x3_c` -> `_sym_eig3x3_cardano`).
+"""Branch-free 2x2 and 3x3 SVD on component matrices (port of
+sparkl_tpu/math/svd.py: the 2x2 closed form `svd2x2_c`, and the cardano
+path `svd_c` -> `svd3x3_c` -> `_sym_eig3x3_cardano`).
+
+2x2: polar decomposition F = R S in closed form, then the symmetric
+eigendecomposition of S by one algebraic Givens rotation; a negative
+eigenvalue (det F < 0) flips its sign into U.
 
 Semantics of nalgebra's `svd_unordered` as the reference uses it: singular
 values non-negative and descending here, reflections pushed into U,
@@ -9,7 +14,7 @@ package computes it) refined through the invariants; eigenvectors by
 max-norm row cross products. The Jacobi backend of the JAX package is not
 ported yet.
 
-kernel B's CUDA copy of this code is csrc/particle_physics.cuh.
+The kernels' CUDA copy of this code is csrc/particle_physics.cuh.
 """
 
 import torch
@@ -234,28 +239,90 @@ def svd3x3_c(f):
     return _svd3x3_from_eig(f, sig2, [list(v) for v in vcols])
 
 
+def svd2x2_c(f):
+    """Component-wise SVD of a nested-list 2x2 matrix (sparkl_tpu/math/svd.py
+    svd2x2_c): (u, s, v) with f = u diag(s) v^T, s >= 0 (unsorted),
+    det(u) det(v) = sign(det f). 1/sqrt stands for the JAX package's rsqrt,
+    which its CPU backend computes so."""
+    a, b = f[0][0], f[0][1]
+    c, d = f[1][0], f[1][1]
+
+    # Polar decomposition F = R S with R a rotation.
+    x = a + d
+    y = c - b
+    r = torch.sqrt(x * x + y * y)
+    ok = r > 1e-20
+    r_safe = torch.where(ok, r, 1.0)
+    cr = torch.where(ok, x / r_safe, 1.0)
+    sr = torch.where(ok, y / r_safe, 0.0)
+    s00 = cr * a + sr * c
+    s01 = cr * b + sr * d
+    s11 = -sr * b + cr * d
+
+    # S = G diag(l) G^T by one algebraic Givens rotation.
+    diff = s00 - s11
+    denom_ok = torch.abs(s01) > 1e-30
+    tau = diff / torch.where(denom_ok, 2.0 * s01, 1.0)
+    t = torch.sign(tau) / (torch.abs(tau) + torch.sqrt(1.0 + tau * tau))
+    t = torch.where(tau == 0.0, 1.0, t)
+    t = torch.where(denom_ok, t, 0.0)
+    ct = 1.0 / torch.sqrt(1.0 + t * t)
+    st = t * ct
+    l0 = ct * ct * s00 + 2.0 * ct * st * s01 + st * st * s11
+    l1 = st * st * s00 - 2.0 * ct * st * s01 + ct * ct * s11
+
+    # V = G, U = R G; a negative eigenvalue flips its sign into U.
+    v00, v01 = ct, -st
+    v10, v11 = st, ct
+    u00 = cr * v00 - sr * v10
+    u01 = cr * v01 - sr * v11
+    u10 = sr * v00 + cr * v10
+    u11 = sr * v01 + cr * v11
+    sign0 = torch.where(l0 < 0.0, -1.0, 1.0)
+    sign1 = torch.where(l1 < 0.0, -1.0, 1.0)
+    return ([[u00 * sign0, u01 * sign1], [u10 * sign0, u11 * sign1]],
+            [l0 * sign0, l1 * sign1], [[v00, v01], [v10, v11]])
+
+
 def svd_c(f):
-    """Component-core SVD dispatch; the port carries 3x3 only."""
-    if len(f) != 3:
-        raise NotImplementedError("svd_c: only the 3x3 cardano path is ported")
+    """Component-core SVD dispatch on the matrix size (2 or 3)."""
+    if len(f) == 2:
+        return svd2x2_c(f)
     return svd3x3_c(f)
+
+
+def _stack(rows):
+    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+
+def svd2x2(f):
+    """SVD of [..., 2, 2] matrices: (u, s [..., 2], v), f = u diag(s) v^T."""
+    u, s, v = svd2x2_c([[f[..., i, j] for j in range(2)] for i in range(2)])
+    return _stack(u), torch.stack(s, dim=-1), _stack(v)
 
 
 def svd3x3(f):
     """SVD of [..., 3, 3] matrices: (u, s [..., 3], v), f = u diag(s) v^T."""
     u, s, v = svd3x3_c([[f[..., i, j] for j in range(3)] for i in range(3)])
-
-    def stack(rows):
-        return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
-
-    return stack(u), torch.stack(s, dim=-1), stack(v)
+    return _stack(u), torch.stack(s, dim=-1), _stack(v)
 
 
 def svd(f):
-    """Dispatch on the trailing matrix size; the port carries 3x3 only."""
-    if f.shape[-1] != 3:
-        raise NotImplementedError("svd: only the 3x3 cardano path is ported")
-    return svd3x3(f)
+    """Dispatch on the trailing matrix size (2 or 3)."""
+    if f.shape[-1] == 2:
+        return svd2x2(f)
+    if f.shape[-1] == 3:
+        return svd3x3(f)
+    raise NotImplementedError(f"svd of {f.shape[-1]}x{f.shape[-1]} matrices")
+
+
+def sym_eigvals2x2_c(m):
+    """Eigenvalues [min, max] of a symmetric 2x2 nested-list matrix (closed
+    form)."""
+    a, b, c = m[0][0], m[0][1], m[1][1]
+    mean = 0.5 * (a + c)
+    r = torch.sqrt(torch.clamp(0.25 * (a - c) ** 2 + b * b, min=0.0))
+    return [mean - r, mean + r]
 
 
 def sym_eigvals3x3_c(m):
@@ -273,11 +340,10 @@ def sym_eigvals3x3_c(m):
 
 
 def svd_values_c(f):
-    """Singular values only (unordered) of a 3x3 nested-list matrix, from
-    the eigenvalues of F^T F, skipping the U/V construction (used where only
-    invariants of F are needed: the corotated pos energy)."""
-    if len(f) != 3:
-        raise NotImplementedError("svd_values_c: only 3x3 is ported")
+    """Singular values only (unordered), for invariants of F (the corotated
+    pos energy): the 2x2 closed form's, or in 3x3 the square roots of the
+    eigenvalues of F^T F, skipping the U/V construction."""
+    if len(f) == 2:
+        return svd2x2_c(f)[1]
     a = [[sum(f[k][i] * f[k][j] for k in range(3)) for j in range(3)] for i in range(3)]
     return [torch.sqrt(torch.clamp(x, min=0.0)) for x in sym_eigvals3x3_c(a)]
-

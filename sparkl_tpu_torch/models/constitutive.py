@@ -22,7 +22,7 @@ CUSTOM_BASE = 16
 
 
 def corotated_kirchhoff_stress(lam, mu, split_on_failure, phase, hardening, f):
-    """[..., 3, 3] form of corotated_kirchhoff_stress_c."""
+    """[..., d, d] form of corotated_kirchhoff_stress_c."""
     return cmat.pack(
         corotated_kirchhoff_stress_c(lam, mu, split_on_failure, phase, hardening, cmat.unpack(f))
     )
@@ -58,7 +58,7 @@ def corotated_kirchhoff_stress_from_svd_c(
 
 
 def corotated_pos_energy(lam, mu, hardening, f):
-    """Tensile part of the energy of [..., 3, 3] matrices (ref: `pos_energy`)."""
+    """Tensile part of the energy of [..., d, d] matrices (ref: `pos_energy`)."""
     return corotated_pos_energy_c(lam, mu, hardening, cmat.unpack(f))
 
 

@@ -1,7 +1,7 @@
 """Model registry: per-model parameters packed into small tables, per-particle
 dispatch by model id (port of sparkl_tpu/models/registry.py for the models
-the port carries: corotated elasticity with optional Drucker-Prager, and
-the Monaghan SPH equation of state for fluids).
+the port carries: corotated elasticity with optional Drucker-Prager, the
+Monaghan SPH equation of state for fluids, and maximum-stress failure).
 
 The table layout is the JAX package's: ctype [M] i32, cparams [M, 4] f32,
 ptype [M] i32, pparams [M, 8] f32, ftype [M] i32, fparams [M, 2] f32.
@@ -16,9 +16,10 @@ import torch
 
 from sparkl_tpu_torch.math.lame import lame_lambda_mu
 from sparkl_tpu_torch.models import constitutive as con
+from sparkl_tpu_torch.models import failure as fail
 from sparkl_tpu_torch.models import plasticity as plas
 
-FAILURE_NONE = 0
+FAILURE_NONE = fail.FAILURE_NONE
 
 _N_CPARAMS = 4
 _N_PPARAMS = 8
@@ -66,6 +67,11 @@ def drucker_prager_plasticity(
             volume_correction,
         ),
     )
+
+
+def maximum_stress_failure(max_principal_stress, max_shear_stress):
+    """Ref: failure_maximum_stress.rs `MaximumStressFailure::new`."""
+    return (fail.MAXIMUM_STRESS, (max_principal_stress, max_shear_stress))
 
 
 @dataclass(frozen=True)
@@ -153,8 +159,10 @@ class ModelSet:
         extra_p = set(self.present_p) - {plas.DRUCKER_PRAGER}
         if extra_p:
             return f"plastic model types {sorted(extra_p)} (only Drucker-Prager is ported)"
-        if self.present_f:
-            return f"failure models {list(self.present_f)}"
+        extra_f = set(self.present_f) - {fail.MAXIMUM_STRESS}
+        if extra_f:
+            return (f"failure model types {sorted(extra_f)} (only maximum stress is "
+                    "ported)")
         return ""
 
 
@@ -238,7 +246,11 @@ def apply_plasticity(ms: ModelSet, model_id, phase, f, plastic_def_det, plastic_
 
 
 def apply_failure(ms: ModelSet, model_id, phase, stress):
-    """phase := 0 where the failure model trips; no failure model is
-    ported, so a model set with one raises."""
+    """phase := 0 where the failure model trips (ref: grid_to_particle.rs
+    "Apply failure model")."""
     _check(ms)
-    return phase
+    if not ms.present_f:
+        return phase
+    trip = (ms.ftype[model_id] == fail.MAXIMUM_STRESS) & fail.maximum_stress_failed(
+        ms.fparams[model_id], stress)
+    return torch.where(trip, 0.0, phase)

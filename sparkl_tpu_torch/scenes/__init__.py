@@ -2,7 +2,8 @@
 
 Each builder returns a SceneBundle; `build(name, device=...)` is the scene
 registry. Scenes are built on the card unless device="cpu" is given. The
-port carries the 3D sand scene and the 3D fluid blob.
+port carries the 3D sand scene, the 3D fluid blob and the 2D L-panel
+fracture scene.
 """
 
 from dataclasses import dataclass
@@ -24,6 +25,7 @@ class SceneBundle:
     particles: Particles
     params: SolverParameters
     gravity: tuple
+    hooks: object = None  # MpmHooks run after each grid update, or None
 
 
 _REGISTRY: Dict[str, Callable[..., SceneBundle]] = {}
@@ -41,4 +43,4 @@ def build(name, device="cuda", **kw) -> SceneBundle:
     return _REGISTRY[name](device=_device.resolve(device), **kw)
 
 
-from sparkl_tpu_torch.scenes import scenes3d  # noqa: E402,F401  (registration)
+from sparkl_tpu_torch.scenes import scenes2d, scenes3d  # noqa: E402,F401  (registration)

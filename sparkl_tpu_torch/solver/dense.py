@@ -228,7 +228,7 @@ def particle_dt_bounds(grid: GridParams, p, models: registry.ModelSet, velocity=
     )
     apic_v = linalg.div(norm_b * 6.0 * float(np.sqrt(p.dim)), h)
     v = torch.linalg.vector_norm(velocity, dim=-1) + apic_v
-    vel_bound = h / torch.clamp(v, min=1e-20)
+    vel_bound = linalg.rdiv(h, torch.clamp(v, min=1e-20))
     vel_bound = torch.where(v > 0.0, vel_bound, float("inf"))
     con_bound = registry.timestep_bound(
         models, p.model_id, phase, eh, f, p.mass, p.volume0, velocity, h,

@@ -18,13 +18,13 @@ reference's CUDA pipeline reads its dt and block counts. On overflow the
 frame is retried from its unchanged input with grown capacities.
 
 The port carries 3D scenes with corotated elasticity (± Drucker-Prager),
-static heightfield colliders and no damage. The constructor raises
-NotImplementedError for anything else (2D, damage models, fluid models and
-fluid volume recomputation, failure models, other constitutive or plastic models,
-penalty colliders, other collider shapes, boundary particle projection,
-GPU boundary semantics, grid hooks), and step_with_stats for runtime
-collider poses: those wait for later ports and never fall back to another
-path.
+static heightfield colliders and no damage on this pipeline. The
+constructor raises NotImplementedError for anything else (2D, damage
+models, fluid models and fluid volume recomputation, failure models, other
+constitutive or plastic models, penalty colliders, other collider shapes,
+boundary particle projection, GPU boundary semantics, grid hooks), and
+step_with_stats for runtime collider poses: those wait for later ports and
+never fall back to another path.
 """
 
 from typing import Optional
@@ -35,7 +35,8 @@ import torch
 from sparkl_tpu_torch import device as _device
 from sparkl_tpu_torch.core.grid import GridParams, GridState
 from sparkl_tpu_torch.core.params import DamageModel, SolverParameters
-from sparkl_tpu_torch.geometry.colliders import HEIGHTFIELD
+from sparkl_tpu_torch.fused.kernels import kernel_meta, meta_unsupported
+from sparkl_tpu_torch.geometry.colliders import CUBOID, HEIGHTFIELD
 from sparkl_tpu_torch.math import linalg
 from sparkl_tpu_torch.math.kernel import inv_d as kernel_inv_d
 from sparkl_tpu_torch.models import constitutive as con
@@ -49,36 +50,50 @@ from sparkl_tpu_torch.sparse import transfer as T
 # Overflow flag bits: the host regrow-retry loop grows the capacity that
 # actually tripped.
 OVERFLOW_TABLES = 1  # block / chunk / grid tables
-OVERFLOW_EIGEN = 2  # eigenerosion per-cell neighbour buckets (not ported)
+OVERFLOW_EIGEN = 2  # eigenerosion candidates: a block holds more chunks than the list takes
 OVERFLOW_MERGE = 4  # a block compressed past MERGE_KMAX chunks (fused merge)
 
 
-def unsupported(grid, models, colliders, params, hooks, fluids=False):
+def unsupported(grid, models, colliders, params, hooks, fused=False):
     """Why the port's pipelines cannot run this configuration: a list of
-    reasons, empty if they can. Fluids (EOS models and fluid volume
-    recomputation) only with `fluids`: the fused pipeline carries them, the
-    sparse one not yet."""
+    reasons, empty if they can. The sparse pipeline carries 3D corotated
+    (± Drucker-Prager) scenes on heightfields, with no damage, failure,
+    fluids or hooks. With `fused`, what the fused pipeline carries on top:
+    fluids (EOS models, fluid volume recomputation) in 3D, and in 2D
+    eigenerosion, maximum-stress failure, cuboid colliders and grid hooks
+    (the kernels' own limits are fused.kernels.meta_unsupported)."""
     why = []
-    if grid.dim != 3:
-        why.append(f"{grid.dim}D grids")
     m = models.unsupported()
     if m:
         why.append(m)
-    if not fluids and con.EOS_MONAGHAN_SPH in models.present_c:
-        why.append("fluid models")
-    if params.damage_model != DamageModel.NONE:
-        why.append(f"damage model {params.damage_model.name}")
-    if not fluids and params.force_fluids_volume_recomputation:
-        why.append("fluid volume recomputation")
     if params.enable_boundary_particle_projection:
         why.append("boundary particle projection")
     if params.gpu_boundary_semantics:
         why.append("GPU boundary semantics")
+    shapes = {HEIGHTFIELD} if grid.dim == 3 else set()
+    if fused:
+        shapes.add(CUBOID)
     for c in colliders:
-        if c.shape_type != HEIGHTFIELD:
-            why.append(f"collider shape {c.shape_type}")
+        if c.shape_type not in shapes:
+            why.append(f"collider shape {c.shape_type} in {grid.dim}D")
         if float(c.penalty_stiffness) > 0.0:
             why.append("penalty colliders")
+    if fused:
+        if not m:
+            why += meta_unsupported(kernel_meta(models, params), grid.dim)
+        if params.force_fluids_volume_recomputation and grid.dim != 3:
+            why.append("fluid volume recomputation in 2D")
+        return why
+    if grid.dim != 3:
+        why.append(f"{grid.dim}D grids")
+    if con.EOS_MONAGHAN_SPH in models.present_c:
+        why.append("fluid models")
+    if models.present_f:
+        why.append(f"failure models {list(models.present_f)}")
+    if params.damage_model != DamageModel.NONE:
+        why.append(f"damage model {params.damage_model.name}")
+    if params.force_fluids_volume_recomputation:
+        why.append("fluid volume recomputation")
     if hooks is not None:
         why.append("grid hooks")
     return why

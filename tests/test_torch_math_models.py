@@ -253,18 +253,22 @@ def test_cuda_row_constants_match_layout():
     with open(os.path.join(REPO, "sparkl_tpu_torch", "csrc", "fused_kernels.cu")) as fh:
         src = fh.read()
     consts = dict((k, int(v)) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", src))
-    r = TL.Rows(3)
-    names = {
-        "POS": r.pos, "VEL": r.vel, "GRAD": r.grad, "DEFGRAD": r.defgrad,
-        "MASS": r.mass, "VOL0": r.vol0, "PHASE": r.phase, "PSI_POS": r.psi_pos,
-        "PDD": r.pdd, "PH": r.ph, "EH": r.eh, "LVG": r.lvg, "NACC": r.nacc,
-        "KINVEL": r.kinvel, "CPF": r.cpf, "CTHR": r.cthr, "DTB": r.dtb,
-        "FAILED": r.failed, "RADIUS0": r.radius0, "PAR1": r.par1, "PAR2": r.par2,
-        "MC": r.m_c, "G": r.g, "DEBUG": r.debug, "CUMD": r.cumd, "STRESS": r.stress,
-    }
-    for k, v in names.items():
-        assert consts["ROW_" + k] == v, k
-    assert consts["NF"] == r.nf and consts["NI"] == TL.NI
+    # The 3D table (ROW_*, NF) and the 2D one (ROW2_*, NF2); the source
+    # checks its Rows<D> formula against both at compile time.
+    for dim, prefix, nf in ((3, "ROW_", "NF"), (2, "ROW2_", "NF2")):
+        r = TL.Rows(dim)
+        names = {
+            "POS": r.pos, "VEL": r.vel, "GRAD": r.grad, "DEFGRAD": r.defgrad,
+            "MASS": r.mass, "VOL0": r.vol0, "PHASE": r.phase, "PSI_POS": r.psi_pos,
+            "PDD": r.pdd, "PH": r.ph, "EH": r.eh, "LVG": r.lvg, "NACC": r.nacc,
+            "KINVEL": r.kinvel, "CPF": r.cpf, "CTHR": r.cthr, "DTB": r.dtb,
+            "FAILED": r.failed, "RADIUS0": r.radius0, "PAR1": r.par1, "PAR2": r.par2,
+            "MC": r.m_c, "G": r.g, "DEBUG": r.debug, "CUMD": r.cumd, "STRESS": r.stress,
+        }
+        for k, v in names.items():
+            assert consts[prefix + k] == v, (dim, k)
+        assert consts[nf] == r.nf
+    assert consts["NI"] == TL.NI
     assert (consts["I_MODEL"], consts["I_FLAGS"], consts["I_ORIGIN"]) == (
         TL.I_MODEL, TL.I_FLAGS, TL.I_ORIGIN)
     assert (consts["FLAG_ACTIVE"], consts["FLAG_STATIC"], consts["FLAG_KINEMATIC"]) == (

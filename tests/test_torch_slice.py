@@ -1,7 +1,7 @@
 """The port's fused sand3 slice end to end on the CPU (plain kernel
 versions): one frame against the JAX FusedMpmPipeline in interpret mode,
 a 4-frame replay of the sand3 golden, a state-resident run through the
-first lazy resort, and the constructor's refusals.
+first lazy resort, and the constructor's refusals and acceptances.
 """
 
 import json
@@ -15,6 +15,7 @@ import sparkl_tpu.scenes as jscenes
 from sparkl_tpu.fused.pipeline import FusedMpmPipeline as JPipeline
 from sparkl_tpu.sparse.blocks import BlockConfig as JBlockConfig
 
+import sparkl_tpu_torch as tsk
 import sparkl_tpu_torch.scenes as tscenes
 from sparkl_tpu_torch import interop
 from sparkl_tpu_torch.core.grid import GridParams
@@ -130,18 +131,24 @@ def test_constructor_refuses_what_the_slice_does_not_carry():
     b = tscenes.build("sand3", nx=4, ny=2, nz=2, device="cpu")
     base = dict(grid=b.grid, models=b.models, colliders=b.colliders, params=b.params,
                 device="cpu")
-    grid2 = GridParams(origin=(0.0, 0.0), cell_width=0.1, res=(32, 32))
     neo = treg.ModelSet.pack([treg.ParticleModel((1, (1.0, 1.0, 0.5, 0.0)))], "cpu")
+
+    other_failure = treg.ModelSet.from_tables([0], [[1.0, 1.0, 0.5, 0.0]], [0], np.zeros((1, 8)),
+                                              [2], [[1.0, 1.0]], "cpu")  # not maximum stress
+
+    # 3D: damage and failure models stay refused (the 2D fracture path
+    # carries them, below), as do the options no path carries.
     cases = [
-        dict(grid=grid2),
         dict(models=neo),
         dict(params=SolverParameters(damage_model=DamageModel.EIGENEROSION)),
         dict(models=treg.ModelSet.from_tables([0], [[1.0, 1.0, 0.5, 0.0]], [0], np.zeros((1, 8)),
-                                              [1], [[1.0, 1.0]], "cpu")),  # a failure model
+                                              [1], [[1.0, 1.0]], "cpu")),  # max-stress in 3D
+        dict(models=other_failure),
+        dict(params=SolverParameters(damage_model=DamageModel.MODIFIED_EIGENEROSION)),
+        dict(params=SolverParameters(damage_model=DamageModel.CD_MPM)),
         dict(params=SolverParameters(enable_boundary_particle_projection=True)),
         dict(params=SolverParameters(gpu_boundary_semantics=True)),
         dict(colliders=(heightfield(np.zeros((3, 3)), (1.0, 1.0, 1.0), penalty_stiffness=1.0),)),
-        dict(hooks=object()),
         dict(collider_pose_fn=lambda t: (None,)),
     ]
     for over in cases:
@@ -152,3 +159,24 @@ def test_constructor_refuses_what_the_slice_does_not_carry():
     fluid = treg.ModelSet.pack([treg.ParticleModel(treg.monaghan_sph_eos(1e6, 7, 1e-3))], "cpu")
     FusedMpmPipeline(**dict(base, models=fluid,
                             params=SolverParameters(force_fluids_volume_recomputation=True)))
+
+    # 2D: l_panel2's configuration is carried (eigenerosion, maximum-stress
+    # failure, the cuboid ground under STICK, the Dirichlet hook), through
+    # the constructor and auto_pipeline; modified eigenerosion, CD-MPM,
+    # another failure type and 2D without damage or failure are refused.
+    lp = tscenes.build("l_panel2", cell_width=0.02, device="cpu")
+    base2 = dict(grid=lp.grid, models=lp.models, colliders=lp.colliders, params=lp.params,
+                 gravity=lp.gravity, hooks=lp.hooks, device="cpu")
+    assert FusedMpmPipeline(**base2).hooks is lp.hooks
+    assert tsk.auto_pipeline(lp, device="cpu").hooks is lp.hooks
+    cases2 = [
+        dict(params=SolverParameters(damage_model=DamageModel.MODIFIED_EIGENEROSION)),
+        dict(params=SolverParameters(damage_model=DamageModel.CD_MPM)),
+        dict(models=other_failure),
+        dict(models=treg.ModelSet.pack([treg.ParticleModel(
+            treg.corotated_linear_elasticity(1e7, 0.2))], "cpu"), params=SolverParameters()),
+        dict(colliders=(heightfield(np.zeros((3, 3)), (1.0, 1.0, 1.0)),)),
+    ]
+    for over in cases2:
+        with pytest.raises(NotImplementedError):
+            FusedMpmPipeline(**dict(base2, **over))

@@ -281,16 +281,23 @@ def test_matrix_forms_match_jax(name):
                                    np.sort(np.linalg.svd(f, compute_uv=False), axis=1), atol=2e-5)
         rebuilt = ut * st[:, None, :] @ vt.transpose(1, 2)
         np.testing.assert_allclose(rebuilt.numpy(), f, atol=2e-5)
+        # 2x2 dispatches to the closed form (held to the JAX package in
+        # test_torch_fracture2d.py); other sizes are refused.
+        f2 = torch.from_numpy(f[:, :2, :2].copy())
+        u2, s2, v2 = tsvd.svd(f2)
+        np.testing.assert_allclose((u2 * s2[:, None, :] @ v2.transpose(1, 2)).numpy(),
+                                   f2.numpy(), atol=2e-5)
         with pytest.raises(NotImplementedError):
-            tsvd.svd(torch.eye(2)[None])
+            tsvd.svd(torch.eye(4)[None])
     elif name == "det":
         np.testing.assert_allclose(tlinalg.det(ft).numpy(), np.asarray(jlinalg.det(fj)), rtol=1e-6)
     else:
         # Per-particle model queries on a table with a fluid among solids:
         # is_fluid reads the table, pos_energy is the corotated energy and 0
         # for fluids (f32 rounding of the singular values: rtol 1e-5 of the
-        # largest energy), and apply_failure refuses a failure model, which
-        # is not ported.
+        # largest energy), apply_failure trips maximum stress as the JAX
+        # package does (F stands in for the stress, thresholds inside its
+        # range), and a model set with another failure type is refused.
         models = [jreg.ParticleModel(jreg.corotated_linear_elasticity(1.0e7, 0.2)),
                   jreg.ParticleModel(jreg.monaghan_sph_eos(1.0e5, 7, 0.1))]
         jm = jreg.ModelSet.pack(models)
@@ -303,12 +310,21 @@ def test_matrix_forms_match_jax(name):
         e_j = np.asarray(jreg.pos_energy(jm, jnp.asarray(ids), jnp.ones(n), jnp.ones(n), fj))
         np.testing.assert_allclose(e_t, e_j, rtol=1e-5, atol=1e-5 * np.abs(e_j).max())
         assert not e_t[ids == 1].any() and e_t[ids == 0].max() > 0
-        failing = treg.ModelSet.from_tables([0], [[1.0, 1.0, 0.5, 0.0]], [0], np.zeros((1, 8)),
-                                            [1], [[1.0, 1.0]], "cpu")
-        with pytest.raises(NotImplementedError):
-            treg.apply_failure(failing, torch.zeros(n, dtype=torch.int32), phase, ft)
-        solid = treg.ModelSet.pack(models[:1], "cpu")
+        elastic = jreg.corotated_linear_elasticity(1.0e7, 0.2)
+        jfailing = jreg.ModelSet.pack(
+            [jreg.ParticleModel(elastic, failure=jreg.maximum_stress_failure(1.0, 0.8))])
+        failing = treg.ModelSet.pack(
+            [treg.ParticleModel(elastic, failure=treg.maximum_stress_failure(1.0, 0.8))], "cpu")
         zeros = torch.zeros(n, dtype=torch.int32)
+        ph_t = treg.apply_failure(failing, zeros, phase, ft).numpy()
+        ph_j = np.asarray(jreg.apply_failure(jfailing, jnp.zeros(n, jnp.int32), jnp.ones(n), fj))
+        np.testing.assert_array_equal(ph_t, ph_j)
+        assert 0 < (ph_t == 0.0).sum() < n
+        other = treg.ModelSet.from_tables([0], [[1.0, 1.0, 0.5, 0.0]], [0], np.zeros((1, 8)),
+                                          [2], [[1.0, 1.0]], "cpu")
+        with pytest.raises(NotImplementedError):
+            treg.apply_failure(other, zeros, phase, ft)
+        solid = treg.ModelSet.pack(models[:1], "cpu")
         assert torch.equal(treg.apply_failure(solid, zeros, phase, ft), phase)
 
 
