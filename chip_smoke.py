@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: its two sand3 paths (the
 fused pipeline and the block-sparse pipeline), its fluid path (fluids3 on
-the fused pipeline, with fluid volume recomputation) and its 2D fracture
+the fused pipeline, with fluid volume recomputation), its 2D fracture
 path (l_panel2 on the fused pipeline: eigenerosion, maximum-stress
-failure, a STICK cuboid ground and a Dirichlet velocity hook).
+failure, a STICK cuboid ground and a Dirichlet velocity hook) and its two
+2D plastic paths (elasticity2: corotated + Rankine stars in a cuboid box,
+the stress cache on; basic2: Snow, Drucker-Prager and a maximum-stress
+star on a 2D heightfield, the stress cache off).
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It needs one CUDA device (written for an H100, sm_90a) and nvcc, and exits
@@ -24,9 +27,12 @@ Phases (one line each, longer logs under chiprun_out/):
      held against the substeps and the resort branches taken;
   5. after the main path: the resort kernels against their plain versions
      on the state the main path's first resort started from, that whole
-     resort on the card against the same resort of a CPU copy, and kernel
-     B on the landed final state and on that state with perturbed F, both
-     with Drucker-Prager plastic flow;
+     resort on the card against the same resort of a CPU copy, the older
+     lane router permute_chunks (on no path) on that resort's pre-gathered
+     operands against its plain version and permute_slots, bit for bit,
+     timed against one indexed gather, and kernel B on the landed final
+     state and on that state with perturbed F, both with Drucker-Prager
+     plastic flow;
   6. the block-sparse path's two window kernels against their plain
      versions on the card, on the inputs of a substep one frame into the
      fall at sand3@1M, without and with the psi channels, with times;
@@ -56,8 +62,9 @@ Phases (one line each, longer logs under chiprun_out/):
      on a perturbed state whose crack energies straddle the threshold),
      kernels A and B in their 2D damage forms and the merge at C = 64
      (kernel B also on a state with F perturbed so that maximum stress
-     trips), and the resort's source-row and permute kernels at C = 64 (the
-     whole resort on the card against a CPU copy);
+     trips), and the resort's source-row and permute kernels (and
+     permute_chunks) at C = 64 (the whole resort on the card against a CPU
+     copy);
  13. the fracture main path: scenes.build("l_panel2") -> auto_pipeline ->
      pack_state -> 10 frames of run_frames_state (~124 substeps each) ->
      unpack_state, launch counts against the substeps, per frame the broken
@@ -67,7 +74,23 @@ Phases (one line each, longer logs under chiprun_out/):
      frame twice on the card, bit-equal; the eigenerosion candidate list's
      regrow and retry on a denser crack panel, bit-equal to a run that
      needed none;
- 15. a JSON line of per-kernel results, the card's nvidia-smi line, and
+ 15. the 2D plastic kernels against their plain versions: kernel A's
+     stress-cache read and kernel B's Rankine branch and stress epilogue on
+     elasticity2, A's fresh stress and B's Snow, Drucker-Prager and
+     maximum-stress branches on basic2, each 20 substeps in and with F
+     perturbed so that every Rankine case, both Snow clamps,
+     Drucker-Prager flow and maximum-stress trips occur (lanes counted);
+     then, timed, a 250,000-particle block under basic2's models, also in
+     the cache-on form and under Drucker-Prager alone (the one-SVD path);
+ 16. the two plastic main paths: scenes.build -> auto_pipeline ->
+     pack_state -> 10 frames of run_frames_state -> unpack_state each,
+     launch counts against the substeps, per frame the substeps beside the
+     goldens' and the golden statistics within tests/test_regression.py's
+     fused tolerances, mass; one profiled basic2 frame
+     (plastic2d_profile.txt in the output directory);
+ 17. each plastic scene, 5 substeps on the card against the port's CPU
+     path, and one frame twice on the card, bit-equal;
+ 18. a JSON line of per-kernel results, the card's nvidia-smi line, and
      the final {"ok": true, "device": ...} line.
 
 Each kernel's bound_ms is the least time the card could take for its work
@@ -98,12 +121,20 @@ REPLACES = {
     # XLA glue, not a TPU kernel: the scatter-add merge.
     "merge_scatter": "sparkl_tpu/sparse/transfer.py:237",
     "eigen_pool_fused": "sparkl_tpu/fused/kernels.py:851",
+    "permute_chunks": "sparkl_tpu/fused/kernels.py:1156",
 }
 # The main path each kernel's launch count is read from.
 PATH_OF = dict.fromkeys(("p2g_fused", "merge_blocks", "g2p_fused", "src_rows_from_order",
                          "permute_slots"), "fused")
 PATH_OF.update(p2g_windows="sparse", g2p_windows="sparse", mass_p2g_fused="fluid",
-               mass_g2p_fused="fluid", merge_scatter="fluid", eigen_pool_fused="fracture")
+               mass_g2p_fused="fluid", merge_scatter="fluid", eigen_pool_fused="fracture",
+               permute_chunks=None)
+# permute_chunks is on no path: no path of the JAX package calls it (its
+# one caller is tests/test_lowering.py), and the port's resort permutes with
+# permute_slots. Its launches are those of its checks on the resorts of
+# phases 5 and 12.
+NO_PATH = ("none: no path of the JAX package calls it (its only caller is "
+           "tests/test_lowering.py:100); launches from its checks on the phase 5 and 12 resorts")
 FUSED_SOURCE = "sparkl_tpu_torch/csrc/fused_kernels.cu"
 WINDOW_SOURCE = "sparkl_tpu_torch/csrc/window_kernels.cu"
 SPARSE_KERNELS = ("p2g_windows", "g2p_windows")
@@ -163,6 +194,18 @@ EOS_SLOT_FLOPS, B_FLUID_LANE_FLOPS, MASS_TAP_FLOPS = 40, 200, 4
 # products, a sum, the compare and 2 adds).
 P2G2_TAP_FLOPS, A2_SLOT_FLOPS, G2P2_TAP_FLOPS, B2_LANE_FLOPS = 27, 100, 14, 200
 EIG_PAIR_FLOPS = 10
+# The 2D plastic forms: kernel A with the cache on reads the stress and
+# forms the affine per slot (~20, no SVD); kernel B's plastic lane adds one
+# more 2x2 SVD, the map (logs, exps, the rank network or clamps) and the
+# rebuild of F (~150, transcendentals counted as one each).
+A2_CACHED_SLOT_FLOPS, B2_PLASTIC_FLOPS = 20, 150
+# elasticity2 and basic2 (phases 15-17): substeps run before the kernel
+# checks, frames of the main paths (the last timed), a 500 x 500 block for
+# the timed checks, and the substeps of the card-against-CPU check.
+PLASTIC_SUBSTEPS_IN = 20
+PLASTIC_FRAMES, PLASTIC_TIMED = 10, 3
+PLASTIC_BLOCK = 500
+PLASTIC_AGREE_SUBSTEPS = 5
 # Tolerances of the kernel-vs-plain checks (the plain versions run on the
 # same card on the same tensors); p2g_errors and g2p_errors state each one.
 
@@ -657,18 +700,49 @@ def phase_resort(pipe, pre, phase=5):
            f"{equal}; source chunks per live destination mean {nsrc.mean().item():.3f}, "
            f"max {int(nsrc.max().item())}, {int((nsrc > 8).sum())} destinations above 8")
     require(equal, "permute_slots is not equal to its plain version")
+    # The older lane router on the same resort: its pre-gathered operands
+    # (each destination's distinct source chunks, K = the most any has) and
+    # lane targets from the per-slot source index, as the JAX package's
+    # resort built them. No path calls it; these launches are its check.
+    gathered, gathered_i, target = K.permute_chunks_operands(pre.slots, pre.ints, src)
+    n0 = K.LAUNCHES["permute_chunks"]
+    pc_k = K.permute_chunks(gathered, gathered_i, target)
+    pc_p = K.permute_chunks_reference(gathered, gathered_i, target)
+    keep_f = [k for k in range(r.nf) if k != r.cumd]
+    keep_i = [k for k in range(L.NI) if not L.I_ORIGIN <= k < L.I_ORIGIN + dim]
+    bits = [x.view(torch.int32) if x.dtype == torch.float32 else x for x in (*pc_k, *pc_p)]
+    same_plain = torch.equal(bits[0], bits[2]) and torch.equal(bits[1], bits[3])
+    same_slots = (torch.equal(bits[0][:, keep_f], out_k[0][:, keep_f].view(torch.int32))
+                  and torch.equal(pc_k[1][:, keep_i], out_k[1][:, keep_i]))
+    res["permute_chunks"] = dict(
+        max_abs_err=max((pc_k[0] - pc_p[0]).abs().max().item(),
+                        float((pc_k[1] - pc_p[1]).abs().max().item())),
+        k_src=gathered.shape[1], operand_gib=(gathered.numel() + gathered_i.numel()) * 4 / 2**30,
+        bytes=(n_valid + d_ * c) * 4 * (r.nf + L.NI) + d_ * c * 4)
+    say(phase, f"permute_chunks on the same resort: K = {gathered.shape[1]} source chunks, "
+               f"operands {res['permute_chunks']['operand_gib']:.2f} GiB; bit-equal to its plain "
+               f"version {same_plain}, to permute_slots (but the drift and origin rows) "
+               f"{same_slots}")
+    require(same_plain and same_slots,
+            "permute_chunks is not bit-equal to its plain version and to permute_slots")
     # The library yardsticks: one gather each, with the index precomputed.
     j = torch.clamp(shifts[:, None].long() + torch.arange(c, device=dev)[None, :], 0, 2 * c - 1)
     order_rows = order2.reshape(d_, 2 * c)
     src_safe = torch.where(src >= 0, src, 0).long()
     sc, sl = src_safe // c, src_safe % c
+    tgt = torch.where(target < gathered.shape[1] * c, target, 0).long()
+    gd = torch.arange(d_, device=dev)[:, None].expand(d_, c)
+    gk, gl = tgt // c, tgt % c
     for name, fn, plain, lib in (
             ("src_rows_from_order", lambda: K.src_rows_from_order(order2, shifts),
              lambda: K.src_rows_from_order_reference(order2, shifts),
              lambda: torch.gather(order_rows, 1, j)),
             ("permute_slots", lambda: K.permute_slots(*args),
              lambda: K.permute_slots_reference(*args),
-             lambda: (pre.slots[sc, :, sl], pre.ints[sc, :, sl]))):
+             lambda: (pre.slots[sc, :, sl], pre.ints[sc, :, sl])),
+            ("permute_chunks", lambda: K.permute_chunks(gathered, gathered_i, target),
+             lambda: K.permute_chunks_reference(gathered, gathered_i, target),
+             lambda: (gathered[gd, gk, :, gl], gathered_i[gd, gk, :, gl]))):
         v = res[name]
         v["ms"], v["plain_ms"], v["library_ms"] = (
             cuda_median_ms(fn), cuda_median_ms(plain), cuda_median_ms(lib))
@@ -677,6 +751,9 @@ def phase_resort(pipe, pre, phase=5):
         say(phase, f"{name}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, library (one "
                f"gather) {v['library_ms']:.3f} ms (median of 20); {v['bytes'] / 1e9:.4f} GB counted "
                f"from shapes = {v['bytes'] / v['ms'] / 1e6:.1f} GB/s; bound {v['bound_ms']:.4f} ms")
+
+    res["permute_chunks"]["launches"] = K.LAUNCHES["permute_chunks"] - n0
+    del gathered, gathered_i, pc_k, pc_p, bits
 
     def run(state):
         out, ov, branch = L.resort(grid, cfg, state, dim)
@@ -1249,7 +1326,7 @@ def phase_fluid_main(b):
                   g2p_fused=substeps, mass_p2g_fused=substeps + resorts,
                   mass_g2p_fused=substeps + resorts,
                   src_rows_from_order=resorts - branches["relabel"],
-                  permute_slots=branches["mixed"], eigen_pool_fused=0)
+                  permute_slots=branches["mixed"], eigen_pool_fused=0, permute_chunks=0)
     require(launches == expect, f"fluid path launch counts {launches}, expected {expect}")
     com = p.position[act].mean(0).tolist()
     say(10, f"fluid path: centre of mass {[round(x, 4) for x in com]}")
@@ -1258,11 +1335,464 @@ def phase_fluid_main(b):
         seconds=seconds, pups=pups, peak_gib=peak_gib, config=str(pipe._cfg))
 
 
+def plastic_block(device="cuda"):
+    """One 2D block of 250,000 particles under basic2's models, grid and
+    heightfield: a 500 x 500 lattice at r = h/4 (h = 1/128), its thirds in
+    x the snow, the sand and the star's model (densities 1000, 1000,
+    4000), from x = -0.55, y = 0.6 (its lower part inside the valley's
+    collider)."""
+    from dataclasses import replace
+    import numpy as np
+    import sparkl_tpu_torch.scenes as scenes
+    from sparkl_tpu_torch.core.particles import Particles
+
+    b = scenes.build("basic2", device=device)
+    r = b.grid.cell_width / 4.0
+    cols = np.array_split(np.arange(PLASTIC_BLOCK, dtype=np.float32), 3)
+    ys = 0.6 + r + 2.0 * r * np.arange(PLASTIC_BLOCK, dtype=np.float32)
+    parts = []
+    for m, (xi, rho) in enumerate(zip(cols, (1000.0, 1000.0, 4000.0))):
+        gx, gy = np.meshgrid(-0.55 + r + 2.0 * r * xi, ys, indexing="ij")
+        pts = np.stack([gx.reshape(-1), gy.reshape(-1)], -1).astype(np.float32)
+        parts.append(Particles.from_positions(pts, m, r, rho, b.particles.device))
+    return replace(b, name="basic2 block", particles=Particles.concatenate(tuple(parts)))
+
+
+def perturbed_by_model(state, scales, seed=19):
+    """`state` with F += scale_m·N(0, 1) on the occupied lanes of model m
+    (numpy seed), for each model m in `scales`."""
+    import numpy as np
+    import torch
+    from sparkl_tpu_torch.fused import layout as L
+
+    r = L.Rows(2)
+    d_, _, c = state.slots.shape
+    noise = torch.from_numpy(np.random.default_rng(seed).normal(size=(d_, 4, c))
+                             .astype(np.float32)).to(state.slots.device)
+    occ = (state.ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0
+    mid = state.ints[:, L.I_MODEL, :]
+    scale = torch.zeros_like(noise[:, 0])
+    for m, sc in scales.items():
+        scale = torch.where(occ & (mid == m), sc, scale)
+    slots = state.slots.clone()
+    slots[:, r.defgrad : r.defgrad + 4] += scale[:, None, :] * noise
+    return state.replace(slots=slots)
+
+
+def plastic_counts(pipe, state, out, dt):
+    """Lanes of each plastic branch kernel B took on `state` (its output
+    `out`): each return map's input F is the slot's F after the F update
+    with the gathered gradient (out's gradient rows); Rankine lanes by case
+    (elastic, the largest eigenvalue capped, the uniform cap; 2D has no
+    two-eigenvalue case), Snow lanes with a singular value clamped below
+    1 - min_eps or above 1 + max_eps, Drucker-Prager lanes whose hardening
+    moved (plastic flow), and maximum-stress trips (phase 1 -> 0)."""
+    import torch
+    from sparkl_tpu_torch.fused import kernels as K
+    from sparkl_tpu_torch.fused import layout as L
+    from sparkl_tpu_torch.math import cmat, svd
+    from sparkl_tpu_torch.models import failure as fail
+    from sparkl_tpu_torch.models import plasticity as plas
+
+    r = L.Rows(2)
+    slots = state.slots
+    occ = (state.ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0
+    (pt, ft), cols = K.model_columns(pipe._tab_f, pipe._tab_i, state.ints, range(16), (1, 2))
+    pp = cols[K.TAB_P : K.TAB_P + 8]
+    f = [[slots[:, r.defgrad + 2 * i + j] for j in range(2)] for i in range(2)]
+    g = [[out[:, r.grad + 2 * i + j] for j in range(2)] for i in range(2)]
+    gf = cmat.matmul_c(g, f)
+    s = svd.svd_c([[f[i][j] + dt * gf[i][j] for j in range(2)] for i in range(2)])[1]
+    eig = [torch.log(torch.clamp(x, min=1e-20)) for x in s]
+    e1, e2 = torch.maximum(eig[0], eig[1]), torch.minimum(eig[0], eig[1])
+    mu, lam, ts = pp[0], pp[1], pp[2]
+    soft = ts - (slots[:, r.ph] - 1.0)
+    case0 = lam * (eig[0] + eig[1]) + 2.0 * mu * e1 <= soft
+    cond1 = (2.0 * mu + lam) * e2 + lam * e2 <= soft
+    rk = occ & (pt == plas.RANKINE)
+    sn = occ & (pt == plas.SNOW)
+    below = (s[0] < 1.0 - pp[0]) | (s[1] < 1.0 - pp[0])
+    above = (s[0] > 1.0 + pp[1]) | (s[1] > 1.0 + pp[1])
+    return dict(
+        rankine_elastic=int((rk & case0).sum()),
+        rankine_cap_largest=int((rk & ~case0 & cond1).sum()),
+        rankine_uniform=int((rk & ~case0 & ~cond1).sum()), snow_below=int((sn & below).sum()),
+        snow_above=int((sn & above).sum()),
+        dp_flow=int((occ & (pt == plas.DRUCKER_PRAGER) & (out[:, r.ph] != slots[:, r.ph])).sum()),
+        max_stress_trips=int((occ & (ft == fail.MAXIMUM_STRESS) & (out[:, r.phase] == 0.0)
+                              & (slots[:, r.phase] != 0.0)).sum()))
+
+
+def check_kernels_2d(pipe, state, dt, label, phase, meta=None, timed=False):
+    """Kernel A (the stress-cache read, or fresh from F with the cache off;
+    the psi channels with eigenerosion), the merge on its images and kernel
+    B (the return maps in the SVD sequence of meta's form, the stress
+    epilogue or the maximum-stress trip) against their plain versions on
+    the 2D `state`, on the windows the path computes; `meta` a form of the
+    pipeline's meta to run instead (e.g. without the psi channels, B then
+    on the velocity windows alone). A: p2g_errors's bound; the merge
+    bit-equal; B: g2p_errors's row tolerances on occupied lanes, the phase
+    row equal but on lanes whose largest principal stress (from B's own
+    output F) lies within TIE of the envelope. The lanes of each plastic
+    branch and the maximum-stress trips are counted (plastic_counts). With
+    `timed`, times and bounds. Returns {name: {...}}."""
+    import torch
+    from sparkl_tpu_torch.fused import kernels as K
+    from sparkl_tpu_torch.fused import layout as L
+    from sparkl_tpu_torch.math import svd
+    from sparkl_tpu_torch.models import failure as fail
+    from sparkl_tpu_torch.sparse import transfer as T
+
+    meta = pipe._meta if meta is None else meta
+    cache, psi = bool(meta["stress_cache"]), bool(meta["with_psi"])
+    grid, cfg = pipe.grid, pipe._cfg
+    r = L.Rows(2)
+    nch = state.structure.num_chunks
+    tables = (pipe._tab_f, pipe._tab_i)
+    img_k = K.p2g_fused(grid, cfg, meta, state.slots, state.ints, dt, nch, tables)
+    img_p = K.p2g_fused_reference(grid, state.slots, state.ints, dt, nch, tables,
+                                  stress_cache=cache, with_psi=psi)
+    rows = image_rows(cfg, img_k)
+    first, nblk = state.structure.block_first_chunk, state.structure.block_num_chunks
+    m_k = K.merge_blocks(rows, first, nblk)
+    m_p = K.merge_blocks_reference(rows, first, nblk, T.MERGE_KMAX)
+    # The windows the path computes (from its own form's images), cut to
+    # the channels this form reads.
+    img_path = img_k if psi == pipe._meta["with_psi"] else K.p2g_fused(
+        grid, cfg, pipe._meta, state.slots, state.ints, dt, nch, tables)
+    windows = pipe._grid_windows(state, img_path, dt)[:, :2 + psi].contiguous()
+    slots_in = state.slots.clone()
+    args = (pipe._tab_f, pipe._tab_i, nch)
+    out_p = K.g2p_fused_reference(grid, slots_in, state.ints, windows, dt, *args,
+                                  velocity_clamp=pipe._kparams["gpu_velocity_clamp"],
+                                  stress_cache=cache)
+    out_k = K.g2p_fused(grid, cfg, meta, pipe._kparams, slots_in.clone(), state.ints, windows,
+                        dt, *args)
+    torch.cuda.synchronize()
+    per_ch = p2g_errors(img_k, img_p)
+    occ = (state.ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0
+    row_errs = g2p_errors(out_k, out_p, state.ints, pipe.models.cparams, grid.cell_width,
+                          skip_rows=(r.phase,))
+    worst = {}
+    for _, grp, m, tol in row_errs:
+        worst[grp] = max(worst.get(grp, 0.0), m / tol if tol else m)
+    (ct, ft), p = K.model_columns(pipe._tab_f, pipe._tab_i, state.ints, range(16), (0, 2))
+    f = [[out_k[:, r.defgrad + 2 * i + j] for j in range(2)] for i in range(2)]
+    st = K.kirchhoff_stress_c(ct, p[0:4], slots_in[:, r.phase], out_k[:, r.eh], f, None, None,
+                              None, (0,))
+    emax = svd.sym_eigvals2x2_c([[0.5 * (st[i][j] + st[j][i]) for j in range(2)]
+                                 for i in range(2)])[1]
+    mp = p[K.TAB_F]
+    tie = (ft == fail.MAXIMUM_STRESS) & ((emax - mp).abs() <= TIE * mp.abs())
+    differ = occ & (out_k[:, r.phase] != out_p[:, r.phase])
+    counts = plastic_counts(pipe, state, out_p, dt)
+    same_bits = torch.equal(torch.where(occ[:, None, :], out_k, 0.0),
+                            torch.where(occ[:, None, :], out_p, 0.0))
+    res = {
+        "p2g_fused": dict(max_abs_err=max(e for _, e in per_ch),
+                          over_bound=max(m for m, _ in per_ch), stress_cache=cache,
+                          with_psi=psi),
+        "merge_blocks": dict(max_abs_err=(m_k - m_p).abs().max().item(),
+                             bit_equal=torch.equal(m_k, m_p)),
+        "g2p_fused": dict(max_abs_err=torch.where(occ[:, None, :], out_k - out_p,
+                                                  0.0).abs().max().item(),
+                          worst_over_tol=worst, bit_equal=same_bits, counts=counts,
+                          trips=counts["max_stress_trips"], trips_differ=int(differ.sum()),
+                          tie_lanes=int((tie & occ).sum()),
+                          svd_reuse=K.svd_reuse(cache, meta["present_c"], meta["present_p"])),
+    }
+    say(phase, f"2D kernels on the {label} state (stress cache {cache}, psi {psi}, SVD reuse "
+               f"{res['g2p_fused']['svd_reuse']}): p2g_fused images {tuple(img_k.shape)} max|err|"
+               f"/bound {[f'{m:.2e}' for m, _ in per_ch]} (pass <= 1); merge_blocks "
+               f"{tuple(m_k.shape)} bit-equal {res['merge_blocks']['bit_equal']}; g2p_fused "
+               f"worst measure/tol {({g: round(v, 4) for g, v in worst.items()})}, bit-equal on "
+               f"occupied lanes {same_bits}; lanes per branch {counts}; phase differing "
+               f"{res['g2p_fused']['trips_differ']} (lanes within {TIE:g} of the envelope "
+               f"{res['g2p_fused']['tie_lanes']})")
+    failures = []
+    if not (all(m <= 1.0 for m, _ in per_ch) and torch.isfinite(img_k).all().item()):
+        failures.append("p2g_fused")
+    if not res["merge_blocks"]["bit_equal"]:
+        failures.append("merge_blocks")
+    if not (all(v <= 1.0 for v in worst.values()) and not bool((differ & ~tie).any())
+            and torch.isfinite(torch.where(occ[:, None, :], out_k, 0.0)).all().item()):
+        failures.append("g2p_fused")
+    require(not failures, f"{failures} disagree with their plain versions on the {label} state")
+    if not timed:
+        return res
+    live, row = int(nch), 4 * cfg.chunk_size
+    lanes = int(((state.ints[:, L.I_FLAGS, :] & L.ACTIVE) != 0).sum())
+    plastic = int((occ & (K.model_columns(pipe._tab_f, pipe._tab_i, state.ints, (),
+                                          (1,))[0][0] != 0)).sum())
+    merged = int(nblk.clamp(max=T.MERGE_KMAX).sum())
+    block = 4 * 4 * img_k.shape[1] * 16
+    scratch = slots_in.clone()
+    # The library yardstick of the merge: one segment sum over the valid
+    # chunks' rows (blocks own contiguous chunk ranges).
+    require(int(nblk.max()) <= T.MERGE_KMAX, "a block holds more than MERGE_KMAX chunks")
+    flat, lengths = rows.reshape(cfg.max_chunks, -1)[:int(nblk.sum())], nblk.long()
+    # Bytes counted from what the 2D forms read and write per live chunk: A
+    # reads pos 2, vel 2, grad 4, mass, vol0, failed, then the 3 stress rows
+    # (cache on) or F 4, phase and eh (fresh), with psi cpf and psi_pos, and
+    # flags, model, origin 2 (4 i32 rows), and writes every chunk's [nf, 64]
+    # image; B reads 26 f32 rows (pos, F, the scalar state, kinematic
+    # velocity, crack and bookkeeping rows), 4 i32 rows and the [2, 64]
+    # velocity window, and writes all 40 rows.
+    a_rows = 11 + (3 if cache else 6) + (2 if psi else 0)
+    a_slot = A2_CACHED_SLOT_FLOPS if cache else A2_SLOT_FLOPS
+    for name, fn, plain, lib, nbytes, flops in (
+            ("p2g_fused", lambda: K.p2g_fused(grid, cfg, meta, state.slots, state.ints, dt, nch,
+                                              tables),
+             lambda: K.p2g_fused_reference(grid, state.slots, state.ints, dt, nch, tables,
+                                           stress_cache=cache, with_psi=psi), None,
+             live * (a_rows + 4) * row + cfg.max_chunks * img_k.shape[1] * 64 * 4,
+             lanes * (9 * P2G2_TAP_FLOPS + a_slot)),
+            ("merge_blocks", lambda: K.merge_blocks(rows, first, nblk),
+             lambda: K.merge_blocks_reference(rows, first, nblk, T.MERGE_KMAX),
+             lambda: torch.segment_reduce(flat, "sum", lengths=lengths, axis=0),
+             (merged + nblk.shape[0]) * block, merged * block // 4),
+            ("g2p_fused", lambda: K.g2p_fused(grid, cfg, meta, pipe._kparams, scratch,
+                                              state.ints, windows, dt, *args),
+             lambda: K.g2p_fused_reference(grid, slots_in, state.ints, windows, dt, *args,
+                                           stress_cache=cache), None,
+             live * ((26 + 4 + 40) * row + 2 * 64 * 4),
+             lanes * (9 * G2P2_TAP_FLOPS + B2_LANE_FLOPS) + plastic * B2_PLASTIC_FLOPS)):
+        v = res[name]
+        v["ms"], v["plain_ms"] = cuda_median_ms(fn), cuda_median_ms(plain)
+        v["library_ms"] = cuda_median_ms(lib) if lib else None
+        v["bytes"], v["flops"] = nbytes, flops
+        v["bound_ms"], v["bound_by"] = bound(nbytes, flops)
+        say(phase, f"{name} (2D, {label}): kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, "
+                   f"library {v['library_ms']} ms (median of 20); {nbytes / 1e9:.4f} GB and "
+                   f"{flops / 1e9:.4f} GFLOP counted; bound {v['bound_ms']:.4f} ms "
+                   f"({v['bound_by']})")
+    return res
+
+
+def phase_plastic_kernels():
+    """The 2D plastic kernels against their plain versions on the card:
+    elasticity2 (kernel A's cache read, kernel B's Rankine branch and
+    stress epilogue) and basic2 (A's fresh stress, B's Snow and
+    Drucker-Prager branches and the maximum-stress trip) PLASTIC_SUBSTEPS_IN
+    substeps in, each also with F perturbed per model so that every
+    Rankine case, both Snow clamps, Drucker-Prager flow and maximum-stress
+    trips occur (counted, each required); then a 250,000-particle block
+    under basic2's models, with times: as basic2 runs it (the cache off),
+    in the cache-on form, and under Drucker-Prager alone (the one-SVD
+    path). Returns {label: {name: {...}}}."""
+    from dataclasses import replace
+    import torch
+    import sparkl_tpu_torch.scenes as scenes
+    from sparkl_tpu_torch.models import registry as reg
+
+    out = {}
+    perturb = {"elasticity2": {0: 0.01}, "basic2": {0: 0.02, 1: 0.02, 2: 1.5}}
+    for name in ("elasticity2", "basic2"):
+        t0 = time.perf_counter()
+        b = scenes.build(name)
+        pipe, state = substep_state(b, PLASTIC_SUBSTEPS_IN)
+        dt = float(pipe._min_dtb(state))
+        say(15, f"{name}: {int(b.particles.active.sum())} particles, {pipe._cfg}, grid "
+                f"{b.grid.res}, {PLASTIC_SUBSTEPS_IN} substeps in, dt {dt:.3e}, set-up "
+                f"{time.perf_counter() - t0:.1f} s")
+        res = check_kernels_2d(pipe, state, dt, name, 15, timed=True)
+        pres = check_kernels_2d(pipe, perturbed_by_model(state, perturb[name]), dt,
+                                f"{name} perturbed-F", 15)
+        res["g2p_fused"]["perturbed"] = pres["g2p_fused"]
+        res["p2g_fused"]["perturbed"] = pres["p2g_fused"]
+        out[name] = res
+        del pipe, state
+    c_e = out["elasticity2"]["g2p_fused"]["perturbed"]["counts"]
+    c_b = out["basic2"]["g2p_fused"]["perturbed"]["counts"]
+    need = dict(rankine_elastic=c_e, rankine_cap_largest=c_e, rankine_uniform=c_e,
+                snow_below=c_b, snow_above=c_b, dp_flow=c_b, max_stress_trips=c_b)
+    unchecked = [k for k, c in need.items() if c[k] == 0]
+    require(not unchecked, f"branches no lane took on the perturbed states: {unchecked}")
+
+    t0 = time.perf_counter()
+    b = plastic_block()
+    pipe, state = substep_state(b, 3)
+    dt = float(pipe._min_dtb(state))
+    say(15, f"block: {int(b.particles.active.sum())} particles under basic2's models, "
+            f"{pipe._cfg}, 3 substeps in, dt {dt:.3e}, set-up {time.perf_counter() - t0:.1f} s")
+    out["block"] = check_kernels_2d(pipe, state, dt, "block", 15, timed=True)
+    out["block cache-on"] = check_kernels_2d(pipe, state, dt, "block, cache-on form", 15,
+                                             meta=dict(pipe._meta, stress_cache=True),
+                                             timed=True)
+    del pipe, state
+    e, nu = 1.0e5, 0.2
+    dp = reg.ModelSet.pack([reg.ParticleModel(reg.corotated_linear_elasticity(e, nu),
+                                              reg.drucker_prager_plasticity(e, nu))],
+                            b.particles.device)
+    p = b.particles.replace(model_id=torch.zeros_like(b.particles.model_id))
+    pipe, state = substep_state(replace(b, models=dp, particles=p), 3)
+    dt = float(pipe._min_dtb(state))
+    out["block DP only"] = check_kernels_2d(pipe, perturbed_by_model(state, {0: 0.02}), dt,
+                                            "block, Drucker-Prager only", 15, timed=True)
+    require(out["block DP only"]["g2p_fused"]["svd_reuse"]
+            and out["block DP only"]["g2p_fused"]["counts"]["dp_flow"] > 0,
+            "the Drucker-Prager-only block did not take the one-SVD path with flow")
+    del pipe, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_plastic_main(name):
+    """One 2D plastic main path as published: scenes.build(name) ->
+    auto_pipeline -> pack_state -> PLASTIC_FRAMES frames of
+    run_frames_state (the last PLASTIC_TIMED timed) -> unpack_state, with
+    the kernels' launches held against the substeps run and the resort
+    branches; per frame the substeps beside the goldens' (within one, as
+    tests/test_regression.py holds the fused pipeline), the centre of
+    mass, box and kinetic energy against the goldens within its fused
+    tolerances (the worst measure over tolerance reported), the failed and
+    broken counts and the mass held to 1e-6. Returns (pipeline, state,
+    launches, results)."""
+    import json as _json
+    import torch
+    import sparkl_tpu_torch as sk
+    import sparkl_tpu_torch.scenes as scenes
+    from sparkl_tpu_torch.fused import kernels as K
+
+    with open(os.path.join(HERE, "tests", "golden_scenes.json")) as fh:
+        gold = _json.load(fh)[name]["frames"]
+    b = scenes.build(name)
+    n_active = int(b.particles.active.sum())
+    mass0 = b.particles.mass[b.particles.active].double().sum().item()
+    pipe = sk.auto_pipeline(b)
+    state = pipe.pack_state(b.particles)
+    ran = [0]
+    substep = pipe._substep
+
+    def counted(st, dt):
+        ran[0] += 1
+        return substep(st, dt)
+
+    pipe._substep = counted
+    K.reset_launch_counts()
+    substeps = resorts = 0
+    frames, worst = [], 0.0
+    timed, seconds = 0, 0.0
+    for i in range(PLASTIC_FRAMES):
+        if i == PLASTIC_FRAMES - PLASTIC_TIMED:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, n = pipe.run_frames_state(state, 1)
+        substeps += n
+        resorts += pipe.last_resorts
+        if i >= PLASTIC_FRAMES - PLASTIC_TIMED:
+            timed += n
+            if i == PLASTIC_FRAMES - 1:
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            continue  # the timed frames unpack nothing
+        p = pipe.unpack_state(state)
+        act = p.active
+        pos, vel = p.position[act].double(), p.velocity[act].double()
+        mass = p.mass[act].double().sum().item()
+        ke = 0.5 * (p.mass[act].double()[:, None] * vel**2).sum().item()
+        rec = gold[i]
+        ratios = []
+        for got, want, atol, rtol in ((pos.mean(0), rec["com"], 3e-3, 1e-3),
+                                      (pos.min(0).values, rec["pos_min"], 8e-3, 1e-3),
+                                      (pos.max(0).values, rec["pos_max"], 8e-3, 1e-3),
+                                      (torch.tensor([ke]), [rec["ke"]], 1e-8, 3e-2)):
+            want = torch.tensor(want, dtype=torch.float64)
+            ratios.append(((got.cpu() - want).abs() / (atol + rtol * want.abs())).max().item())
+        failed = int(p.failed[act].sum())
+        broken = int((p.phase[act] == 0.0).sum())
+        slack = max(2, int(0.02 * n_active))
+        frames.append(dict(frame=i, substeps=n, golden_substeps=rec["substeps"], mass=mass,
+                           worst_over_tol=max(ratios), failed=failed, broken=broken))
+        worst = max(worst, max(ratios))
+        require(abs(mass - mass0) <= 1e-6 * mass0, f"{name} frame {i}: mass {mass} vs {mass0}")
+        require(abs(n - rec["substeps"]) <= 1 and max(ratios) <= 1.0
+                and abs(failed - rec["failed"]) <= slack and abs(broken - rec["broken"]) <= slack,
+                f"{name} frame {i} against the golden: {frames[-1]}")
+    pipe._substep = substep
+    launches = dict(K.LAUNCHES)
+    branches = dict(pipe.resort_branches)
+    p = pipe.unpack_state(state)
+    act = p.active
+    mass = p.mass[act].double().sum().item()
+    pups = n_active * timed / seconds
+    for fr in frames:
+        say(16, f"{name} frame {fr['frame']}: " + ", ".join(
+            f"{k} {v}" for k, v in fr.items() if k != "frame"))
+    say(16, f"{name} path, {PLASTIC_FRAMES} frames: {substeps} substeps, {ran[0]} run, "
+            f"{resorts} resorts {branches}; frames 0-{PLASTIC_FRAMES - PLASTIC_TIMED - 1} against "
+            f"the goldens: worst measure/tol {worst:.3e}; last {PLASTIC_TIMED} frames {timed} "
+            f"substeps in {seconds:.3f} s = {pups:.4g} particle-updates/s; {pipe._cfg}; "
+            f"launches {launches}")
+    require(bool(torch.isfinite(p.position[act]).all()), f"{name} path: non-finite positions")
+    require(abs(mass - mass0) <= 1e-6 * mass0, f"{name} path: active mass not conserved")
+    require(sum(branches.values()) == resorts and ran[0] == substeps,
+            f"{name}: resorts {resorts}, branches {branches}, substeps {substeps} run {ran[0]}")
+    merge = "merge_scatter" if pipe._merge_force_scatter else "merge_blocks"
+    expect = dict.fromkeys(K.LAUNCHES, 0)
+    expect.update(p2g_fused=substeps, g2p_fused=substeps, merge_blocks=0, merge_scatter=0,
+                  src_rows_from_order=resorts - branches["relabel"],
+                  permute_slots=branches["mixed"])
+    expect[merge] = substeps
+    require(launches == expect, f"{name} path launch counts {launches}, expected {expect}")
+    return pipe, state, launches, dict(
+        substeps=substeps, resorts=resorts, branches=branches, timed_substeps=timed,
+        seconds=seconds, pups=pups, worst_over_tol=worst, frames=frames, config=str(pipe._cfg))
+
+
+def phase_plastic_agreement(name):
+    """One 2D plastic scene as published: PLASTIC_AGREE_SUBSTEPS single
+    substeps on the card against the port's CPU path (plain versions), with
+    the JAX package's fused-vs-dense tolerances and equal flags and phase;
+    and one frame run twice on the card, bit-equal in every particle
+    field."""
+    from dataclasses import replace
+    import torch
+    import sparkl_tpu_torch as sk
+    import sparkl_tpu_torch.scenes as scenes
+    from sparkl_tpu_torch import interop
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        b = scenes.build(name, device=dev)
+        pipe = sk.auto_pipeline(replace(b, params=replace(b.params, stop_after_one_substep=True)),
+                                device=dev)
+        state = pipe.pack_state(b.particles)
+        for _ in range(PLASTIC_AGREE_SUBSTEPS):
+            state, _ = pipe.run_frames_state(state, 1)
+        out[dev] = pipe.unpack_state(state).to("cpu")
+    pg, pc = out["cuda"], out["cpu"]
+    act = pc.active
+    dx = (pg.position[act] - pc.position[act]).abs().max().item()
+    dv = (pg.velocity[act] - pc.velocity[act]).abs().max().item()
+    df = (pg.deformation_gradient[act] - pc.deformation_gradient[act]).abs().max().item()
+    flags = (torch.equal(pg.active, pc.active) and torch.equal(pg.failed[act], pc.failed[act])
+             and torch.equal(pg.phase[act], pc.phase[act]))
+    say(17, f"{name}, {PLASTIC_AGREE_SUBSTEPS} substeps, card against CPU: max|dx| {dx:.3e} "
+            f"({FRACTURE_DX:g}), max|dv| {dv:.3e} ({FRACTURE_DV:g}; max|v| "
+            f"{pc.velocity[act].abs().max().item():.4f}), max|dF| {df:.3e} ({FRACTURE_DF:g}), "
+            f"active, failed and phase equal {flags}")
+    require(flags, f"{name} card and CPU: flags or phase differ")
+    require(dx <= FRACTURE_DX and dv <= FRACTURE_DV and df <= FRACTURE_DF,
+            f"{name} card and CPU disagree")
+    runs = []
+    for _ in range(2):
+        b = scenes.build(name)
+        p, n = sk.auto_pipeline(b).step_with_stats(b.particles)
+        runs.append((interop.particles_to_numpy(p), n))
+    (a, na), (a2, na2) = runs
+    differ = [k for k in a if not (a[k] == a2[k]).all()]
+    say(17, f"{name} one frame twice on the card: substeps {na}/{na2}, bit-equal in every "
+            f"particle field {not differ} (differ: {differ})")
+    require(not differ and na == na2, f"two card frames of {name} differ in {differ}")
+    return dict(max_dx=dx, max_dv=dv, max_df=df, frame_substeps=na, repeat_bit_equal=not differ)
+
+
 def kernel_group(name):
     """A device kernel's group in a frame's split: the port's kernels by
     name, torch's by kind."""
     port = ("p2g_fused", "g2p_fused", "merge_blocks", "merge_scatter", "mass_p2g",
-            "mass_g2p", "eigen_pool", "src_rows", "permute_slots")
+            "mass_g2p", "eigen_pool", "src_rows", "permute_slots", "permute_chunks")
     for k in port:
         if f"{k}_kernel" in name:
             return k
@@ -1403,7 +1933,7 @@ def fracture_bundle(cell_width=None, device="cuda"):
     return scenes.build("l_panel2", device=device, **kw)
 
 
-def fracture_state(b, substeps):
+def substep_state(b, substeps):
     """(pipeline, state): `b` packed through auto_pipeline and advanced by
     `substeps` single substeps (so that psi_pos, the velocities and the
     stress are the path's own, not the packed zeros)."""
@@ -1536,142 +2066,6 @@ def check_eigen(pipe, state, label, phase, timed=False):
     return res
 
 
-def check_kernels_2d(pipe, state, dt, label, phase, timed=False):
-    """Kernel A (fresh stress, psi channels), the merge on its images and
-    kernel B (2x2 SVD, energy, maximum-stress trips) against their plain
-    versions on the 2D `state`, on the windows the path computes, and A and
-    B without the psi channels too. A: the images within p2g_errors's
-    bound; the merge bit-equal; B: g2p_errors's row tolerances on occupied
-    lanes, and the phase row equal but on lanes whose largest principal
-    stress (from B's own output F) lies within TIE of the threshold. With
-    `timed`, times and bounds. Returns {name: {...}}."""
-    import torch
-    from sparkl_tpu_torch.fused import kernels as K
-    from sparkl_tpu_torch.fused import layout as L
-    from sparkl_tpu_torch.math import svd
-    from sparkl_tpu_torch.models import failure as fail
-    from sparkl_tpu_torch.sparse import transfer as T
-
-    grid, cfg = pipe.grid, pipe._cfg
-    r = L.Rows(2)
-    nch = state.structure.num_chunks
-    tables = (pipe._tab_f, pipe._tab_i)
-    img_k = K.p2g_fused(grid, cfg, pipe._meta, state.slots, state.ints, dt, nch, tables)
-    img_p = K.p2g_fused_reference(grid, state.slots, state.ints, dt, nch, tables,
-                                  stress_cache=False, with_psi=True)
-    rows = image_rows(cfg, img_k)
-    first, nblk = state.structure.block_first_chunk, state.structure.block_num_chunks
-    m_k = K.merge_blocks(rows, first, nblk)
-    m_p = K.merge_blocks_reference(rows, first, nblk, T.MERGE_KMAX)
-    windows = pipe._grid_windows(state, img_k, dt)
-    slots_in = state.slots.clone()
-    args = (pipe._tab_f, pipe._tab_i, nch)
-    out_p = K.g2p_fused_reference(grid, slots_in, state.ints, windows, dt, *args,
-                                  velocity_clamp=pipe._kparams["gpu_velocity_clamp"],
-                                  stress_cache=False)
-    out_k = K.g2p_fused(grid, cfg, pipe._meta, pipe._kparams, slots_in.clone(), state.ints,
-                        windows, dt, *args)
-    # The forms without the psi channels (2D failure without eigenerosion):
-    # kernel A's 3-channel instance and B on the velocity windows alone.
-    meta0 = dict(pipe._meta, with_psi=False)
-    img0_k = K.p2g_fused(grid, cfg, meta0, state.slots, state.ints, dt, nch, tables)
-    img0_p = K.p2g_fused_reference(grid, state.slots, state.ints, dt, nch, tables,
-                                   stress_cache=False, with_psi=False)
-    out0_k = K.g2p_fused(grid, cfg, meta0, pipe._kparams, slots_in.clone(), state.ints,
-                         windows[:, :2].contiguous(), dt, *args)
-    torch.cuda.synchronize()
-    per_ch = p2g_errors(img_k, img_p) + p2g_errors(img0_k, img0_p)
-    occ = (state.ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0
-    row_errs = g2p_errors(out_k, out_p, state.ints, pipe.models.cparams, grid.cell_width,
-                          skip_rows=(r.phase,))
-    row_errs += g2p_errors(out0_k, out_p, state.ints, pipe.models.cparams, grid.cell_width,
-                           skip_rows=(r.phase,))
-    worst = {}
-    for _, grp, m, tol in row_errs:
-        worst[grp] = max(worst.get(grp, 0.0), m / tol if tol else m)
-    # The stress envelope on B's own output F: ties lie within TIE of it.
-    (ct, ft), p = K.model_columns(pipe._tab_f, pipe._tab_i, state.ints, range(16), (0, 2))
-    f = [[out_k[:, r.defgrad + 2 * i + j] for j in range(2)] for i in range(2)]
-    st = K.kirchhoff_stress_c(ct, p[0:4], slots_in[:, r.phase], slots_in[:, r.eh], f, None, None,
-                              None, (0,))
-    emax = svd.sym_eigvals2x2_c([[0.5 * (st[i][j] + st[j][i]) for j in range(2)]
-                                 for i in range(2)])[1]
-    mp = p[K.TAB_F]
-    tie = (ft == fail.MAXIMUM_STRESS) & ((emax - mp).abs() <= TIE * mp.abs())
-    differ = occ & (out_k[:, r.phase] != out_p[:, r.phase])
-    trips = occ & (out_p[:, r.phase] == 0.0) & (slots_in[:, r.phase] != 0.0)
-    res = {
-        "p2g_fused": dict(max_abs_err=max(e for _, e in per_ch),
-                          over_bound=max(m for m, _ in per_ch)),
-        "merge_blocks": dict(max_abs_err=(m_k - m_p).abs().max().item(),
-                             bit_equal=torch.equal(m_k, m_p)),
-        "g2p_fused": dict(max_abs_err=torch.where(occ[:, None, :], out_k - out_p,
-                                                  0.0).abs().max().item(),
-                          worst_over_tol=worst, trips=int(trips.sum()),
-                          trips_differ=int(differ.sum()), tie_lanes=int((tie & occ).sum())),
-    }
-    say(phase, f"2D kernels on the {label} state: p2g_fused images {tuple(img_k.shape)} and "
-               f"without psi {tuple(img0_k.shape)}, per channel max|err|/bound "
-               f"{[f'{m:.2e}' for m, _ in per_ch]} (pass <= 1); "
-               f"merge_blocks {tuple(m_k.shape)} bit-equal {res['merge_blocks']['bit_equal']}; "
-               f"g2p_fused worst measure/tol {({g: round(v, 4) for g, v in worst.items()})}; "
-               f"maximum-stress trips {res['g2p_fused']['trips']}, phase differing "
-               f"{res['g2p_fused']['trips_differ']} (lanes within {TIE:g} of the envelope "
-               f"{res['g2p_fused']['tie_lanes']})")
-    failures = []
-    if not (all(m <= 1.0 for m, _ in per_ch) and torch.isfinite(img_k).all().item()):
-        failures.append("p2g_fused")
-    if not res["merge_blocks"]["bit_equal"]:
-        failures.append("merge_blocks")
-    if not (all(v <= 1.0 for v in worst.values()) and not bool((differ & ~tie).any())
-            and torch.isfinite(torch.where(occ[:, None, :], out_k, 0.0)).all().item()):
-        failures.append("g2p_fused")
-    require(not failures, f"{failures} disagree with their plain versions on the {label} state")
-    if not timed:
-        return res
-    live, row = int(nch), 4 * cfg.chunk_size
-    lanes = int(((state.ints[:, L.I_FLAGS, :] & L.ACTIVE) != 0).sum())
-    merged = int(nblk.clamp(max=T.MERGE_KMAX).sum())
-    block = 4 * 4 * img_k.shape[1] * 16
-    scratch = slots_in.clone()
-    # The library yardstick of the merge: one segment sum over the valid
-    # chunks' rows (blocks own contiguous chunk ranges).
-    require(int(nblk.max()) <= T.MERGE_KMAX, "a block holds more than MERGE_KMAX chunks")
-    flat, lengths = rows.reshape(cfg.max_chunks, -1)[:int(nblk.sum())], nblk.long()
-    # Bytes counted from what the 2D damage forms read and write per live
-    # chunk: A reads pos 2, vel 2, grad 4, F 4, mass, vol0, phase, failed,
-    # eh, cpf, psi_pos (19 f32 rows) and flags, model, origin 2 (4 i32) and
-    # writes every chunk's [5, 64] image; B reads 26 f32 rows (pos, F, the
-    # scalar state, kinematic velocity, crack and bookkeeping rows), 4 i32
-    # rows and the [2, 64] velocity window, and writes all 40 rows.
-    for name, fn, plain, lib, nbytes, flops in (
-            ("p2g_fused", lambda: K.p2g_fused(grid, cfg, pipe._meta, state.slots, state.ints,
-                                              dt, nch, tables),
-             lambda: K.p2g_fused_reference(grid, state.slots, state.ints, dt, nch, tables,
-                                           stress_cache=False, with_psi=True), None,
-             live * 23 * row + cfg.max_chunks * 5 * 64 * 4,
-             lanes * (9 * P2G2_TAP_FLOPS + A2_SLOT_FLOPS)),
-            ("merge_blocks", lambda: K.merge_blocks(rows, first, nblk),
-             lambda: K.merge_blocks_reference(rows, first, nblk, T.MERGE_KMAX),
-             lambda: torch.segment_reduce(flat, "sum", lengths=lengths, axis=0),
-             (merged + nblk.shape[0]) * block, merged * block // 4),
-            ("g2p_fused", lambda: K.g2p_fused(grid, cfg, pipe._meta, pipe._kparams, scratch,
-                                              state.ints, windows, dt, *args),
-             lambda: K.g2p_fused_reference(grid, slots_in, state.ints, windows, dt, *args,
-                                           stress_cache=False), None,
-             live * ((26 + 4 + 40) * row + 2 * 64 * 4),
-             lanes * (9 * G2P2_TAP_FLOPS + B2_LANE_FLOPS))):
-        v = res[name]
-        v["ms"], v["plain_ms"] = cuda_median_ms(fn), cuda_median_ms(plain)
-        v["library_ms"] = cuda_median_ms(lib) if lib else None
-        v["bytes"], v["flops"] = nbytes, flops
-        v["bound_ms"], v["bound_by"] = bound(nbytes, flops)
-        say(phase, f"{name} (2D, {label}): kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, "
-                   f"library {v['library_ms']} ms (median of 20); {nbytes / 1e9:.4f} GB counted "
-                   f"from shapes; bound {v['bound_ms']:.4f} ms ({v['bound_by']})")
-    return res
-
-
 def phase_fracture_kernels():
     """l_panel2's kernels against their plain versions on the card, at the
     reference settings and at cell width 0.0025, on the path's state
@@ -1687,7 +2081,7 @@ def phase_fracture_kernels():
     for label, cell in (("reference", None), ("fine", FRACTURE_FINE_CELL)):
         t0 = time.perf_counter()
         b = fracture_bundle(cell)
-        pipe, state = fracture_state(b, FRACTURE_SUBSTEPS_IN)
+        pipe, state = substep_state(b, FRACTURE_SUBSTEPS_IN)
         dt = float(pipe._min_dtb(state))
         h = b.grid.cell_width
         say(12, f"l_panel2 {label}: {int(b.particles.active.sum())} particles, {pipe._cfg}, grid "
@@ -1697,9 +2091,17 @@ def phase_fracture_kernels():
         res["eigen_pool_fused"]["perturbed"] = check_eigen(
             pipe, perturbed_eigen(state, h), f"{label} perturbed", 12)
         res.update(check_kernels_2d(pipe, state, dt, label, 12, timed=True))
-        res["g2p_fused"]["perturbed"] = check_kernels_2d(
-            pipe, perturbed_f(state, seed=11, scale=2e-4), dt, f"{label} perturbed-F",
-            12)["g2p_fused"]
+        perturbed = perturbed_f(state, seed=11, scale=2e-4)
+        res["g2p_fused"]["perturbed"] = check_kernels_2d(pipe, perturbed, dt,
+                                                         f"{label} perturbed-F", 12)["g2p_fused"]
+        # The forms without the psi channels (2D failure without
+        # eigenerosion): kernel A's 3-channel instance, B on the velocity
+        # windows alone.
+        meta0 = dict(pipe._meta, with_psi=False)
+        res["without psi"] = {lab: check_kernels_2d(pipe, st, dt, f"{lab} without psi", 12,
+                                                    meta=meta0)
+                              for lab, st in ((label, state), (f"{label} perturbed-F",
+                                                               perturbed))}
         require(res["g2p_fused"]["perturbed"]["trips"] > 0,
                 "no maximum-stress trip on the perturbed-F state: the trip went unchecked")
         require(res["eigen_pool_fused"]["perturbed"]["trips_kernel"] > 0,
@@ -1814,7 +2216,7 @@ def phase_fracture_main():
     expect = dict(p2g_fused=ran[0], g2p_fused=ran[0], eigen_pool_fused=ran[0],
                   merge_blocks=0, merge_scatter=0, mass_p2g_fused=0, mass_g2p_fused=0,
                   src_rows_from_order=resorts - branches["relabel"],
-                  permute_slots=branches["mixed"])
+                  permute_slots=branches["mixed"], permute_chunks=0)
     expect[merge] = ran[0]
     require(launches == expect, f"fracture path launch counts {launches}, expected {expect}")
     return pipe, state, launches, dict(
@@ -2017,7 +2419,7 @@ def main():
     expect = dict(p2g_fused=substeps, merge_blocks=substeps, merge_scatter=0,
                   g2p_fused=substeps, mass_p2g_fused=0, mass_g2p_fused=0,
                   src_rows_from_order=resorts - branches["relabel"],
-                  permute_slots=branches["mixed"], eigen_pool_fused=0)
+                  permute_slots=branches["mixed"], eigen_pool_fused=0, permute_chunks=0)
     require(launches == expect, f"launch counts {launches}, expected {expect}")
     missing = [k for k in K.LAUNCHES if PATH_OF[k] == "fused" and launches[k] == 0]
     require(not missing, f"kernels the main path never launched: {missing}")
@@ -2112,20 +2514,42 @@ def main():
     # list's regrow and retry.
     fracture_res["agreement"] = phase_fracture_agreement()
     fracture_res["regrow"] = phase_fracture_regrow()
+    fine = fracture_res["kernels"]["fine"]
+    kres["permute_chunks"] = dict(
+        kres["permute_chunks"], fracture=ref["permute_chunks"], fine=fine["permute_chunks"],
+        launches=sum(x["permute_chunks"]["launches"] for x in (kres, ref, fine)))
+
+    # 15. The 2D plastic kernels against their plain versions: elasticity2,
+    # basic2 and perturbed states of both, and a 250,000-particle block.
+    plastic_res = {"kernels": phase_plastic_kernels()}
+
+    # 16. The two 2D plastic main paths; one profiled frame of basic2.
+    plastic_launches = {}
+    for name in ("elasticity2", "basic2"):
+        ppipe, pstate, plastic_launches[name], plastic_res[name] = phase_plastic_main(name)
+    _, plastic_res["profile"] = profile_frame(ppipe, pstate, "plastic2d_profile.txt", 16,
+                                              "basic2")
+    del ppipe, pstate
+
+    # 17. Each scene card against CPU, and card against card.
+    for name in ("elasticity2", "basic2"):
+        plastic_res[name]["agreement"] = phase_plastic_agreement(name)
 
     by_path = dict(fused=launches, sparse=sparse_launches, fluid=fluid_launches,
-                   fracture=fracture_launches)
-    launches = {name: by_path[PATH_OF[name]][name] for name in REPLACES}
+                   fracture=fracture_launches, elasticity2=plastic_launches["elasticity2"],
+                   basic2=plastic_launches["basic2"])
+    launches = {name: by_path[PATH_OF[name]][name] if PATH_OF[name] else
+                kres[name]["launches"] for name in REPLACES}
     missing = [k for k in REPLACES if launches[k] == 0]
-    require(not missing, f"kernels their main paths never launched: {missing}")
+    require(not missing, f"kernels their main paths (or checks) never launched: {missing}")
 
-    # 15. Results.
+    # 18. Results.
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         dict(name=name, route="cuda",
              source=WINDOW_SOURCE if name in SPARSE_KERNELS else FUSED_SOURCE,
              replaces=REPLACES[name], launches=launches[name],
-             **{k: kres[name][k] for k in keys})
+             path=PATH_OF[name] or NO_PATH, **{k: kres[name][k] for k in keys})
         for name in REPLACES
     ]
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -2133,7 +2557,8 @@ def main():
                        resorts=resorts, timed_substeps=timed, seconds=seconds, pups=pups,
                        resort_branches=branches, resort_ms=resort_ms, peak_gib=peak_gib,
                        build_s=build_s, kernel_checks=kres, sparse=sparse_res,
-                       fluid=fluid_res, fracture=fracture_res), f, indent=1, default=str)
+                       fluid=fluid_res, fracture=fracture_res, plastic2d=plastic_res), f,
+                  indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

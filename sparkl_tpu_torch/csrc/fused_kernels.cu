@@ -1,6 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels of the fused substep.
 //
-// Nine kernels, each with a plain PyTorch version beside its wrapper in
+// Ten kernels, each with a plain PyTorch version beside its wrapper in
 // sparkl_tpu_torch/fused/kernels.py:
 //
 //   p2g_fused_kernel  replaces sparkl_tpu/fused/kernels.py:p2g_fused
@@ -21,7 +21,10 @@
 //   permute_slots_kernel replaces sparkl_tpu/fused/kernels.py:
 //                     permute_chunks_dma (_permute_dma_kernel), resort permute;
 //   eigen_pool_kernel replaces sparkl_tpu/fused/kernels.py:eigen_pool_fused
-//                     (_eigen_pool_kernel), the eigenerosion pooling.
+//                     (_eigen_pool_kernel), the eigenerosion pooling;
+//   permute_chunks_kernel replaces sparkl_tpu/fused/kernels.py:permute_chunks
+//                     (_permute_kernel), the older resort lane router, which
+//                     no path of either package calls.
 //
 // Layouts are the JAX package's: slots f32 [D, NF, C] and ints i32 [D,
 // NI=8, C] (row offsets of sparkl_tpu/fused/layout.py Rows(d), checked
@@ -147,6 +150,8 @@ constexpr int FLAG_KINEMATIC = 4;
 constexpr int COROTATED = 0;
 constexpr int EOS_MONAGHAN_SPH = 2;
 constexpr int DRUCKER_PRAGER = 1;
+constexpr int RANKINE = 3;
+constexpr int SNOW = 4;
 constexpr int MAXIMUM_STRESS = 1;
 constexpr int TAB_F = 12;  // failure parameter columns of the model table
 constexpr float BIGF = 3.4028234663852886e38f;
@@ -158,6 +163,7 @@ constexpr int RC3 = 512;  // 3D window cells
 constexpr int OPT_PSI = 1;           // kernel A: the psi channels
 constexpr int OPT_STRESS_CACHE = 2;  // A reads the stress rows, B writes them
 constexpr int OPT_CLAMP = 1;         // kernel B: the GPU velocity clamp
+constexpr int OPT_SVD_REUSE = 4;     // kernel B: one SVD for DP, energy and stress
 
 // 8^d window cells.
 template <int D>
@@ -617,17 +623,54 @@ __global__ void __launch_bounds__(128) permute_slots_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Kernel B: window gather, advection, F update, SVD, the Drucker-Prager
-// return map (3D), guards, positive energy, maximum-stress failure (2D),
-// out-of-grid mark, next dt bound, drift, and with the stress-cache option
-// the cached stress of the final F; written IN PLACE.
+// Lane router: destination lane l of chunk d takes column target[d, l] % C
+// of pre-gathered source chunk target[d, l] / C, every f32 row of
+// gathered [D, K, nf, C] and every int row of gathered_i [D, K, ni, C];
+// target outside [0, K·C) writes zeros. The TPU kernel routes lanes with
+// 0/1 selection matmuls on the MXU (ints split into exact 16-bit halves);
+// here each thread copies its own lane's column, as raw 32-bit words, so the
+// copy is bit-exact for any K. One CTA of C threads per destination chunk
+// (C = 128 or 64). Bound on this card: bytes (every output row written
+// once, coalesced; each lane reads one column of one source chunk, and
+// lanes of a warp mostly read neighbouring lanes of one source).
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(128) permute_chunks_kernel(
+    const float* __restrict__ gathered, const int* __restrict__ gathered_i,
+    const int* __restrict__ target, float* __restrict__ out_f, int* __restrict__ out_i,
+    int k_src, int nf, int ni) {
+  const int c = blockDim.x;
+  const int d = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int t = target[(size_t)d * c + lane];
+  const bool ok = t >= 0 && t < k_src * c;
+  const size_t src = (size_t)d * k_src + (ok ? t / c : 0);
+  const int sl = ok ? t % c : 0;
+  const float* G = gathered + src * nf * c + sl;
+  const int* GI = gathered_i + src * ni * c + sl;
+  float* OF = out_f + (size_t)d * nf * c + lane;
+  int* OI = out_i + (size_t)d * ni * c + lane;
+  for (int f = 0; f < nf; ++f) OF[f * c] = ok ? G[f * c] : 0.0f;
+  for (int r = 0; r < ni; ++r) OI[r * c] = ok ? GI[r * c] : 0;
+}
+
+// ---------------------------------------------------------------------------
+// Kernel B: window gather, advection, F update, SVD, the plastic return map
+// of the slot's model (Drucker-Prager, Rankine or Snow; the JAX kernel
+// runs each present map on every lane and keeps the lane's own), guards,
+// positive energy, maximum-stress failure (2D), out-of-grid mark, next dt
+// bound, drift, and with the stress-cache option the cached stress of the
+// final F; written IN PLACE.
 //
-// With the stress-cache option one SVD of the updated F serves the return
-// map, the energy and the stress epilogue. Without it (damage and failure
-// scenes) one SVD of the final, guarded F serves the energy and, for slots
+// The SVD sequence is the JAX kernel's (sparkl_tpu/fused/kernels.py:
+// 1351-1425), since each SVD rounds F's last bits: with the SVD-reuse
+// option (the stress cache on, Drucker-Prager the only plastic model) one
+// SVD of the updated F serves the return map, the energy and the stress
+// epilogue. Otherwise each return map decomposes the F it receives, and one
+// SVD of the final, guarded F serves the energy and either the stress
+// epilogue or, without the cache (damage and failure scenes), for slots
 // whose model fails by maximum stress, a fresh corotated stress whose
-// envelope trip sets phase = 0 (sparkl_tpu/fused/kernels.py:1435-1446),
-// and the stress rows are zero. psi_pos = max(psi_pos, energy), par1 =
+// envelope trip sets phase = 0 (sparkl_tpu/fused/kernels.py:1435-1446);
+// the stress rows are then zero. psi_pos = max(psi_pos, energy), par1 =
 // psi_pos·m, par2 = m. A window's psi channel (with eigenerosion) feeds only
 // modified eigenerosion's trip, which the port does not carry; the kernel
 // reads the velocity channels.
@@ -645,8 +688,9 @@ __global__ void __launch_bounds__(128) permute_slots_kernel(
 // slot before writing it, and no thread touches another lane, so the
 // in-place update is safe. Dead chunks (>= num_chunks) return untouched.
 // Bound on this card: per-thread arithmetic and registers (in 3D one
-// Cardano SVD and ~3 transcendental DP steps) at one CTA per chunk; the
-// slot read/write is 2 x NF rows, coalesced.
+// Cardano SVD and ~3 transcendental DP steps; a Rankine or Snow lane two
+// SVDs, logs and exps) at one CTA per chunk; the slot read/write is 2 x NF
+// rows, coalesced.
 // ---------------------------------------------------------------------------
 template <int DIM, int C>
 __global__ void __launch_bounds__(C) g2p_fused_kernel(
@@ -660,6 +704,7 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
   if (chunk >= *nchunks) return;
   const int t = threadIdx.x;
   const bool stress_cache = (opts & OPT_STRESS_CACHE) != 0;
+  const bool svd_reuse = (opts & OPT_SVD_REUSE) != 0;
 
   __shared__ float win[DIM * RC];
   const float* W = windows + (size_t)chunk * n_win * RC;
@@ -766,7 +811,7 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
   const bool failed = SROW(R::FAILED) != 0.0f;
   const float mass = SROW(R::MASS);
   const float vol0 = SROW(R::VOL0);
-  const float eh = SROW(R::EH);
+  float eh = SROW(R::EH);
   float ph = SROW(R::PH);
   float pdd = SROW(R::PDD);
   float lvg = SROW(R::LVG);
@@ -812,16 +857,27 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
       }
   }
 
-  // Stress cache: one SVD serves the return map, the energy and the stress.
+  // Plastic return map of the slot's model. Under SVD reuse one SVD of the
+  // updated F serves the return map, the energy and the stress; otherwise
+  // each map decomposes the F it receives and the final F is decomposed
+  // again after the guards.
   float u[DIM][DIM], s[DIM], v[DIM][DIM];
   for (int i = 0; i < DIM; ++i) {
     s[i] = 1.0f;
     for (int j = 0; j < DIM; ++j) u[i][j] = v[i][j] = i == j ? 1.0f : 0.0f;
   }
-  if (stress_cache && !fluid) {
-    sparkl::svd(fnew, u, s, v);
-    if constexpr (DIM == 3)
-      if (ti[1] == DRUCKER_PRAGER) sparkl::dp_update(tf + 4, phase, fnew, u, s, v, pdd, ph, lvg);
+  if (!fluid) {
+    if (svd_reuse || ti[1] == DRUCKER_PRAGER) sparkl::svd(fnew, u, s, v);
+    if (ti[1] == DRUCKER_PRAGER)
+      sparkl::dp_update<DIM>(tf + 4, phase, fnew, u, s, v, pdd, ph, lvg);
+    // Rankine and Snow in 3D are refused (fused.kernels.meta_unsupported):
+    // the 3D instance leaves them out and keeps its registers.
+    if constexpr (DIM == 2) {
+      if (ti[1] == RANKINE)
+        sparkl::rankine_update<DIM>(tf + 4, fnew, ph);
+      else if (ti[1] == SNOW)
+        sparkl::snow_update<DIM>(tf + 4, fnew, eh, pdd);
+    }
   }
 
   // Static particles.
@@ -845,9 +901,10 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
       }
     }
   }
-  // No stress cache: one SVD of the final F serves the energy and the
-  // failure stress (the JAX kernel decomposes the same F for both).
-  if (!stress_cache && !fluid) sparkl::svd(fnew, u, s, v);
+  // Without SVD reuse: one SVD of the final F serves the energy and the
+  // cached or the failure stress (the JAX kernel decomposes the same F for
+  // each).
+  if (!svd_reuse && !fluid) sparkl::svd(fnew, u, s, v);
 
   const float lam = tf[0], mu = tf[1], cfl = tf[2], split = tf[3];
   const bool corot = ti[0] == COROTATED;
@@ -1109,6 +1166,15 @@ int sparkl_permute_slots(const float* slots, const int* ints, const int* src,
   if (c != 64 && c != 128) return (int)cudaErrorInvalidValue;
   permute_slots_kernel<<<max_chunks, c, 0, (cudaStream_t)stream>>>(
       slots, ints, src, origin, out_f, out_i, max_chunks, dim, r_cumd, nf);
+  return (int)cudaGetLastError();
+}
+
+int sparkl_permute_chunks(const float* gathered, const int* gathered_i, const int* target,
+                          float* out_f, int* out_i, int max_chunks, int k_src, int nf, int ni,
+                          int c, void* stream) {
+  if (c != 64 && c != 128) return (int)cudaErrorInvalidValue;
+  permute_chunks_kernel<<<max_chunks, c, 0, (cudaStream_t)stream>>>(
+      gathered, gathered_i, target, out_f, out_i, k_src, nf, ni);
   return (int)cudaGetLastError();
 }
 

@@ -11,6 +11,8 @@
 //                     and one algebraic Givens rotation)
 //   dp_update ....... sparkl_tpu/models/plasticity.py
 //                     drucker_prager_project_s_c + _update_with_svd_c
+//   rankine_update .. plasticity.py rankine_update_c
+//   snow_update ..... plasticity.py snow_update_c
 //   corotated_* ..... sparkl_tpu/models/constitutive.py
 //                     corotated_kirchhoff_stress_from_svd_c,
 //                     corotated_pos_energy_from_s_c (2D and 3D),
@@ -318,46 +320,134 @@ __device__ __forceinline__ float safe_div(float a, float b) {
 }
 
 // Drucker-Prager return map with a caller-supplied SVD (plasticity.py
-// drucker_prager_update_with_svd_c). pp = [h0, h1, h2, h3, lambda, mu,
-// only_when_failed, vol_corr]. Updates f, pdd, ph, lvg in place and s to the
-// projected singular values (so (u, s, v) stays an SVD of the new f).
-__device__ __forceinline__ void dp_update(const float pp[8], float phase,
-                                          float f[3][3], const float u[3][3],
-                                          float s[3], const float v[3][3],
-                                          float& pdd, float& ph, float& lvg) {
+// drucker_prager_update_with_svd_c), 2D or 3D. pp = [h0, h1, h2, h3,
+// lambda, mu, only_when_failed, vol_corr]. Updates f, pdd, ph, lvg in place
+// and s to the projected singular values (so (u, s, v) stays an SVD of the
+// new f).
+template <int D>
+__device__ __forceinline__ void dp_update(const float pp[8], float phase, float f[D][D],
+                                          const float u[D][D], float s[D],
+                                          const float v[D][D], float& pdd, float& ph,
+                                          float& lvg) {
   const float h0 = pp[0], h1 = pp[1], h2 = pp[2], h3 = pp[3];
   const float lam = pp[4], mu = pp[5], only_when_failed = pp[6], vol_corr = pp[7];
+  const float d = (float)D;
   float angle = h0 + (h1 * ph - h3) * expf(-h2 * ph);
   float sn = sinf(angle);
   float alpha = 0.8164965809277260f * (2.0f * sn) / (3.0f - sn);
 
-  float strain[3], dev[3];
-  for (int k = 0; k < 3; ++k) strain[k] = logf(fmaxf(s[k], 1e-20f)) + lvg / 3.0f;
-  float trace = strain[0] + strain[1] + strain[2];
-  for (int k = 0; k < 3; ++k) dev[k] = strain[k] - trace / 3.0f;
-  float dev_norm = sqrtf(dev[0] * dev[0] + dev[1] * dev[1] + dev[2] * dev[2]);
+  float strain[D], dev[D];
+  for (int k = 0; k < D; ++k) strain[k] = logf(fmaxf(s[k], 1e-20f)) + lvg / d;
+  float trace = strain[0];
+  for (int k = 1; k < D; ++k) trace = trace + strain[k];
+  for (int k = 0; k < D; ++k) dev[k] = strain[k] - trace / d;
+  float dev_sq = dev[0] * dev[0], strain_sq = strain[0] * strain[0];
+  for (int k = 1; k < D; ++k) {
+    dev_sq = dev_sq + dev[k] * dev[k];
+    strain_sq = strain_sq + strain[k] * strain[k];
+  }
+  float dev_norm = sqrtf(dev_sq);
   bool case_a = (dev_norm == 0.0f) || (trace > 0.0f);
-  float dq_a = sqrtf(strain[0] * strain[0] + strain[1] * strain[1] +
-                     strain[2] * strain[2]);
-  float gamma = dev_norm + (3.0f * lam + 2.0f * mu) / (2.0f * mu) * trace * alpha;
+  float dq_a = sqrtf(strain_sq);
+  float gamma = dev_norm + (d * lam + 2.0f * mu) / (2.0f * mu) * trace * alpha;
   bool case_b = (!case_a) && (gamma <= 0.0f);
-  float new_s[3];
-  for (int k = 0; k < 3; ++k)
+  float new_s[D];
+  for (int k = 0; k < D; ++k)
     new_s[k] = case_a ? 1.0f : expf(strain[k] - gamma * safe_div(dev[k], dev_norm));
   float dq = case_a ? dq_a : gamma;
   bool applied = (!case_b) && ((only_when_failed == 0.0f) || (phase == 0.0f));
 
-  float prev_det = s[0] * s[1] * s[2];
-  float new_det0 = new_s[0] * new_s[1] * new_s[2];
+  float prev_det = s[0], new_det0 = new_s[0];
+  for (int k = 1; k < D; ++k) {
+    prev_det = prev_det * s[k];
+    new_det0 = new_det0 * new_s[k];
+  }
   float diff = new_det0 - prev_det;
   float new_det = diff > 0.0f ? new_det0 : prev_det + diff * vol_corr;
   if (applied) {
     pdd = pdd * safe_div(prev_det, new_det);
     lvg = lvg + (logf(fmaxf(prev_det, 1e-30f)) - logf(fmaxf(new_det, 1e-30f)));
     ph = ph + dq;
-    for (int k = 0; k < 3; ++k) s[k] = new_s[k];
-    recompose<3>(u, s, v, f);
+    for (int k = 0; k < D; ++k) s[k] = new_s[k];
+    recompose<D>(u, s, v, f);
   }
+}
+
+// Rankine return map (plasticity.py rankine_update_c), 2D or 3D: caps the
+// principal Hencky strains ln(s) at the softened tensile strength and
+// accumulates the softening into ph. pp = [mu, lambda, tensile_strength,
+// softening_rate]. The ascending order is a stable rank (ties keep the
+// component order, so F = I keeps its components); in 2D the second-largest
+// value aliases the smaller one (the reference's index list [0, 1, DIM-1]).
+// Decomposes f itself; f is rebuilt only where the map projects.
+template <int D>
+__device__ __forceinline__ void rankine_update(const float pp[4], float f[D][D], float& ph) {
+  const float mu = pp[0], lam = pp[1], tensile = pp[2], rate = pp[3];
+  float u[D][D], s[D], v[D][D];
+  svd(f, u, s, v);
+  float eig[D], es[D];
+  int rank[D];
+  for (int k = 0; k < D; ++k) eig[k] = logf(fmaxf(s[k], 1e-20f));
+  for (int i = 0; i < D; ++i) {
+    int r = 0;
+    for (int j = 0; j < D; ++j)
+      if (j != i && (eig[j] < eig[i] || (eig[j] == eig[i] && j < i))) ++r;
+    rank[i] = r;
+  }
+  for (int i = 0; i < D; ++i) es[rank[i]] = eig[i];
+  float e_sum = eig[0];
+  for (int k = 1; k < D; ++k) e_sum = e_sum + eig[k];
+  const float e1 = es[D - 1], e2 = es[D - 2], e3 = es[0];
+  const float soft = tensile - (ph - 1.0f);
+
+  const bool case0 = lam * e_sum + 2.0f * mu * e1 <= soft;
+  const bool cond1 = (2.0f * mu + lam) * e2 + lam * (e_sum - e1) <= soft;
+  const float new_e1_c1 = (soft - lam * (e_sum - e1)) / (2.0f * mu + lam);
+  const bool cond2 = D == 3 && (2.0f * mu + 3.0f * lam) * e3 <= soft;
+  const float new_e12_c2 = (soft - lam * (e_sum - e1 - e2)) / (2.0f * mu + 2.0f * lam);
+  const float new_e_c3 = soft / (2.0f * mu + 3.0f * lam);
+  if (case0) {  // elastic: F kept, the hardening only capped
+    ph = fminf(ph, tensile);
+    return;
+  }
+  float es_new[D];
+  for (int r = 0; r < D; ++r) {
+    if (cond1)
+      es_new[r] = r == D - 1 ? new_e1_c1 : es[r];
+    else if (cond2)
+      es_new[r] = r >= D - 2 ? new_e12_c2 : es[r];
+    else
+      es_new[r] = new_e_c3;
+  }
+  float delta_sq = 0.0f, ns[D];
+  for (int i = 0; i < D; ++i) {
+    const float e = es_new[rank[i]];
+    const float de = eig[i] - e;
+    delta_sq = i == 0 ? de * de : delta_sq + de * de;
+    ns[i] = expf(e);
+  }
+  ph = fminf(ph + rate * sqrtf(delta_sq), tensile);
+  recompose<D>(u, ns, v, f);
+}
+
+// Snow (plasticity.py snow_update_c), 2D or 3D: clamps the singular values
+// to [1 - min_eps, 1 + max_eps], moves the clamped volume change into pdd,
+// sets eh = exp(coeff (1 - pdd)) and rebuilds f from its SVD, clamped or
+// not. pp = [min_epsilon, max_epsilon, hardening_coeff].
+template <int D>
+__device__ __forceinline__ void snow_update(const float pp[3], float f[D][D], float& eh,
+                                            float& pdd) {
+  float u[D][D], s[D], v[D][D], ns[D];
+  svd(f, u, s, v);
+  for (int k = 0; k < D; ++k) ns[k] = fminf(fmaxf(s[k], 1.0f - pp[0]), 1.0f + pp[1]);
+  float prod_s = s[0], prod_new = ns[0];
+  for (int k = 1; k < D; ++k) {
+    prod_s = prod_s * s[k];
+    prod_new = prod_new * ns[k];
+  }
+  pdd = pdd * safe_div(prod_s, prod_new);
+  eh = expf(pp[2] * (1.0f - pdd));
+  recompose<D>(u, ns, v, f);
 }
 
 // Kirchhoff stress of corotated linear elasticity from an SVD of f, 2D or

@@ -66,6 +66,9 @@ _SIGNATURES = {
     # slots, ints, src, origin, out_f, out_i, max_chunks, dim, r_cumd, nf, c,
     # stream
     "sparkl_permute_slots": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+    # gathered, gathered_i, target, out_f, out_i, max_chunks, k_src, nf, ni, c,
+    # stream
+    "sparkl_permute_chunks": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
     # e, cand, out, max_chunks, kn, r2, stream
     "sparkl_eigen_pool": [_VP, _VP, _VP, _I, _I, _F, _VP],
     # slot_data, out, max_chunks, with_psi, ox, oy, oz, h, invd, stream

@@ -8,8 +8,11 @@ Port of sparkl_tpu/fused/kernels.py for the configurations the port
 carries: in 3D, corotated elasticity with optional Drucker-Prager and the
 Monaghan EOS fluid (alone or mixed with solids), the stress cache on, no
 damage, no failure models; in 2D (chunks of 64 slots, row-major window
-cells), corotated elasticity with the stress cache off (kernel A forms the
-stress from F), the eigenerosion psi channels and maximum-stress failure.
+cells), corotated elasticity with optional Drucker-Prager, Rankine or Snow
+plasticity, with the stress cache on (no damage, no failure) or off (kernel
+A forms the stress from F: the eigenerosion psi channels, maximum-stress
+failure). `permute_chunks`, the JAX package's older resort lane router,
+comes with its kernel too, though no path calls it.
 A wrapper runs the plain version when its tensors lie on the CPU and
 launches the kernel when they lie on a CUDA device; anything else raises.
 There is no fallback from a kernel to its plain version. Each wrapper
@@ -40,7 +43,7 @@ TAB_F = 12
 # Kernel launches per wrapper since the last reset_launch_counts().
 LAUNCHES = {"p2g_fused": 0, "merge_blocks": 0, "merge_scatter": 0, "g2p_fused": 0,
             "mass_p2g_fused": 0, "mass_g2p_fused": 0, "src_rows_from_order": 0,
-            "permute_slots": 0, "eigen_pool_fused": 0}
+            "permute_slots": 0, "eigen_pool_fused": 0, "permute_chunks": 0}
 
 # Rows of the packed eigen tensor: pos (d), m·psi_pos, m, eligible; row 7
 # of the candidate tensor flags "candidate == own chunk".
@@ -85,29 +88,40 @@ def kernel_meta(models, params):
 def meta_unsupported(meta, dim):
     """Why the fused kernels cannot run this scene in `dim` dimensions: a
     list of reasons, empty if they can. 3D runs with the stress cache on
-    (no damage, no failure model); 2D runs with it off (damage or failure),
-    corotated only."""
+    (no damage, no failure model) and Drucker-Prager as the only plastic
+    model; 2D runs solids with the stress cache on or off, with
+    Drucker-Prager, Rankine and Snow."""
     why = []
     if meta["damage_model"] not in (DamageModel.NONE, DamageModel.EIGENEROSION):
         why.append(f"damage model {DamageModel(meta['damage_model']).name}")
     if set(meta["present_c"]) - {con.COROTATED, con.EOS_MONAGHAN_SPH}:
         why.append(f"constitutive types {meta['present_c']}")
-    if set(meta["present_p"]) - {plas.DRUCKER_PRAGER}:
+    if set(meta["present_p"]) - {plas.DRUCKER_PRAGER, plas.RANKINE, plas.SNOW}:
         why.append(f"plastic types {meta['present_p']}")
     if set(meta["present_f"]) - {fail.MAXIMUM_STRESS}:
         why.append(f"failure types {meta['present_f']}")
-    if dim == 3 and not meta["stress_cache"]:
-        why.append("3D damage or failure models (the stress cache off)")
-    if dim == 2:
-        if meta["stress_cache"]:
-            why.append("2D without damage or failure (the stress cache on)")
-        if con.EOS_MONAGHAN_SPH in meta["present_c"]:
-            why.append("2D fluids")
-        if meta["present_p"]:
-            why.append("2D plasticity")
+    if dim == 3:
+        if not meta["stress_cache"]:
+            why.append("3D damage or failure models (the stress cache off)")
+        if set(meta["present_p"]) & {plas.RANKINE, plas.SNOW}:
+            why.append("3D Rankine or Snow plasticity")
+    if dim == 2 and con.EOS_MONAGHAN_SPH in meta["present_c"]:
+        why.append("2D fluids")
     if dim not in (2, 3):
         why.append(f"{dim}D")
     return why
+
+
+def svd_reuse(stress_cache, present_c, present_p):
+    """Kernel B's one-SVD path (sparkl_tpu/fused/kernels.py:1351-1356): with
+    the stress cache on, corotated models present and Drucker-Prager the
+    only plastic model, one SVD of the updated F serves the return map, the
+    energy and the cached stress (DP only rescales singular values). Any
+    other plastic model decomposes the F it receives, and the energy and
+    the cache take one more SVD of the final F; the extra SVDs change the
+    last bits, so the kernel follows the same choice."""
+    return (bool(stress_cache) and con.COROTATED in present_c
+            and set(present_p) <= {plas.DRUCKER_PRAGER})
 
 
 def _check_meta(meta, dim):
@@ -705,6 +719,83 @@ def permute_slots(slots, ints, src, origin, r_cumd):
     return out_f, out_i
 
 
+def permute_chunks_operands(slots, ints, src):
+    """The JAX package's pre-gathered operands of permute_chunks from a
+    per-slot source index src [D, C] (flat chunk·C + lane, -1 for empty),
+    as its resort builds them (sparkl_tpu/fused/layout.py:519-539): each
+    destination chunk's distinct source chunks in ascending order, their
+    rows gathered[d, k] = slots[uniq[d, k]] (zero past the list), and the
+    lane routing target[d, l] = k·C + source lane (K·C for empty), K the
+    most distinct source chunks any destination has (a host read; the JAX
+    package fixes K = 8 and falls back past it). Returns (gathered [D, K,
+    NF, C] f32, gathered_i [D, K, NI, C] i32, target [D, C] i32)."""
+    d_, c = src.shape
+    valid = src >= 0
+    sentinel = d_  # sorts after every chunk id
+    src_chunk = torch.where(valid, src // c, sentinel)
+    sc_sorted = torch.sort(src_chunk, dim=1).values
+    prev = torch.cat([torch.full((d_, 1), -1, dtype=src.dtype, device=src.device),
+                      sc_sorted[:, :-1]], dim=1)
+    flag = (sc_sorted != prev) & (sc_sorted < sentinel)
+    k = max(int(flag.sum(dim=1).max()), 1)
+    rank = torch.cumsum(flag.to(torch.int32), dim=1) - 1
+    uniq = torch.full((d_, k + 1), -1, dtype=torch.int32, device=src.device)
+    uniq.scatter_(1, torch.where(flag, rank, k).long(), sc_sorted.to(torch.int32))
+    uniq = uniq[:, :k]
+    eq = src_chunk[:, :, None] == uniq[:, None, :]  # [D, C, K]
+    k_of = torch.argmax(eq.to(torch.int32), dim=2).to(torch.int32)
+    has = eq.any(dim=2) & valid
+    target = torch.where(has, k_of * c + src % c, k * c).to(torch.int32)
+    pad_f = torch.cat([slots, slots.new_zeros((1,) + slots.shape[1:])], dim=0)
+    pad_i = torch.cat([ints, ints.new_zeros((1,) + ints.shape[1:])], dim=0)
+    pick = torch.where(uniq >= 0, uniq, d_).long()
+    return pad_f[pick].contiguous(), pad_i[pick].contiguous(), target.contiguous()
+
+
+def permute_chunks_reference(gathered, gathered_i, target):
+    """Plain version of permute_chunks: an indexed gather. Lane l of
+    destination d takes column target[d, l] % C of gathered source chunk
+    target[d, l] // C, f32 rows and int rows alike; target >= K·C gives
+    zeros."""
+    d_, k, nf, c = gathered.shape
+    ni = gathered_i.shape[2]
+    ok = (target >= 0) & (target < k * c)
+    t = torch.where(ok, target, 0).long()[:, None, :]  # the column of [D, ., K·C]
+    flat_f = gathered.permute(0, 2, 1, 3).reshape(d_, nf, k * c)
+    flat_i = gathered_i.permute(0, 2, 1, 3).reshape(d_, ni, k * c)
+    out_f = torch.gather(flat_f, 2, t.expand(d_, nf, c))
+    out_i = torch.gather(flat_i, 2, t.expand(d_, ni, c))
+    return (torch.where(ok[:, None, :], out_f, 0.0),
+            torch.where(ok[:, None, :], out_i, 0))
+
+
+def permute_chunks(gathered, gathered_i, target):
+    """The lane-router kernel (replaces sparkl_tpu/fused/kernels.py:
+    permute_chunks, the older resort permute; no path of either package
+    calls it): gathered [D, K, F, C] f32, gathered_i [D, K, NI, C] i32,
+    target [D, C] i32 -> (permuted f32 [D, F, C], permuted i32 [D, NI,
+    C]), bit for bit. Any K; C = 64 or 128. The TPU kernel routes lanes
+    with 0/1 selection matmuls and splits the ints into exact 16-bit
+    halves for the MXU; each thread here copies its own lane's column."""
+    dev = gathered.device
+    d_, k, nf, c = gathered.shape
+    ni = gathered_i.shape[2]
+    check_tensor("gathered", gathered, torch.float32, (d_, k, nf, c), dev)
+    check_tensor("gathered_i", gathered_i, torch.int32, (d_, k, ni, c), dev)
+    check_tensor("target", target, torch.int32, (d_, c), dev)
+    if route(dev) == "cpu":
+        return permute_chunks_reference(gathered, gathered_i, target)
+    if c not in (64, 128):
+        raise NotImplementedError(f"chunk size {c}: the lane-router kernel takes 64 or 128")
+    out_f = torch.empty((d_, nf, c), dtype=torch.float32, device=dev)
+    out_i = torch.empty((d_, ni, c), dtype=torch.int32, device=dev)
+    launch("sparkl_permute_chunks", gathered.data_ptr(), gathered_i.data_ptr(),
+           target.data_ptr(), out_f.data_ptr(), out_i.data_ptr(), d_, k, nf, ni, c,
+           stream_ptr(dev))
+    LAUNCHES["permute_chunks"] += 1
+    return out_f, out_i
+
+
 # ---------------------------------------------------------------------------
 # Kernel B: G2P + particle update + next dt bound
 # ---------------------------------------------------------------------------
@@ -764,11 +855,13 @@ def g2p_fused_reference(grid: GridParams, slots, ints, windows, dt, tab_f, tab_i
     positive energy and par1 = psi_pos·m, par2 = m, trips maximum-stress
     failure (phase = 0) on a fresh stress of the final F, marks particles
     out of the grid, and writes the next dt bound and the accumulated
-    drift. With the stress cache on (3D), one SVD serves the
-    Drucker-Prager return map, the energy and the stress-cache epilogue
-    (zero stress rows for fluids); with it off, one SVD of the final F
-    serves the energy and the failure stress, and the stress rows are
-    zero."""
+    drift. The return maps run in the JAX order, Drucker-Prager, Rankine,
+    Snow, each on every lane and kept where the model's plastic type is
+    its own. Under svd_reuse one SVD serves the Drucker-Prager return map,
+    the energy and the stress-cache epilogue (zero stress rows for fluids);
+    otherwise each return map decomposes its own F, and one SVD of the
+    final F serves the energy and either the cached stress or, with the
+    cache off, the failure stress (the stress rows then zero)."""
     dim = grid.dim
     r = L.Rows(dim)
     n_live = _live_count(nchunks, slots.shape[0])
@@ -795,7 +888,10 @@ def g2p_fused_reference(grid: GridParams, slots, ints, windows, dt, tab_f, tab_i
     vel, g = _gather(grid, w, dpt, win, contrib.to(torch.float32))
 
     # --- particle update ---
-    present_c = tab_i[:, 0].tolist()  # a host read: the plain version is off the main path
+    # Host reads: the plain version is off the main path.
+    present_c = tab_i[:, 0].tolist()
+    present_p = set(tab_i[:, 1].tolist()) - {plas.PLASTIC_NONE}
+    reuse = svd_reuse(stress_cache, present_c, present_p)
     (ct, pt, ft), cols = model_columns(tab_f, tab_i, ints, range(16), (0, 1, 2))
     is_fluid = ct == con.EOS_MONAGHAN_SPH
     p, pp, fp = cols[TAB_C : TAB_C + 4], cols[TAB_P : TAB_P + 8], cols[TAB_F : TAB_F + 2]
@@ -822,19 +918,33 @@ def g2p_fused_reference(grid: GridParams, slots, ints, windows, dt, tab_f, tab_i
     f[0][0] = torch.where(is_fluid, f00_fluid, f[0][0])
 
     pdd, ph, lvg = row(r.pdd), row(r.ph), row(r.lvg)
-    if stress_cache:
+    # Every lane runs each present return map; lanes of other plastic
+    # types keep their values (their parameters may give NaN, masked).
+    if reuse:
         u, s, v = svd_c(f)
-        # Every lane runs the return map; lanes of other plastic types keep
-        # their values (their zero DP parameters give NaN, which is masked).
-        f2, pdd2, ph2, lvg2, s_sel = plas.drucker_prager_update_with_svd_c(
-            pp, phase, f, pdd, ph, lvg, (u, s, v)
-        )
+    if plas.DRUCKER_PRAGER in present_p:
         m = pt == plas.DRUCKER_PRAGER
-        s = [torch.where(m, a, b) for a, b in zip(s_sel, s)]
+        if reuse:
+            f2, pdd2, ph2, lvg2, s_sel = plas.drucker_prager_update_with_svd_c(
+                pp, phase, f, pdd, ph, lvg, (u, s, v))
+            s = [torch.where(m, a, b) for a, b in zip(s_sel, s)]
+        else:
+            f2, pdd2, ph2, lvg2 = plas.drucker_prager_update_c(pp, phase, f, pdd, ph, lvg)
         f = cmat.where_mat(m, f2, f)
         pdd = torch.where(m, pdd2, pdd)
         ph = torch.where(m, ph2, ph)
         lvg = torch.where(m, lvg2, lvg)
+    if plas.RANKINE in present_p:
+        m = pt == plas.RANKINE
+        f2, ph2 = plas.rankine_update_c(pp[:4], f, ph)
+        f = cmat.where_mat(m, f2, f)
+        ph = torch.where(m, ph2, ph)
+    if plas.SNOW in present_p:
+        m = pt == plas.SNOW
+        f2, eh2, pdd2 = plas.snow_update_c(pp[:3], f, eh, pdd)
+        f = cmat.where_mat(m, f2, f)
+        eh = torch.where(m, eh2, eh)
+        pdd = torch.where(m, pdd2, pdd)
 
     vel = [torch.where(is_static, 0.0, x) for x in vel]
     g = cmat.where_mat(is_static, cmat.zeros_like_mat(g), g)
@@ -843,7 +953,7 @@ def g2p_fused_reference(grid: GridParams, slots, ints, windows, dt, tab_f, tab_i
     f = cmat.where_mat(broken, cmat.identity_c(dim, mass), f)
     g = cmat.where_mat(broken, cmat.zeros_like_mat(g), g)
     failed_new = failed | broken
-    if stress_cache:
+    if reuse:
         s = [torch.where(broken, 1.0, x) for x in s]
     else:
         u, s, v = svd_c(f)
@@ -915,10 +1025,11 @@ def g2p_fused(grid: GridParams, cfg, meta, kparams, slots, ints, windows, dt,
         return g2p_fused_reference(grid, slots, ints, windows, dt, tab_f, tab_i,
                                    nchunks, velocity_clamp=clamp, stress_cache=stress_cache)
     _check_shape_route("kernel B", dim, c)
+    reuse = svd_reuse(stress_cache, meta["present_c"], meta["present_p"])
     launch("sparkl_g2p_fused", slots.data_ptr(), ints.data_ptr(),
            windows.data_ptr(), nchunks.data_ptr(), tab_f.data_ptr(),
            tab_i.data_ptr(), m, d_, float(dt), *args, dim, n_win,
-           int(clamp) | 2 * int(stress_cache), stream_ptr(dev))
+           int(clamp) | 2 * int(stress_cache) | 4 * int(reuse), stream_ptr(dev))
     LAUNCHES["g2p_fused"] += 1
     return slots
 

@@ -28,13 +28,15 @@ Capturing the substep in a CUDA graph is later work.
 
 The port carries 3D scenes with corotated elasticity (± Drucker-Prager)
 and Monaghan EOS fluids, static heightfield or cuboid colliders, no damage
-and the stress cache on; and 2D scenes with corotated elasticity,
-eigenerosion and maximum-stress failure (the stress cache off), cuboid
-colliders and grid hooks (sparse.pipeline.unsupported lists the rest). The
-constructor raises NotImplementedError for anything else (3D damage and
-failure, modified eigenerosion, CD-MPM, other models, penalty colliders,
-boundary particle projection, GPU boundary semantics, collider pose
-functions): those wait for later ports and never fall back to another
+and the stress cache on; and 2D scenes with corotated elasticity, with
+Drucker-Prager, Rankine or Snow plasticity, eigenerosion and
+maximum-stress failure, static heightfield or cuboid colliders and grid
+hooks, the stress cache on without damage and failure and off with them
+(sparse.pipeline.unsupported lists the rest). The constructor raises
+NotImplementedError for anything else (3D damage and failure, 3D Rankine
+and Snow, 2D fluids, modified eigenerosion, CD-MPM, other models, penalty
+colliders, boundary particle projection, GPU boundary semantics, collider
+pose functions): those wait for later ports and never fall back to another
 path.
 """
 

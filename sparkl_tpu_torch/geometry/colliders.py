@@ -4,8 +4,8 @@ heightfield parts of sparkl_tpu/geometry/colliders.py).
 `project_point(points) -> (proj, is_inside)`: `proj` is the closest point
 on the boundary (parry's solid=false convention), vectorized over any
 leading axes. Ref: sparkl `src_kernels/gpu_collider.rs:43-95`. Halfspace,
-ball, capsule, polyline and trimesh shapes, the 2D heightfield and
-runtime poses are not ported yet.
+ball, capsule, polyline and trimesh shapes and runtime poses are not
+ported yet.
 """
 
 from dataclasses import dataclass
@@ -63,14 +63,13 @@ def cuboid(half_extents, translation=None, rotation=None, friction=0.0, **kw):
 
 
 def heightfield(heights, scale, translation=None, rotation=None, friction=0.0, **kw):
-    """3D heightfield heights[nx, nz] over (x, z) in [-sx/2, sx/2] x
-    [-sz/2, sz/2], y = h * sy (parry's parameterization, as the reference
-    scenes use it, e.g. examples3d/sand3.rs:30-38)."""
+    """Heightfield over the horizontal axes: in 2D heights[nx] over x in
+    [-sx/2, sx/2], in 3D heights[nx, nz] over (x, z) in [-sx/2, sx/2] x
+    [-sz/2, sz/2]; y = h * sy (parry's parameterization, as the reference
+    scenes use it, e.g. examples3d/sand3.rs:30-38, examples2d/basic2.rs)."""
     h = np.asarray(heights, np.float32)
     s = np.asarray(scale, np.float32)
     dim = len(s)
-    if dim != 3:
-        raise NotImplementedError("only the 3D heightfield is ported")
     t = np.zeros(dim, np.float32) if translation is None else np.asarray(translation, np.float32)
     r = np.eye(dim, dtype=np.float32) if rotation is None else np.asarray(rotation, np.float32)
     return Collider(HEIGHTFIELD, (h, s), t, r, friction, **kw)
@@ -138,10 +137,14 @@ def _point_triangle_closest(pf, a, b, c):
 
 
 def _project_heightfield(p, heights, scale):
-    """Exact closest-point projection onto the triangulated heightfield:
-    each cell split along its (i,k)->(i+1,k+1) diagonal, the query projected
-    onto the 18 triangles of the 3x3 cells around its horizontal position
-    (exact wherever the closest point lies within one cell horizontally)."""
+    """Exact closest-point projection onto the piecewise-linear heightfield:
+    in 2D the segments between consecutive samples, the query projected
+    onto the 3 segments around its horizontal position; in 3D each cell
+    split along its (i,k)->(i+1,k+1) diagonal, the query projected onto the
+    18 triangles of the 3x3 cells around it (exact wherever the closest
+    point lies within one cell horizontally)."""
+    if p.shape[-1] == 2:
+        return _project_heightfield2(p, heights, scale)
     dev = p.device
     h = torch.as_tensor(heights, dtype=torch.float32, device=dev)
     s = [float(x) for x in np.asarray(scale, np.float32)]
@@ -200,3 +203,38 @@ def _project_heightfield(p, heights, scale):
     h_b = h00 + fw * (h01 - h00) + fu * (h11 - h01)
     inside = pf[:, 1] < torch.where(in_a, h_a, h_b)
     return proj.reshape(lead + (3,)), inside.reshape(lead)
+
+
+def _project_heightfield2(p, heights, scale):
+    """The 2D heightfield: the segments between the 4 samples around the
+    query's x (clamped at the field's ends), the first closest on ties;
+    inside below the segment over x (the end segment beyond either end)."""
+    h = torch.as_tensor(heights, dtype=torch.float32, device=p.device)
+    s = [float(x) for x in np.asarray(scale, np.float32)]
+    nx = h.shape[0]
+    u = (linalg.div(p[..., 0], s[0]) + 0.5) * (nx - 1)
+    uc = torch.clamp(u, 0.0, nx - 1.000001)
+    i0 = torch.floor(uc).to(torch.int32)
+
+    def corner(di):
+        idx = torch.clamp(i0 + di, 0, nx - 1)
+        x = (linalg.div(idx.to(torch.float32), nx - 1) - 0.5) * s[0]
+        return torch.stack([x, h[idx.long()] * s[1]], dim=-1)
+
+    v = [corner(di) for di in range(-1, 3)]
+    best_d2 = best_proj = None
+    for k in range(3):
+        a, b = v[k], v[k + 1]
+        ab = b - a
+        t = torch.sum((p - a) * ab, dim=-1) / torch.clamp(torch.sum(ab * ab, dim=-1), min=1e-20)
+        cand = a + torch.clamp(t, 0.0, 1.0)[..., None] * ab
+        d2 = torch.sum((p - cand) ** 2, dim=-1)
+        if best_d2 is None:
+            best_d2, best_proj = d2, cand
+        else:
+            pick = d2 < best_d2
+            best_d2 = torch.where(pick, d2, best_d2)
+            best_proj = torch.where(pick[..., None], cand, best_proj)
+    fu = uc - i0
+    height = v[1][..., 1] * (1 - fu) + v[2][..., 1] * fu
+    return best_proj, p[..., 1] < height

@@ -1,7 +1,8 @@
 """Model registry: per-model parameters packed into small tables, per-particle
 dispatch by model id (port of sparkl_tpu/models/registry.py for the models
-the port carries: corotated elasticity with optional Drucker-Prager, the
-Monaghan SPH equation of state for fluids, and maximum-stress failure).
+the port carries: corotated elasticity with optional Drucker-Prager,
+Rankine or Snow plasticity, the Monaghan SPH equation of state for fluids,
+and maximum-stress failure).
 
 The table layout is the JAX package's: ctype [M] i32, cparams [M, 4] f32,
 ptype [M] i32, pparams [M, 8] f32, ftype [M] i32, fparams [M, 2] f32.
@@ -67,6 +68,17 @@ def drucker_prager_plasticity(
             volume_correction,
         ),
     )
+
+
+def rankine_plasticity(young_modulus, poisson_ratio, tensile_strength, softening_rate):
+    """Ref: plasticity_rankine.rs `RankinePlasticity::new`."""
+    lam, mu = lame_lambda_mu(young_modulus, poisson_ratio)
+    return (plas.RANKINE, (mu, lam, tensile_strength, softening_rate))
+
+
+def snow_plasticity(min_epsilon=2.5e-2, max_epsilon=4.5e-3, hardening_coeff=10.0):
+    """Ref: plasticity_snow.rs `SnowPlasticity::new`."""
+    return (plas.SNOW, (min_epsilon, max_epsilon, hardening_coeff))
 
 
 def maximum_stress_failure(max_principal_stress, max_shear_stress):
@@ -156,9 +168,10 @@ class ModelSet:
         if extra_c:
             return (f"constitutive model types {sorted(extra_c)} (only corotated and the "
                     "Monaghan EOS are ported)")
-        extra_p = set(self.present_p) - {plas.DRUCKER_PRAGER}
+        extra_p = set(self.present_p) - {plas.DRUCKER_PRAGER, plas.RANKINE, plas.SNOW}
         if extra_p:
-            return f"plastic model types {sorted(extra_p)} (only Drucker-Prager is ported)"
+            return (f"plastic model types {sorted(extra_p)} (only Drucker-Prager, Rankine and "
+                    "Snow are ported)")
         extra_f = set(self.present_f) - {fail.MAXIMUM_STRESS}
         if extra_f:
             return (f"failure model types {sorted(extra_f)} (only maximum stress is "
@@ -242,6 +255,18 @@ def apply_plasticity(ms: ModelSet, model_id, phase, f, plastic_def_det, plastic_
         plastic_def_det = torch.where(m, pdd2, plastic_def_det)
         plastic_hardening = torch.where(m, ph2, plastic_hardening)
         log_vol_gain = torch.where(m, lvg2, log_vol_gain)
+    if plas.RANKINE in ms.present_p:
+        f2, ph2 = plas.rankine_update(ms.pparams[model_id][..., :4], f, plastic_hardening)
+        m = ms.ptype[model_id] == plas.RANKINE
+        f = torch.where(m[..., None, None], f2, f)
+        plastic_hardening = torch.where(m, ph2, plastic_hardening)
+    if plas.SNOW in ms.present_p:
+        f2, eh2, pdd2 = plas.snow_update(ms.pparams[model_id][..., :3], f, elastic_hardening,
+                                         plastic_def_det)
+        m = ms.ptype[model_id] == plas.SNOW
+        f = torch.where(m[..., None, None], f2, f)
+        elastic_hardening = torch.where(m, eh2, elastic_hardening)
+        plastic_def_det = torch.where(m, pdd2, plastic_def_det)
     return f, plastic_def_det, plastic_hardening, elastic_hardening, log_vol_gain, nacc_alpha
 
 

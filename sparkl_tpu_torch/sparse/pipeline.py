@@ -21,8 +21,9 @@ The port carries 3D scenes with corotated elasticity (± Drucker-Prager),
 static heightfield colliders and no damage on this pipeline. The
 constructor raises NotImplementedError for anything else (2D, damage
 models, fluid models and fluid volume recomputation, failure models, other
-constitutive or plastic models, penalty colliders, other collider shapes,
-boundary particle projection, GPU boundary semantics, grid hooks), and
+constitutive or plastic models (Rankine and Snow included), penalty
+colliders, other collider shapes, boundary particle projection, GPU
+boundary semantics, grid hooks), and
 step_with_stats for runtime collider poses: those wait for later ports and
 never fall back to another path.
 """
@@ -40,6 +41,7 @@ from sparkl_tpu_torch.geometry.colliders import CUBOID, HEIGHTFIELD
 from sparkl_tpu_torch.math import linalg
 from sparkl_tpu_torch.math.kernel import inv_d as kernel_inv_d
 from sparkl_tpu_torch.models import constitutive as con
+from sparkl_tpu_torch.models import plasticity as plas
 from sparkl_tpu_torch.models import registry
 from sparkl_tpu_torch.ops import transfer_kernels as K
 from sparkl_tpu_torch.solver import dense
@@ -59,9 +61,10 @@ def unsupported(grid, models, colliders, params, hooks, fused=False):
     reasons, empty if they can. The sparse pipeline carries 3D corotated
     (± Drucker-Prager) scenes on heightfields, with no damage, failure,
     fluids or hooks. With `fused`, what the fused pipeline carries on top:
-    fluids (EOS models, fluid volume recomputation) in 3D, and in 2D
-    eigenerosion, maximum-stress failure, cuboid colliders and grid hooks
-    (the kernels' own limits are fused.kernels.meta_unsupported)."""
+    fluids (EOS models, fluid volume recomputation) in 3D, cuboid colliders,
+    and in 2D heightfields, eigenerosion, maximum-stress failure, Rankine
+    and Snow plasticity and grid hooks (the kernels' own limits are
+    fused.kernels.meta_unsupported)."""
     why = []
     m = models.unsupported()
     if m:
@@ -70,12 +73,10 @@ def unsupported(grid, models, colliders, params, hooks, fused=False):
         why.append("boundary particle projection")
     if params.gpu_boundary_semantics:
         why.append("GPU boundary semantics")
-    shapes = {HEIGHTFIELD} if grid.dim == 3 else set()
-    if fused:
-        shapes.add(CUBOID)
+    shapes = {HEIGHTFIELD, CUBOID} if fused else {HEIGHTFIELD}
     for c in colliders:
-        if c.shape_type not in shapes:
-            why.append(f"collider shape {c.shape_type} in {grid.dim}D")
+        if c.shape_type not in shapes or len(c.translation) != grid.dim:
+            why.append(f"collider shape {c.shape_type} of {len(c.translation)}D in {grid.dim}D")
         if float(c.penalty_stiffness) > 0.0:
             why.append("penalty colliders")
     if fused:
@@ -86,6 +87,8 @@ def unsupported(grid, models, colliders, params, hooks, fused=False):
         return why
     if grid.dim != 3:
         why.append(f"{grid.dim}D grids")
+    if set(models.present_p) - {plas.DRUCKER_PRAGER}:
+        why.append(f"plastic model types {list(models.present_p)}")
     if con.EOS_MONAGHAN_SPH in models.present_c:
         why.append("fluid models")
     if models.present_f:
