@@ -3,10 +3,12 @@
 fused pipeline and the block-sparse pipeline), its fluid path (fluids3 on
 the fused pipeline, with fluid volume recomputation), its 2D fracture
 path (l_panel2 on the fused pipeline: eigenerosion, maximum-stress
-failure, a STICK cuboid ground and a Dirichlet velocity hook) and its two
+failure, a STICK cuboid ground and a Dirichlet velocity hook), its two
 2D plastic paths (elasticity2: corotated + Rankine stars in a cuboid box,
 the stress cache on; basic2: Snow, Drucker-Prager and a maximum-stress
-star on a 2D heightfield, the stress cache off).
+star on a 2D heightfield, the stress cache off) and its 2D fluid path
+(fluids2: a Monaghan EOS dam break between cuboid walls, with fluid
+volume recomputation).
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It needs one CUDA device (written for an H100, sm_90a) and nvcc, and exits
@@ -54,8 +56,8 @@ Phases (one line each, longer logs under chiprun_out/):
      chiprun_out/fluid_profile.txt); then the fluid kernels again on the
      state one frame into the run;
  11. fluids3 as published (15,200 particles), 3 frames on the card against
-     the port's CPU path, and two card runs bit-equal; the fluid kernels on
-     a mixed fluid/solid set;
+     the port's CPU path taking the card's dts, and two card runs
+     bit-equal; the fluid kernels on a mixed fluid/solid set;
  12. l_panel2's kernels against their plain versions, at the reference
      settings (60,000 particles) and at cell width 0.0025 (240,000), on the
      path's state 20 substeps in, with times: the eigenerosion pooling (and
@@ -89,9 +91,28 @@ Phases (one line each, longer logs under chiprun_out/):
      fused tolerances, mass; one profiled basic2 frame
      (plastic2d_profile.txt in the output directory);
  17. each plastic scene, 5 substeps on the card against the port's CPU
-     path, and one frame twice on the card, bit-equal;
- 18. a JSON line of per-kernel results, the card's nvidia-smi line, and
-     the final {"ok": true, "device": ...} line.
+     path, and one frame twice on the card, bit-equal; one more
+     elasticity2 substep stage by stage, each stage on the card against
+     the CPU on that stage's own input (grid cache, kernel A, merge, grid
+     side, window gather, kernel B), to name the first that differs;
+ 18. fluids2's kernel forms against their plain versions: the 2D mass
+     kernels, kernel A's 2D EOS form and kernel B's 2D fluid branch (and
+     the merges), on fluids2 as published (90,000 particles) 20 substeps
+     in and, timed, on a 500 x 500 column (250,000 particles);
+ 19. the 2D fluid main path: scenes.build("fluids2") -> auto_pipeline ->
+     pack_state -> 10 frames of run_frames_state -> unpack_state, launch
+     counts against the substeps and volume passes, per-frame substeps
+     and mass; one profiled frame (fluids2_profile.txt in the output
+     directory);
+ 20. fluids2 at the golden's size (n = 40), 10 frames on the card against
+     tests/golden_scenes.json with tests/test_regression.py's fused
+     tolerances;
+ 21. fluids2, 5 substeps on the card against the port's CPU path, one
+     frame twice on the card, bit-equal, and one substep stage by stage
+     (as in 17, with the volume pass);
+ 22. a JSON line of per-kernel results (the 2D fluid forms of kernels A
+     and B and the mass kernels under "fluids2"), the card's nvidia-smi
+     line, and the final {"ok": true, "device": ...} line.
 
 Each kernel's bound_ms is the least time the card could take for its work
 at this run's shapes: the larger of the bytes it must move (each input read
@@ -151,11 +172,14 @@ FLUID_BOX = ((-8.0, -40.0, -8.0), (41.0, 20.0, 26.0))
 # stress in other places), the same in every run now that no merge uses
 # float atomics; the bounds leave 10x.
 SPARSE_FUSED_DX, SPARSE_FUSED_DV = 1e-5, 1e-4
-# fluids3 after 3 frames, card against CPU (phase 11): the two sum kernel
-# A's images in other orders, and near J = 1 the EOS dt bound turns on the
-# last bits, so the substep counts may differ by one and the trajectories
-# by the splitting of a frame into substeps (~g dt^2 ~ 5e-5 m at dt ~
-# 2.25e-3 s); the bounds leave 20x for positions and allow 1e-3 in J.
+# fluids3 after 3 frames, card against CPU (phase 11). Near J = 1 the EOS
+# dt bound turns on the last bits: a lane at J = 1 + 1 ulp bounds dt at
+# 2.25e-3 s, one at 1 + 2 ulps at 2.9e-3 s, so the frame's substep count
+# (8, 6 or 5) is drawn by whether any of 15,200 lanes lands on such a J,
+# and the card's expf/logf and the CPU's differ in the last bits. The CPU
+# run therefore takes the card's dt at every substep (lockstep); the bounds
+# on positions and J are the free-running ones (~g dt^2 ~ 5e-5 m at dt ~
+# 2.25e-3 s, 20x, and 1e-3 in J).
 FLUIDS3_DX, FLUIDS3_DJ = 1e-3, 1e-3
 # l_panel2 (phases 12-14): frames of the main path (~124 substeps each at
 # dt 1/6000 s), the finer configuration of the kernel checks, the substeps
@@ -206,6 +230,10 @@ PLASTIC_SUBSTEPS_IN = 20
 PLASTIC_FRAMES, PLASTIC_TIMED = 10, 3
 PLASTIC_BLOCK = 500
 PLASTIC_AGREE_SUBSTEPS = 5
+# fluids2 (phases 18-21): substeps run before the kernel checks, and the
+# side of the 2D fluid block the kernels are timed on (250,000 particles).
+FLUIDS2_SUBSTEPS_IN = 20
+FLUID2_BLOCK = 500
 # Tolerances of the kernel-vs-plain checks (the plain versions run on the
 # same card on the same tensors); p2g_errors and g2p_errors state each one.
 
@@ -299,8 +327,8 @@ def g2p_errors(out_k, out_p, ints, cparams, cell_width, skip_dtb=None, skip_rows
         tol 2e-5: the same strain-equivalent floor through e = mu·Σ(s-1)²;
       plastic (pdd, ph, lvg, all in strain units): |err|, tol 2e-5;
       failed: equal (measure 0 or 1, tol 0).
-    skip_dtb [D, C] leaves lanes out of the dt-bound row: EOS lanes near J
-    = 1, which check_g2p holds to their own bound (eos_dtb_errors);
+    skip_dtb [D, C] leaves lanes out of the dt-bound row: the EOS lanes,
+    which check_g2p holds to their own bound (eos_dtb_errors);
     skip_rows leaves rows out (the 2D phase row, held to its trips). 3D
     (56 rows) or 2D (40)."""
     import torch
@@ -519,36 +547,39 @@ def substep_bytes(structure, cfg):
 
 def eos_dtb_errors(out_k, out_p, own, fluid):
     """Kernel B's dt-bound row on the EOS lanes of `fluid` [D, C], two ways.
-    (1) Against the plain version's row, on the lanes whose J (the plain
-    version's F00) lies within 1e-3 of 1. There the single-particle bound is
-    h/J·sqrt(ρ0(J - 1) / (18 p)) with p ~ 7 p0 (1 - J): two factors near
-    zero, each rounded on its own, so a few ulps of J and of ρ/ρ0 (~4e-7
-    together) move the bound by ~2e-7/|J - 1| relative. Held to |err| <=
-    |plain|·(1e-5 + 2e-6/|J - 1|), 10x that, where |J - 1| >= 1e-5; closer
-    to 1 the sign of J - 1 itself turns on the last bits, and with it
-    whether that bound is finite, so those lanes are required to hold a
-    positive bound in both. (2) On every fluid lane, against `own` [D, C],
-    the row the plain functions compute from the kernel's own output rows
-    (velocity, gradient, F00, mass, vol0, failed): the same J on both sides,
-    so held to 1e-5 relative, near J = 1 too. Returns (the near-1 lanes,
-    worst |err|/tol of (1), or inf if a close lane is not positive, worst
-    of (2), the count of lanes within 1e-5 of 1)."""
+    (1) Against the plain version's row. Where the single-particle bound
+    h/J·sqrt(ρ0(J - 1) / (6 d p)) with p ~ 7 p0 (1 - J) is the smaller,
+    it is the quotient of two factors that vanish at J = 1, each rounded on
+    its own, so a few ulps of J and of ρ/ρ0 (~4e-7 together; the kernel's
+    and the plain version's J differ by an ulp where their gathered
+    gradients do) move it by ~2e-7/|J - 1| relative. Held to |err| <=
+    |plain|·(1e-5 + 2e-6/|J - 1|), 10x that, where |J - 1| >= 1e-5 (1e-5
+    relative far from 1); closer to 1 the sign of J - 1 itself turns on the
+    last bits, and with it whether that bound is finite, so those lanes are
+    required to hold a positive bound in both. (2) On every fluid lane,
+    against `own` [D, C], the row the plain functions compute from the
+    kernel's own output rows (velocity, gradient, F00, mass, vol0, failed):
+    the same J on both sides, so held to 1e-5 relative, near J = 1 too.
+    Returns (the fluid lanes, worst |err|/tol of (1), or inf if a close
+    lane is not positive, worst of (2), the count of lanes within 1e-5 of
+    1, the count within 1e-3 of 1, |J - 1| on (1)'s worst lane)."""
     import torch
     from sparkl_tpu_torch.fused import layout as L
 
-    r = L.Rows(3)
+    r = L.Rows(3 if out_k.shape[1] == L.Rows(3).nf else 2)
     eps = (out_p[:, r.defgrad] - 1.0).abs()
-    near = fluid & (eps < 1e-3)
-    held = near & (eps >= 1e-5)
-    close = near & ~held
+    held = fluid & (eps >= 1e-5)
+    close = fluid & ~held
     a, b = out_k[:, r.dtb], out_p[:, r.dtb]
     tol = b.abs() * (1e-5 + 2e-6 / eps.clamp(min=1e-5))
-    measure = torch.where(held, (a - b).abs() / tol.clamp(min=1e-30), 0.0).max().item()
+    ratio = torch.where(held, (a - b).abs() / tol.clamp(min=1e-30), 0.0)
+    measure, worst_eps = ratio.max().item(), eps.reshape(-1)[ratio.argmax()].item()
     if not bool(((a > 0.0) & (b > 0.0))[close].all()):
         measure = float("inf")
     own_tol = (1e-5 * own.abs()).clamp(min=1e-30)
     own_measure = torch.where(fluid, (a - own).abs() / own_tol, 0.0).max().item()
-    return near, measure, own_measure, int(close.sum())
+    return (fluid, measure, own_measure, int(close.sum()), int((fluid & (eps < 1e-3)).sum()),
+            worst_eps)
 
 
 def check_g2p(pipe, state, dt, label, phase, need_plastic=False):
@@ -563,7 +594,7 @@ def check_g2p(pipe, state, dt, label, phase, need_plastic=False):
     from sparkl_tpu_torch.fused import layout as L
 
     grid, cfg = pipe.grid, pipe._cfg
-    r = L.Rows(3)
+    r = L.Rows(grid.dim)
     nchunks = state.structure.num_chunks
     tables = (pipe._tab_f, pipe._tab_i)
     images = K.p2g_fused(grid, cfg, pipe._meta, state.slots, state.ints, dt, nchunks, tables)
@@ -582,10 +613,10 @@ def check_g2p(pipe, state, dt, label, phase, need_plastic=False):
     # The dt-bound row the plain functions form from the kernel's own rows.
     mirror = state.replace(slots=out_k.clone())
     pipe._refresh_dtb_rows(mirror)
-    near_one, eos_measure, own_measure, close = eos_dtb_errors(
+    fluid, eos_measure, own_measure, close, near_one, worst_eps = eos_dtb_errors(
         out_k, out_p, mirror.slots[:, r.dtb], occ & (ct == 2))
     row_errs = g2p_errors(out_k, out_p, state.ints, pipe.models.cparams, grid.cell_width,
-                          skip_dtb=near_one)
+                          skip_dtb=fluid)
     row_errs.append((r.dtb, "eos dtb", eos_measure, 1.0))
     row_errs.append((r.dtb, "eos dtb own rows", own_measure, 1.0))
     worst = {}
@@ -600,15 +631,17 @@ def check_g2p(pipe, state, dt, label, phase, need_plastic=False):
 
     plastic_k, plastic_p = plastic_lanes(out_k), plastic_lanes(out_p)
     res = dict(max_abs_err=torch.where(occ[:, None, :], out_k - out_p, 0.0).abs().max().item(),
-               worst_over_tol=worst, plastic_lanes=plastic_k,
-               eos_dtb_lanes=int(near_one.sum()), dtb_lanes_close=close)
+               worst_over_tol=worst, plastic_lanes=plastic_k, fluid_lanes=int(fluid.sum()),
+               eos_dtb_lanes_near_one=near_one, dtb_lanes_close=close,
+               eos_dtb_worst_lane_j_minus_1=worst_eps)
     say(phase, f"g2p_fused on the {label} state, slots {tuple(out_k.shape)}: worst measure/tol "
                f"per row group { {g: round(v, 4) for g, v in worst.items()} } (pass <= 1; "
                f"failed row equal: {worst['failed'] == 0}); lanes with plastic flow: kernel "
-               f"{plastic_k}, plain {plastic_p} of {int(occ.sum())}; fluid lanes with |J - 1| "
-               f"< 1e-3 held to the EOS dt-bound tolerance: {int(near_one.sum())}, of them "
-               f"within 1e-5 of 1 (checked positive, and against the bound of the kernel's own "
-               f"rows as every fluid lane is): {close}")
+               f"{plastic_k}, plain {plastic_p} of {int(occ.sum())}; fluid lanes held to the "
+               f"EOS dt-bound tolerance: {int(fluid.sum())} ({near_one} with |J - 1| < 1e-3, "
+               f"the worst at |J - 1| {worst_eps:.3e}), of them within 1e-5 of 1 (checked "
+               f"positive, and against the bound of the kernel's own rows as every fluid lane "
+               f"is): {close}")
     failures = []
     if not all(v <= 1.0 for v in worst.values()):
         failures.append(f"g2p_fused disagrees with its plain version on the {label} state")
@@ -1157,28 +1190,30 @@ def fluid_blob(device="cuda"):
 
 
 def phase_fluid_kernels(pipe, state, dt, label, phase, timed):
-    """The fluid path's kernels against their plain versions on `state`:
-    the mass P2G (images), the mass gather (on the windows the volume pass
-    builds from the kernel's images), kernel A (fresh EOS stress) and
-    kernel B (fluid branch). With `timed`, each kernel's and plain
-    version's median time. Returns {name: {...}}."""
+    """The fluid path's kernels against their plain versions on `state`, 3D
+    (fluids3) or 2D (fluids2): the mass P2G (images), the mass gather (on
+    the windows the volume pass builds from the kernel's images), kernel A
+    (fresh EOS stress) and kernel B (fluid branch); the scatter merge on
+    both kinds of images, and in 2D also the block merge. With `timed`,
+    each kernel's and plain version's median time. Returns {name: {...}}."""
     import torch
     from sparkl_tpu_torch.fused import kernels as K
     from sparkl_tpu_torch.fused import layout as L
     from sparkl_tpu_torch.sparse import transfer as T
 
     grid, cfg = pipe.grid, pipe._cfg
+    dim = grid.dim
     nch = state.structure.num_chunks
     tables = (pipe._tab_f, pipe._tab_i)
     sl, ints = state.slots, state.ints
     m_k = K.mass_p2g_fused(grid, cfg, sl, ints, nch)
     m_p = K.mass_p2g_fused_reference(grid, sl, ints, nch)
     node, _ = T.merge_images_to_grid(grid, cfg, state.structure, m_k,
-                                     cell_order=T.ZMAJOR_ORDER_3D,
+                                     cell_order=pipe._cell_order(),
                                      force_scatter=pipe._merge_force_scatter,
                                      plan=state.grid_cache[2])
     win = T.gather_grid_windows(grid, cfg, state.structure, node,
-                                cell_order=T.ZMAJOR_ORDER_3D).contiguous()
+                                cell_order=pipe._cell_order()).contiguous()
     g_k = K.mass_g2p_fused(grid, cfg, sl, ints, win, nch)
     g_p = K.mass_g2p_fused_reference(grid, sl, ints, win, nch)
     a_k = K.p2g_fused(grid, cfg, pipe._meta, sl, ints, dt, nch, tables)
@@ -1193,13 +1228,25 @@ def phase_fluid_kernels(pipe, state, dt, label, phase, timed):
     g_scale = g_p.abs().max().item()
     g_err = (g_k - g_p).abs().max().item()
     a_err = p2g_errors(a_k, a_p)
-    res["mass_p2g_fused"] = dict(max_abs_err=m_err[1], over_bound=m_err[0])
+    res["mass_p2g_fused"] = dict(max_abs_err=m_err[1], over_bound=m_err[0],
+                                 bit_equal=torch.equal(m_k, m_p))
+    if dim == 2:
+        # On the CPU the plain version's scatter-add sums each cell's slots
+        # in ascending lane order, as the kernel does: there the same sums
+        # to the bit (on the card its scatter-add takes atomics' order).
+        m_cpu = K.mass_p2g_fused_reference(grid, sl.cpu(), ints.cpu(), nch.cpu())
+        res["mass_p2g_fused"]["bit_equal_cpu"] = torch.equal(m_k.cpu(), m_cpu)
+        require(res["mass_p2g_fused"]["bit_equal_cpu"],
+                f"mass_p2g_fused differs from its plain version on the CPU ({label})")
     res["mass_g2p_fused"] = dict(max_abs_err=g_err, bit_equal=torch.equal(g_k, g_p),
                                  rel_err=g_err / max(g_scale, 1e-30))
     res["p2g_fused"] = dict(max_abs_err=max(e for _, e in a_err),
                             over_bound=max(m for m, _ in a_err))
     say(phase, f"fluid kernels on the {label} state: mass_p2g_fused max|err| {m_err[1]:.3e} "
-               f"({m_err[0]:.2e} of its bound); mass_g2p_fused max|err| {g_err:.3e} (relative "
+               f"({m_err[0]:.2e} of its bound; bit-equal {res['mass_p2g_fused']['bit_equal']}, "
+               f"to the plain version on the CPU "
+               f"{res['mass_p2g_fused'].get('bit_equal_cpu', 'not checked in 3D')}); "
+               f"mass_g2p_fused max|err| {g_err:.3e} (relative "
                f"{g_err / max(g_scale, 1e-30):.2e}, pass <= 1e-6; bit-equal "
                f"{torch.equal(g_k, g_p)}); p2g_fused (EOS stress) per channel max|err|/bound "
                f"{[f'{m:.2e}' for m, _ in a_err]} (pass <= 1)")
@@ -1210,36 +1257,62 @@ def phase_fluid_kernels(pipe, state, dt, label, phase, timed):
     res["g2p_fused"], (slots_in, windows, args) = check_g2p(pipe, state, dt, label, phase)
     # The scatter merge on the path's two kinds of rows: kernel A's images
     # (nf = 4, the row the kernels line reports) and the mass images (nf = 1).
+    # (Timed at the 3D fluid path's shapes, where it is the path's merge.)
     res["merge_scatter"] = check_merge_scatter(cfg, state.structure, image_rows(cfg, a_k),
-                                               phase, " (fluid, kernel A images)", timed)
+                                               phase, " (fluid, kernel A images)",
+                                               timed and dim == 3)
     res["merge_scatter"]["mass"] = check_merge_scatter(
-        cfg, state.structure, image_rows(cfg, m_k), phase, " (fluid, mass images)", timed)
+        cfg, state.structure, image_rows(cfg, m_k), phase, " (fluid, mass images)",
+        timed and dim == 3)
+    if dim == 2:
+        # The 2D path merges with merge_blocks (a block of 4 x 4 cells holds
+        # one or two chunks): bit-equal to its plain version on both kinds.
+        first, nblk = state.structure.block_first_chunk, state.structure.block_num_chunks
+        same = [torch.equal(K.merge_blocks(rows, first, nblk),
+                            K.merge_blocks_reference(rows, first, nblk, T.MERGE_KMAX))
+                for rows in (image_rows(cfg, a_k), image_rows(cfg, m_k))]
+        res["merge_blocks"] = dict(bit_equal=all(same), max_chunks_per_block=int(nblk.max()))
+        say(phase, f"merge_blocks on the {label} state's images and mass images bit-equal "
+                   f"{same}; at most {int(nblk.max())} chunks a block")
+        require(all(same), f"merge_blocks disagrees with its plain version on the {label} state")
     if not timed:
         return res
     live = int(nch)
     row = 4 * cfg.chunk_size
     lanes = int(((ints[:, L.I_FLAGS, :] & L.ACTIVE) != 0).sum())
-    # Bytes counted from what the fluid branches need on the blob's
-    # all-fluid lanes, per live chunk: kernel A reads pos 3, vel 3, mass,
-    # vol0, grad 9, F00 and failed (19 f32 rows; no stress-cache row) and
-    # flags and the origin (4 i32 rows), and writes every chunk's [4, 512]
-    # image; kernel B reads pos 3, F00, mass, vol0, failed and the drift (8
-    # f32 rows), flags, model and origin (5 i32 rows) and the [3, 512]
-    # window, and changes pos 3, vel 3, grad 9, F00, the dt bound, failed
-    # and the drift (19 rows; the rest of F, the plastic, energy and
-    # stress-cache rows stay as they are for fluids).
-    a_rows, b_read, b_written = 19 + 4, 8 + 5, 19
+    cells, taps = 8**dim, 3**dim
+    # Bytes counted from what the fluid branches need on the all-fluid
+    # lanes, per live chunk: kernel A reads pos d, vel d, mass, vol0, grad
+    # d², F00 and failed (3D 19, 2D 12 f32 rows; no stress-cache row) and
+    # flags, model and the origin (3D 5, 2D 4 i32 rows), and writes every
+    # chunk's [1 + d, 8^d] image; kernel B reads pos d, F00, mass, vol0,
+    # failed and the drift (3D 8, 2D 7 f32 rows), flags, model and origin
+    # and the [d, 8^d] window, and changes pos d, vel d, grad d², F00, the
+    # dt bound, failed and the drift (3D 19, 2D 12 rows; the rest of F, the
+    # plastic, energy and stress-cache rows stay as they are for fluids);
+    # the mass kernels read pos d and the mass and flags and the origin
+    # (3D 8, 2D 6 rows).
+    i_rows = 2 + dim
+    a_rows, b_read = 4 + 2 * dim + dim * dim + i_rows, 5 + dim + i_rows
+    b_written = 4 + 2 * dim + dim * dim
+    m_rows = 2 + 2 * dim
+    if dim == 3:
+        a_flops = 27 * P2G_TAP_FLOPS + A_SLOT_FLOPS + EOS_SLOT_FLOPS
+        b_flops = 27 * G2P_TAP_FLOPS + B_FLUID_LANE_FLOPS
+    else:
+        a_flops = 9 * P2G2_TAP_FLOPS + A2_CACHED_SLOT_FLOPS + EOS_SLOT_FLOPS
+        b_flops = 9 * G2P2_TAP_FLOPS + B_FLUID_LANE_FLOPS
     for name, fn, plain, nbytes, flops in (
             ("mass_p2g_fused", lambda: K.mass_p2g_fused(grid, cfg, sl, ints, nch),
              lambda: K.mass_p2g_fused_reference(grid, sl, ints, nch),
-             live * 8 * row + cfg.max_chunks * 512 * 4, lanes * 27 * MASS_TAP_FLOPS),
+             live * m_rows * row + cfg.max_chunks * cells * 4, lanes * taps * MASS_TAP_FLOPS),
             ("mass_g2p_fused", lambda: K.mass_g2p_fused(grid, cfg, sl, ints, win, nch),
              lambda: K.mass_g2p_fused_reference(grid, sl, ints, win, nch),
-             live * (8 * row + 512 * 4) + cfg.max_chunks * row, lanes * 27 * MASS_TAP_FLOPS),
+             live * (m_rows * row + cells * 4) + cfg.max_chunks * row,
+             lanes * taps * MASS_TAP_FLOPS),
             ("p2g_fused", lambda: K.p2g_fused(grid, cfg, pipe._meta, sl, ints, dt, nch, tables),
              lambda: K.p2g_fused_reference(grid, sl, ints, dt, nch, tables),
-             live * a_rows * row + cfg.max_chunks * 4 * 4 * 512,
-             lanes * (27 * P2G_TAP_FLOPS + A_SLOT_FLOPS + EOS_SLOT_FLOPS))):
+             live * a_rows * row + cfg.max_chunks * (1 + dim) * cells * 4, lanes * a_flops)):
         v = res[name]
         v["ms"], v["plain_ms"] = cuda_median_ms(fn), cuda_median_ms(plain)
         v["bytes"], v["flops"], v["library_ms"] = nbytes, flops, None
@@ -1250,14 +1323,15 @@ def phase_fluid_kernels(pipe, state, dt, label, phase, timed):
                                                  ints, windows, dt, *args))
     v["plain_ms"] = cuda_median_ms(
         lambda: K.g2p_fused_reference(grid, slots_in, ints, windows, dt, *args))
-    v["bytes"] = live * ((b_read + b_written) * row + 4 * 3 * 512)
-    v["flops"] = lanes * (27 * G2P_TAP_FLOPS + B_FLUID_LANE_FLOPS)
+    v["bytes"] = live * ((b_read + b_written) * row + 4 * dim * cells)
+    v["flops"] = lanes * b_flops
     v["library_ms"] = None
     v["bound_ms"], v["bound_by"] = bound(v["bytes"], v["flops"])
     for name, v in res.items():
-        if name == "merge_scatter":
+        if name.startswith("merge"):
             continue
-        say(phase, f"{name} (fluid): kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms "
+        say(phase, f"{name} ({dim}D fluid, {label}): kernel {v['ms']:.3f} ms, plain "
+                   f"{v['plain_ms']:.3f} ms "
                    f"(median of 20); {v['bytes'] / 1e9:.4f} GB counted from shapes = "
                    f"{v['bytes'] / v['ms'] / 1e6:.1f} GB/s; bound {v['bound_ms']:.4f} ms "
                    f"({v['bound_by']})")
@@ -1637,16 +1711,18 @@ def phase_plastic_kernels():
     return out
 
 
-def phase_plastic_main(name):
-    """One 2D plastic main path as published: scenes.build(name) ->
-    auto_pipeline -> pack_state -> PLASTIC_FRAMES frames of
-    run_frames_state (the last PLASTIC_TIMED timed) -> unpack_state, with
-    the kernels' launches held against the substeps run and the resort
-    branches; per frame the substeps beside the goldens' (within one, as
-    tests/test_regression.py holds the fused pipeline), the centre of
-    mass, box and kinetic energy against the goldens within its fused
-    tolerances (the worst measure over tolerance reported), the failed and
-    broken counts and the mass held to 1e-6. Returns (pipeline, state,
+def phase_plastic_main(name, phase=16, golden=True, timed_frames=PLASTIC_TIMED, **kw):
+    """One 2D main path (the plastic scenes, fluids2): scenes.build(name,
+    **kw) -> auto_pipeline -> pack_state -> PLASTIC_FRAMES frames of
+    run_frames_state (the last `timed_frames` timed) -> unpack_state, with
+    the kernels' launches held against the substeps run, the resort
+    branches and, with fluid volume recomputation, the volume passes (one
+    per substep and one more per resort); per untimed frame the substeps,
+    the failed and broken counts and the mass held to 1e-6, and with
+    `golden` (the goldens' configuration) the substeps beside the goldens'
+    (within one, as tests/test_regression.py holds the fused pipeline) and
+    the centre of mass, box and kinetic energy within its fused tolerances
+    (the worst measure over tolerance reported). Returns (pipeline, state,
     launches, results)."""
     import json as _json
     import torch
@@ -1654,9 +1730,13 @@ def phase_plastic_main(name):
     import sparkl_tpu_torch.scenes as scenes
     from sparkl_tpu_torch.fused import kernels as K
 
-    with open(os.path.join(HERE, "tests", "golden_scenes.json")) as fh:
-        gold = _json.load(fh)[name]["frames"]
-    b = scenes.build(name)
+    gold = None
+    if golden:
+        with open(os.path.join(HERE, "tests", "golden_scenes.json")) as fh:
+            rec = _json.load(fh)[name]
+        require(rec["config"] == kw, f"{name}: the golden's configuration is {rec['config']}")
+        gold = rec["frames"]
+    b = scenes.build(name, **kw)
     n_active = int(b.particles.active.sum())
     mass0 = b.particles.mass[b.particles.active].double().sum().item()
     pipe = sk.auto_pipeline(b)
@@ -1673,14 +1753,15 @@ def phase_plastic_main(name):
     substeps = resorts = 0
     frames, worst = [], 0.0
     timed, seconds = 0, 0.0
+    first_timed = PLASTIC_FRAMES - timed_frames
     for i in range(PLASTIC_FRAMES):
-        if i == PLASTIC_FRAMES - PLASTIC_TIMED:
+        if i == first_timed:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
         state, n = pipe.run_frames_state(state, 1)
         substeps += n
         resorts += pipe.last_resorts
-        if i >= PLASTIC_FRAMES - PLASTIC_TIMED:
+        if i >= first_timed:
             timed += n
             if i == PLASTIC_FRAMES - 1:
                 torch.cuda.synchronize()
@@ -1691,6 +1772,13 @@ def phase_plastic_main(name):
         pos, vel = p.position[act].double(), p.velocity[act].double()
         mass = p.mass[act].double().sum().item()
         ke = 0.5 * (p.mass[act].double()[:, None] * vel**2).sum().item()
+        failed = int(p.failed[act].sum())
+        broken = int((p.phase[act] == 0.0).sum())
+        frames.append(dict(frame=i, substeps=n, mass=mass, failed=failed, broken=broken,
+                           ke=ke))
+        require(abs(mass - mass0) <= 1e-6 * mass0, f"{name} frame {i}: mass {mass} vs {mass0}")
+        if gold is None:
+            continue
         rec = gold[i]
         ratios = []
         for got, want, atol, rtol in ((pos.mean(0), rec["com"], 3e-3, 1e-3),
@@ -1699,13 +1787,9 @@ def phase_plastic_main(name):
                                       (torch.tensor([ke]), [rec["ke"]], 1e-8, 3e-2)):
             want = torch.tensor(want, dtype=torch.float64)
             ratios.append(((got.cpu() - want).abs() / (atol + rtol * want.abs())).max().item())
-        failed = int(p.failed[act].sum())
-        broken = int((p.phase[act] == 0.0).sum())
         slack = max(2, int(0.02 * n_active))
-        frames.append(dict(frame=i, substeps=n, golden_substeps=rec["substeps"], mass=mass,
-                           worst_over_tol=max(ratios), failed=failed, broken=broken))
+        frames[-1].update(golden_substeps=rec["substeps"], worst_over_tol=max(ratios))
         worst = max(worst, max(ratios))
-        require(abs(mass - mass0) <= 1e-6 * mass0, f"{name} frame {i}: mass {mass} vs {mass0}")
         require(abs(n - rec["substeps"]) <= 1 and max(ratios) <= 1.0
                 and abs(failed - rec["failed"]) <= slack and abs(broken - rec["broken"]) <= slack,
                 f"{name} frame {i} against the golden: {frames[-1]}")
@@ -1715,37 +1799,42 @@ def phase_plastic_main(name):
     p = pipe.unpack_state(state)
     act = p.active
     mass = p.mass[act].double().sum().item()
-    pups = n_active * timed / seconds
+    pups = n_active * timed / seconds if timed else None
     for fr in frames:
-        say(16, f"{name} frame {fr['frame']}: " + ", ".join(
+        say(phase, f"{name} frame {fr['frame']}: " + ", ".join(
             f"{k} {v}" for k, v in fr.items() if k != "frame"))
-    say(16, f"{name} path, {PLASTIC_FRAMES} frames: {substeps} substeps, {ran[0]} run, "
-            f"{resorts} resorts {branches}; frames 0-{PLASTIC_FRAMES - PLASTIC_TIMED - 1} against "
-            f"the goldens: worst measure/tol {worst:.3e}; last {PLASTIC_TIMED} frames {timed} "
-            f"substeps in {seconds:.3f} s = {pups:.4g} particle-updates/s; {pipe._cfg}; "
-            f"launches {launches}")
+    against = (f"frames 0-{first_timed - 1} against the golden: worst measure/tol {worst:.3e}; "
+               if gold else "")
+    rate = (f"last {timed_frames} frames {timed} substeps in {seconds:.3f} s = {pups:.4g} "
+            f"particle-updates/s; " if timed else "")
+    say(phase, f"{name} path, {PLASTIC_FRAMES} frames: {substeps} substeps, {ran[0]} run, "
+               f"{resorts} resorts {branches}; {against}{rate}{pipe._cfg}; launches {launches}")
     require(bool(torch.isfinite(p.position[act]).all()), f"{name} path: non-finite positions")
     require(abs(mass - mass0) <= 1e-6 * mass0, f"{name} path: active mass not conserved")
     require(sum(branches.values()) == resorts and ran[0] == substeps,
             f"{name}: resorts {resorts}, branches {branches}, substeps {substeps} run {ran[0]}")
+    # Per substep A, B and the merge of A's images; with the volume pass
+    # (one per substep, one more per resort) the two mass kernels and the
+    # merge of the mass images.
     merge = "merge_scatter" if pipe._merge_force_scatter else "merge_blocks"
+    passes = substeps + resorts if b.params.force_fluids_volume_recomputation else 0
     expect = dict.fromkeys(K.LAUNCHES, 0)
-    expect.update(p2g_fused=substeps, g2p_fused=substeps, merge_blocks=0, merge_scatter=0,
-                  src_rows_from_order=resorts - branches["relabel"],
+    expect.update(p2g_fused=substeps, g2p_fused=substeps, mass_p2g_fused=passes,
+                  mass_g2p_fused=passes, src_rows_from_order=resorts - branches["relabel"],
                   permute_slots=branches["mixed"])
-    expect[merge] = substeps
+    expect[merge] = substeps + passes
     require(launches == expect, f"{name} path launch counts {launches}, expected {expect}")
     return pipe, state, launches, dict(
         substeps=substeps, resorts=resorts, branches=branches, timed_substeps=timed,
         seconds=seconds, pups=pups, worst_over_tol=worst, frames=frames, config=str(pipe._cfg))
 
 
-def phase_plastic_agreement(name):
-    """One 2D plastic scene as published: PLASTIC_AGREE_SUBSTEPS single
-    substeps on the card against the port's CPU path (plain versions), with
-    the JAX package's fused-vs-dense tolerances and equal flags and phase;
-    and one frame run twice on the card, bit-equal in every particle
-    field."""
+def phase_plastic_agreement(name, phase=17):
+    """One 2D scene as published (a plastic scene, fluids2):
+    PLASTIC_AGREE_SUBSTEPS single substeps on the card against the port's
+    CPU path (plain versions), with the JAX package's fused-vs-dense
+    tolerances and equal flags and phase; and one frame run twice on the
+    card, bit-equal in every particle field."""
     from dataclasses import replace
     import torch
     import sparkl_tpu_torch as sk
@@ -1768,10 +1857,10 @@ def phase_plastic_agreement(name):
     df = (pg.deformation_gradient[act] - pc.deformation_gradient[act]).abs().max().item()
     flags = (torch.equal(pg.active, pc.active) and torch.equal(pg.failed[act], pc.failed[act])
              and torch.equal(pg.phase[act], pc.phase[act]))
-    say(17, f"{name}, {PLASTIC_AGREE_SUBSTEPS} substeps, card against CPU: max|dx| {dx:.3e} "
-            f"({FRACTURE_DX:g}), max|dv| {dv:.3e} ({FRACTURE_DV:g}; max|v| "
-            f"{pc.velocity[act].abs().max().item():.4f}), max|dF| {df:.3e} ({FRACTURE_DF:g}), "
-            f"active, failed and phase equal {flags}")
+    say(phase, f"{name}, {PLASTIC_AGREE_SUBSTEPS} substeps, card against CPU: max|dx| {dx:.3e} "
+               f"({FRACTURE_DX:g}), max|dv| {dv:.3e} ({FRACTURE_DV:g}; max|v| "
+               f"{pc.velocity[act].abs().max().item():.4f}), max|dF| {df:.3e} ({FRACTURE_DF:g}), "
+               f"active, failed and phase equal {flags}")
     require(flags, f"{name} card and CPU: flags or phase differ")
     require(dx <= FRACTURE_DX and dv <= FRACTURE_DV and df <= FRACTURE_DF,
             f"{name} card and CPU disagree")
@@ -1782,10 +1871,148 @@ def phase_plastic_agreement(name):
         runs.append((interop.particles_to_numpy(p), n))
     (a, na), (a2, na2) = runs
     differ = [k for k in a if not (a[k] == a2[k]).all()]
-    say(17, f"{name} one frame twice on the card: substeps {na}/{na2}, bit-equal in every "
-            f"particle field {not differ} (differ: {differ})")
+    say(phase, f"{name} one frame twice on the card: substeps {na}/{na2}, bit-equal in every "
+               f"particle field {not differ} (differ: {differ})")
     require(not differ and na == na2, f"two card frames of {name} differ in {differ}")
     return dict(max_dx=dx, max_dv=dv, max_df=df, frame_substeps=na, repeat_bit_equal=not differ)
+
+
+def phase_stage_bisect(name, phase):
+    """Where a 2D substep on the card first leaves the CPU's: `name` as
+    published, PLASTIC_AGREE_SUBSTEPS substeps in on the card, then one more
+    substep stage by stage. Each stage runs on the card, its output is
+    copied to the CPU and held against the CPU running the same stage on
+    the card stage's own input (copied), so each difference is that stage's
+    alone: the grid cache (node positions and collider projections, per
+    structure), for fluids the volume pass (the mass P2G kernel against
+    plain, the merge and window gather of the mass images, the mass gather
+    kernel against plain, then J = V/V0 and the dt-bound row), kernel A's
+    images (kernel against plain), the merge into the node table, the grid
+    side (velocity from momentum and mass with gravity, the colliders'
+    boundary conditions and the hook), the window gather, and kernel B
+    (kernel against plain; per slot row on occupied lanes, the worst row
+    named). Returns {stage: max |card - CPU|}, the worst rows and the first
+    stage that differs."""
+    from dataclasses import replace
+    import sparkl_tpu_torch as sk
+    import sparkl_tpu_torch.scenes as scenes
+    from sparkl_tpu_torch import interop
+    from sparkl_tpu_torch.fused import kernels as K
+    from sparkl_tpu_torch.fused import layout as L
+
+    b = scenes.build(name)
+    pipe, state = substep_state(b, PLASTIC_AGREE_SUBSTEPS)
+    bc = scenes.build(name, device="cpu")
+    cpipe = sk.auto_pipeline(replace(bc, params=replace(bc.params, stop_after_one_substep=True)),
+                             device="cpu")
+    cpipe._cfg, cpipe._merge_force_scatter = pipe._cfg, pipe._merge_force_scatter
+
+    def on_cpu(st):
+        return interop.slot_state_from_numpy(interop.slot_state_to_numpy(st),
+                                             cache_fn=cpipe._grid_cache, device="cpu")
+
+    diffs, rows = {}, {}
+
+    def held(stage, card, cpu):
+        diffs[stage] = max(((a.cpu().float() - c.float()).abs().max().item() if a.numel()
+                            else 0.0) for a, c in zip(card, cpu))
+
+    def held_rows(stage, card, cpu, occ):
+        """Slot tensors on occupied lanes: the worst row's |diff| over its
+        largest magnitude."""
+        full = ((card.cpu() - cpu) * occ).abs()
+        d = full.amax(dim=(0, 2))
+        scale = (cpu * occ).abs().amax(dim=(0, 2)).clamp(min=1e-30)
+        diffs[stage] = d.max().item()
+        k = int((d / scale).argmax())
+        rows[stage] = dict(row=k, rel=(d[k] / scale[k]).item(), rows_differing=int((d > 0).sum()),
+                           lanes_differing=int((full.amax(dim=1) > 0).sum()))
+
+    cstate = on_cpu(state)
+    occ = ((cstate.ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0)[:, None, :]
+    held("grid cache", [state.grid_cache[0]] + [t for pr in state.grid_cache[1] for t in pr],
+         [cstate.grid_cache[0]] + [t for pr in cstate.grid_cache[1] for t in pr])
+    grid, cfg, nch = pipe.grid, pipe._cfg, state.structure.num_chunks
+    if b.params.force_fluids_volume_recomputation:
+        m_img = K.mass_p2g_fused(grid, cfg, state.slots, state.ints, nch)
+        held("mass P2G", [m_img], [K.mass_p2g_fused(grid, cfg, cstate.slots, cstate.ints,
+                                                     cstate.structure.num_chunks)])
+        node = pipe._merge_nodes(state, m_img)
+        win = pipe._gather_windows(state, node.reshape(node.shape[0], -1))
+        cnode = cpipe._merge_nodes(cstate, m_img.cpu())
+        held("mass merge and gather", [win],
+             [cpipe._gather_windows(cstate, cnode.reshape(cnode.shape[0], -1))])
+        new_mass = K.mass_g2p_fused(grid, cfg, state.slots, state.ints, win, nch)
+        held("mass G2P", [new_mass], [K.mass_g2p_fused(grid, cfg, cstate.slots, cstate.ints,
+                                                       win.cpu(), cstate.structure.num_chunks)])
+        pipe._set_fluid_volumes(state, new_mass[:, 0, :])
+        cpipe._set_fluid_volumes(cstate, new_mass[:, 0, :].cpu())
+        held_rows("J and dt bound", state.slots, cstate.slots, occ)
+    dt = float(pipe._min_dtb(state))
+    cstate = on_cpu(state)
+    tables = (pipe._tab_f, pipe._tab_i)
+    images = K.p2g_fused(pipe.grid, pipe._cfg, pipe._meta, state.slots, state.ints, dt, nch,
+                         tables)
+    held("kernel A", [images], [K.p2g_fused(cpipe.grid, cpipe._cfg, cpipe._meta, cstate.slots,
+                                            cstate.ints, dt, cstate.structure.num_chunks,
+                                            (cpipe._tab_f, cpipe._tab_i))])
+    node = pipe._merge_nodes(state, images)
+    held("merge", [node], [cpipe._merge_nodes(cstate, images.cpu())])
+    fields = pipe._grid_fields(state, node, dt)
+    held("grid side", [fields], [cpipe._grid_fields(cstate, node.cpu(), dt)])
+    windows = pipe._gather_windows(state, fields)
+    held("window gather", [windows], [cpipe._gather_windows(cstate, fields.cpu())])
+    out = K.g2p_fused(pipe.grid, pipe._cfg, pipe._meta, pipe._kparams, state.slots.clone(),
+                      state.ints, windows, dt, pipe._tab_f, pipe._tab_i, nch)
+    out_c = K.g2p_fused(cpipe.grid, cpipe._cfg, cpipe._meta, cpipe._kparams,
+                        cstate.slots.clone(), cstate.ints, windows.cpu(), dt, cpipe._tab_f,
+                        cpipe._tab_i, cstate.structure.num_chunks)
+    held_rows("kernel B", out, out_c, occ)
+    first = next((k for k, v in diffs.items() if v > 0.0), None)
+    say(phase, f"{name}, one substep stage by stage, card against CPU on each stage's own "
+               f"input: max|diff| {({k: float(f'{v:.3e}') for k, v in diffs.items()})}; slot "
+               f"rows {rows}; first stage that differs: {first}")
+    return dict(max_abs_diff=diffs, rows=rows, first_differing=first)
+
+
+def fluid2_block(device="cuda"):
+    """fluids2's dam break with a 500 x 500 column, 250,000 particles: the
+    published model, colliders, cell width and spacing, the grid's top
+    raised by the taller column (to y = 34, fluids2's margin of ~4.8 m
+    above it)."""
+    from dataclasses import replace
+    import sparkl_tpu_torch as sk
+    import sparkl_tpu_torch.scenes as scenes
+
+    b = scenes.build("fluids2", n=FLUID2_BLOCK, device=device)
+    return replace(b, name="fluids2 block",
+                   grid=sk.GridParams.for_domain((2.5, 2.5), (36.5, 34.0), b.grid.cell_width,
+                                                 pad=3))
+
+
+def phase_fluids2_kernels():
+    """fluids2's kernel forms against their plain versions on the card: the
+    2D mass kernels, kernel A's 2D EOS form and kernel B's 2D fluid branch
+    (and the merges), on fluids2 as published FLUIDS2_SUBSTEPS_IN substeps
+    in, and, timed, on fluid2_block 3 substeps in, each after the volume
+    pass the next substep starts with. Returns {label: {name: {...}}}."""
+    import sparkl_tpu_torch.scenes as scenes
+
+    out = {}
+    for label, make, n_in, timed in (("fluids2", lambda: scenes.build("fluids2"),
+                                      FLUIDS2_SUBSTEPS_IN, False),
+                                     ("fluids2 block", fluid2_block, 3, True)):
+        t0 = time.perf_counter()
+        b = make()
+        pipe, state = substep_state(b, n_in)
+        state = pipe._recompute_fluids(state.replace(slots=state.slots.clone()))
+        dt = float(pipe._min_dtb(state))
+        say(18, f"{label}: {int(b.particles.active.sum())} particles, {pipe._cfg}, grid "
+                f"{b.grid.res}, {n_in} substeps in, dt {dt:.3e}, set-up "
+                f"{time.perf_counter() - t0:.1f} s")
+        out[label] = phase_fluid_kernels(pipe, state, dt, label, 18, timed)
+        del pipe, state
+    return out
 
 
 def kernel_group(name):
@@ -1850,25 +2077,36 @@ def profile_frame(pipe, state, fname, phase, label):
 
 def phase_fluids3():
     """fluids3 as published (15,200 particles), 3 frames through the fused
-    pipeline twice on the card and once on the CPU (plain versions): the
-    two card runs bit-equal in every particle field; card against CPU,
+    pipeline twice on the card and twice on the CPU (plain versions): the
+    two card runs bit-equal in every particle field; card against the CPU
+    run that takes the card's dt at every substep (FLUIDS3_DX says why),
     substeps equal or one apart per frame, equal flags, positions within
-    FLUIDS3_DX and J = F00 within FLUIDS3_DJ."""
+    FLUIDS3_DX and J = F00 within FLUIDS3_DJ; the free-running CPU run's
+    substeps are reported."""
     import torch
     import sparkl_tpu_torch.scenes as scenes
     from sparkl_tpu_torch import interop
     from sparkl_tpu_torch.fused.pipeline import FusedMpmPipeline
 
-    out = {}
-    for run, dev in (("card", "cuda"), ("card again", "cuda"), ("cpu", "cpu")):
+    out, dts = {}, []
+    for run, dev in (("card", "cuda"), ("card again", "cuda"), ("cpu", "cpu"),
+                     ("cpu free", "cpu")):
         b = scenes.build("fluids3", device=dev)
         pipe = FusedMpmPipeline(b.grid, b.models, b.colliders, b.params, b.gravity, device=dev)
+        min_dtb = pipe._min_dtb
+        if run == "card":
+            # Every minimum dt bound the substeps read, in turn.
+            pipe._min_dtb = lambda st: dts.append(min_dtb(st)) or dts[-1]
+        elif run == "cpu":
+            replay = iter([float(x) for x in dts])
+            pipe._min_dtb = lambda st: torch.tensor(next(replay), dtype=torch.float32)
         p, subs = b.particles, []
         for _ in range(3):
             p, n = pipe.step_with_stats(p)
             subs.append(n)
         out[run] = (p.to("cpu"), subs)
     (pg, sg), (pg2, sg2), (pc, sc) = out["card"], out["card again"], out["cpu"]
+    sc_free = out["cpu free"][1]
     a, a2 = interop.particles_to_numpy(pg), interop.particles_to_numpy(pg2)
     differ = [k for k in a if not (a[k] == a2[k]).all()]
     act = pc.active
@@ -1877,7 +2115,8 @@ def phase_fluids3():
     dj_all = (pg.deformation_gradient[act, 0, 0] - j_cpu).abs()
     dj, at = dj_all.max().item(), int(dj_all.argmax())
     flags = torch.equal(pg.active, pc.active) and torch.equal(pg.failed[act], pc.failed[act])
-    say(11, f"fluids3, 3 frames: substeps card {sg}, again {sg2}, CPU {sc}; two card runs "
+    say(11, f"fluids3, 3 frames: substeps card {sg}, again {sg2}, CPU at the card's dts {sc}, "
+            f"CPU free-running {sc_free}; two card runs "
             f"bit-equal {not differ and sg == sg2}; card against CPU max|dx| {dx:.3e} "
             f"({FLUIDS3_DX:g}), max|dJ| {dj:.3e} ({FLUIDS3_DJ:g}) at J {j_cpu[at].item():.4f} "
             f"(J over the blob {j_cpu.min().item():.4f}-{j_cpu.max().item():.4f}), flags equal "
@@ -1886,7 +2125,8 @@ def phase_fluids3():
     require(all(abs(x - y) <= 1 for x, y in zip(sg, sc)) and flags,
             "fluids3: card and CPU substeps or flags differ")
     require(dx <= FLUIDS3_DX and dj <= FLUIDS3_DJ, "fluids3: card and CPU disagree")
-    return dict(substeps_card=sg, substeps_cpu=sc, max_dx=dx, max_dj=dj)
+    return dict(substeps_card=sg, substeps_cpu=sc, substeps_cpu_free=sc_free, max_dx=dx,
+                max_dj=dj)
 
 
 def phase_mixed():
@@ -2531,25 +2771,55 @@ def main():
                                               "basic2")
     del ppipe, pstate
 
-    # 17. Each scene card against CPU, and card against card.
+    # 17. Each scene card against CPU, and card against card; elasticity2's
+    # substep stage by stage, card against CPU.
     for name in ("elasticity2", "basic2"):
         plastic_res[name]["agreement"] = phase_plastic_agreement(name)
+    plastic_res["elasticity2"]["bisect"] = phase_stage_bisect("elasticity2", 17)
+
+    # 18. fluids2's kernel forms against their plain versions, on fluids2 as
+    # published and, timed, on a 250,000-particle column.
+    fluid2_res = {"kernels": phase_fluids2_kernels()}
+
+    # 19. fluids2 as published, 10 frames; one profiled frame.
+    f2pipe, f2state, fluid2_launches, fluid2_res["main"] = phase_plastic_main(
+        "fluids2", 19, golden=False)
+    _, fluid2_res["profile"] = profile_frame(f2pipe, f2state, "fluids2_profile.txt", 19,
+                                             "fluids2")
+    del f2pipe, f2state
+    forms = ("p2g_fused", "g2p_fused", "mass_p2g_fused", "mass_g2p_fused")
+    missing = [k for k in forms if fluid2_launches[k] == 0]
+    require(not missing, f"kernels the fluids2 path never launched: {missing}")
+
+    # 20. fluids2 at the golden's size (n = 40), every frame against it.
+    fluid2_res["golden"] = phase_plastic_main("fluids2", 20, golden=True, timed_frames=0,
+                                              n=40)[3]
+
+    # 21. fluids2 card against CPU and card against card; its substep stage
+    # by stage, card against CPU.
+    fluid2_res["agreement"] = phase_plastic_agreement("fluids2", 21)
+    fluid2_res["bisect"] = phase_stage_bisect("fluids2", 21)
 
     by_path = dict(fused=launches, sparse=sparse_launches, fluid=fluid_launches,
                    fracture=fracture_launches, elasticity2=plastic_launches["elasticity2"],
-                   basic2=plastic_launches["basic2"])
+                   basic2=plastic_launches["basic2"], fluids2=fluid2_launches)
     launches = {name: by_path[PATH_OF[name]][name] if PATH_OF[name] else
                 kres[name]["launches"] for name in REPLACES}
     missing = [k for k in REPLACES if launches[k] == 0]
     require(not missing, f"kernels their main paths (or checks) never launched: {missing}")
 
-    # 18. Results.
+    # 22. Results. The 2D fluid forms of four kernels carry their own
+    # numbers (the fluids2 path's launches, times on the 2D column).
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    block = fluid2_res["kernels"]["fluids2 block"]
     kernels = [
         dict(name=name, route="cuda",
              source=WINDOW_SOURCE if name in SPARSE_KERNELS else FUSED_SOURCE,
              replaces=REPLACES[name], launches=launches[name],
-             path=PATH_OF[name] or NO_PATH, **{k: kres[name][k] for k in keys})
+             path=PATH_OF[name] or NO_PATH, **{k: kres[name][k] for k in keys},
+             **({"fluids2": dict(launches=fluid2_launches[name],
+                                 **{k: block[name].get(k) for k in keys})}
+                if name in forms else {}))
         for name in REPLACES
     ]
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -2557,7 +2827,8 @@ def main():
                        resorts=resorts, timed_substeps=timed, seconds=seconds, pups=pups,
                        resort_branches=branches, resort_ms=resort_ms, peak_gib=peak_gib,
                        build_s=build_s, kernel_checks=kres, sparse=sparse_res,
-                       fluid=fluid_res, fracture=fracture_res, plastic2d=plastic_res), f,
+                       fluid=fluid_res, fracture=fracture_res, plastic2d=plastic_res,
+                       fluids2=fluid2_res), f,
                   indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(smi)

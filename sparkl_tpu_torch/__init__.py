@@ -14,9 +14,12 @@ two pipelines: fused.pipeline.FusedMpmPipeline (persistent slots, the stress
 cache on) and sparse.pipeline.SparseMpmPipeline (the block-sparse window
 transfers); fluids3's, the Monaghan EOS fluid with fluid volume
 recomputation (alone or mixed with those solids), on the fused pipeline;
-and l_panel2's, 2D corotated fracture with eigenerosion and maximum-stress
-failure, a cuboid ground, STICK handling and a Dirichlet velocity hook, on
-the fused pipeline. Every entry point that takes a device defaults to
+l_panel2's, 2D corotated fracture with eigenerosion and maximum-stress
+failure, a cuboid ground, STICK handling and a Dirichlet velocity hook;
+elasticity2's and basic2's, 2D Rankine, Snow and Drucker-Prager plasticity
+on cuboids and a 2D heightfield; and fluids2's, the 2D Monaghan EOS fluid
+with its volume pass between cuboid walls; all on the fused pipeline.
+Every entry point that takes a device defaults to
 "cuda" and raises without one; pass device="cpu" for the plain PyTorch
 versions.
 """

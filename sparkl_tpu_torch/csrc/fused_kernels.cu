@@ -31,8 +31,9 @@
 // against the Python side by the CPU tests), in 3D NF = 56 and C = 128 with
 // window images and windows in z-major region-cell order q = z*64 + x*8 +
 // y, in 2D NF = 40 and C = 64 with row-major cells q = x*8 + y. Kernels A
-// and B are templates on the dimension and the chunk size, instantiated for
-// (3, 128) and (2, 64); the launchers pick the instance. Each launcher is
+// and B and the two mass kernels are templates on the dimension and the
+// chunk size, instantiated for (3, 128) and (2, 64); the launchers pick the
+// instance. Each launcher is
 // a plain C function that enqueues on the given stream and returns
 // cudaGetLastError() (cudaErrorInvalidValue for a shape it has no instance
 // for); the caller allocates every output.
@@ -156,9 +157,6 @@ constexpr int MAXIMUM_STRESS = 1;
 constexpr int TAB_F = 12;  // failure parameter columns of the model table
 constexpr float BIGF = 3.4028234663852886e38f;
 
-constexpr int C3 = 128;   // 3D chunk size
-constexpr int RC3 = 512;  // 3D window cells
-
 // Kernel option bits the launchers pass.
 constexpr int OPT_PSI = 1;           // kernel A: the psi channels
 constexpr int OPT_STRESS_CACHE = 2;  // A reads the stress rows, B writes them
@@ -180,13 +178,16 @@ struct GridArgs {
 };
 
 // Base cell round(x/h) - 1 (round half to even, like jnp.round) and the
-// offset fx; in_bounds = the 3-node stencil lies inside the grid.
+// offset fx; in_bounds = the 3-node stencil lies inside the grid. x/h is the
+// product with f32(1/h), as jitted XLA rounds the JAX package's division by
+// the cell width.
 template <int D>
 __device__ __forceinline__ void base_fx(const GridArgs& g, const float pos[D], int base[D],
                                         float fx[D], bool& in_bounds) {
   in_bounds = true;
+  const float inv_h = 1.0f / g.h;
   for (int ax = 0; ax < D; ++ax) {
-    float xg = (pos[ax] - g.origin[ax]) / g.h;
+    float xg = (pos[ax] - g.origin[ax]) * inv_h;
     float bf = rintf(xg) - 1.0f;
     base[ax] = (int)bf;
     fx[ax] = xg - bf;
@@ -227,7 +228,7 @@ __device__ __forceinline__ void quadratic_weights(float f, float w[3]) {
 // The stress: with the stress-cache option, the cached rows (symmetric
 // upper triangle, written by kernel B), except for EOS slots, whose stress
 // comes fresh from J = F00, the mass, vol0 and the carried velocity
-// gradient (kernel B leaves their rows zero; 3D only); without it (damage
+// gradient (kernel B leaves their rows zero); without it (damage
 // and failure scenes, whose phase changes between the kernels), fresh from
 // F: corotated through the SVD (2x2 closed form in 2D), with the phase
 // split for broken particles. Failed debris contributes no stress. The JAX
@@ -290,14 +291,10 @@ __global__ void __launch_bounds__(C) p2g_fused_kernel(
   const bool mid_ok = mid >= 0 && mid < m_count;
   const int ctype = mid_ok ? tab_i[mid * NTAB_I] : 0;
   const float* p = tab_f + (mid_ok ? mid : 0) * NTAB_F;
-  bool fresh_eos = false;
-  if constexpr (DIM == 3) fresh_eos = mid_ok && ctype == EOS_MONAGHAN_SPH;
-  if (fresh_eos) {
-    if constexpr (DIM == 3) {
-      const float fj = SROW(R::DEFGRAD);
-      const float density = (mass / fmaxf(vol0, 1e-30f)) / fmaxf(fj, 1e-20f);
-      sparkl::eos_stress(p[0], p[1], p[2], p[3], mass, vol0, density, fj, gv, stress);
-    }
+  if (mid_ok && ctype == EOS_MONAGHAN_SPH) {
+    const float fj = SROW(R::DEFGRAD);
+    const float density = (mass / fmaxf(vol0, 1e-30f)) / fmaxf(fj, 1e-20f);
+    sparkl::eos_stress<DIM>(p[0], p[1], p[2], p[3], mass, vol0, density, fj, gv, stress);
   } else if (opts & OPT_STRESS_CACHE) {
     float st[R::NSTRESS];
     for (int k = 0; k < R::NSTRESS; ++k) st[k] = SROW(R::STRESS + k);
@@ -442,128 +439,129 @@ __global__ void merge_scatter_kernel(const float* __restrict__ rows,
 }
 
 // ---------------------------------------------------------------------------
-// Mass P2G (fluid volume pass, 3D): the chunk's 8^3 mass image, kernel A's
-// design with one channel. Each thread prepares its slot's weights and
-// m·contrib in shared memory; then each thread owns 4 of the 512 cells and
-// sums (m wz)(wx wy) of every slot whose stencil holds the cell, in
-// ascending lane order: no atomics, so the image is deterministic. Dead
+// Mass P2G (fluid volume pass): the chunk's 8^d mass image, kernel A's
+// design with one channel, a template on the dimension and chunk size like
+// A. Each thread prepares its slot's weights and m·contrib in shared
+// memory; then each thread owns 8^d / C of the window cells (4 of 512 in
+// 3D, 1 of 64 in 2D) and sums every slot whose stencil holds the cell, in
+// ascending lane order: no atomics, so the image is deterministic. The
+// product per slot is the JAX kernel's factorization: (m wz)(wx wy) in 3D
+// (z-major cells), (m wx) wy in 2D (row-major cells, q = x*8 + y). Dead
 // chunks write zeros. Bound on this card: like kernel A, the owner loop's
-// shared-memory compares (128 slots x 4 cells per thread); the slot read
-// is 4 rows + 4 int rows x 512 B.
+// shared-memory compares (C slots per cell); the slot read is d + 1 rows
+// and d + 2 int rows of 4C B.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(C3) mass_p2g_kernel(
+template <int D, int C>
+__global__ void __launch_bounds__(C) mass_p2g_kernel(
     const float* __restrict__ slots, const int* __restrict__ ints,
     const int* __restrict__ nchunks, float* __restrict__ out, GridArgs g) {
+  using R = Rows<D>;
+  constexpr int RC = region_cells<D>();
   const int chunk = blockIdx.x;
   const int t = threadIdx.x;
-  float* img = out + (size_t)chunk * RC3;
+  float* img = out + (size_t)chunk * RC;
   if (chunk >= *nchunks) {
-    for (int e = t; e < RC3; e += C3) img[e] = 0.0f;
+    for (int e = t; e < RC; e += C) img[e] = 0.0f;
     return;
   }
-  __shared__ int s_rel[3][C3];
-  __shared__ float s_w[3][3][C3];
-  __shared__ float s_m[C3];
+  __shared__ int s_rel[D][C];
+  __shared__ float s_w[D][3][C];
+  __shared__ float s_m[C];
 
-  const float* S = slots + (size_t)chunk * NF * C3;
-  const int* I = ints + (size_t)chunk * NI * C3;
-  const bool active = (I[I_FLAGS * C3 + t] & FLAG_ACTIVE) != 0;
-  float pos[3];
-  for (int ax = 0; ax < 3; ++ax) pos[ax] = S[(ROW_POS + ax) * C3 + t];
-  int base[3];
-  float fx[3];
-  bool in_bounds;
-  base_fx<3>(g, pos, base, fx, in_bounds);
-  int rel[3];
-  bool in_window = true;
-  for (int ax = 0; ax < 3; ++ax) {
-    rel[ax] = base[ax] - I[(I_ORIGIN + ax) * C3 + t];
-    in_window = in_window && rel[ax] >= 0 && rel[ax] <= 5;
-  }
-  const bool contrib = active && in_window && in_bounds;
-  s_m[t] = S[ROW_MASS * C3 + t] * (contrib ? 1.0f : 0.0f);
-  for (int ax = 0; ax < 3; ++ax) {
-    const float f = fx[ax];
-    s_w[ax][0][t] = 0.5f * ((1.5f - f) * (1.5f - f));
-    s_w[ax][1][t] = 0.75f - (f - 1.0f) * (f - 1.0f);
-    s_w[ax][2][t] = 0.5f * ((f - 0.5f) * (f - 0.5f));
+  const float* S = slots + (size_t)chunk * R::NF * C;
+  const int* I = ints + (size_t)chunk * NI * C;
+  int rel[D];
+  float fx[D];
+  const bool contrib = slot_transfer<D, C>(g, S, I, t, rel, fx);
+  s_m[t] = S[R::MASS * C + t] * (contrib ? 1.0f : 0.0f);
+  for (int ax = 0; ax < D; ++ax) {
+    float w[3];
+    quadratic_weights(fx[ax], w);
+    for (int k = 0; k < 3; ++k) s_w[ax][k][t] = w[k];
     s_rel[ax][t] = contrib ? rel[ax] : -1000;
   }
   __syncthreads();
 
-  for (int k = 0; k < RC3 / C3; ++k) {
-    const int q = t + k * C3;
-    const int z = q >> 6, x = (q >> 3) & 7, y = q & 7;
+  for (int k = 0; k < RC / C; ++k) {
+    const int q = t + k * C;
     float acc = 0.0f;
-    for (int s = 0; s < C3; ++s) {
-      const unsigned a = (unsigned)(x - s_rel[0][s]);
-      const unsigned b = (unsigned)(y - s_rel[1][s]);
-      const unsigned c = (unsigned)(z - s_rel[2][s]);
-      if (a > 2u || b > 2u || c > 2u) continue;
-      acc += (s_m[s] * s_w[2][c][s]) * (s_w[0][a][s] * s_w[1][b][s]);
+    if constexpr (D == 3) {
+      const int z = q >> 6, x = (q >> 3) & 7, y = q & 7;
+      for (int s = 0; s < C; ++s) {
+        const unsigned a = (unsigned)(x - s_rel[0][s]);
+        const unsigned b = (unsigned)(y - s_rel[1][s]);
+        const unsigned c = (unsigned)(z - s_rel[2][s]);
+        if (a > 2u || b > 2u || c > 2u) continue;
+        acc += (s_m[s] * s_w[2][c][s]) * (s_w[0][a][s] * s_w[1][b][s]);
+      }
+    } else {
+      const int x = q >> 3, y = q & 7;
+      for (int s = 0; s < C; ++s) {
+        const unsigned a = (unsigned)(x - s_rel[0][s]);
+        const unsigned b = (unsigned)(y - s_rel[1][s]);
+        if (a > 2u || b > 2u) continue;
+        acc += (s_m[s] * s_w[0][a][s]) * s_w[1][b][s];
+      }
     }
     img[q] = acc;
   }
 }
 
 // ---------------------------------------------------------------------------
-// Mass G2P (fluid volume pass, 3D): each slot's sum of w·m over its 27 cells of
-// the chunk's mass window, masked by the transfer mask. One 128-thread CTA
-// per chunk: the window (2 KB) goes to shared memory and each thread
-// gathers its own slot, per z tap the xy sheet first, then the z weight (as
-// kernel B gathers). Dead chunks write zeros. Bound on this card: bytes
-// (4 slot rows + 4 int rows read, the window read and one row written per
-// chunk) and the launch.
+// Mass G2P (fluid volume pass): each slot's sum of w·m over its 3^d cells
+// of the chunk's mass window, masked by the transfer mask. One C-thread CTA
+// per chunk: the window (2 KB in 3D, 256 B in 2D) goes to shared memory and
+// each thread gathers its own slot in the JAX kernel's contraction order:
+// in 3D per z tap the xy sheet first, then the z weight; in 2D per x tap
+// the y taps first, then the x weight (as kernel B gathers). Dead chunks
+// write zeros. Bound on this card: bytes (d + 1 slot rows and d + 2 int rows
+// read, the window read and one row written per chunk) and the launch.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(C3) mass_g2p_kernel(
+template <int D, int C>
+__global__ void __launch_bounds__(C) mass_g2p_kernel(
     const float* __restrict__ slots, const int* __restrict__ ints,
     const float* __restrict__ windows, const int* __restrict__ nchunks,
     float* __restrict__ out, GridArgs g) {
+  using R = Rows<D>;
+  constexpr int RC = region_cells<D>();
   const int chunk = blockIdx.x;
   const int t = threadIdx.x;
   if (chunk >= *nchunks) {
-    out[(size_t)chunk * C3 + t] = 0.0f;
+    out[(size_t)chunk * C + t] = 0.0f;
     return;
   }
-  __shared__ float win[RC3];
-  const float* W = windows + (size_t)chunk * RC3;
-  for (int e = t; e < RC3; e += C3) win[e] = W[e];
+  __shared__ float win[RC];
+  const float* W = windows + (size_t)chunk * RC;
+  for (int e = t; e < RC; e += C) win[e] = W[e];
   __syncthreads();
 
-  const float* S = slots + (size_t)chunk * NF * C3;
-  const int* I = ints + (size_t)chunk * NI * C3;
-  const bool active = (I[I_FLAGS * C3 + t] & FLAG_ACTIVE) != 0;
-  float pos[3];
-  for (int ax = 0; ax < 3; ++ax) pos[ax] = S[(ROW_POS + ax) * C3 + t];
-  int base[3];
-  float fx[3];
-  bool in_bounds;
-  base_fx<3>(g, pos, base, fx, in_bounds);
-  int rel[3];
-  bool in_window = true;
-  for (int ax = 0; ax < 3; ++ax) {
-    rel[ax] = base[ax] - I[(I_ORIGIN + ax) * C3 + t];
-    in_window = in_window && rel[ax] >= 0 && rel[ax] <= 5;
-  }
+  const float* S = slots + (size_t)chunk * R::NF * C;
+  const int* I = ints + (size_t)chunk * NI * C;
+  int rel[D];
+  float fx[D];
   float m = 0.0f;
-  if (active && in_window && in_bounds) {
-    float w[3][3];
-    for (int ax = 0; ax < 3; ++ax) {
-      const float f = fx[ax];
-      w[ax][0] = 0.5f * ((1.5f - f) * (1.5f - f));
-      w[ax][1] = 0.75f - (f - 1.0f) * (f - 1.0f);
-      w[ax][2] = 0.5f * ((f - 0.5f) * (f - 0.5f));
-    }
-    for (int c = 0; c < 3; ++c) {
-      float tv = 0.0f;
-      const int zq = (rel[2] + c) * 64;
-      for (int a = 0; a < 3; ++a)
-        for (int b = 0; b < 3; ++b)
-          tv += win[zq + (rel[0] + a) * 8 + (rel[1] + b)] * (w[0][a] * w[1][b]);
-      m += tv * w[2][c];
+  if (slot_transfer<D, C>(g, S, I, t, rel, fx)) {
+    float w[D][3];
+    for (int ax = 0; ax < D; ++ax) quadratic_weights(fx[ax], w[ax]);
+    if constexpr (D == 3) {
+      for (int c = 0; c < 3; ++c) {
+        float tv = 0.0f;
+        const int zq = (rel[2] + c) * 64;
+        for (int a = 0; a < 3; ++a)
+          for (int b = 0; b < 3; ++b)
+            tv += win[zq + (rel[0] + a) * 8 + (rel[1] + b)] * (w[0][a] * w[1][b]);
+        m += tv * w[2][c];
+      }
+    } else {
+      for (int a = 0; a < 3; ++a) {
+        float tv = 0.0f;
+        const int xq = (rel[0] + a) * 8 + rel[1];
+        for (int b = 0; b < 3; ++b) tv += win[xq + b] * w[1][b];
+        m += tv * w[0][a];
+      }
     }
   }
-  out[(size_t)chunk * C3 + t] = m;
+  out[(size_t)chunk * C + t] = m;
 }
 
 // ---------------------------------------------------------------------------
@@ -675,7 +673,7 @@ __global__ void __launch_bounds__(128) permute_chunks_kernel(
 // modified eigenerosion's trip, which the port does not carry; the kernel
 // reads the velocity channels.
 //
-// EOS fluid slots (3D; branch per slot on the model's type) update only J
+// EOS fluid slots (branch per slot on the model's type) update only J
 // = F00 by tr(grad v), take no SVD and no return map, skip the |F00|
 // blowup guard (the det = 0 guard stays), bound dt with the EOS bound and
 // write zero stress-cache rows: kernel A forms their stress fresh.
@@ -839,8 +837,7 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
   for (int ax = 0; ax < DIM; ++ax) npos[ax] = pos[ax] + vel[ax] * dt;
 
   // F += dt * (grad v) F; fluids: F00 += tr(grad v) dt F00, the rest kept.
-  bool fluid = false;
-  if constexpr (DIM == 3) fluid = ti[0] == EOS_MONAGHAN_SPH;
+  const bool fluid = ti[0] == EOS_MONAGHAN_SPH;
   float fnew[DIM][DIM];
   if (fluid) {
     for (int i = 0; i < DIM; ++i)
@@ -938,7 +935,7 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
     for (int j = 0; j < DIM; ++j) frob += gm[i][j] * gm[i][j];
   const float norm_b = g.d_coeff * sqrtf(frob);
   const float sqrt_d = DIM == 3 ? 1.7320508075688772f : 1.4142135623730951f;
-  const float apic_v = norm_b * 6.0f * sqrt_d / g.h;
+  const float apic_v = norm_b * 6.0f * sqrt_d * (1.0f / g.h);  // x / h as jitted XLA rounds it
   float vsq = vel[0] * vel[0];
   for (int i = 1; i < DIM; ++i) vsq = vsq + vel[i] * vel[i];
   const float vnorm = sqrtf(vsq);
@@ -947,16 +944,16 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
   float con_bound = INFINITY;
   const float density0 = mass / fmaxf(vol0, 1e-30f);
   if (corot) {
-    const float bulk = (lam + 2.0f * mu / 3.0f) * eh;
+    // lam + 2 mu / 3 as jitted XLA forms it: mu f32(2/3) contracted into one FMA
+    // (an explicit fmaf: the build does not contract).
+    const float bulk = fmaf(mu, 2.0f * (1.0f / 3.0f), lam) * eh;
     const float shear = mu * eh;
     con_bound = sparkl::sound_speed_bound(cfl, bulk, shear, density0, vnorm, g.h);
   } else if (fluid) {
-    if constexpr (DIM == 3) {
-      const float fj = fnew[0][0];
-      const float density = density0 / fmaxf(fj, 1e-20f);
-      con_bound = sparkl::eos_timestep_bound(tf[0], tf[1], tf[3], fj, mass, vol0, density,
-                                             vsq, g.h);
-    }
+    const float fj = fnew[0][0];
+    const float density = density0 / fmaxf(fj, 1e-20f);
+    con_bound = sparkl::eos_timestep_bound<DIM>(tf[0], tf[1], tf[3], fj, mass, vol0, density,
+                                                vsq, g.h);
   }
   if (failed_new) con_bound = INFINITY;
   float bound = fminf(vel_bound, con_bound);
@@ -1130,18 +1127,31 @@ int sparkl_merge_scatter(const float* rows, const int* order, const int* starts,
 
 int sparkl_mass_p2g_fused(const float* slots, const int* ints, const int* nchunks,
                           float* out, int max_chunks, float ox, float oy, float oz, float h,
-                          float invd, float d_coeff, int rx, int ry, int rz, void* stream) {
-  mass_p2g_kernel<<<max_chunks, C3, 0, (cudaStream_t)stream>>>(
-      slots, ints, nchunks, out, grid_args(ox, oy, oz, h, invd, d_coeff, rx, ry, rz));
+                          float invd, float d_coeff, int rx, int ry, int rz, int dim,
+                          void* stream) {
+  const GridArgs g = grid_args(ox, oy, oz, h, invd, d_coeff, rx, ry, rz);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dim == 3)
+    mass_p2g_kernel<3, 128><<<max_chunks, 128, 0, st>>>(slots, ints, nchunks, out, g);
+  else if (dim == 2)
+    mass_p2g_kernel<2, 64><<<max_chunks, 64, 0, st>>>(slots, ints, nchunks, out, g);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
 int sparkl_mass_g2p_fused(const float* slots, const int* ints, const float* windows,
                           const int* nchunks, float* out, int max_chunks, float ox, float oy,
                           float oz, float h, float invd, float d_coeff, int rx, int ry, int rz,
-                          void* stream) {
-  mass_g2p_kernel<<<max_chunks, C3, 0, (cudaStream_t)stream>>>(
-      slots, ints, windows, nchunks, out, grid_args(ox, oy, oz, h, invd, d_coeff, rx, ry, rz));
+                          int dim, void* stream) {
+  const GridArgs g = grid_args(ox, oy, oz, h, invd, d_coeff, rx, ry, rz);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dim == 3)
+    mass_g2p_kernel<3, 128><<<max_chunks, 128, 0, st>>>(slots, ints, windows, nchunks, out, g);
+  else if (dim == 2)
+    mass_g2p_kernel<2, 64><<<max_chunks, 64, 0, st>>>(slots, ints, windows, nchunks, out, g);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

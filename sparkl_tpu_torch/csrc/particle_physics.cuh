@@ -27,7 +27,11 @@
 // keep the JAX package's operand order, so results differ from the plain
 // versions by rounding only (the library's expf/logf/sinf, and FMA
 // contraction, which the build turns off). 1/sqrtf stands for rsqrt, as
-// PyTorch's and XLA's CPU backends compute it. The 2D functions are
+// PyTorch's and XLA's CPU backends compute it. A division by a constant
+// (1/d in Drucker-Prager and the EOS trace, the EOS bound's 1/0.1) is the
+// product with the f32 reciprocal, as jitted XLA rewrites the JAX
+// package's (linalg.div_const in the plain versions); the Cardano SVD keeps
+// its true divisions by 3 and 6 (svd.py says why). The 2D functions are
 // __host__ __device__; the rest serve the kernels only.
 #pragma once
 
@@ -332,15 +336,16 @@ __device__ __forceinline__ void dp_update(const float pp[8], float phase, float 
   const float h0 = pp[0], h1 = pp[1], h2 = pp[2], h3 = pp[3];
   const float lam = pp[4], mu = pp[5], only_when_failed = pp[6], vol_corr = pp[7];
   const float d = (float)D;
+  const float inv_d = 1.0f / d;
   float angle = h0 + (h1 * ph - h3) * expf(-h2 * ph);
   float sn = sinf(angle);
   float alpha = 0.8164965809277260f * (2.0f * sn) / (3.0f - sn);
 
   float strain[D], dev[D];
-  for (int k = 0; k < D; ++k) strain[k] = logf(fmaxf(s[k], 1e-20f)) + lvg / d;
+  for (int k = 0; k < D; ++k) strain[k] = logf(fmaxf(s[k], 1e-20f)) + lvg * inv_d;
   float trace = strain[0];
   for (int k = 1; k < D; ++k) trace = trace + strain[k];
-  for (int k = 0; k < D; ++k) dev[k] = strain[k] - trace / d;
+  for (int k = 0; k < D; ++k) dev[k] = strain[k] - trace * inv_d;
   float dev_sq = dev[0] * dev[0], strain_sq = strain[0] * strain[0];
   for (int k = 1; k < D; ++k) {
     dev_sq = dev_sq + dev[k] * dev[k];
@@ -548,28 +553,36 @@ __device__ __forceinline__ float eos_pressure(float p0, float gamma,
   return fmaxf(p0 * (pow_pos(ratio, gamma) - 1.0f), -max_neg);
 }
 
-// Kirchhoff stress -p J I + 2 mu_visc J dev(sym(g)) of the EOS fluid.
+// Kirchhoff stress -p J I + 2 mu_visc J dev(sym(g)) of the EOS fluid, in D
+// dimensions. The trace's 1/D is a product with the f32 reciprocal, as
+// jitted XLA rounds the JAX package's tr / d (exact in 2D).
+template <int D>
 __device__ __forceinline__ void eos_stress(float p0, float gamma, float visc,
                                            float max_neg, float mass,
                                            float volume0, float density_fluid,
-                                           float fluid_j, const float g[3][3],
-                                           float out[3][3]) {
+                                           float fluid_j, const float g[D][D],
+                                           float out[D][D]) {
   float p = eos_pressure(p0, gamma, max_neg, mass, volume0, density_fluid);
-  float sr[3][3];
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j) sr[i][j] = 0.5f * (g[i][j] + g[j][i]);
-  float sph = (sr[0][0] + sr[1][1] + sr[2][2]) / 3.0f;
+  float sr[D][D];
+  for (int i = 0; i < D; ++i)
+    for (int j = 0; j < D; ++j) sr[i][j] = 0.5f * (g[i][j] + g[j][i]);
+  float tr = sr[0][0];
+  for (int i = 1; i < D; ++i) tr = tr + sr[i][i];
+  float sph = tr * (1.0f / (float)D);
   float vcoef = visc != 0.0f ? 2.0f * visc * fluid_j : 0.0f;
   float diag = -p * fluid_j;
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j) {
+  for (int i = 0; i < D; ++i)
+    for (int j = 0; j < D; ++j) {
       float dev = i == j ? sr[i][j] + (-sph) : sr[i][j];
       out[i][j] = i == j ? dev * vcoef + diag : dev * vcoef;
     }
 }
 
-// EOS dt bound: the single-particle stability bound (+inf where its
-// argument is not positive or J <= 0) and the CFL bound.
+// EOS dt bound in D dimensions: the single-particle stability bound (+inf
+// where its argument is not positive or J <= 0; k p D with k = 6 for
+// quadratic splines) and the CFL bound, whose division by the density
+// fluctuation 0.1 is the product with f32(1 / 0.1f) = 10, as under jit.
+template <int D>
 __device__ __forceinline__ float eos_timestep_bound(float p0, float gamma,
                                                     float max_neg,
                                                     float fluid_j, float mass,
@@ -578,12 +591,12 @@ __device__ __forceinline__ float eos_timestep_bound(float p0, float gamma,
                                                     float vsq, float h) {
   float density0 = mass / volume0;
   float p = -eos_pressure(p0, gamma, max_neg, mass, volume0, density_fluid);
-  float arg = safe_div(density0 * (fluid_j - 1.0f), 6.0f * p * 3.0f);
+  float arg = safe_div(density0 * (fluid_j - 1.0f), 6.0f * p * (float)D);
   float safe_j = fluid_j > 0.0f ? fluid_j : 1.0f;
   float single = (h / safe_j) * sqrtf(fmaxf(arg, 0.0f));
   if (!(arg > 0.0f && fluid_j > 0.0f)) single = INFINITY;
-  float c_sq = fmaxf(vsq, 1.0f) / 0.1f;
-  float cfl = h / sqrtf(c_sq);
+  float c_sq = fmaxf(vsq, 1.0f) * (1.0f / 0.1f);
+  float cfl = h * (1.0f / sqrtf(c_sq));  // h / sqrt as jitted XLA forms it: h rsqrt
   return fminf(single, cfl);
 }
 

@@ -45,14 +45,15 @@ struct GridArgs {
 };
 
 // One axis of a slot's stencil, as _axis_weights computes it: base cell
-// round(x/h) - 1 (round half to even, like jnp.round, with a true
-// division), the block-local base lb = base mod 4 with FLOOR semantics (the
+// round(x/h) - 1 (round half to even, like jnp.round; x/h the product with
+// f32(1/h), as jitted XLA rounds the division by the cell width), the
+// block-local base lb = base mod 4 with FLOOR semantics (the
 // TPU's base - (base // 4) * 4; C++ % truncates, and a padded slot's zero
 // position can give a negative base), the three weights, and the
 // dpt-weighted weights w_k * ((lb + k) - (lb + fx)) * h.
 __device__ __forceinline__ void axis_taps(const GridArgs& g, int ax, float pos, int& lb,
                                           float w[3], float wd[3]) {
-  const float xg = (pos - g.origin[ax]) / g.h;
+  const float xg = (pos - g.origin[ax]) * (1.0f / g.h);
   const float bf = rintf(xg) - 1.0f;
   const int base = (int)bf;
   const float fx = xg - bf;

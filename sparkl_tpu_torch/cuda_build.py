@@ -50,13 +50,13 @@ _SIGNATURES = {
     # rows, order, starts, out, n_rows, width, stream
     "sparkl_merge_scatter": [_VP, _VP, _VP, _VP, _I, _I, _VP],
     # slots, ints, nchunks, out, max_chunks, ox, oy, oz, h, invd, d_coeff, rx,
-    # ry, rz, stream
+    # ry, rz, dim, stream
     "sparkl_mass_p2g_fused": [_VP, _VP, _VP, _VP, _I, _F, _F, _F, _F, _F, _F,
-                              _I, _I, _I, _VP],
+                              _I, _I, _I, _I, _VP],
     # slots, ints, windows, nchunks, out, max_chunks, ox, oy, oz, h, invd,
-    # d_coeff, rx, ry, rz, stream
+    # d_coeff, rx, ry, rz, dim, stream
     "sparkl_mass_g2p_fused": [_VP, _VP, _VP, _VP, _VP, _I, _F, _F, _F, _F, _F,
-                              _F, _I, _I, _I, _VP],
+                              _F, _I, _I, _I, _I, _VP],
     # slots, ints, windows, nchunks, tab_f, tab_i, m_count, max_chunks, dt,
     # ox, oy, oz, h, invd, d_coeff, rx, ry, rz, dim, n_win, opts, stream
     "sparkl_g2p_fused": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _F, _F, _F, _F,

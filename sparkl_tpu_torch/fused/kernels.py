@@ -11,8 +11,9 @@ damage, no failure models; in 2D (chunks of 64 slots, row-major window
 cells), corotated elasticity with optional Drucker-Prager, Rankine or Snow
 plasticity, with the stress cache on (no damage, no failure) or off (kernel
 A forms the stress from F: the eigenerosion psi channels, maximum-stress
-failure). `permute_chunks`, the JAX package's older resort lane router,
-comes with its kernel too, though no path calls it.
+failure), and the Monaghan EOS fluid with its volume pass. `permute_chunks`,
+the JAX package's older resort lane router, comes with its kernel too,
+though no path calls it.
 A wrapper runs the plain version when its tensors lie on the CPU and
 launches the kernel when they lie on a CUDA device; anything else raises.
 There is no fallback from a kernel to its plain version. Each wrapper
@@ -90,7 +91,7 @@ def meta_unsupported(meta, dim):
     list of reasons, empty if they can. 3D runs with the stress cache on
     (no damage, no failure model) and Drucker-Prager as the only plastic
     model; 2D runs solids with the stress cache on or off, with
-    Drucker-Prager, Rankine and Snow."""
+    Drucker-Prager, Rankine and Snow; both run Monaghan EOS fluids."""
     why = []
     if meta["damage_model"] not in (DamageModel.NONE, DamageModel.EIGENEROSION):
         why.append(f"damage model {DamageModel(meta['damage_model']).name}")
@@ -105,8 +106,6 @@ def meta_unsupported(meta, dim):
             why.append("3D damage or failure models (the stress cache off)")
         if set(meta["present_p"]) & {plas.RANKINE, plas.SNOW}:
             why.append("3D Rankine or Snow plasticity")
-    if dim == 2 and con.EOS_MONAGHAN_SPH in meta["present_c"]:
-        why.append("2D fluids")
     if dim not in (2, 3):
         why.append(f"{dim}D")
     return why
@@ -162,7 +161,7 @@ def _slot_geometry(grid: GridParams, slots, ints):
     base, fx, rel = [], [], []
     in_window = in_bounds = None
     for ax in range(grid.dim):
-        xg = linalg.div(slots[:, r.pos + ax, :] - grid.origin[ax], h)
+        xg = linalg.div_const(slots[:, r.pos + ax, :] - grid.origin[ax], h)
         b = torch.round(xg).to(torch.int32) - 1
         f = xg - b.to(torch.float32)
         rl = b - ints[:, L.I_ORIGIN + ax, :]
@@ -255,7 +254,7 @@ def dt_bound_row(h, vel, g, con_bound, failed, active):
     constitutive one (+inf for failed slots), +inf on inactive slots,
     clipped to BIGF (slot rows are inf-free). Ref: timestep_estimator.rs."""
     norm_b = (h * h) / 4.0 * torch.sqrt(cmat.frob2_c(g))
-    apic_v = linalg.div(norm_b * 6.0 * float(np.sqrt(len(vel))), h)
+    apic_v = linalg.div_const(norm_b * 6.0 * float(np.sqrt(len(vel))), h)
     vtot = _vnorm(vel)[0] + apic_v
     vel_bound = torch.where(vtot > 0.0, linalg.rdiv(h, torch.clamp(vtot, min=1e-20)),
                             float("inf"))
@@ -312,7 +311,8 @@ def p2g_fused_reference(grid: GridParams, slots, ints, dt, nchunks, tables=None,
     """Plain version of kernel A: slots [D, NF, C] -> images [D, nf, 8^d]
     (mass, momentum d, and with `with_psi` the psi momentum and psi mass),
     z-major cells in 3D, row-major in 2D. Chunks >= nchunks are zero. Each
-    slot scatters its 3^d taps, w·(m v + A·dpt) with the APIC affine
+    slot scatters its 3^d taps (each cell summing its slots in ascending
+    lane order, as the kernel does), w·(m v + A·dpt) with the APIC affine
     A = m ∇v − V0 D⁻¹ dt σ (zero stress for failed particles), masked by
     active & in-window & in-grid. σ comes from the stress-cache rows (with
     a fresh EOS stress for EOS slots when the model `tables` (tab_f, tab_i)
@@ -392,8 +392,12 @@ def p2g_fused_reference(grid: GridParams, slots, ints, dt, nchunks, tables=None,
             ch += [(x * wx) * wy for x in p0[3:]]
         vals.append(torch.stack(ch, dim=1))  # [D, nf, C]
     nf, ntaps = len(p0), len(vals)
-    vals = torch.stack(vals, dim=2).reshape(d_, nf, ntaps * c)
-    q = _tap_cells(rel, contrib).reshape(d_, 1, ntaps * c).expand(d_, nf, ntaps * c)
+    # Lane-major [D, nf, C, 3^d], so that the scatter-add (in index order
+    # on the CPU) sums each cell's slots in ascending lane order, as the
+    # kernel's owner loop does: the same sum to the bit, term for term.
+    vals = torch.stack(vals, dim=3).reshape(d_, nf, c * ntaps)
+    q = _tap_cells(rel, contrib).transpose(1, 2).reshape(d_, 1, c * ntaps)
+    q = q.expand(d_, nf, c * ntaps)
     out = torch.zeros((d_all, nf, region_cells(dim)), dtype=torch.float32, device=slots.device)
     out[:n_live].scatter_add_(2, q, vals)
     return out
@@ -544,66 +548,89 @@ def _mass_geometry(grid, slots, ints):
 
 
 def mass_p2g_fused_reference(grid: GridParams, slots, ints, nchunks):
-    """Plain version of the mass P2G: slots [D, 56, C] -> [D, 1, 512]
-    mass images, z-major cells; each contributing slot adds (m·wz)·(wx·wy)
-    to its 27 cells, in ascending lane order per cell (as the kernel sums
+    """Plain version of the mass P2G: slots [D, NF, C] -> [D, 1, 8^d] mass
+    images; each contributing slot adds to its 3^d cells the JAX kernel's
+    factored product, (m·wz)·(wx·wy) in 3D (z-major cells) and (m·wx)·wy in
+    2D (row-major), in ascending lane order per cell (as the kernel sums
     them). Chunks >= nchunks are zero."""
-    r = L.Rows(3)
+    dim = grid.dim
+    r = L.Rows(dim)
     d_all = slots.shape[0]
     n_live = _live_count(nchunks, d_all)
     slots, ints = slots[:n_live], ints[:n_live]
     d_, _, c = slots.shape
     contrib, rel, w = _mass_geometry(grid, slots, ints)
     m_c = slots[:, r.mass, :] * contrib.to(torch.float32)
-    vals = torch.stack([(m_c * w[2][tc]) * (w[0][ta] * w[1][tb]) for ta, tb, tc in _TAPS],
-                       dim=2)  # [D, C, 27]: lane-major, so each cell sums in lane order
+    if dim == 3:
+        vals = [(m_c * w[2][tc]) * (w[0][ta] * w[1][tb]) for ta, tb, tc in _TAPS]
+    else:
+        vals = [(m_c * w[0][ta]) * w[1][tb] for ta, tb in _TAPS2]
+    ntaps = len(vals)
+    vals = torch.stack(vals, dim=2)  # [D, C, 3^d]: lane-major, so each cell sums in lane order
     q = _tap_cells(rel, contrib).transpose(1, 2)
-    out = torch.zeros((d_all, 1, region_cells(3)), dtype=torch.float32, device=slots.device)
-    out[:n_live, 0].scatter_add_(1, q.reshape(d_, 27 * c), vals.reshape(d_, 27 * c))
+    out = torch.zeros((d_all, 1, region_cells(dim)), dtype=torch.float32, device=slots.device)
+    out[:n_live, 0].scatter_add_(1, q.reshape(d_, ntaps * c), vals.reshape(d_, ntaps * c))
     return out
+
+
+def _check_mass_args(grid, cfg, slots, ints, nchunks):
+    d_, c = cfg.max_chunks, cfg.chunk_size
+    dev = slots.device
+    check_tensor("slots", slots, torch.float32, (d_, L.Rows(grid.dim).nf, c), dev)
+    check_tensor("ints", ints, torch.int32, (d_, L.NI, c), dev)
+    check_tensor("nchunks", nchunks, torch.int32, (), dev)
+    return d_, c, dev
 
 
 def mass_p2g_fused(grid: GridParams, cfg, slots, ints, nchunks):
     """The mass P2G kernel (replaces sparkl_tpu/fused/kernels.py:
-    mass_p2g_fused): slots [D, 56, 128] f32, ints [D, 8, 128] i32, nchunks
-    [] i32 -> [D, 1, 512] f32 mass images, z-major cells."""
-    d_, c = cfg.max_chunks, cfg.chunk_size
-    dev = slots.device
-    check_tensor("slots", slots, torch.float32, (d_, L.Rows(3).nf, c), dev)
-    check_tensor("ints", ints, torch.int32, (d_, L.NI, c), dev)
-    check_tensor("nchunks", nchunks, torch.int32, (), dev)
-    if c != 128:
-        raise NotImplementedError(f"chunk size {c}: the mass P2G kernel takes 128")
+    mass_p2g_fused): slots [D, NF, C] f32 (3D: NF 56, C 128; 2D: 40, 64),
+    ints [D, 8, C] i32, nchunks [] i32 -> [D, 1, 8^d] f32 mass images,
+    z-major cells in 3D, row-major in 2D."""
+    dim = grid.dim
+    d_, c, dev = _check_mass_args(grid, cfg, slots, ints, nchunks)
     args = _grid_args(grid)
     if route(dev) == "cpu":
         return mass_p2g_fused_reference(grid, slots, ints, nchunks)
-    out = torch.empty((d_, 1, region_cells(3)), dtype=torch.float32, device=dev)
+    _check_shape_route("the mass P2G kernel", dim, c)
+    out = torch.empty((d_, 1, region_cells(dim)), dtype=torch.float32, device=dev)
     launch("sparkl_mass_p2g_fused", slots.data_ptr(), ints.data_ptr(), nchunks.data_ptr(),
-           out.data_ptr(), d_, *args, stream_ptr(dev))
+           out.data_ptr(), d_, *args, dim, stream_ptr(dev))
     LAUNCHES["mass_p2g_fused"] += 1
     return out
 
 
 def mass_g2p_fused_reference(grid: GridParams, slots, ints, windows, nchunks):
-    """Plain version of the mass gather: windows [D, 1, 512] (z-major) ->
-    [D, 1, C], each contributing slot's Σ w·m over its 27 cells (per z tap
-    the xy sheet first, then the z weight, as the kernel sums), zero
-    elsewhere. Chunks >= nchunks are zero."""
+    """Plain version of the mass gather: windows [D, 1, 8^d] -> [D, 1, C],
+    each contributing slot's Σ w·m over its 3^d cells in the JAX kernel's
+    contraction order (3D, z-major: per z tap the xy sheet first, then the
+    z weight; 2D, row-major: per x tap the y taps first, then the x
+    weight), as the kernel sums; zero elsewhere. Chunks >= nchunks are
+    zero."""
+    dim = grid.dim
     d_all = slots.shape[0]
     n_live = _live_count(nchunks, d_all)
     slots, ints, windows = slots[:n_live], ints[:n_live], windows[:n_live]
     d_, _, c = slots.shape
     contrib, rel, w = _mass_geometry(grid, slots, ints)
-    win = torch.gather(windows[:, 0], 1, _tap_cells(rel, contrib).reshape(d_, 27 * c))
-    win = win.reshape(d_, 27, c)
+    ntaps = 3**dim
+    win = torch.gather(windows[:, 0], 1, _tap_cells(rel, contrib).reshape(d_, ntaps * c))
+    win = win.reshape(d_, ntaps, c)
     acc = 0.0
-    for tc in range(3):
-        sheet = 0.0
+    if dim == 3:
+        for tc in range(3):
+            sheet = 0.0
+            for ta in range(3):
+                for tb in range(3):
+                    t = _TAPS.index((ta, tb, tc))
+                    sheet = sheet + win[:, t] * (w[0][ta] * w[1][tb])
+            acc = acc + sheet * w[2][tc]
+    else:
         for ta in range(3):
+            row = 0.0
             for tb in range(3):
-                t = _TAPS.index((ta, tb, tc))
-                sheet = sheet + win[:, t] * (w[0][ta] * w[1][tb])
-        acc = acc + sheet * w[2][tc]
+                row = row + win[:, ta * 3 + tb] * w[1][tb]
+            acc = acc + row * w[0][ta]
     out = torch.zeros((d_all, 1, c), dtype=torch.float32, device=slots.device)
     out[:n_live, 0] = contrib.to(torch.float32) * acc
     return out
@@ -611,22 +638,19 @@ def mass_g2p_fused_reference(grid: GridParams, slots, ints, windows, nchunks):
 
 def mass_g2p_fused(grid: GridParams, cfg, slots, ints, windows, nchunks):
     """The mass gather kernel (replaces sparkl_tpu/fused/kernels.py:
-    mass_g2p_fused): slots [D, 56, 128] f32, ints [D, 8, 128] i32, windows
-    [D, 1, 512] f32 z-major, nchunks [] i32 -> [D, 1, 128] f32."""
-    d_, c = cfg.max_chunks, cfg.chunk_size
-    dev = slots.device
-    check_tensor("slots", slots, torch.float32, (d_, L.Rows(3).nf, c), dev)
-    check_tensor("ints", ints, torch.int32, (d_, L.NI, c), dev)
-    check_tensor("windows", windows, torch.float32, (d_, 1, region_cells(3)), dev)
-    check_tensor("nchunks", nchunks, torch.int32, (), dev)
-    if c != 128:
-        raise NotImplementedError(f"chunk size {c}: the mass gather kernel takes 128")
+    mass_g2p_fused): slots [D, NF, C] f32 (3D: NF 56, C 128; 2D: 40, 64),
+    ints [D, 8, C] i32, windows [D, 1, 8^d] f32 (z-major in 3D, row-major
+    in 2D), nchunks [] i32 -> [D, 1, C] f32."""
+    dim = grid.dim
+    d_, c, dev = _check_mass_args(grid, cfg, slots, ints, nchunks)
+    check_tensor("windows", windows, torch.float32, (d_, 1, region_cells(dim)), dev)
     args = _grid_args(grid)
     if route(dev) == "cpu":
         return mass_g2p_fused_reference(grid, slots, ints, windows, nchunks)
+    _check_shape_route("the mass gather kernel", dim, c)
     out = torch.empty((d_, 1, c), dtype=torch.float32, device=dev)
     launch("sparkl_mass_g2p_fused", slots.data_ptr(), ints.data_ptr(), windows.data_ptr(),
-           nchunks.data_ptr(), out.data_ptr(), d_, *args, stream_ptr(dev))
+           nchunks.data_ptr(), out.data_ptr(), d_, *args, dim, stream_ptr(dev))
     LAUNCHES["mass_g2p_fused"] += 1
     return out
 
@@ -969,7 +993,7 @@ def g2p_fused_reference(grid: GridParams, slots, ints, windows, dt, tab_f, tab_i
 
     oob = None
     for ax in range(dim):
-        b = torch.round(linalg.div(pos[ax] - grid.origin[ax], h)).to(torch.int32) - 1
+        b = torch.round(linalg.div_const(pos[ax] - grid.origin[ax], h)).to(torch.int32) - 1
         o = ~((b >= 0) & (b + 2 <= grid.res[ax] - 1))
         oob = o if oob is None else oob | o
     failed_new = failed_new | (active & oob)

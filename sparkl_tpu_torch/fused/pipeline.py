@@ -30,14 +30,14 @@ The port carries 3D scenes with corotated elasticity (± Drucker-Prager)
 and Monaghan EOS fluids, static heightfield or cuboid colliders, no damage
 and the stress cache on; and 2D scenes with corotated elasticity, with
 Drucker-Prager, Rankine or Snow plasticity, eigenerosion and
-maximum-stress failure, static heightfield or cuboid colliders and grid
-hooks, the stress cache on without damage and failure and off with them
-(sparse.pipeline.unsupported lists the rest). The constructor raises
-NotImplementedError for anything else (3D damage and failure, 3D Rankine
-and Snow, 2D fluids, modified eigenerosion, CD-MPM, other models, penalty
-colliders, boundary particle projection, GPU boundary semantics, collider
-pose functions): those wait for later ports and never fall back to another
-path.
+maximum-stress failure, Monaghan EOS fluids, static heightfield or cuboid
+colliders and grid hooks, the stress cache on without damage and failure
+and off with them (sparse.pipeline.unsupported lists the rest). The
+constructor raises NotImplementedError for anything else (3D damage and
+failure, 3D Rankine and Snow, modified eigenerosion, CD-MPM, other
+models, penalty colliders, boundary particle projection, GPU boundary
+semantics, collider pose functions): those wait for later ports and never
+fall back to another path.
 """
 
 from typing import Optional
@@ -181,16 +181,28 @@ class FusedMpmPipeline:
         """Window images -> node table (merge) -> grid velocity with gravity,
         the collider boundary conditions and the hooks -> per-chunk windows
         [D, d (+1), 8^d]: the velocity, and with the psi channels the psi
-        ratio psi_mom / psi_mass."""
-        grid, cfg, params = self.grid, self._cfg, self.params
-        dim = grid.dim
-        cpb = B.cells_per_block(dim)
-        with_psi = self._meta["with_psi"]
+        ratio psi_mom / psi_mass. The three stages are methods of their own
+        (_merge_nodes, _grid_fields, _gather_windows)."""
+        node = self._merge_nodes(state, images)
+        return self._gather_windows(state, self._grid_fields(state, node, dt))
+
+    def _merge_nodes(self, state, images):
+        """Window images [D, nf, 8^d] -> the block node table [MG + 1, nf,
+        4^d] (the merge)."""
+        grid, cfg = self.grid, self._cfg
         node, _ = T.merge_images_to_grid(
             grid, cfg, state.structure, images, cell_order=self._cell_order(),
             force_scatter=self._merge_force_scatter, plan=state.grid_cache[2],
         )
-        node = node.reshape(cfg.max_grid_blocks + 1, images.shape[1], cpb)
+        return node.reshape(cfg.max_grid_blocks + 1, images.shape[1], B.cells_per_block(grid.dim))
+
+    def _grid_fields(self, state, node, dt):
+        """The node table -> the window fields [MG + 1, (d (+1)) · 4^d]:
+        velocity from momentum and mass with gravity, the colliders'
+        boundary conditions and the hooks (and the psi ratio)."""
+        grid, cfg, params = self.grid, self._cfg, self.params
+        dim = grid.dim
+        with_psi = self._meta["with_psi"]
         mass = node[:, 0, :]
         mom = node[:, 1 : 1 + dim, :].transpose(1, 2)
         zero = torch.zeros_like(mass)
@@ -214,9 +226,12 @@ class FusedMpmPipeline:
         parts = [velocity.transpose(1, 2)]
         if with_psi:
             parts.append((psi_mom * linalg.inv_exact(psi_mass))[:, None, :])
-        win_fields = torch.cat(parts, dim=1).reshape(cfg.max_grid_blocks + 1, -1)
+        return torch.cat(parts, dim=1).reshape(cfg.max_grid_blocks + 1, -1).contiguous()
+
+    def _gather_windows(self, state, fields):
+        """Window fields -> per-chunk windows [D, nf, 8^d] (the gather)."""
         return T.gather_grid_windows(
-            grid, cfg, state.structure, win_fields.contiguous(), cell_order=self._cell_order(),
+            self.grid, self._cfg, state.structure, fields, cell_order=self._cell_order(),
         ).contiguous()
 
     def _min_dtb(self, state):
@@ -239,19 +254,22 @@ class FusedMpmPipeline:
         window gather, the per-slot grid-mass gather, then F00 = V/V0 on
         active fluid slots and the dt-bound row refreshed, both rows
         written in place (as kernel B writes its slots)."""
-        grid, cfg, r = self.grid, self._cfg, self._rows
+        grid, cfg = self.grid, self._cfg
         nchunks = state.structure.num_chunks
         images = K.mass_p2g_fused(grid, cfg, state.slots, state.ints, nchunks)
-        node, _ = T.merge_images_to_grid(
-            grid, cfg, state.structure, images, cell_order=T.ZMAJOR_ORDER_3D,
-            force_scatter=self._merge_force_scatter, plan=state.grid_cache[2],
-        )
-        windows = T.gather_grid_windows(grid, cfg, state.structure, node,
-                                        cell_order=T.ZMAJOR_ORDER_3D).contiguous()
+        node = self._merge_nodes(state, images)
+        windows = self._gather_windows(state, node.reshape(node.shape[0], -1))
         new_mass = K.mass_g2p_fused(grid, cfg, state.slots, state.ints, windows,
                                     nchunks)[:, 0, :]
+        self._set_fluid_volumes(state, new_mass)
+        return state
 
-        new_density = linalg.div(new_mass, grid.cell_width ** grid.dim)
+    def _set_fluid_volumes(self, state, new_mass):
+        """F00 = V/V0 on active fluid slots from the grid mass gathered at
+        each slot, new_mass [D, C], and the dt-bound row refreshed; both
+        rows written in place."""
+        grid, r = self.grid, self._rows
+        new_density = linalg.div_const(new_mass, grid.cell_width ** grid.dim)
         slots = state.slots
         new_volume = slots[:, r.mass, :] / torch.clamp(new_density, min=1e-20)
         models = self._slot_models(state)
@@ -262,7 +280,6 @@ class FusedMpmPipeline:
         )
         # The EOS dt bound depends on F00: refresh the carried bound row.
         self._refresh_dtb_rows(state, models)
-        return state
 
     def _slot_models(self, state):
         """Per slot [D, C]: the model's constitutive type and its four
@@ -275,16 +292,16 @@ class FusedMpmPipeline:
         """Recompute the dt-bound row in place from the current slot rows
         (ref: timestep_estimator.rs). models: _slot_models(state), if the
         caller has it."""
-        r, h = self._rows, self.grid.cell_width
+        r, h, d = self._rows, self.grid.cell_width, self.grid.dim
         slots = state.slots
 
         def row(k):
             return slots[:, k, :]
 
         ct, p = self._slot_models(state) if models is None else models
-        g = [[row(r.grad + 3 * i + j) for j in range(3)] for i in range(3)]
-        f = [[row(r.defgrad + 3 * i + j) for j in range(3)] for i in range(3)]
-        vel = [row(r.vel + ax) for ax in range(3)]
+        g = [[row(r.grad + d * i + j) for j in range(d)] for i in range(d)]
+        f = [[row(r.defgrad + d * i + j) for j in range(d)] for i in range(d)]
+        vel = [row(r.vel + ax) for ax in range(d)]
         con_bound = K.timestep_bound_c(ct, p, row(r.eh), f, row(r.mass), row(r.vol0), vel, h,
                                        self.models.present_c)
         slots[:, r.dtb, :] = K.dt_bound_row(h, vel, g, con_bound, row(r.failed) != 0.0,

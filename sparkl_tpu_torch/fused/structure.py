@@ -55,7 +55,7 @@ def particle_block_key_ob2(grid: GridParams, position, valid):
     """Off-by-two linear block key; `ok` = stencil fully inside the grid."""
     dev = position.device
     origin = torch.tensor(grid.origin, dtype=torch.float32, device=dev)
-    xg = linalg.div(position - origin, grid.cell_width)
+    xg = linalg.div_const(position - origin, grid.cell_width)
     c = torch.round(xg).to(torch.int32)  # base + 1
     res = torch.tensor(grid.res, dtype=torch.int32, device=dev)
     ok = torch.all((c >= 1) & (c <= res - 2), dim=-1) & valid

@@ -8,6 +8,8 @@ do; the CUDA kernels hold the same components in registers.
 
 import torch
 
+from sparkl_tpu_torch.math import linalg
+
 
 def unpack(m):
     """[..., d, d] tensor -> nested list of [...] tensors."""
@@ -104,8 +106,7 @@ def trace_c(m):
 def deviatoric_c(m):
     """m - (tr(m)/d) I. Ref: physics.rs `deviatoric_part`."""
     d = len(m)
-    tr = trace_c(m)
-    sph = tr / torch.full((), float(d), dtype=tr.dtype, device=tr.device)
+    sph = linalg.div_const(trace_c(m), d)
     return add_diag_c(m, -sph)
 
 

@@ -1,6 +1,7 @@
 """Batched small-matrix helpers (port of the part of sparkl_tpu/math/linalg.py
 the slice uses)."""
 
+import numpy as np
 import torch
 
 
@@ -30,9 +31,35 @@ def div(x, s):
     """x / s for a Python number s, rounded as one division on every
     device. PyTorch on CUDA divides by a Python number as a product with
     its reciprocal, which can differ in the last bit from the division the
-    CPU, the JAX package and the CUDA kernels take; a base cell or a block
-    key then changes where x / s lies within an ulp of a rounding edge."""
+    CPU takes. For a constant of the JAX function the port mirrors (a
+    literal, the cell width), div_const is the reference's rounding."""
     return x / torch.full((), s, dtype=x.dtype, device=x.device)
+
+
+def div_const(x, c):
+    """x / c for a constant c of the JAX function this mirrors, rounded as
+    jitted XLA rounds it: its algebraic simplifier rewrites a tensor divided
+    by a compile-time constant as the product with the f32 reciprocal
+    1.0f / f32(c), which differs in the last bit from a true division on
+    many inputs (on none when c is a power of two).
+    The JAX package runs its pipelines and its Pallas kernels (interpret
+    mode too) under jit, so the port takes that product wherever the
+    reference divides a tensor by a literal or by a scene constant on a
+    substep's rows (kernels A and B's CUDA sources do the same)."""
+    return x * float(np.float32(1.0) / np.float32(c))
+
+
+def fma(a, b, c):
+    """a·b + c rounded once, as jitted XLA on an x86 CPU with FMA computes
+    the JAX package's a * b + c (its LLVM backend contracts every such
+    pair; measured on 100,000 of 100,000 random f32 triples). Emulated in
+    f64, where the product of two f32 is exact: it differs from a true f32
+    FMA only where the f64 sum rounds onto an f32 halfway point, which
+    random inputs hit about once in 2^29. The port contracts only where a
+    result must match the reference to the bit (the corotated dt bound);
+    elsewhere it rounds each operation, as the CUDA kernels do."""
+    b = b.double() if torch.is_tensor(b) else float(b)
+    return (a.double() * b + c.double()).to(a.dtype)
 
 
 def rdiv(s, x):

@@ -39,7 +39,12 @@ def _cos_acos3(r):
 
 
 def _cardano_trig_vals(a00, a01, a02, a11, a12, a22):
-    """Raw trigonometric-Cardano eigenvalues, descending."""
+    """Raw trigonometric-Cardano eigenvalues, descending. The divisions by
+    3 and 6 stay true divisions (the eager JAX function's), not jitted
+    XLA's products with f32(1/3) and f32(1/6): jitted, the reference also
+    contracts this function's multiply-adds into FMAs, so the products do
+    not reach its bits, and they move the crushed singular value of a
+    near-singular F by 3e-5 of the largest against either form."""
     q = linalg.div(a00 + a11 + a22, 3.0)
     b00, b11, b22 = a00 - q, a11 - q, a22 - q
     p2 = b00 * b00 + b11 * b11 + b22 * b22 + 2.0 * (

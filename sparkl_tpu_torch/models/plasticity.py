@@ -64,9 +64,9 @@ def drucker_prager_project_s_c(
     d = len(s)
     alpha = drucker_prager_alpha(h0, h1, h2, h3, plastic_hardening)
 
-    strain = [torch.log(torch.clamp(si, min=1e-20)) + linalg.div(log_vol_gain, d) for si in s]
+    strain = [torch.log(torch.clamp(si, min=1e-20)) + linalg.div_const(log_vol_gain, d) for si in s]
     strain_trace = sum(strain)
-    dev = [e - linalg.div(strain_trace, d) for e in strain]
+    dev = [e - linalg.div_const(strain_trace, d) for e in strain]
     dev_norm = torch.sqrt(sum(e * e for e in dev))
 
     # Case A: zero deviatoric strain or expanding trace -> identity.

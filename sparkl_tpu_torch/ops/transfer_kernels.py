@@ -85,7 +85,7 @@ def _axis_weights(grid: GridParams, pos_ax, ax):
     """Region-axis weights and dpt for one axis: pos_ax [G, C] -> ([G, 8, C],
     [G, 8, C]), as the TPU kernel forms them."""
     h = grid.cell_width
-    xg = linalg.div(pos_ax - grid.origin[ax], h)
+    xg = linalg.div_const(pos_ax - grid.origin[ax], h)
     base = torch.round(xg).to(torch.int32) - 1
     fx = xg - base.to(torch.float32)
     lb = base - (base // BLOCK_SIDE) * BLOCK_SIDE  # 0..3 (floor division)

@@ -4,7 +4,7 @@ Each builder returns a SceneBundle; `build(name, device=...)` is the scene
 registry. Scenes are built on the card unless device="cpu" is given. The
 port carries the 3D sand scene, the 3D fluid blob, the 2D baseline scene
 (elasticity2), snow, sand and a breakable star on a 2D heightfield
-(basic2) and the 2D L-panel fracture scene.
+(basic2), the 2D dam break (fluids2) and the 2D L-panel fracture scene.
 """
 
 from dataclasses import dataclass

@@ -1,5 +1,6 @@
-"""2D scenes (port of the elasticity2, basic2 and l_panel2 parts of
-sparkl_tpu/scenes/scenes2d.py). Ref: examples2d/{elasticity2,basic2,l_panel2}.rs."""
+"""2D scenes (port of the elasticity2, basic2, fluids2 and l_panel2 parts of
+sparkl_tpu/scenes/scenes2d.py). Ref:
+examples2d/{elasticity2,basic2,fluids2,l_panel2}.rs."""
 
 import numpy as np
 
@@ -7,7 +8,7 @@ import sparkl_tpu_torch.scenes as sc
 from sparkl_tpu_torch import device as _device
 from sparkl_tpu_torch.core.grid import GridParams
 from sparkl_tpu_torch.core.params import BoundaryHandling, DamageModel, SolverParameters
-from sparkl_tpu_torch.core.particles import Particles
+from sparkl_tpu_torch.core.particles import Particles, cube_particles
 from sparkl_tpu_torch.geometry.colliders import cuboid, heightfield
 from sparkl_tpu_torch.models import registry as reg
 from sparkl_tpu_torch.solver.pipeline import DirichletVelocityHook
@@ -138,6 +139,41 @@ def basic2(device="cuda"):
         colliders=colliders,
         particles=Particles.concatenate(tuple(blocks)),
         params=SolverParameters(dt=1.0 / 60.0, max_num_substeps=50),
+        gravity=(0.0, -9.81),
+    )
+
+
+@sc.register_scene("fluids2")
+def fluids2(n=300, device="cuda"):
+    """SPH-EOS dam break, n x n particles (90,000 as published): Monaghan
+    EOS (p0 = 1e4, gamma 7, viscosity 1.01e-3), cell width 0.1, r = h/4,
+    density 1000, a ground and two walls (cuboids), fluid volume
+    recomputation forced. Ref: examples2d/fluids2.rs."""
+    device = _device.resolve(device)
+    h = 0.1
+    ground_height = h * 10.0
+    ground_shift = h * 40.0
+    colliders = (
+        cuboid((1000.0, ground_height), translation=(0.0, ground_shift - ground_height)),
+        cuboid((ground_height, 1000.0), translation=(ground_shift - ground_height, 0.0)),
+        cuboid((ground_height, 1000.0),
+               translation=(ground_shift - ground_height + ground_shift * 8.0, 0.0)),
+    )
+    models = reg.ModelSet.pack(
+        [reg.ParticleModel(reg.monaghan_sph_eos(1.0e4, 7, 1.01e-3, 1.0))], device
+    )
+    particles = cube_particles(
+        origin=(ground_shift + h * 2.0 + h / 4.0, ground_shift + h * 2.0 + h / 4.0),
+        counts=(n, n), model_id=0, particle_radius=h / 4.0, density0=1000.0, device=device,
+    )
+    grid = GridParams.for_domain((2.5, 2.5), (36.5, 24.0), h, pad=3)
+    return sc.SceneBundle(
+        name="fluids2",
+        grid=grid,
+        models=models,
+        colliders=colliders,
+        particles=particles,
+        params=SolverParameters(dt=1.0 / 60.0, force_fluids_volume_recomputation=True),
         gravity=(0.0, -9.81),
     )
 

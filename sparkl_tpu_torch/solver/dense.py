@@ -21,7 +21,7 @@ def base_cell_and_fx(grid: GridParams, position):
     the 3-node stencil lies inside the grid."""
     dev = position.device
     origin = torch.tensor(grid.origin, dtype=position.dtype, device=dev)
-    xg = linalg.div(position - origin, grid.cell_width)
+    xg = linalg.div_const(position - origin, grid.cell_width)
     base = torch.round(xg).to(torch.int32) - 1
     fx = xg - base.to(position.dtype)
     res = torch.tensor(grid.res, dtype=torch.int32, device=dev)
@@ -226,7 +226,7 @@ def particle_dt_bounds(grid: GridParams, p, models: registry.ModelSet, velocity=
     norm_b = d_coeff * torch.sqrt(
         torch.sum(velocity_gradient * velocity_gradient, dim=(-2, -1))
     )
-    apic_v = linalg.div(norm_b * 6.0 * float(np.sqrt(p.dim)), h)
+    apic_v = linalg.div_const(norm_b * 6.0 * float(np.sqrt(p.dim)), h)
     v = torch.linalg.vector_norm(velocity, dim=-1) + apic_v
     vel_bound = linalg.rdiv(h, torch.clamp(v, min=1e-20))
     vel_bound = torch.where(v > 0.0, vel_bound, float("inf"))

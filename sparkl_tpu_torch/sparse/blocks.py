@@ -204,7 +204,7 @@ def particle_block_key(grid: GridParams, position, valid):
     the grid; the sentinel key for invalid or out-of-grid particles."""
     dev = position.device
     origin = torch.tensor(grid.origin, dtype=position.dtype, device=dev)
-    xg = linalg.div(position - origin, grid.cell_width)
+    xg = linalg.div_const(position - origin, grid.cell_width)
     base = torch.round(xg).to(torch.int32) - 1
     res = torch.tensor(grid.res, dtype=torch.int32, device=dev)
     ok = torch.all((base >= 0) & (base + 2 <= res - 1), dim=-1) & valid

@@ -61,9 +61,9 @@ def unsupported(grid, models, colliders, params, hooks, fused=False):
     reasons, empty if they can. The sparse pipeline carries 3D corotated
     (± Drucker-Prager) scenes on heightfields, with no damage, failure,
     fluids or hooks. With `fused`, what the fused pipeline carries on top:
-    fluids (EOS models, fluid volume recomputation) in 3D, cuboid colliders,
-    and in 2D heightfields, eigenerosion, maximum-stress failure, Rankine
-    and Snow plasticity and grid hooks (the kernels' own limits are
+    fluids (EOS models, fluid volume recomputation), cuboid colliders, and
+    in 2D heightfields, eigenerosion, maximum-stress failure, Rankine and
+    Snow plasticity and grid hooks (the kernels' own limits are
     fused.kernels.meta_unsupported)."""
     why = []
     m = models.unsupported()
@@ -82,8 +82,6 @@ def unsupported(grid, models, colliders, params, hooks, fused=False):
     if fused:
         if not m:
             why += meta_unsupported(kernel_meta(models, params), grid.dim)
-        if params.force_fluids_volume_recomputation and grid.dim != 3:
-            why.append("fluid volume recomputation in 2D")
         return why
     if grid.dim != 3:
         why.append(f"{grid.dim}D grids")

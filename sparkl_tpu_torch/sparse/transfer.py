@@ -57,7 +57,7 @@ def window_coords(grid: GridParams, pos):
     h = grid.cell_width
     dev = pos.device
     origin = torch.tensor(grid.origin, dtype=torch.float32, device=dev)
-    xg = linalg.div(pos - origin, h)
+    xg = linalg.div_const(pos - origin, h)
     base = torch.round(xg).to(torch.int32) - 1
     fx = xg - base.to(torch.float32)
     lb = base - (base // BLOCK_SIDE) * BLOCK_SIDE  # 0..3 (floor division)

@@ -163,9 +163,10 @@ def test_constructor_refuses_what_the_slice_does_not_carry():
     # 2D: l_panel2's configuration is carried (eigenerosion, maximum-stress
     # failure, the cuboid ground under STICK, the Dirichlet hook), through
     # the constructor and auto_pipeline, and so are 2D solids without damage
-    # or failure (the stress cache on) and the 2D heightfield (elasticity2,
-    # basic2); modified eigenerosion, CD-MPM, another failure type and a 3D
-    # heightfield in a 2D grid are refused.
+    # or failure (the stress cache on), the 2D heightfield (elasticity2,
+    # basic2) and 2D fluids with the volume pass (fluids2); modified
+    # eigenerosion, CD-MPM, another failure type and a 3D heightfield in a
+    # 2D grid are refused.
     lp = tscenes.build("l_panel2", cell_width=0.02, device="cpu")
     base2 = dict(grid=lp.grid, models=lp.models, colliders=lp.colliders, params=lp.params,
                  gravity=lp.gravity, hooks=lp.hooks, device="cpu")
@@ -173,9 +174,9 @@ def test_constructor_refuses_what_the_slice_does_not_carry():
     assert tsk.auto_pipeline(lp, device="cpu").hooks is lp.hooks
     FusedMpmPipeline(**dict(base2, models=treg.ModelSet.pack([treg.ParticleModel(
         treg.corotated_linear_elasticity(1e7, 0.2))], "cpu"), params=SolverParameters()))
-    for name in ("elasticity2", "basic2"):
-        assert isinstance(tsk.auto_pipeline(tscenes.build(name, device="cpu"), device="cpu"),
-                          FusedMpmPipeline)
+    for name, kw in (("elasticity2", {}), ("basic2", {}), ("fluids2", dict(n=40))):
+        assert isinstance(tsk.auto_pipeline(tscenes.build(name, device="cpu", **kw),
+                                            device="cpu"), FusedMpmPipeline)
     cases2 = [
         dict(params=SolverParameters(damage_model=DamageModel.MODIFIED_EIGENEROSION)),
         dict(params=SolverParameters(damage_model=DamageModel.CD_MPM)),
