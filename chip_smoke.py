@@ -6,9 +6,11 @@ path (l_panel2 on the fused pipeline: eigenerosion, maximum-stress
 failure, a STICK cuboid ground and a Dirichlet velocity hook), its two
 2D plastic paths (elasticity2: corotated + Rankine stars in a cuboid box,
 the stress cache on; basic2: Snow, Drucker-Prager and a maximum-stress
-star on a 2D heightfield, the stress cache off) and its 2D fluid path
+star on a 2D heightfield, the stress cache off), its 2D fluid path
 (fluids2: a Monaghan EOS dam break between cuboid walls, with fluid
-volume recomputation).
+volume recomputation) and its 3D fracture path (l_panel3: l_panel2's two
+damage mechanisms in a 3D slab of 600,000 particles, built here by
+`l_panel3`; also under modified eigenerosion, and l_panel2 under it).
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It needs one CUDA device (written for an H100, sm_90a) and nvcc, and exits
@@ -70,8 +72,11 @@ Phases (one line each, longer logs under chiprun_out/):
  13. the fracture main path: scenes.build("l_panel2") -> auto_pipeline ->
      pack_state -> 10 frames of run_frames_state (~124 substeps each) ->
      unpack_state, launch counts against the substeps, per frame the broken
-     and failed counts, candidate-list regrows and mass; one profiled frame
-     (fracture_profile.txt in the output directory);
+     and failed counts per panel, candidate-list regrows and mass; one
+     profiled frame (fracture_profile.txt in the output directory); then on, frame by
+     frame, through the frame that holds l_panel2's first resort, and the
+     candidate list (bit-equal to the CPU's) and the pooling (against its
+     plain version) on the state that resort left;
  14. l_panel2, 3 substeps on the card against the port's CPU path, and one
      frame twice on the card, bit-equal; the eigenerosion candidate list's
      regrow and retry on a denser crack panel, bit-equal to a run that
@@ -86,9 +91,10 @@ Phases (one line each, longer logs under chiprun_out/):
      the cache-on form and under Drucker-Prager alone (the one-SVD path);
  16. the two plastic main paths: scenes.build -> auto_pipeline ->
      pack_state -> 10 frames of run_frames_state -> unpack_state each,
-     launch counts against the substeps, per frame the substeps beside the
-     goldens' and the golden statistics within tests/test_regression.py's
-     fused tolerances, mass; one profiled basic2 frame
+     launch counts against the substeps, per frame (the three timed ones
+     too, after their clock) the substeps beside the goldens' and the golden
+     statistics within tests/test_regression.py's fused tolerances, mass;
+     one profiled basic2 frame
      (plastic2d_profile.txt in the output directory);
  17. each plastic scene, 5 substeps on the card against the port's CPU
      path, and one frame twice on the card, bit-equal; one more
@@ -110,8 +116,29 @@ Phases (one line each, longer logs under chiprun_out/):
  21. fluids2, 5 substeps on the card against the port's CPU path, one
      frame twice on the card, bit-equal, and one substep stage by stage
      (as in 17, with the volume pass);
- 22. a JSON line of per-kernel results (the 2D fluid forms of kernels A
-     and B and the mass kernels under "fluids2"), the card's nvidia-smi
+ 22. the 3D damage forms against their plain versions at l_panel3's full
+     size, 20 substeps in: the 3D pooling (C = 128, 108 candidate chunks;
+     also on a perturbed state where eigenerosion trips), kernel A's 3D
+     fresh-stress form with the psi channels and kernel B's 3D
+     maximum-stress trip (also with F perturbed so that it trips), kernel
+     B's crack-energy trip of modified eigenerosion on l_panel3-modified
+     (also with psi_pos perturbed so that it trips) and in 2D on l_panel2
+     under modified eigenerosion, with times, bounds and the pooling's
+     library yardstick;
+ 23. the l_panel3 main path: l_panel3() -> auto_pipeline -> pack_state ->
+     10 frames of run_frames_state -> unpack_state, launch counts against
+     the substeps (A, B and the pooling once per substep), per frame the
+     substeps, broken and failed counts per panel and mass; one profiled
+     frame (lpanel3_profile.txt in the output directory);
+ 24. reduced l_panel3 (2,304 particles), 3 substeps on the card against
+     the port's CPU path at the card's dts, phase mismatches net of ties;
+ 25. l_panel3-modified (3 frames) and l_panel2 under modified eigenerosion
+     (1 frame) as main paths: kernel B's crack-energy trip launched every
+     substep, no pooling, trips per panel;
+ 26. a JSON line of per-kernel results (the 2D fluid forms of kernels A
+     and B and the mass kernels under "fluids2"; the 3D damage forms of A,
+     B and the pooling under "l_panel3", B's crack-energy trip under
+     "l_panel3-modified" and "l_panel2-modified"), the card's nvidia-smi
      line, and the final {"ok": true, "device": ...} line.
 
 Each kernel's bound_ms is the least time the card could take for its work
@@ -189,6 +216,9 @@ FRACTURE_FRAMES, FRACTURE_TIMED = 10, 3
 FRACTURE_FINE_CELL = 0.0025
 FRACTURE_SUBSTEPS_IN = 20
 FRACTURE_DX, FRACTURE_DV, FRACTURE_DF = 5e-5, 5e-4, 5e-4
+# l_panel2 runs on past the main path until a frame holds its first lazy
+# resort, at most this many more frames.
+FRACTURE_RESORT_FRAMES = 600
 # Trip decisions (eigenerosion energy, the maximum-stress envelope) may
 # differ between a kernel and its plain version only where the decided
 # quantity lies within this relative distance of its threshold.
@@ -223,6 +253,20 @@ EIG_PAIR_FLOPS = 10
 # more 2x2 SVD, the map (logs, exps, the rank network or clamps) and the
 # rebuild of F (~150, transcendentals counted as one each).
 A2_CACHED_SLOT_FLOPS, B2_PLASTIC_FLOPS = 20, 150
+# The 3D damage forms (phases 22-25): kernel A's fresh stress (the cardano
+# SVD, the corotated stress with its phase split) and the affine per slot
+# (~600, a lower estimate), and per tap 2 more channels (psi momentum and
+# mass, a product and a sum each); kernel B's lane adds to the 3D lane
+# (B_LANE_FLOPS) the failure stress and its cardano eigenvalues (~300), and
+# with the modified trip the psi channel's gather (2 per tap).
+A3_FRESH_SLOT_FLOPS, P2G3_PSI_TAP_FLOPS, B3_FAILURE_FLOPS = 600, 4, 300
+# l_panel3: substeps run before the kernel checks, frames of the main path
+# (the last timed) and of the modified run, substeps of the card-against-CPU
+# check on the reduced form.
+LPANEL3_SUBSTEPS_IN = 20
+LPANEL3_FRAMES, LPANEL3_TIMED = 10, 3
+LPANEL3_MODIFIED_FRAMES = 3
+LPANEL3_AGREE_SUBSTEPS = 3
 # elasticity2 and basic2 (phases 15-17): substeps run before the kernel
 # checks, frames of the main paths (the last timed), a 500 x 500 block for
 # the timed checks, and the substeps of the card-against-CPU check.
@@ -810,6 +854,13 @@ def phase_resort(pipe, pre, phase=5):
     return res, resort_ms
 
 
+def slot_dim(state):
+    """3 or 2: the dimension of a slot state's rows."""
+    from sparkl_tpu_torch.fused import layout as L
+
+    return 3 if state.slots.shape[1] == L.Rows(3).nf else 2
+
+
 def perturbed_f(state, seed=7, scale=0.02):
     """`state` with F += scale·N(0, 1) (numpy seed) on occupied lanes: at
     0.02, strains of a few percent, past the Drucker-Prager cone on many
@@ -818,8 +869,8 @@ def perturbed_f(state, seed=7, scale=0.02):
     import torch
     from sparkl_tpu_torch.fused import layout as L
 
-    d_, nf, c = state.slots.shape
-    dim = 3 if nf == L.Rows(3).nf else 2
+    d_, _, c = state.slots.shape
+    dim = slot_dim(state)
     r = L.Rows(dim)
     noise = np.random.default_rng(seed).normal(scale=scale, size=(d_, dim * dim, c))
     occ = ((state.ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0)[:, None, :]
@@ -1507,10 +1558,13 @@ def check_kernels_2d(pipe, state, dt, label, phase, meta=None, timed=False):
     on the velocity windows alone). A: p2g_errors's bound; the merge
     bit-equal; B: g2p_errors's row tolerances on occupied lanes, the phase
     row equal but on lanes whose largest principal stress (from B's own
-    output F) lies within TIE of the envelope. The lanes of each plastic
-    branch and the maximum-stress trips are counted (plastic_counts). With
-    `timed`, times and bounds. Returns {name: {...}}."""
+    output F) lies within TIE of the envelope, or under modified
+    eigenerosion whose crack energy cpf·h·psi lies within TIE of the
+    threshold. The lanes of each plastic branch, the maximum-stress trips
+    and the crack-energy trips are counted (plastic_counts). With `timed`,
+    times and bounds. Returns {name: {...}}."""
     import torch
+    from sparkl_tpu_torch.core.params import DamageModel
     from sparkl_tpu_torch.fused import kernels as K
     from sparkl_tpu_torch.fused import layout as L
     from sparkl_tpu_torch.math import svd
@@ -1519,6 +1573,7 @@ def check_kernels_2d(pipe, state, dt, label, phase, meta=None, timed=False):
 
     meta = pipe._meta if meta is None else meta
     cache, psi = bool(meta["stress_cache"]), bool(meta["with_psi"])
+    modified = meta["damage_model"] == DamageModel.MODIFIED_EIGENEROSION
     grid, cfg = pipe.grid, pipe._cfg
     r = L.Rows(2)
     nch = state.structure.num_chunks
@@ -1539,7 +1594,7 @@ def check_kernels_2d(pipe, state, dt, label, phase, meta=None, timed=False):
     args = (pipe._tab_f, pipe._tab_i, nch)
     out_p = K.g2p_fused_reference(grid, slots_in, state.ints, windows, dt, *args,
                                   velocity_clamp=pipe._kparams["gpu_velocity_clamp"],
-                                  stress_cache=cache)
+                                  stress_cache=cache, modified=modified)
     out_k = K.g2p_fused(grid, cfg, meta, pipe._kparams, slots_in.clone(), state.ints, windows,
                         dt, *args)
     torch.cuda.synchronize()
@@ -1558,8 +1613,14 @@ def check_kernels_2d(pipe, state, dt, label, phase, meta=None, timed=False):
                                  for i in range(2)])[1]
     mp = p[K.TAB_F]
     tie = (ft == fail.MAXIMUM_STRESS) & ((emax - mp).abs() <= TIE * mp.abs())
-    differ = occ & (out_k[:, r.phase] != out_p[:, r.phase])
     counts = plastic_counts(pipe, state, out_p, dt)
+    if modified:
+        cpf, cthr = slots_in[:, r.cpf], slots_in[:, r.cthr]
+        crack = cpf * grid.cell_width * psi_gathered(pipe, state, windows)
+        tie = tie | ((cpf != 0.0) & ((crack - cthr).abs() <= TIE * cthr.abs()))
+        counts["crack_trips"] = int((occ & (slots_in[:, r.phase] > 0.0) & (cpf != 0.0)
+                                     & (crack > cthr)).sum())
+    differ = occ & (out_k[:, r.phase] != out_p[:, r.phase])
     same_bits = torch.equal(torch.where(occ[:, None, :], out_k, 0.0),
                             torch.where(occ[:, None, :], out_p, 0.0))
     res = {
@@ -1628,7 +1689,7 @@ def check_kernels_2d(pipe, state, dt, label, phase, meta=None, timed=False):
             ("g2p_fused", lambda: K.g2p_fused(grid, cfg, meta, pipe._kparams, scratch,
                                               state.ints, windows, dt, *args),
              lambda: K.g2p_fused_reference(grid, slots_in, state.ints, windows, dt, *args,
-                                           stress_cache=cache), None,
+                                           stress_cache=cache, modified=modified), None,
              live * ((26 + 4 + 40) * row + 2 * 64 * 4),
              lanes * (9 * G2P2_TAP_FLOPS + B2_LANE_FLOPS) + plastic * B2_PLASTIC_FLOPS)):
         v = res[name]
@@ -1714,11 +1775,12 @@ def phase_plastic_kernels():
 def phase_plastic_main(name, phase=16, golden=True, timed_frames=PLASTIC_TIMED, **kw):
     """One 2D main path (the plastic scenes, fluids2): scenes.build(name,
     **kw) -> auto_pipeline -> pack_state -> PLASTIC_FRAMES frames of
-    run_frames_state (the last `timed_frames` timed) -> unpack_state, with
-    the kernels' launches held against the substeps run, the resort
-    branches and, with fluid volume recomputation, the volume passes (one
-    per substep and one more per resort); per untimed frame the substeps,
-    the failed and broken counts and the mass held to 1e-6, and with
+    run_frames_state (the last `timed_frames` timed, each frame clocked
+    alone) -> unpack_state, with the kernels' launches held against the
+    substeps run, the resort branches and, with fluid volume recomputation,
+    the volume passes (one per substep and one more per resort); per frame
+    (the timed ones after their clock) the substeps, the failed and broken
+    counts and the mass held to 1e-6, and with
     `golden` (the goldens' configuration) the substeps beside the goldens'
     (within one, as tests/test_regression.py holds the fused pipeline) and
     the centre of mass, box and kinetic energy within its fused tolerances
@@ -1755,18 +1817,17 @@ def phase_plastic_main(name, phase=16, golden=True, timed_frames=PLASTIC_TIMED, 
     timed, seconds = 0, 0.0
     first_timed = PLASTIC_FRAMES - timed_frames
     for i in range(PLASTIC_FRAMES):
-        if i == first_timed:
+        # A timed frame is clocked alone; its checks run after the clock.
+        if i >= first_timed:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
         state, n = pipe.run_frames_state(state, 1)
+        if i >= first_timed:
+            torch.cuda.synchronize()
+            seconds += time.perf_counter() - t0
+            timed += n
         substeps += n
         resorts += pipe.last_resorts
-        if i >= first_timed:
-            timed += n
-            if i == PLASTIC_FRAMES - 1:
-                torch.cuda.synchronize()
-                seconds = time.perf_counter() - t0
-            continue  # the timed frames unpack nothing
         p = pipe.unpack_state(state)
         act = p.active
         pos, vel = p.position[act].double(), p.velocity[act].double()
@@ -1803,8 +1864,8 @@ def phase_plastic_main(name, phase=16, golden=True, timed_frames=PLASTIC_TIMED, 
     for fr in frames:
         say(phase, f"{name} frame {fr['frame']}: " + ", ".join(
             f"{k} {v}" for k, v in fr.items() if k != "frame"))
-    against = (f"frames 0-{first_timed - 1} against the golden: worst measure/tol {worst:.3e}; "
-               if gold else "")
+    against = (f"frames 0-{PLASTIC_FRAMES - 1} against the golden: worst measure/tol "
+               f"{worst:.3e}; " if gold else "")
     rate = (f"last {timed_frames} frames {timed} substeps in {seconds:.3f} s = {pups:.4g} "
             f"particle-updates/s; " if timed else "")
     say(phase, f"{name} path, {PLASTIC_FRAMES} frames: {substeps} substeps, {ran[0]} run, "
@@ -2173,6 +2234,92 @@ def fracture_bundle(cell_width=None, device="cuda"):
     return scenes.build("l_panel2", device=device, **kw)
 
 
+# l_panel3 (phases 23-27): l_panel2's particle rows extruded into a slab of
+# LPANEL3_LAYERS layers at the in-plane spacing h/2 (the reduced form of
+# the CPU tests and phase 25: the panels cut to LPANEL3_SMALL of their size
+# and LPANEL3_SMALL_LAYERS layers).
+LPANEL3_LAYERS = 10
+LPANEL3_SMALL, LPANEL3_SMALL_LAYERS = 0.08, 6
+# The load point of each panel, from its origin (l_panel2's), and the
+# panel polygon's corner, in units of the panel's size.
+LPANEL_LOAD = (0.47, 0.25)
+
+
+def l_panel3(damage="eigenerosion", scale=1.0, layers=LPANEL3_LAYERS, device="cuda"):
+    """l_panel2's two damage mechanisms in a 3D slab, built with the port's
+    API: the particle rows of scenes.build("l_panel2") as published (cell
+    width h = 0.005, r = h/4, density 2500) extruded into `layers` layers at
+    z = (2k + 1) h/4 (the in-plane spacing h/2; 10 layers: a slab 0.025 m
+    thick, 600,000 particles), each 3D particle made by
+    Particles.from_positions with the crack data (cpf, threshold, m_c, g)
+    of its 2D row; l_panel2's models (corotated, E = 25.85e9, nu = 0.18;
+    panel 1 eigenerosion, panel 2 maximum stress 2.7e6); a cuboid ground of
+    half-extent 1000 in x and z placed as in 2D; STICK, no gravity, frame
+    dt 1/6000; GridParams.for_domain over l_panel2's x/y domain and the
+    slab's z range, pad 3; the load as l_panel2's Dirichlet hook, each
+    panel's load point (0.47, 0.25) from its origin repeated at every grid
+    node plane z = k h across the slab, velocity (0, 0.1, 0). `damage`
+    "modified" runs modified eigenerosion instead. `scale` < 1 keeps the 2D
+    rows inside the panel polygon scaled by it (about each panel's origin;
+    the load point scales with it): the reduced form, every particle inside
+    the grid."""
+    import numpy as np
+    import torch
+    import sparkl_tpu_torch.scenes as scenes
+    from sparkl_tpu_torch.core.grid import GridParams
+    from sparkl_tpu_torch.core.params import BoundaryHandling, DamageModel, SolverParameters
+    from sparkl_tpu_torch.core.particles import Particles
+    from sparkl_tpu_torch.geometry.colliders import cuboid
+    from sparkl_tpu_torch.models import registry as reg
+    from sparkl_tpu_torch.solver.pipeline import DirichletVelocityHook
+
+    b2 = scenes.build("l_panel2", device=device)
+    h = b2.grid.cell_width
+    r = h / 4.0
+    ground_height, ground_shift = h * 10.0, h * 40.0
+    origins = [(ground_shift, ground_shift), (ground_shift * 8.0, ground_shift)]
+    p2 = b2.particles
+    pos2 = p2.position.cpu().numpy()
+    mid2 = p2.model_id.cpu().numpy()
+    zs = ((2.0 * np.arange(layers) + 1.0) * r).astype(np.float32)
+    panels = []
+    for m, (ox, oy) in enumerate(origins):
+        u, v = pos2[:, 0] - np.float32(ox), pos2[:, 1] - np.float32(oy)
+        size = np.float32(0.5 * scale)
+        keep = (mid2 == m) & (u < size) & (v < size) & ~((u > size / 2) & (v < size / 2))
+        xy = pos2[keep]
+        pos3 = np.concatenate([np.concatenate([xy, np.full((len(xy), 1), z, np.float32)], 1)
+                               for z in zs])
+        sel = torch.from_numpy(keep).to(device)
+        rows = {k: getattr(p2, k)[sel].repeat(layers)
+                for k in ("crack_propagation_factor", "crack_threshold", "m_c", "g")}
+        panels.append(Particles.from_positions(pos3, m, r, 2500.0, device, **rows))
+    particles = Particles.concatenate(tuple(panels))
+
+    z_top = float(zs[-1] + r)
+    grid = GridParams.for_domain((0.05, 0.05, 0.0), (2.2, 0.95, z_top), h, pad=3)
+    colliders = (cuboid((1000.0, ground_height, 1000.0),
+                        translation=(0.0, ground_shift - ground_height, 0.0)),)
+    e, nu = 25.85e9, 0.18
+    models = reg.ModelSet.pack([
+        reg.ParticleModel(reg.corotated_linear_elasticity(e, nu)),
+        reg.ParticleModel(reg.corotated_linear_elasticity(e, nu),
+                          failure=reg.maximum_stress_failure(2.7e6, np.finfo(np.float32).max)),
+    ], device)
+    planes = [k * h for k in range(int(round(z_top / h)) + 1)]
+    load = [(ox + LPANEL_LOAD[0] * scale, oy + LPANEL_LOAD[1] * scale) for ox, oy in origins]
+    hooks = DirichletVelocityHook(
+        points=[[x, y, z] for x, y in load for z in planes],
+        velocities=[[0.0, 0.1, 0.0]] * (len(load) * len(planes)))
+    model = DamageModel.MODIFIED_EIGENEROSION if damage == "modified" else DamageModel.EIGENEROSION
+    return scenes.SceneBundle(
+        name="l_panel3" + ("-modified" if damage == "modified" else ""), grid=grid,
+        models=models, colliders=colliders, particles=particles,
+        params=SolverParameters(dt=b2.params.dt, boundary_handling=BoundaryHandling.STICK,
+                                damage_model=model),
+        gravity=(0.0, 0.0, 0.0), hooks=hooks)
+
+
 def substep_state(b, substeps):
     """(pipeline, state): `b` packed through auto_pipeline and advanced by
     `substeps` single substeps (so that psi_pos, the velocities and the
@@ -2191,12 +2338,13 @@ def perturbed_eigen(state, h, seed=13):
     """`state` with positions jittered by up to 0.3 h, psi_pos drawn so that
     crack energies straddle the threshold (energy ~ cpf·h·mean psi, so psi
     uniform in [0, 2·threshold/(cpf·h)]), and a quarter of the lanes broken
-    (ineligible)."""
+    (ineligible). 3D or 2D slots."""
     import numpy as np
     import torch
     from sparkl_tpu_torch.fused import layout as L
 
-    r = L.Rows(2)
+    dim = slot_dim(state)
+    r = L.Rows(dim)
     d_, _, c = state.slots.shape
     rng = np.random.default_rng(seed)
     occ = (state.ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0
@@ -2208,8 +2356,8 @@ def perturbed_eigen(state, h, seed=13):
     def dev(x):
         return torch.from_numpy(x.astype(np.float32)).to(slots.device)
 
-    slots[:, r.pos : r.pos + 2] += torch.where(
-        occ[:, None, :], dev(rng.uniform(-0.3 * h, 0.3 * h, size=(d_, 2, c))), 0.0)
+    slots[:, r.pos : r.pos + dim] += torch.where(
+        occ[:, None, :], dev(rng.uniform(-0.3 * h, 0.3 * h, size=(d_, dim, c))), 0.0)
     slots[:, r.psi_pos] = torch.where(occ, dev(rng.uniform(0.0, psi_max, size=(d_, c))), 0.0)
     slots[:, r.phase] = torch.where(occ & dev(rng.uniform(size=(d_, c)) < 0.25).bool(), 0.0,
                                     slots[:, r.phase])
@@ -2238,13 +2386,14 @@ def check_eigen(pipe, state, label, phase, timed=False):
     eigenerosion trips each pool gives equal but on lanes whose energy
     lies within TIE of the threshold (counted). With `timed`, times, the
     library yardstick (torch.cdist and a masked torch.bmm over the same
-    candidate tiles) and the bound."""
+    candidate tiles) and the bound. 3D or 2D."""
     import torch
     from sparkl_tpu_torch.fused import kernels as K
     from sparkl_tpu_torch.fused import layout as L
 
     grid, cfg = pipe.grid, pipe._cfg
-    r = L.Rows(2)
+    dim = grid.dim
+    r = L.Rows(dim)
     e, elig = pipe._eigen_rows(state)
     cand, _ = pipe._eigen_candidates(state.structure)
     out_k = K.eigen_pool_fused(grid, cfg, e, cand)
@@ -2276,23 +2425,34 @@ def check_eigen(pipe, state, label, phase, timed=False):
         return res
     d_, kn = cand.shape
     c = cfg.chunk_size
-    own = e[:, 0:2].transpose(1, 2).contiguous()  # [D, C, 2]
-    cpos = g[:, :, 0:2, :].permute(0, 1, 3, 2).reshape(d_, kn * c, 2)
-    vals = g[:, :, 2:4, :].permute(0, 1, 3, 2).reshape(d_, kn * c, 2)
-    c_el = g[:, :, 4, :].reshape(d_, 1, kn * c) != 0
+    own = e[:, 0:dim].transpose(1, 2).contiguous()  # [D, C, d]
+    cpos = g[:, :, 0:dim, :].permute(0, 1, 3, 2).reshape(d_, kn * c, dim)
+    vals = g[:, :, dim : dim + 2, :].permute(0, 1, 3, 2).reshape(d_, kn * c, 2)
+    c_el = g[:, :, dim + 2, :].reshape(d_, 1, kn * c) != 0
     self_lane = (g[:, :, K.EIG_SELF, :].reshape(d_, 1, kn * c) != 0) & (
         torch.arange(kn * c, device=e.device) % c == torch.arange(c, device=e.device)[:, None])
 
+    # The [C, KN·C] distance tiles of ~2^28 pairs at a time (all of 2D's
+    # chunks; ~150 chunks in 3D, where all of them would take ~40 GB).
+    group = max(1, 2**28 // (c * kn * c))
+
     def library():
-        near = torch.cdist(own, cpos) <= grid.cell_width
-        mask = near & c_el & elig[:, :, None] & ~self_lane
-        return torch.bmm(mask.to(torch.float32), vals)
+        out = []
+        for g0 in range(0, d_, group):
+            sl = slice(g0, g0 + group)
+            near = torch.cdist(own[sl], cpos[sl]) <= grid.cell_width
+            mask = near & c_el[sl] & elig[sl, :, None] & ~self_lane[sl]
+            out.append(torch.bmm(mask.to(torch.float32), vals[sl]))
+        return torch.cat(out)
 
     lib_err = (library().transpose(1, 2) - out_k).abs().max().item()
+    # The plain version walks 3D's candidates 4 chunks at a time (~1 s a
+    # call at l_panel3's size): fewer repetitions.
+    reps = 20 if dim == 2 else 5
     res["ms"] = cuda_median_ms(lambda: K.eigen_pool_fused(grid, cfg, e, cand))
     res["plain_ms"] = cuda_median_ms(
-        lambda: K.eigen_pool_fused_reference(grid, e, K.eigen_candidate_rows(e, cand)))
-    res["library_ms"] = cuda_median_ms(library)
+        lambda: K.eigen_pool_fused_reference(grid, e, K.eigen_candidate_rows(e, cand)), reps)
+    res["library_ms"] = cuda_median_ms(library, reps)
     live = int(state.structure.num_chunks)
     valid = (cand < d_).sum(dim=1)
     res["pairs"] = int((elig.sum(dim=1) * valid).sum()) * c
@@ -2301,7 +2461,8 @@ def check_eigen(pipe, state, label, phase, timed=False):
     res["bound_ms"], res["bound_by"] = bound(res["bytes"], res["flops"])
     say(phase, f"eigen_pool_fused ({label}): kernel {res['ms']:.3f} ms, plain "
                f"{res['plain_ms']:.3f} ms, library (cdist + masked bmm) {res['library_ms']:.3f} ms "
-               f"(median of 20; library max|diff| {lib_err:.2e}); {res['pairs']} pair tests; "
+               f"(medians of 20, {reps} and {reps}; library max|diff| {lib_err:.2e}); "
+               f"{res['pairs']} pair tests; "
                f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
     return res
 
@@ -2354,116 +2515,52 @@ def phase_fracture_kernels():
     return out
 
 
-def slot_stats(state):
-    """(broken, failed, mass) over the occupied slots of a 2D state: phase 0
-    (eigenerosion or maximum-stress trips), the failed flag, the active
-    mass in double."""
+def phase_fracture_first_resort(pipe, state):
+    """l_panel2 past its first resort: from the main path's state, frame by
+    frame until a frame holds the first lazy resort (at most
+    FRACTURE_RESORT_FRAMES more frames); then, on the state that resort left
+    (before that substep's pooling), the eigenerosion candidate list
+    bit-equal to the same torch code on a CPU copy of the structure, and
+    the pooling against its plain version (check_eigen). Returns
+    results."""
     import torch
-    from sparkl_tpu_torch.fused import layout as L
+    from sparkl_tpu_torch.fused.pipeline import DRIFT_FRACTION
+    from sparkl_tpu_torch.fused.structure import SlotStructure
 
-    r = L.Rows(2)
-    flags = state.ints[:, L.I_FLAGS, :]
-    occ = (flags & L.OCCUPIED) != 0
-    act = (flags & L.ACTIVE) != 0
-    broken = int((occ & (state.slots[:, r.phase] == 0.0)).sum())
-    failed = int((occ & (state.slots[:, r.failed] != 0.0)).sum())
-    mass = torch.where(act, state.slots[:, r.mass], 0.0).double().sum().item()
-    return broken, failed, mass
+    kept = []
+    resort = pipe._resort
 
+    def keep(st):
+        st, flags = resort(st)
+        if not kept and not flags:
+            kept.append(st.replace(slots=st.slots.clone(), ints=st.ints.clone()))
+        return st, flags
 
-def phase_fracture_main():
-    """The l_panel2 main path at the reference settings: scenes.build ->
-    auto_pipeline -> pack_state -> FRACTURE_FRAMES frames of
-    run_frames_state (the last FRACTURE_TIMED timed) -> unpack_state, with
-    each kernel's launches held against the substeps the pipeline ran
-    (retried spans included) and the resort branches; per frame the broken
-    and failed counts, the candidate-list regrows and the mass. Returns
-    (the pipeline, the final state, the launches, results)."""
-    import torch
-    import sparkl_tpu_torch as sk
-    from sparkl_tpu_torch.fused import kernels as K
-
-    b = fracture_bundle()
-    n_active = int(b.particles.active.sum())
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    pipe = sk.auto_pipeline(b)
-    state = pipe.pack_state(b.particles)
-    mass0 = b.particles.mass[b.particles.active].double().sum().item()
-    # Substeps the pipeline runs, an aborted span's included.
-    ran = [0]
-    substep = pipe._substep
-
-    def counted(st, dt):
-        ran[0] += 1
-        return substep(st, dt)
-
-    pipe._substep = counted
-    K.reset_launch_counts()
-    substeps = resorts = 0
-    frames = []
-    for i in range(FRACTURE_FRAMES - FRACTURE_TIMED):
-        regrows = pipe.eigen_regrows
-        state, n = pipe.run_frames_state(state, 1)
-        substeps += n
-        resorts += pipe.last_resorts
-        broken, failed, mass = slot_stats(state)
-        frames.append(dict(frame=i, substeps=n, broken=broken, failed=failed, mass=mass,
-                           eigen_regrow=pipe.eigen_regrows > regrows))
-        require(abs(mass - mass0) <= 1e-6 * mass0, f"fracture path frame {i}: mass {mass} "
-                                                   f"against {mass0}")
-    torch.cuda.synchronize()
+    pipe._resort = keep
+    frames = substeps = 0
     t0 = time.perf_counter()
-    timed = 0
-    for _ in range(FRACTURE_TIMED):
+    while not kept and frames < FRACTURE_RESORT_FRAMES:
         state, n = pipe.run_frames_state(state, 1)
-        timed += n
-        resorts += pipe.last_resorts
-    torch.cuda.synchronize()
+        frames += 1
+        substeps += n
+    pipe._resort = resort
     seconds = time.perf_counter() - t0
-    substeps += timed
-    pipe._substep = substep
-    launches = dict(K.LAUNCHES)
-    branches = dict(pipe.resort_branches)
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    broken, failed, mass = slot_stats(state)
-    frames.append(dict(frame=FRACTURE_FRAMES - 1, timed_substeps=timed, broken=broken,
-                       failed=failed, mass=mass))
-    p = pipe.unpack_state(state)
-    act = p.active
-    pups = n_active * timed / seconds
-    for fr in frames:
-        say(13, f"fracture frame {fr['frame']}: " + ", ".join(
-            f"{k} {v}" for k, v in fr.items() if k != "frame"))
-    say(13, f"fracture path, {FRACTURE_FRAMES} frames: {substeps} substeps "
-            f"({substeps / FRACTURE_FRAMES:.1f} per frame), {ran[0]} run (with aborted spans), "
-            f"{resorts} resorts {branches}; eigen candidate list {pipe._eigen_mcb} per block, "
-            f"regrown {pipe.eigen_regrows} times (OVERFLOW_EIGEN fired: {pipe.eigen_regrows > 0}); "
-            f"scatter merge pinned {pipe._merge_force_scatter}; {pipe._cfg}; peak memory "
-            f"{peak_gib:.2f} GiB; launches {launches}")
-    say(13, f"fracture path: last {FRACTURE_TIMED} frames {timed} substeps in {seconds:.3f} s = "
-            f"{pups:.4g} particle-updates/s; broken {broken}, failed {failed} at the end"
-            + ("" if broken or failed else " (no trip within the frames run: the trips are "
-                                             "exercised by phase 12's perturbed states)"))
-    require(bool(torch.isfinite(p.position[act]).all()), "fracture path: non-finite positions")
-    require(abs(mass - mass0) <= 1e-6 * mass0, "fracture path: active mass not conserved")
-    require(sum(branches.values()) == resorts, f"resorts {resorts}, branches {branches}")
-    require(ran[0] >= substeps and (ran[0] == substeps or pipe.eigen_regrows > 0),
-            f"the pipeline ran {ran[0]} substeps for {substeps} kept, with no regrow")
-    # Per substep run: the pooling, A, B and the merge once; per resort the
-    # resort kernels by branch; no fluid kernel.
-    merge = "merge_scatter" if pipe._merge_force_scatter else "merge_blocks"
-    expect = dict(p2g_fused=ran[0], g2p_fused=ran[0], eigen_pool_fused=ran[0],
-                  merge_blocks=0, merge_scatter=0, mass_p2g_fused=0, mass_g2p_fused=0,
-                  src_rows_from_order=resorts - branches["relabel"],
-                  permute_slots=branches["mixed"], permute_chunks=0)
-    expect[merge] = ran[0]
-    require(launches == expect, f"fracture path launch counts {launches}, expected {expect}")
-    return pipe, state, launches, dict(
-        substeps=substeps, substeps_run=ran[0], resorts=resorts, branches=branches,
-        timed_substeps=timed, seconds=seconds, pups=pups, peak_gib=peak_gib,
-        eigen_regrows=pipe.eigen_regrows, eigen_mcb=pipe._eigen_mcb, frames=frames,
-        config=str(pipe._cfg))
+    say(13, f"l_panel2 on to its first resort: {frames} more frames ({substeps} substeps) in "
+            f"{seconds:.1f} s; resort branches {pipe.resort_branches}; drift now "
+            f"{float(state.cum_disp) / pipe.grid.cell_width:.3f} cells (a resort at "
+            f"{DRIFT_FRACTION})")
+    require(kept, f"no resort within {FRACTURE_RESORT_FRAMES} frames past the main path")
+    st = kept[0]
+    cand_k, ov_k = pipe._eigen_candidates(st.structure)
+    cpu = SlotStructure(**{k: v.cpu() for k, v in st.structure.tensors().items()})
+    cand_c, ov_c = pipe._eigen_candidates(cpu)
+    same = torch.equal(cand_k.cpu(), cand_c) and bool(ov_k) == bool(ov_c)
+    say(13, f"after l_panel2's first resort: candidate list {tuple(cand_k.shape)} bit-equal to "
+            f"the CPU's {same} (overflow {bool(ov_k)})")
+    require(same, "the candidate list after the resort differs from its CPU version")
+    res = check_eigen(pipe, st, "l_panel2 after its first resort", 13)
+    return dict(frames_more=frames, substeps_more=substeps, seconds=seconds,
+                candidates_bit_equal=same, pooling=res, branches=dict(pipe.resort_branches))
 
 
 def phase_fracture_agreement():
@@ -2510,6 +2607,440 @@ def phase_fracture_agreement():
             f"particle field {not differ} (differ: {differ})")
     require(not differ and na == na2, f"two card frames of l_panel2 differ in {differ}")
     return dict(max_dx=dx, max_dv=dv, max_df=df, frame_substeps=na, repeat_bit_equal=not differ)
+
+
+def psi_gathered(pipe, state, windows):
+    """The psi channel of `windows` [D, d + 1, 8^d] at each slot, gathered
+    as kernel B's plain version gathers it (the crack energy of the
+    modified trip is cpf·h times it)."""
+    import torch
+    from sparkl_tpu_torch.fused import kernels as K
+    from sparkl_tpu_torch.fused import layout as L
+
+    grid = pipe.grid
+    dim = grid.dim
+    d_, _, c = state.slots.shape
+    _, fx, rel, in_window, in_bounds = K._slot_geometry(grid, state.slots, state.ints)
+    contrib = ((state.ints[:, L.I_FLAGS, :] & L.ACTIVE) != 0) & in_window & in_bounds
+    w, dpt = K._taps(grid, fx, rel)
+    ntaps = 3**dim
+    q = K._tap_cells(rel, contrib).reshape(d_, 1, ntaps * c).expand(d_, dim + 1, ntaps * c)
+    win = torch.gather(windows[:, : dim + 1], 2, q).reshape(d_, dim + 1, ntaps, c)
+    return K._gather(grid, w, dpt, win, contrib.to(torch.float32))[2]
+
+
+def check_kernels_3d(pipe, state, dt, label, phase, timed=False):
+    """The 3D damage forms against their plain versions on the l_panel3
+    `state`: kernel A's fresh-stress form with the psi channels
+    (p2g_errors's bound), the merge on its images (bit-equal), and kernel B's
+    damage form on the windows the path computes: the maximum-stress trip on
+    the fresh stress of the final F, and under modified eigenerosion the
+    psi gather and the crack-energy trip (g2p_errors's row tolerances on
+    occupied lanes; the phase row equal but on lanes whose largest
+    principal stress lies within TIE of the envelope or whose crack energy
+    lies within TIE of the threshold). Trips are counted. With `timed`,
+    times and bounds. Returns {name: {...}}."""
+    import torch
+    from sparkl_tpu_torch.core.params import DamageModel
+    from sparkl_tpu_torch.fused import kernels as K
+    from sparkl_tpu_torch.fused import layout as L
+    from sparkl_tpu_torch.math import svd
+    from sparkl_tpu_torch.models import failure as fail
+    from sparkl_tpu_torch.sparse import transfer as T
+
+    meta = pipe._meta
+    modified = meta["damage_model"] == DamageModel.MODIFIED_EIGENEROSION
+    grid, cfg = pipe.grid, pipe._cfg
+    r = L.Rows(3)
+    nch = state.structure.num_chunks
+    tables = (pipe._tab_f, pipe._tab_i)
+    img_k = K.p2g_fused(grid, cfg, meta, state.slots, state.ints, dt, nch, tables)
+    img_p = K.p2g_fused_reference(grid, state.slots, state.ints, dt, nch, tables,
+                                  stress_cache=False, with_psi=True)
+    rows = image_rows(cfg, img_k)
+    first, nblk = state.structure.block_first_chunk, state.structure.block_num_chunks
+    m_k = K.merge_blocks(rows, first, nblk)
+    m_p = K.merge_blocks_reference(rows, first, nblk, T.MERGE_KMAX)
+    windows = pipe._grid_windows(state, img_k, dt)
+    slots_in = state.slots.clone()
+    args = (pipe._tab_f, pipe._tab_i, nch)
+    out_p = K.g2p_fused_reference(grid, slots_in, state.ints, windows, dt, *args,
+                                  velocity_clamp=pipe._kparams["gpu_velocity_clamp"],
+                                  stress_cache=False, modified=modified)
+    out_k = K.g2p_fused(grid, cfg, meta, pipe._kparams, slots_in.clone(), state.ints, windows,
+                        dt, *args)
+    torch.cuda.synchronize()
+    per_ch = p2g_errors(img_k, img_p)
+    occ = (state.ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0
+    row_errs = g2p_errors(out_k, out_p, state.ints, pipe.models.cparams, grid.cell_width,
+                          skip_rows=(r.phase,))
+    worst = {}
+    for _, grp, m, tol in row_errs:
+        worst[grp] = max(worst.get(grp, 0.0), m / tol if tol else m)
+    (ct, ft), p = K.model_columns(pipe._tab_f, pipe._tab_i, state.ints, range(16), (0, 2))
+    f = [[out_k[:, r.defgrad + 3 * i + j] for j in range(3)] for i in range(3)]
+    st = K.kirchhoff_stress_c(ct, p[0:4], slots_in[:, r.phase], out_k[:, r.eh], f, None, None,
+                              None, (0,))
+    emax = svd.sym_eigvals3x3_c([[0.5 * (st[i][j] + st[j][i]) for j in range(3)]
+                                 for i in range(3)])[0]
+    mp = p[K.TAB_F]
+    stress_tie = (ft == fail.MAXIMUM_STRESS) & ((emax - mp).abs() <= TIE * mp.abs())
+    live = occ & (slots_in[:, r.phase] > 0.0)
+    stress_trips = int((live & (ft == fail.MAXIMUM_STRESS) & (out_p[:, r.phase] == 0.0)).sum())
+    cpf, cthr = slots_in[:, r.cpf], slots_in[:, r.cthr]
+    crack_tie = torch.zeros_like(occ)
+    crack_trips = 0
+    if modified:
+        crack = cpf * grid.cell_width * psi_gathered(pipe, state, windows)
+        crack_tie = (cpf != 0.0) & ((crack - cthr).abs() <= TIE * cthr.abs())
+        crack_trips = int((live & (cpf != 0.0) & (crack > cthr)).sum())
+    tie = (stress_tie | crack_tie) & occ
+    differ = occ & (out_k[:, r.phase] != out_p[:, r.phase])
+    same_bits = torch.equal(torch.where(occ[:, None, :], out_k, 0.0),
+                            torch.where(occ[:, None, :], out_p, 0.0))
+    res = {
+        "p2g_fused": dict(max_abs_err=max(e for _, e in per_ch),
+                          over_bound=max(m for m, _ in per_ch)),
+        "merge_blocks": dict(max_abs_err=(m_k - m_p).abs().max().item(),
+                             bit_equal=torch.equal(m_k, m_p)),
+        "g2p_fused": dict(max_abs_err=torch.where(occ[:, None, :], out_k - out_p,
+                                                  0.0).abs().max().item(),
+                          worst_over_tol=worst, bit_equal=same_bits, modified=modified,
+                          stress_trips=stress_trips, crack_trips=crack_trips,
+                          trips_differ=int(differ.sum()), tie_lanes=int(tie.sum())),
+    }
+    say(phase, f"3D damage kernels on the {label} state: p2g_fused images {tuple(img_k.shape)} "
+               f"max|err|/bound {[f'{m:.2e}' for m, _ in per_ch]} (pass <= 1); merge_blocks "
+               f"{tuple(m_k.shape)} bit-equal {res['merge_blocks']['bit_equal']}; g2p_fused "
+               f"(modified trip {modified}) worst measure/tol "
+               f"{({g: round(v, 4) for g, v in worst.items()})}, bit-equal on occupied lanes "
+               f"{same_bits}; trips: maximum stress {stress_trips}, crack energy {crack_trips}; "
+               f"phase differing {res['g2p_fused']['trips_differ']} (lanes within {TIE:g} of a "
+               f"threshold {res['g2p_fused']['tie_lanes']})")
+    failures = []
+    if not (all(m <= 1.0 for m, _ in per_ch) and torch.isfinite(img_k).all().item()):
+        failures.append("p2g_fused")
+    if not res["merge_blocks"]["bit_equal"]:
+        failures.append("merge_blocks")
+    if not (all(v <= 1.0 for v in worst.values()) and not bool((differ & ~tie).any())
+            and torch.isfinite(torch.where(occ[:, None, :], out_k, 0.0)).all().item()):
+        failures.append("g2p_fused")
+    require(not failures, f"{failures} disagree with their plain versions on the {label} state")
+    if not timed:
+        return res
+    live_chunks, row = int(nch), 4 * cfg.chunk_size
+    lanes = int(((state.ints[:, L.I_FLAGS, :] & L.ACTIVE) != 0).sum())
+    n_win = windows.shape[1]
+    scratch = slots_in.clone()
+    # Bytes counted from what the 3D damage forms read and write per live
+    # chunk: A reads pos 3, vel 3, grad 9, F 9, mass, vol0, phase, eh,
+    # failed, cpf and psi_pos (31 rows) and 5 i32 rows (model, flags,
+    # origin 3), and writes every chunk's [6, 512] image; B reads 34 f32
+    # rows (pos, F, the scalar state, kinematic velocity, crack and
+    # bookkeeping rows), 5 i32 rows and the [d (+1), 512] window, and writes
+    # all 56 rows.
+    for name, fn, plain, nbytes, flops in (
+            ("p2g_fused", lambda: K.p2g_fused(grid, cfg, meta, state.slots, state.ints, dt, nch,
+                                              tables),
+             lambda: K.p2g_fused_reference(grid, state.slots, state.ints, dt, nch, tables,
+                                           stress_cache=False, with_psi=True),
+             live_chunks * (31 + 5) * row + cfg.max_chunks * img_k.shape[1] * 512 * 4,
+             lanes * (27 * (P2G_TAP_FLOPS + P2G3_PSI_TAP_FLOPS) + A3_FRESH_SLOT_FLOPS)),
+            ("g2p_fused", lambda: K.g2p_fused(grid, cfg, meta, pipe._kparams, scratch,
+                                              state.ints, windows, dt, *args),
+             lambda: K.g2p_fused_reference(grid, slots_in, state.ints, windows, dt, *args,
+                                           stress_cache=False, modified=modified),
+             live_chunks * ((34 + 5 + 56) * row + (4 if modified else 3) * 512 * 4),
+             lanes * (27 * (G2P_TAP_FLOPS + (2 if modified else 0)) + B_LANE_FLOPS
+                      + B3_FAILURE_FLOPS))):
+        v = res[name]
+        v["ms"], v["plain_ms"] = cuda_median_ms(fn), cuda_median_ms(plain)
+        v["library_ms"] = None
+        v["bytes"], v["flops"] = nbytes, flops
+        v["bound_ms"], v["bound_by"] = bound(nbytes, flops)
+        say(phase, f"{name} (3D damage, {label}): kernel {v['ms']:.3f} ms, plain "
+                   f"{v['plain_ms']:.3f} ms (median of 20); window channels {n_win}; "
+                   f"{nbytes / 1e9:.4f} GB and {flops / 1e9:.4f} GFLOP counted; bound "
+                   f"{v['bound_ms']:.4f} ms ({v['bound_by']})")
+    return res
+
+
+def phase_lpanel3_kernels():
+    """The four 3D damage forms against their plain versions on the card, at
+    l_panel3's full size (600,000 particles) LPANEL3_SUBSTEPS_IN substeps
+    in: the 3D pooling (and on a perturbed state whose crack energies
+    straddle the threshold), kernel A's fresh-stress form with the psi
+    channels and kernel B's maximum-stress trip (and on a state with F
+    perturbed so that maximum stress trips), with times; then on
+    l_panel3-modified kernel B's crack-energy trip (and on a state with
+    psi_pos perturbed so that it trips), timed; and the same trip in 2D on
+    l_panel2 under modified eigenerosion (check_kernels_2d). Returns
+    {config: {name: {...}}}."""
+    import torch
+
+    out = {}
+    for damage in ("eigenerosion", "modified"):
+        t0 = time.perf_counter()
+        b = l_panel3(damage)
+        pipe, state = substep_state(b, LPANEL3_SUBSTEPS_IN)
+        dt = float(pipe._min_dtb(state))
+        h = b.grid.cell_width
+        say(22, f"{b.name}: {int(b.particles.active.sum())} particles, {pipe._cfg}, grid "
+                f"{b.grid.res}, {LPANEL3_SUBSTEPS_IN} substeps in, dt {dt:.3e}, live chunks "
+                f"{int(state.structure.num_chunks)}, set-up {time.perf_counter() - t0:.1f} s")
+        res = {}
+        if damage == "eigenerosion":
+            res["eigen_pool_fused"] = check_eigen(pipe, state, b.name, 22, timed=True)
+            res["eigen_pool_fused"]["perturbed"] = check_eigen(
+                pipe, perturbed_eigen(state, h), f"{b.name} perturbed", 22)
+            require(res["eigen_pool_fused"]["perturbed"]["trips_kernel"] > 0,
+                    "no eigenerosion trip on the perturbed l_panel3 state: the trip went "
+                    "unchecked")
+        res.update(check_kernels_3d(pipe, state, dt, b.name, 22, timed=True))
+        res["g2p_fused"]["perturbed-F"] = check_kernels_3d(
+            pipe, perturbed_f(state, seed=11, scale=2e-4), dt, f"{b.name} perturbed-F",
+            22)["g2p_fused"]
+        require(res["g2p_fused"]["perturbed-F"]["stress_trips"] > 0,
+                "no 3D maximum-stress trip on the perturbed-F state: the trip went unchecked")
+        if damage == "modified":
+            res["g2p_fused"]["perturbed-psi"] = check_kernels_3d(
+                pipe, perturbed_eigen(state, h), dt, f"{b.name} perturbed-psi",
+                22)["g2p_fused"]
+            require(res["g2p_fused"]["perturbed-psi"]["crack_trips"] > 0,
+                    "no modified-eigenerosion trip on the perturbed-psi state: the trip went "
+                    "unchecked")
+        out[b.name] = res
+        del pipe, state, b
+        torch.cuda.empty_cache()
+    # The crack-energy trip in 2D: l_panel2 under modified eigenerosion.
+    b = l_panel2_modified()
+    pipe, state = substep_state(b, FRACTURE_SUBSTEPS_IN)
+    dt = float(pipe._min_dtb(state))
+    res = check_kernels_2d(pipe, state, dt, b.name, 22, timed=True)
+    res["g2p_fused"]["perturbed-psi"] = check_kernels_2d(
+        pipe, perturbed_eigen(state, b.grid.cell_width), dt, f"{b.name} perturbed-psi",
+        22)["g2p_fused"]
+    require(res["g2p_fused"]["perturbed-psi"]["counts"]["crack_trips"] > 0,
+            "no 2D modified-eigenerosion trip on the perturbed-psi state: the trip went "
+            "unchecked")
+    out[b.name] = res
+    return out
+
+
+def l_panel2_modified(device="cuda"):
+    """scenes.build("l_panel2") under modified eigenerosion."""
+    from dataclasses import replace
+    from sparkl_tpu_torch.core.params import DamageModel
+
+    b = fracture_bundle(device=device)
+    return replace(b, name="l_panel2-modified", params=replace(
+        b.params, damage_model=DamageModel.MODIFIED_EIGENEROSION))
+
+
+def panel_stats(state):
+    """Per model id (panel) of a 3D or 2D state: [broken, failed] counts of
+    the occupied slots (phase 0: eigenerosion, crack-energy or
+    maximum-stress trips; the failed flag), and the active mass in
+    double."""
+    import torch
+    from sparkl_tpu_torch.fused import layout as L
+
+    r = L.Rows(slot_dim(state))
+    flags = state.ints[:, L.I_FLAGS, :]
+    occ = (flags & L.OCCUPIED) != 0
+    act = (flags & L.ACTIVE) != 0
+    mid = state.ints[:, L.I_MODEL, :]
+    per = [[int((occ & (mid == m) & (state.slots[:, r.phase] == 0.0)).sum()),
+            int((occ & (mid == m) & (state.slots[:, r.failed] != 0.0)).sum())] for m in (0, 1)]
+    mass = torch.where(act, state.slots[:, r.mass], 0.0).double().sum().item()
+    return per, mass
+
+
+def phase_damage_main(b, frames, timed_frames, phase):
+    """A damage main path (l_panel2, l_panel3, and both under modified
+    eigenerosion): the bundle `b` -> auto_pipeline -> pack_state -> `frames`
+    frames of run_frames_state (the last `timed_frames` timed, each frame
+    clocked alone) -> unpack_state, with
+    each kernel's launches held against the substeps the pipeline ran
+    (retried spans included): A, the merge and B once per substep, the
+    pooling once per substep under eigenerosion and never under modified
+    eigenerosion, the resort kernels by branch; per frame the substeps, the
+    broken and failed counts per panel, the candidate-list regrows and the
+    mass (held to 1e-6). Returns (the pipeline, the final state, the
+    launches, results)."""
+    import torch
+    import sparkl_tpu_torch as sk
+    from sparkl_tpu_torch.fused import kernels as K
+
+    n_active = int(b.particles.active.sum())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = sk.auto_pipeline(b)
+    state = pipe.pack_state(b.particles)
+    mass0 = b.particles.mass[b.particles.active].double().sum().item()
+    ran = [0]
+    substep = pipe._substep
+
+    def counted(st, dt):
+        ran[0] += 1
+        return substep(st, dt)
+
+    pipe._substep = counted
+    K.reset_launch_counts()
+    substeps = resorts = timed = 0
+    seconds = 0.0
+    out_frames = []
+    for i in range(frames):
+        regrows = pipe.eigen_regrows
+        clock = i >= frames - timed_frames
+        if clock:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, n = pipe.run_frames_state(state, 1)
+        if clock:
+            torch.cuda.synchronize()
+            seconds += time.perf_counter() - t0
+            timed += n
+        substeps += n
+        resorts += pipe.last_resorts
+        per, mass = panel_stats(state)
+        out_frames.append(dict(frame=i, substeps=n, broken_failed_per_panel=per, mass=mass,
+                               eigen_regrow=pipe.eigen_regrows > regrows))
+        require(abs(mass - mass0) <= 1e-6 * mass0, f"{b.name} frame {i}: mass {mass} "
+                                                   f"against {mass0}")
+    pipe._substep = substep
+    launches = dict(K.LAUNCHES)
+    branches = dict(pipe.resort_branches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    p = pipe.unpack_state(state)
+    act = p.active
+    pups = n_active * timed / seconds if timed else None
+    for fr in out_frames:
+        say(phase, f"{b.name} frame {fr['frame']}: " + ", ".join(
+            f"{k} {v}" for k, v in fr.items() if k != "frame"))
+    rate = (f"last {timed_frames} frames {timed} substeps in {seconds:.3f} s = {pups:.4g} "
+            f"particle-updates/s; " if timed else "")
+    say(phase, f"{b.name} path, {frames} frames, {n_active} particles: {substeps} substeps "
+               f"({substeps / frames:.1f} per frame), {ran[0]} run (with aborted spans), "
+               f"{resorts} resorts {branches}; {rate}eigen candidate list {pipe._eigen_mcb} per "
+               f"block, regrown {pipe.eigen_regrows} times; scatter merge pinned "
+               f"{pipe._merge_force_scatter}; {pipe._cfg}; peak memory {peak_gib:.2f} GiB; "
+               f"launches {launches}")
+    require(bool(torch.isfinite(p.position[act]).all()), f"{b.name} path: non-finite positions")
+    require(sum(branches.values()) == resorts, f"resorts {resorts}, branches {branches}")
+    require(ran[0] >= substeps and (ran[0] == substeps or pipe.eigen_regrows > 0),
+            f"the pipeline ran {ran[0]} substeps for {substeps} kept, with no regrow")
+    merge = "merge_scatter" if pipe._merge_force_scatter else "merge_blocks"
+    expect = dict.fromkeys(K.LAUNCHES, 0)
+    expect.update(p2g_fused=ran[0], g2p_fused=ran[0],
+                  eigen_pool_fused=ran[0] if pipe._eigen else 0,
+                  src_rows_from_order=resorts - branches["relabel"],
+                  permute_slots=branches["mixed"])
+    expect[merge] = ran[0]
+    require(launches == expect, f"{b.name} path launch counts {launches}, expected {expect}")
+    per, _ = panel_stats(state)
+    return pipe, state, launches, dict(
+        particles=n_active, substeps=substeps, substeps_run=ran[0], resorts=resorts,
+        branches=branches, timed_substeps=timed, seconds=seconds, pups=pups, peak_gib=peak_gib,
+        eigen_regrows=pipe.eigen_regrows, broken_failed_per_panel=per, frames=out_frames,
+        config=str(pipe._cfg))
+
+
+def trip_ties(pipe, p_in, p_out):
+    """Particles whose trip decision in the substep from p_in to p_out lies
+    within TIE of its threshold, on the pipeline's device: the eigenerosion
+    energy pooled from p_in against the crack threshold (under
+    eigenerosion), and the largest principal stress of p_out's F (p_in's
+    phase) against the maximum-stress envelope. 3D or 2D."""
+    import torch
+    from sparkl_tpu_torch.fused import kernels as K
+    from sparkl_tpu_torch.fused import layout as L
+    from sparkl_tpu_torch.models import registry as reg
+
+    state = pipe.pack_state(p_in)
+    r = L.Rows(pipe.grid.dim)
+    tie = torch.zeros_like(p_in.active)
+    if pipe._eigen:
+        e, elig = pipe._eigen_rows(state)
+        cand, _ = pipe._eigen_candidates(state.structure)
+        energy, _ = pipe._eigen_update(
+            state, K.eigen_pool_fused(pipe.grid, pipe._cfg, e, cand), elig)
+        state.slots[:, r.par1] = energy
+        energy = pipe.unpack_state(state).parameter1
+        cthr = p_in.crack_threshold
+        tie = tie | ((p_in.crack_propagation_factor != 0) & ((energy - cthr).abs()
+                                                              <= TIE * cthr.abs()))
+    st = reg.kirchhoff_stress(pipe.models, p_in.model_id, p_in.phase, p_in.elastic_hardening,
+                              p_out.deformation_gradient, p_out.velocity_gradient, p_in.mass,
+                              p_in.volume0)
+    emax = torch.linalg.eigvalsh(0.5 * (st + st.transpose(1, 2)).double())[:, -1]
+    mp = pipe.models.fparams[p_in.model_id.long(), 0].double()
+    failing = pipe.models.ftype[p_in.model_id.long()] != 0
+    return tie | (failing & ((emax - mp).abs() <= TIE * mp.abs()))
+
+
+def phase_lpanel3_agreement():
+    """l_panel3 reduced (the panels at LPANEL3_SMALL of their size,
+    LPANEL3_SMALL_LAYERS layers): LPANEL3_AGREE_SUBSTEPS single substeps on
+    the card against the port's CPU path taking the card's dt at every
+    substep, with the JAX package's fused-vs-dense tolerances on x, v and
+    F; the phase equal but on particles whose trip decision in some substep
+    lay within TIE of its threshold (trip_ties, on the CPU run); flags
+    equal."""
+    from dataclasses import replace
+    import torch
+    import sparkl_tpu_torch as sk
+
+    runs, dts = {}, []
+    for dev in ("cuda", "cpu"):
+        b = l_panel3(scale=LPANEL3_SMALL, layers=LPANEL3_SMALL_LAYERS, device=dev)
+        pipe = sk.auto_pipeline(replace(b, params=replace(b.params, stop_after_one_substep=True)),
+                                device=dev)
+        min_dtb = pipe._min_dtb
+        if dev == "cuda":
+            pipe._min_dtb = lambda st: dts.append(min_dtb(st)) or dts[-1]
+        else:
+            replay = iter([float(x) for x in dts])
+            pipe._min_dtb = lambda st: torch.tensor(next(replay), dtype=torch.float32)
+        state = pipe.pack_state(b.particles)
+        ps = [b.particles.to("cpu")]
+        for _ in range(LPANEL3_AGREE_SUBSTEPS):
+            state, _ = pipe.run_frames_state(state, 1)
+            ps.append(pipe.unpack_state(state).to("cpu"))
+        runs[dev] = (pipe, ps)
+    cpipe, pc = runs["cpu"]
+    pg = runs["cuda"][1]
+    del cpipe._min_dtb  # the replay is spent: trip_ties packs afresh
+    ties = torch.zeros_like(pc[0].active)
+    worst = dict(dx=0.0, dv=0.0, df=0.0)
+    mismatch = net = 0
+    for k in range(1, LPANEL3_AGREE_SUBSTEPS + 1):
+        a, c = pg[k], pc[k]
+        act = c.active
+        worst["dx"] = max(worst["dx"], (a.position[act] - c.position[act]).abs().max().item())
+        worst["dv"] = max(worst["dv"], (a.velocity[act] - c.velocity[act]).abs().max().item())
+        worst["df"] = max(worst["df"], (a.deformation_gradient[act]
+                                        - c.deformation_gradient[act]).abs().max().item())
+        ties = ties | trip_ties(cpipe, pc[k - 1], c)
+        differ = act & (a.phase != c.phase)
+        mismatch = int(differ.sum())
+        net = int((differ & ~ties).sum())
+        require(torch.equal(a.active, c.active) and torch.equal(a.failed[act], c.failed[act]),
+                f"reduced l_panel3 substep {k}: active or failed flags differ")
+    act = pc[-1].active
+    broken = int((act & (pc[-1].phase == 0)).sum())
+    say(24, f"reduced l_panel3 ({int(act.sum())} particles), {LPANEL3_AGREE_SUBSTEPS} substeps "
+            f"at the card's dts {[f'{float(x):.3e}' for x in dts]}, card against CPU: max|dx| "
+            f"{worst['dx']:.3e} ({FRACTURE_DX:g}), max|dv| {worst['dv']:.3e} ({FRACTURE_DV:g}; "
+            f"max|v| {pc[-1].velocity[act].abs().max().item():.4f}), max|dF| {worst['df']:.3e} "
+            f"({FRACTURE_DF:g}); phase differing {mismatch}, net of {int(ties.sum())} tie "
+            f"particles {net}; broken {broken}")
+    require(net == 0, "reduced l_panel3: card and CPU phases differ off the ties")
+    require(worst["dx"] <= FRACTURE_DX and worst["dv"] <= FRACTURE_DV
+            and worst["df"] <= FRACTURE_DF, "reduced l_panel3: card and CPU disagree")
+    return dict(worst, phase_differ=mismatch, phase_differ_net_of_ties=net,
+                tie_particles=int(ties.sum()), dts=[float(x) for x in dts], broken=broken)
+
 
 
 def phase_fracture_regrow():
@@ -2741,10 +3272,13 @@ def main():
     ref = fracture_res["kernels"]["reference"]
     kres["eigen_pool_fused"] = ref["eigen_pool_fused"]
 
-    # 13. The l_panel2 main path; one profiled frame.
-    frpipe, frstate, fracture_launches, fracture_res["main"] = phase_fracture_main()
-    _, fracture_res["profile"] = profile_frame(frpipe, frstate, "fracture_profile.txt", 13,
-                                               "fracture")
+    # 13. The l_panel2 main path; one profiled frame; on to the first
+    # resort, and the candidates and the pooling after it.
+    frpipe, frstate, fracture_launches, fracture_res["main"] = phase_damage_main(
+        fracture_bundle(), FRACTURE_FRAMES, FRACTURE_TIMED, 13)
+    frstate, fracture_res["profile"] = profile_frame(frpipe, frstate, "fracture_profile.txt", 13,
+                                                     "fracture")
+    fracture_res["first_resort"] = phase_fracture_first_resort(frpipe, frstate)
     missing = [k for k in ("eigen_pool_fused", "p2g_fused", "g2p_fused") if
                fracture_launches[k] == 0]
     require(not missing, f"kernels the fracture path never launched: {missing}")
@@ -2800,6 +3334,34 @@ def main():
     fluid2_res["agreement"] = phase_plastic_agreement("fluids2", 21)
     fluid2_res["bisect"] = phase_stage_bisect("fluids2", 21)
 
+    # 22. The 3D damage forms against their plain versions at l_panel3's
+    # full size; the crack-energy trip in 3D and in 2D.
+    damage_res = {"kernels": phase_lpanel3_kernels()}
+
+    # 23. The l_panel3 main path; one profiled frame.
+    l3pipe, l3state, lp3_launches, damage_res["l_panel3"] = phase_damage_main(
+        l_panel3(), LPANEL3_FRAMES, LPANEL3_TIMED, 23)
+    _, damage_res["profile"] = profile_frame(l3pipe, l3state, "lpanel3_profile.txt", 23,
+                                             "l_panel3")
+    del l3pipe, l3state
+    forms3 = ("p2g_fused", "g2p_fused", "eigen_pool_fused")
+    missing = [k for k in forms3 if lp3_launches[k] == 0]
+    require(not missing, f"kernels the l_panel3 path never launched: {missing}")
+
+    # 24. Reduced l_panel3, card against CPU.
+    damage_res["agreement"] = phase_lpanel3_agreement()
+
+    # 25. l_panel3 and l_panel2 under modified eigenerosion: kernel B's
+    # crack-energy trip on a main path, no pooling.
+    mod_launches = {}
+    for name, b, frames in (("l_panel3-modified", l_panel3("modified"), LPANEL3_MODIFIED_FRAMES),
+                            ("l_panel2-modified", l_panel2_modified(), 1)):
+        mpipe, _, mod_launches[name], damage_res[name] = phase_damage_main(b, frames, 1, 25)
+        require(mod_launches[name]["g2p_fused"] > 0 and
+                mod_launches[name]["eigen_pool_fused"] == 0,
+                f"{name}: kernel B not launched, or the pooling launched")
+        del mpipe, b
+
     by_path = dict(fused=launches, sparse=sparse_launches, fluid=fluid_launches,
                    fracture=fracture_launches, elasticity2=plastic_launches["elasticity2"],
                    basic2=plastic_launches["basic2"], fluids2=fluid2_launches)
@@ -2808,18 +3370,28 @@ def main():
     missing = [k for k in REPLACES if launches[k] == 0]
     require(not missing, f"kernels their main paths (or checks) never launched: {missing}")
 
-    # 22. Results. The 2D fluid forms of four kernels carry their own
-    # numbers (the fluids2 path's launches, times on the 2D column).
+    # 26. Results. The 2D fluid forms of four kernels carry their own
+    # numbers (the fluids2 path's launches, times on the 2D column), and so
+    # do the damage forms (their paths' launches, times at their size).
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     block = fluid2_res["kernels"]["fluids2 block"]
+    dk = damage_res["kernels"]
+    forms_of = {name: {} for name in REPLACES}
+    for name in forms:
+        forms_of[name]["fluids2"] = dict(launches=fluid2_launches[name],
+                                         **{k: block[name].get(k) for k in keys})
+    for name in forms3:
+        forms_of[name]["l_panel3"] = dict(launches=lp3_launches[name],
+                                          **{k: dk["l_panel3"][name].get(k) for k in keys})
+    for label in ("l_panel3-modified", "l_panel2-modified"):
+        forms_of["g2p_fused"][label] = dict(launches=mod_launches[label]["g2p_fused"],
+                                            **{k: dk[label]["g2p_fused"].get(k) for k in keys})
     kernels = [
         dict(name=name, route="cuda",
              source=WINDOW_SOURCE if name in SPARSE_KERNELS else FUSED_SOURCE,
              replaces=REPLACES[name], launches=launches[name],
              path=PATH_OF[name] or NO_PATH, **{k: kres[name][k] for k in keys},
-             **({"fluids2": dict(launches=fluid2_launches[name],
-                                 **{k: block[name].get(k) for k in keys})}
-                if name in forms else {}))
+             **forms_of[name])
         for name in REPLACES
     ]
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
@@ -2828,7 +3400,7 @@ def main():
                        resort_branches=branches, resort_ms=resort_ms, peak_gib=peak_gib,
                        build_s=build_s, kernel_checks=kres, sparse=sparse_res,
                        fluid=fluid_res, fracture=fracture_res, plastic2d=plastic_res,
-                       fluids2=fluid2_res), f,
+                       fluids2=fluid2_res, damage=damage_res), f,
                   indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -17,8 +17,10 @@ recomputation (alone or mixed with those solids), on the fused pipeline;
 l_panel2's, 2D corotated fracture with eigenerosion and maximum-stress
 failure, a cuboid ground, STICK handling and a Dirichlet velocity hook;
 elasticity2's and basic2's, 2D Rankine, Snow and Drucker-Prager plasticity
-on cuboids and a 2D heightfield; and fluids2's, the 2D Monaghan EOS fluid
-with its volume pass between cuboid walls; all on the fused pipeline.
+on cuboids and a 2D heightfield; fluids2's, the 2D Monaghan EOS fluid
+with its volume pass between cuboid walls; and fracture in 3D (l_panel2's
+two mechanisms in a slab), with eigenerosion or modified eigenerosion and
+maximum-stress failure; all on the fused pipeline.
 Every entry point that takes a device defaults to
 "cuda" and raises without one; pass device="cpu" for the plain PyTorch
 versions.

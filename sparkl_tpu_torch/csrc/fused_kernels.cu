@@ -31,9 +31,11 @@
 // against the Python side by the CPU tests), in 3D NF = 56 and C = 128 with
 // window images and windows in z-major region-cell order q = z*64 + x*8 +
 // y, in 2D NF = 40 and C = 64 with row-major cells q = x*8 + y. Kernels A
-// and B and the two mass kernels are templates on the dimension and the
-// chunk size, instantiated for (3, 128) and (2, 64); the launchers pick the
-// instance. Each launcher is
+// and B, the two mass kernels and the pooling are templates on the
+// dimension and the chunk size, instantiated for (3, 128) and (2, 64); A
+// also on its psi channels and B on its damage form (the stress cache off:
+// damage and failure scenes), so that the scenes without damage keep their
+// code. The launchers pick the instance. Each launcher is
 // a plain C function that enqueues on the given stream and returns
 // cudaGetLastError() (cudaErrorInvalidValue for a shape it has no instance
 // for); the caller allocates every output.
@@ -162,6 +164,7 @@ constexpr int OPT_PSI = 1;           // kernel A: the psi channels
 constexpr int OPT_STRESS_CACHE = 2;  // A reads the stress rows, B writes them
 constexpr int OPT_CLAMP = 1;         // kernel B: the GPU velocity clamp
 constexpr int OPT_SVD_REUSE = 4;     // kernel B: one SVD for DP, energy and stress
+constexpr int OPT_MODIFIED = 8;      // kernel B: the modified-eigenerosion trip
 
 // 8^d window cells.
 template <int D>
@@ -655,7 +658,7 @@ __global__ void __launch_bounds__(128) permute_chunks_kernel(
 // Kernel B: window gather, advection, F update, SVD, the plastic return map
 // of the slot's model (Drucker-Prager, Rankine or Snow; the JAX kernel
 // runs each present map on every lane and keeps the lane's own), guards,
-// positive energy, maximum-stress failure (2D), out-of-grid mark, next dt
+// positive energy, maximum-stress failure, out-of-grid mark, next dt
 // bound, drift, and with the stress-cache option the cached stress of the
 // final F; written IN PLACE.
 //
@@ -669,9 +672,17 @@ __global__ void __launch_bounds__(128) permute_chunks_kernel(
 // whose model fails by maximum stress, a fresh corotated stress whose
 // envelope trip sets phase = 0 (sparkl_tpu/fused/kernels.py:1435-1446);
 // the stress rows are then zero. psi_pos = max(psi_pos, energy), par1 =
-// psi_pos·m, par2 = m. A window's psi channel (with eigenerosion) feeds only
-// modified eigenerosion's trip, which the port does not carry; the kernel
-// reads the velocity channels.
+// psi_pos·m, par2 = m. With the modified-eigenerosion option the window's
+// psi channel (the grid's psi momentum over psi mass) is gathered like a
+// velocity component, and a crack slot whose cpf·h·psi exceeds its threshold
+// breaks (phase 0) before the return map (sparkl_tpu/fused/kernels.py:
+// 1306-1310); under plain eigenerosion the pooling trips instead and the
+// psi channel is not read.
+//
+// The DAMAGE instance (the stress cache off: damage and failure scenes)
+// compiles the psi gather and both trips; the other instance leaves them
+// out, so that the scenes without damage or failure keep their code and
+// registers.
 //
 // EOS fluid slots (branch per slot on the model's type) update only J
 // = F00 by tr(grad v), take no SVD and no return map, skip the |F00|
@@ -690,7 +701,7 @@ __global__ void __launch_bounds__(128) permute_chunks_kernel(
 // SVDs, logs and exps) at one CTA per chunk; the slot read/write is 2 x NF
 // rows, coalesced.
 // ---------------------------------------------------------------------------
-template <int DIM, int C>
+template <int DIM, int C, bool DAMAGE>
 __global__ void __launch_bounds__(C) g2p_fused_kernel(
     float* __restrict__ slots, const int* __restrict__ ints,
     const float* __restrict__ windows, const int* __restrict__ nchunks,
@@ -698,15 +709,18 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
     float dt, GridArgs g, int n_win, int opts) {
   using R = Rows<DIM>;
   constexpr int RC = region_cells<DIM>();
+  constexpr int NW = DIM + (DAMAGE ? 1 : 0);  // window channels read
   const int chunk = blockIdx.x;
   if (chunk >= *nchunks) return;
   const int t = threadIdx.x;
   const bool stress_cache = (opts & OPT_STRESS_CACHE) != 0;
   const bool svd_reuse = (opts & OPT_SVD_REUSE) != 0;
+  // The psi channel is read only for the modified trip.
+  const bool modified = DAMAGE && (opts & OPT_MODIFIED) != 0 && n_win > DIM;
 
-  __shared__ float win[DIM * RC];
+  __shared__ float win[NW * RC];
   const float* W = windows + (size_t)chunk * n_win * RC;
-  for (int e = t; e < DIM * RC; e += C) win[e] = W[e];
+  for (int e = t; e < (modified ? DIM + 1 : DIM) * RC; e += C) win[e] = W[e];
   __syncthreads();
 
   float* S = slots + (size_t)chunk * R::NF * C;
@@ -733,6 +747,7 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
 
   // --- gather ---
   float vel[DIM], gm[DIM][DIM];
+  float psi_mom = 0.0f;  // the psi channel, like a velocity component
   for (int i = 0; i < DIM; ++i) {
     vel[i] = 0.0f;
     for (int j = 0; j < DIM; ++j) gm[i][j] = 0.0f;
@@ -750,6 +765,7 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
       for (int c = 0; c < 3; ++c) {
         float tv[3] = {0.0f, 0.0f, 0.0f}, tx[3] = {0.0f, 0.0f, 0.0f},
               ty[3] = {0.0f, 0.0f, 0.0f};
+        [[maybe_unused]] float tp = 0.0f;
         const int zq = (rel[2] + c) * 64;
         for (int a = 0; a < 3; ++a) {
           for (int b = 0; b < 3; ++b) {
@@ -763,6 +779,8 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
               tx[i] += v * wdx_y;
               ty[i] += v * wx_dy;
             }
+            if constexpr (DAMAGE)
+              if (modified) tp += win[3 * RC + q] * wxy;
           }
         }
         const float wz = w[2][c], wdz = w[2][c] * dpt[2][c];
@@ -772,6 +790,7 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
           sgy[i] += ty[i] * wz;
           sgz[i] += tv[i] * wdz;
         }
+        if constexpr (DAMAGE) psi_mom += tp * wz;
       }
       for (int i = 0; i < 3; ++i) {
         vel[i] = sv[i];
@@ -794,6 +813,13 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
           sv[i] += tv * wx;
           sgx[i] += tv * wdx;
           sgy[i] += ty * wx;
+        }
+        if constexpr (DAMAGE) {
+          if (modified) {
+            float tp = 0.0f;
+            for (int b = 0; b < 3; ++b) tp += win[2 * RC + xq + b] * w[1][b];
+            psi_mom += tp * wx;
+          }
         }
       }
       for (int i = 0; i < 2; ++i) {
@@ -823,6 +849,12 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
   const float cpf = SROW(R::CPF), cthr = SROW(R::CTHR), radius0 = SROW(R::RADIUS0);
   const float mcv = SROW(R::MC), gval = SROW(R::G), dbg = SROW(R::DEBUG);
   const float cumd0 = SROW(R::CUMD);
+
+  // Modified eigenerosion: a crack slot breaks where cpf·h·psi exceeds its
+  // threshold, before the return map reads the phase.
+  if constexpr (DAMAGE) {
+    if (modified && cpf != 0.0f && phase > 0.0f && cpf * g.h * psi_mom > cthr) phase = 0.0f;
+  }
 
   // Advection (kinematic override + optional GPU CFL clamp).
   for (int i = 0; i < DIM; ++i) vel[i] = kinematic ? kin[i] : vel[i];
@@ -910,13 +942,14 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
   const float par1 = psi_pos * mass;
   const float par2 = mass;
 
-  // Maximum-stress failure on the fresh stress of the final F (2D; 3D
-  // failure models are not carried, fused.kernels.meta_unsupported).
-  if constexpr (DIM == 2) {
+  // Maximum-stress failure on the fresh stress of the final F.
+  if constexpr (DAMAGE) {
     if (ti[2] == MAXIMUM_STRESS) {
-      float st[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
-      if (corot) sparkl::corotated_stress<2>(lam, mu, split, phase, eh, fnew, u, s, v, st);
-      if (sparkl::maximum_stress_failed2(tf[TAB_F], tf[TAB_F + 1], st)) phase = 0.0f;
+      float st[DIM][DIM];
+      for (int i = 0; i < DIM; ++i)
+        for (int j = 0; j < DIM; ++j) st[i][j] = 0.0f;
+      if (corot) sparkl::corotated_stress<DIM>(lam, mu, split, phase, eh, fnew, u, s, v, st);
+      if (sparkl::maximum_stress_failed(tf[TAB_F], tf[TAB_F + 1], st)) phase = 0.0f;
     }
   }
 
@@ -1102,7 +1135,10 @@ int sparkl_p2g_fused(const float* slots, const int* ints, const int* nchunks,
   const GridArgs g = grid_args(ox, oy, oz, h, invd, d_coeff, rx, ry, rz);
   const bool psi = (opts & OPT_PSI) != 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dim == 3 && !psi)  // 3D damage is not carried: no 3D psi instance
+  if (dim == 3 && psi)
+    p2g_fused_kernel<3, 128, true><<<max_chunks, 128, 0, st>>>(
+        slots, ints, nchunks, tab_f, tab_i, m_count, out, dt, g, opts);
+  else if (dim == 3)
     p2g_fused_kernel<3, 128, false><<<max_chunks, 128, 0, st>>>(
         slots, ints, nchunks, tab_f, tab_i, m_count, out, dt, g, opts);
   else if (dim == 2 && psi)
@@ -1194,11 +1230,20 @@ int sparkl_g2p_fused(float* slots, const int* ints, const float* windows,
                      float oz, float h, float invd, float d_coeff, int rx, int ry, int rz,
                      int dim, int n_win, int opts, void* stream) {
   const GridArgs g = grid_args(ox, oy, oz, h, invd, d_coeff, rx, ry, rz);
-  if (dim == 3)
-    g2p_fused_kernel<3, 128><<<max_chunks, 128, 0, (cudaStream_t)stream>>>(
+  cudaStream_t st = (cudaStream_t)stream;
+  // The damage form: the stress cache off (damage and failure scenes).
+  const bool damage = (opts & OPT_STRESS_CACHE) == 0;
+  if (dim == 3 && damage)
+    g2p_fused_kernel<3, 128, true><<<max_chunks, 128, 0, st>>>(
+        slots, ints, windows, nchunks, tab_f, tab_i, m_count, dt, g, n_win, opts);
+  else if (dim == 3)
+    g2p_fused_kernel<3, 128, false><<<max_chunks, 128, 0, st>>>(
+        slots, ints, windows, nchunks, tab_f, tab_i, m_count, dt, g, n_win, opts);
+  else if (dim == 2 && damage)
+    g2p_fused_kernel<2, 64, true><<<max_chunks, 64, 0, st>>>(
         slots, ints, windows, nchunks, tab_f, tab_i, m_count, dt, g, n_win, opts);
   else if (dim == 2)
-    g2p_fused_kernel<2, 64><<<max_chunks, 64, 0, (cudaStream_t)stream>>>(
+    g2p_fused_kernel<2, 64, false><<<max_chunks, 64, 0, st>>>(
         slots, ints, windows, nchunks, tab_f, tab_i, m_count, dt, g, n_win, opts);
   else
     return (int)cudaErrorInvalidValue;
@@ -1206,9 +1251,14 @@ int sparkl_g2p_fused(float* slots, const int* ints, const float* windows,
 }
 
 int sparkl_eigen_pool(const float* e, const int* cand, float* out, int max_chunks, int kn,
-                      float r2, void* stream) {
-  eigen_pool_kernel<2, 64><<<max_chunks, 64, 0, (cudaStream_t)stream>>>(e, cand, out,
-                                                                        max_chunks, kn, r2);
+                      float r2, int dim, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dim == 3)
+    eigen_pool_kernel<3, 128><<<max_chunks, 128, 0, st>>>(e, cand, out, max_chunks, kn, r2);
+  else if (dim == 2)
+    eigen_pool_kernel<2, 64><<<max_chunks, 64, 0, st>>>(e, cand, out, max_chunks, kn, r2);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

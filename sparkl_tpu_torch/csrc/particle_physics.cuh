@@ -17,8 +17,9 @@
 //                     corotated_kirchhoff_stress_from_svd_c,
 //                     corotated_pos_energy_from_s_c (2D and 3D),
 //                     sound_speed_timestep_bound_c
-//   maximum_stress_failed2  sparkl_tpu/models/failure.py
-//                     maximum_stress_failed_c in 2D (sym_eigvals2x2_c)
+//   maximum_stress_failed  sparkl_tpu/models/failure.py
+//                     maximum_stress_failed_c (sym_eigvals2x2_c in 2D,
+//                     sym_eigvals3x3_c's cardano form in 3D)
 //   eos_* ........... sparkl_tpu/models/constitutive.py eos_pressure,
 //                     eos_kirchhoff_stress_c, eos_timestep_bound_c (with
 //                     math/cmat.py pow_pos, strain_rate_c, deviatoric_c)
@@ -31,8 +32,9 @@
 // (1/d in Drucker-Prager and the EOS trace, the EOS bound's 1/0.1) is the
 // product with the f32 reciprocal, as jitted XLA rewrites the JAX
 // package's (linalg.div_const in the plain versions); the Cardano SVD keeps
-// its true divisions by 3 and 6 (svd.py says why). The 2D functions are
-// __host__ __device__; the rest serve the kernels only.
+// its true divisions by 3 and 6 (svd.py says why). The 2D functions, the
+// 3D eigenvalues and the failure envelope are __host__ __device__; the
+// rest serve the kernels only.
 #pragma once
 
 #include <math.h>
@@ -57,13 +59,13 @@ __device__ __forceinline__ void cross3(const float x[3], const float y[3],
   o[2] = x[0] * y[1] - x[1] * y[0];
 }
 
-__device__ __forceinline__ float clampf(float x, float lo, float hi) {
+__host__ __device__ inline float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
 }
 
 // cos(acos(r)/3): polynomial seed in sqrt(1 + r) and two Newton steps on
 // 4x^3 - 3x = r (svd.py _cos_acos3).
-__device__ __forceinline__ float cos_acos3(float r) {
+__host__ __device__ inline float cos_acos3(float r) {
   float u = sqrtf(fmaxf(r + 1.0f, 0.0f));
   float x = 0.500019159f +
             u * (0.407814278f +
@@ -78,12 +80,11 @@ __device__ __forceinline__ float cos_acos3(float r) {
   return x;
 }
 
-// Descending eigenvalues of a scale-normalized PSD symmetric 3x3:
-// trigonometric Cardano, then l2 from det and l1 from the second invariant.
-__device__ __forceinline__ void cardano_refined_vals(float a00, float a01,
-                                                     float a02, float a11,
-                                                     float a12, float a22,
-                                                     float l[3]) {
+// Raw trigonometric-Cardano eigenvalues of a scale-normalized symmetric
+// 3x3, descending, valid for any symmetric matrix (svd.py
+// _cardano_trig_vals).
+__host__ __device__ inline void cardano_trig_vals(float a00, float a01, float a02, float a11,
+                                                  float a12, float a22, float l[3]) {
   float q = (a00 + a11 + a22) / 3.0f;
   float b00 = a00 - q, b11 = a11 - q, b22 = a22 - q;
   float p2 = b00 * b00 + b11 * b11 + b22 * b22 +
@@ -97,9 +98,21 @@ __device__ __forceinline__ void cardano_refined_vals(float a00, float a01,
   float r = clampf(0.5f * detb, -1.0f, 1.0f);
   float cphi = cos_acos3(r);
   float sphi = sqrtf(fmaxf(1.0f - cphi * cphi, 0.0f));
-  float l0 = q + 2.0f * p * cphi;
-  float l2 = q + 2.0f * p * (-0.5f * cphi - 0.8660254037844386f * sphi);
-  float l1 = 3.0f * q - l0 - l2;
+  l[0] = q + 2.0f * p * cphi;
+  l[2] = q + 2.0f * p * (-0.5f * cphi - 0.8660254037844386f * sphi);
+  l[1] = 3.0f * q - l[0] - l[2];
+}
+
+// Descending eigenvalues of a scale-normalized PSD symmetric 3x3:
+// trigonometric Cardano, then l2 from det and l1 from the second invariant.
+__device__ __forceinline__ void cardano_refined_vals(float a00, float a01,
+                                                     float a02, float a11,
+                                                     float a12, float a22,
+                                                     float l[3]) {
+  float lt[3];
+  cardano_trig_vals(a00, a01, a02, a11, a12, a22, lt);
+  const float l0 = lt[0];
+  float l1 = lt[1], l2 = lt[2];
 
   float i2 = a00 * a11 - a01 * a01 + a00 * a22 - a02 * a02 + a11 * a22 -
              a12 * a12;
@@ -514,11 +527,22 @@ __host__ __device__ inline float corotated_pos_energy(float lam, float mu, float
   return j < 1.0f ? pos_dev : pos_dev + spherical;
 }
 
-// Maximum-stress failure in 2D: the eigenvalues of sym(stress) in closed
-// form; failed where the larger exceeds max_principal or half their spread
-// exceeds max_shear.
-__host__ __device__ inline bool maximum_stress_failed2(float max_principal, float max_shear,
-                                                       const float st[2][2]) {
+// Eigenvalues of a symmetric 3x3 (sym_eigvals3x3_c, the cardano backend):
+// the trigonometric values of m scaled by its largest diagonal magnitude.
+__host__ __device__ inline void sym_eigvals3(const float m[3][3], float l[3]) {
+  const float scale =
+      fmaxf(fmaxf(fmaxf(fabsf(m[0][0]), fabsf(m[1][1])), fabsf(m[2][2])), 1e-30f);
+  const float inv = 1.0f / scale;
+  cardano_trig_vals(m[0][0] * inv, m[0][1] * inv, m[0][2] * inv, m[1][1] * inv, m[1][2] * inv,
+                    m[2][2] * inv, l);
+  for (int k = 0; k < 3; ++k) l[k] = l[k] * scale;
+}
+
+// Maximum-stress failure: the eigenvalues of sym(stress) (closed form in
+// 2D, sym_eigvals3 in 3D); failed where the largest exceeds max_principal or
+// half their spread exceeds max_shear.
+__host__ __device__ inline bool maximum_stress_failed(float max_principal, float max_shear,
+                                                      const float st[2][2]) {
   const float a = 0.5f * (st[0][0] + st[0][0]);
   const float b = 0.5f * (st[0][1] + st[1][0]);
   const float c = 0.5f * (st[1][1] + st[1][1]);
@@ -526,6 +550,17 @@ __host__ __device__ inline bool maximum_stress_failed2(float max_principal, floa
   const float r = sqrtf(fmaxf(0.25f * ((a - c) * (a - c)) + b * b, 0.0f));
   const float e0 = mean - r, e1 = mean + r;
   const float emin = fminf(e0, e1), emax = fmaxf(e0, e1);
+  return (emax > max_principal) || ((emax - emin) / 2.0f > max_shear);
+}
+
+__host__ __device__ inline bool maximum_stress_failed(float max_principal, float max_shear,
+                                                      const float st[3][3]) {
+  float sym[3][3], l[3];
+  for (int i = 0; i < 3; ++i)
+    for (int j = 0; j < 3; ++j) sym[i][j] = 0.5f * (st[i][j] + st[j][i]);
+  sym_eigvals3(sym, l);
+  const float emin = fminf(fminf(l[0], l[1]), l[2]);
+  const float emax = fmaxf(fmaxf(l[0], l[1]), l[2]);
   return (emax > max_principal) || ((emax - emin) / 2.0f > max_shear);
 }
 

@@ -69,8 +69,8 @@ _SIGNATURES = {
     # gathered, gathered_i, target, out_f, out_i, max_chunks, k_src, nf, ni, c,
     # stream
     "sparkl_permute_chunks": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
-    # e, cand, out, max_chunks, kn, r2, stream
-    "sparkl_eigen_pool": [_VP, _VP, _VP, _I, _I, _F, _VP],
+    # e, cand, out, max_chunks, kn, r2, dim, stream
+    "sparkl_eigen_pool": [_VP, _VP, _VP, _I, _I, _F, _I, _VP],
     # slot_data, out, max_chunks, with_psi, ox, oy, oz, h, invd, stream
     "sparkl_p2g_windows": [_VP, _VP, _I, _I, _F, _F, _F, _F, _F, _VP],
     # slot_data, windows, out, max_chunks, with_psi, ox, oy, oz, h, invd, stream

@@ -5,13 +5,13 @@ source-row and permute kernels, each a hand-written CUDA kernel
 (csrc/fused_kernels.cu) with its plain PyTorch version beside it.
 
 Port of sparkl_tpu/fused/kernels.py for the configurations the port
-carries: in 3D, corotated elasticity with optional Drucker-Prager and the
-Monaghan EOS fluid (alone or mixed with solids), the stress cache on, no
-damage, no failure models; in 2D (chunks of 64 slots, row-major window
-cells), corotated elasticity with optional Drucker-Prager, Rankine or Snow
-plasticity, with the stress cache on (no damage, no failure) or off (kernel
-A forms the stress from F: the eigenerosion psi channels, maximum-stress
-failure), and the Monaghan EOS fluid with its volume pass. `permute_chunks`,
+carries: corotated elasticity with optional Drucker-Prager plasticity (in
+2D, chunks of 64 slots with row-major window cells, also Rankine or Snow)
+and the Monaghan EOS fluid with its volume pass, in 3D and 2D; with the
+stress cache on (no damage, no failure) or off (kernel A forms the stress
+from F: eigenerosion or modified eigenerosion with the psi channels,
+maximum-stress failure; kernel B trips maximum stress, and under modified
+eigenerosion the crack energy of the gathered psi). `permute_chunks`,
 the JAX package's older resort lane router, comes with its kernel too,
 though no path calls it.
 A wrapper runs the plain version when its tensors lie on the CPU and
@@ -88,12 +88,14 @@ def kernel_meta(models, params):
 
 def meta_unsupported(meta, dim):
     """Why the fused kernels cannot run this scene in `dim` dimensions: a
-    list of reasons, empty if they can. 3D runs with the stress cache on
-    (no damage, no failure model) and Drucker-Prager as the only plastic
-    model; 2D runs solids with the stress cache on or off, with
-    Drucker-Prager, Rankine and Snow; both run Monaghan EOS fluids."""
+    list of reasons, empty if they can. Both dimensions run corotated
+    solids with the stress cache on or off (eigenerosion, modified
+    eigenerosion, maximum-stress failure) and Monaghan EOS fluids; 3D takes
+    Drucker-Prager as the only plastic model, 2D also Rankine and Snow.
+    CD-MPM is refused."""
     why = []
-    if meta["damage_model"] not in (DamageModel.NONE, DamageModel.EIGENEROSION):
+    if meta["damage_model"] not in (DamageModel.NONE, DamageModel.EIGENEROSION,
+                                    DamageModel.MODIFIED_EIGENEROSION):
         why.append(f"damage model {DamageModel(meta['damage_model']).name}")
     if set(meta["present_c"]) - {con.COROTATED, con.EOS_MONAGHAN_SPH}:
         why.append(f"constitutive types {meta['present_c']}")
@@ -101,11 +103,8 @@ def meta_unsupported(meta, dim):
         why.append(f"plastic types {meta['present_p']}")
     if set(meta["present_f"]) - {fail.MAXIMUM_STRESS}:
         why.append(f"failure types {meta['present_f']}")
-    if dim == 3:
-        if not meta["stress_cache"]:
-            why.append("3D damage or failure models (the stress cache off)")
-        if set(meta["present_p"]) & {plas.RANKINE, plas.SNOW}:
-            why.append("3D Rankine or Snow plasticity")
+    if dim == 3 and set(meta["present_p"]) & {plas.RANKINE, plas.SNOW}:
+        why.append("3D Rankine or Snow plasticity")
     if dim not in (2, 3):
         why.append(f"{dim}D")
     return why
@@ -828,11 +827,13 @@ def permute_chunks(gathered, gathered_i, target):
 def _gather(grid: GridParams, w, dpt, win, cf):
     """Kernel B's gather: velocity [d] and gradient [d][d] rows from the
     window values at each tap, win [D, n, 3^d, C] (n >= d channels), in
-    the kernel's order of sums."""
+    the kernel's order of sums, and with n > d the psi channel (channel d)
+    gathered as a velocity component is (else None)."""
     dim = grid.dim
     invd = kernel_inv_d(grid.cell_width)
+    nv = win.shape[1]  # velocity channels, then the psi channel
     if dim == 3:
-        sv = [0.0] * 3
+        sv = [0.0] * nv
         sg = [[0.0] * 3 for _ in range(3)]
         for t, (ta, tb, tc) in enumerate(_TAPS):
             wz = w[2][tc]
@@ -840,40 +841,45 @@ def _gather(grid: GridParams, w, dpt, win, cf):
             wdx_y = (w[0][ta] * dpt[0][ta]) * w[1][tb]
             wx_dy = w[0][ta] * (w[1][tb] * dpt[1][tb])
             wdz = wz * dpt[2][tc]
-            for i in range(3):
+            for i in range(nv):
                 v = win[:, i, t, :]
                 sv[i] = sv[i] + (v * wxy) * wz
-                sg[i][0] = sg[i][0] + (v * wdx_y) * wz
-                sg[i][1] = sg[i][1] + (v * wx_dy) * wz
-                sg[i][2] = sg[i][2] + (v * wxy) * wdz
+                if i < 3:
+                    sg[i][0] = sg[i][0] + (v * wdx_y) * wz
+                    sg[i][1] = sg[i][1] + (v * wx_dy) * wz
+                    sg[i][2] = sg[i][2] + (v * wxy) * wdz
     else:
         # Per x tap the y taps first (the lanes of the JAX kernel's
         # [n*8, 8] @ [8, C] contraction), then the x weights.
-        sv = [0.0] * 2
+        sv = [0.0] * nv
         sg = [[0.0] * 2 for _ in range(2)]
         for ta in range(3):
             wx = w[0][ta]
             wdx = wx * dpt[0][ta]
-            for i in range(2):
+            for i in range(nv):
                 tv = ty = 0.0
                 for tb in range(3):
                     v = win[:, i, ta * 3 + tb, :]
                     tv = tv + v * w[1][tb]
-                    ty = ty + v * (w[1][tb] * dpt[1][tb])
+                    if i < 2:
+                        ty = ty + v * (w[1][tb] * dpt[1][tb])
                 sv[i] = sv[i] + tv * wx
-                sg[i][0] = sg[i][0] + tv * wdx
-                sg[i][1] = sg[i][1] + ty * wx
+                if i < 2:
+                    sg[i][0] = sg[i][0] + tv * wdx
+                    sg[i][1] = sg[i][1] + ty * wx
     vel = [cf * sv[i] for i in range(dim)]
     g = [[cf * (invd * sg[i][j]) for j in range(dim)] for i in range(dim)]
-    return vel, g
+    return vel, g, (cf * sv[dim] if nv > dim else None)
 
 
 def g2p_fused_reference(grid: GridParams, slots, ints, windows, dt, tab_f, tab_i,
-                        nchunks, velocity_clamp=False, stress_cache=True):
+                        nchunks, velocity_clamp=False, stress_cache=True, modified=False):
     """Plain version of kernel B: returns the new slot tensor [D, NF, C]
     (chunks >= nchunks pass through). Gathers v and ∇v from the windows
-    [D, n_win, 8^d] (a psi channel after the velocity, if present, feeds
-    only modified eigenerosion, which the port does not carry), advects,
+    [D, n_win, 8^d]; with `modified` (modified eigenerosion) also the psi
+    channel after the velocity, and a crack slot (cpf != 0, unbroken) whose
+    cpf·h·psi exceeds its threshold breaks (phase 0) before the return map
+    (sparkl_tpu/fused/kernels.py:1306-1310). It then advects,
     updates F (for EOS fluids only J = F00, by tr(∇v)), applies the static
     and failure guards (no |F00| guard for fluids), accumulates the
     positive energy and par1 = psi_pos·m, par2 = m, trips maximum-stress
@@ -907,9 +913,10 @@ def g2p_fused_reference(grid: GridParams, slots, ints, windows, dt, tab_f, tab_i
     contrib = active & in_window & in_bounds
     w, dpt = _taps(grid, fx, rel)
     ntaps = 3**dim
-    q = _tap_cells(rel, contrib).reshape(d_, 1, ntaps * c).expand(d_, dim, ntaps * c)
-    win = torch.gather(windows[:, :dim], 2, q).reshape(d_, dim, ntaps, c)
-    vel, g = _gather(grid, w, dpt, win, contrib.to(torch.float32))
+    nw = dim + 1 if modified else dim
+    q = _tap_cells(rel, contrib).reshape(d_, 1, ntaps * c).expand(d_, nw, ntaps * c)
+    win = torch.gather(windows[:, :nw], 2, q).reshape(d_, nw, ntaps, c)
+    vel, g, psi_mom = _gather(grid, w, dpt, win, contrib.to(torch.float32))
 
     # --- particle update ---
     # Host reads: the plain version is off the main path.
@@ -924,6 +931,11 @@ def g2p_fused_reference(grid: GridParams, slots, ints, windows, dt, tab_f, tab_i
     mass, vol0, eh = row(r.mass), row(r.vol0), row(r.eh)
     f = [[row(r.defgrad + dim * i + j) for j in range(dim)] for i in range(dim)]
     kin = [row(r.kinvel + ax) for ax in range(dim)]
+    if modified:
+        cpf = row(r.cpf)
+        crack_energy = cpf * h * psi_mom
+        trip = (cpf != 0.0) & (phase > 0.0) & (crack_energy > row(r.cthr))
+        phase = torch.where(trip, 0.0, phase)
 
     vel = [torch.where(kinematic, kin[i], vel[i]) for i in range(dim)]
     if velocity_clamp:
@@ -1030,7 +1042,9 @@ def g2p_fused(grid: GridParams, cfg, meta, kparams, slots, ints, windows, dt,
     card, the CPU path returns a new tensor), ints [D, 8, C] i32, windows
     [D, d(+1), 8^d] f32 (z-major cells in 3D, row-major in 2D; the psi
     channel with meta["with_psi"]), dt (python float), tables f32 [M, 16] /
-    i32 [M, 4], nchunks [] i32. Returns the new slot tensor."""
+    i32 [M, 4], nchunks [] i32. Returns the new slot tensor. Under modified
+    eigenerosion the kernel reads the psi channel and trips the crack
+    energy; under eigenerosion the channel is not read (the pooling trips)."""
     dim = grid.dim
     _check_meta(meta, dim)
     d_, c = cfg.max_chunks, cfg.chunk_size
@@ -1045,15 +1059,18 @@ def g2p_fused(grid: GridParams, cfg, meta, kparams, slots, ints, windows, dt,
     args = _grid_args(grid)
     clamp = bool(kparams["gpu_velocity_clamp"])
     stress_cache = bool(meta["stress_cache"])
+    modified = meta["damage_model"] == DamageModel.MODIFIED_EIGENEROSION
     if route(dev) == "cpu":
         return g2p_fused_reference(grid, slots, ints, windows, dt, tab_f, tab_i,
-                                   nchunks, velocity_clamp=clamp, stress_cache=stress_cache)
+                                   nchunks, velocity_clamp=clamp, stress_cache=stress_cache,
+                                   modified=modified)
     _check_shape_route("kernel B", dim, c)
     reuse = svd_reuse(stress_cache, meta["present_c"], meta["present_p"])
     launch("sparkl_g2p_fused", slots.data_ptr(), ints.data_ptr(),
            windows.data_ptr(), nchunks.data_ptr(), tab_f.data_ptr(),
            tab_i.data_ptr(), m, d_, float(dt), *args, dim, n_win,
-           int(clamp) | 2 * int(stress_cache) | 4 * int(reuse), stream_ptr(dev))
+           int(clamp) | 2 * int(stress_cache) | 4 * int(reuse) | 8 * int(modified),
+           stream_ptr(dev))
     LAUNCHES["g2p_fused"] += 1
     return slots
 
@@ -1077,7 +1094,7 @@ def eigen_candidate_rows(e, cand):
     return g
 
 
-def eigen_pool_fused_reference(grid: GridParams, e, g, group=64):
+def eigen_pool_fused_reference(grid: GridParams, e, g, group=None):
     """Plain version of the pooling, with the JAX package's signature
     (sparkl_tpu/fused/kernels.py:eigen_pool_fused): e [D, 8, C] own rows
     (pos d, m·psi_pos, m, eligible), g [D, KN, 8, C] candidate rows ->
@@ -1085,10 +1102,13 @@ def eigen_pool_fused_reference(grid: GridParams, e, g, group=64):
     lane over the eligible candidate lanes with squared distance <= h²,
     the lane itself excluded; zero elsewhere. Each candidate's lanes are
     summed first, then the candidates in ascending order, as the TPU
-    kernel's loop does. Runs `group` chunks at a time, and skips a group
-    with no eligible lane on either side (its pool is zero)."""
+    kernel's loop does. Runs `group` chunks at a time (by default as many as
+    hold 64 chunks of the 2D list, 18 candidates of 64 lanes: 4 in 3D), and
+    skips a group with no eligible lane on either side (its pool is zero)."""
     dim = grid.dim
     d_, kn, _, c = g.shape
+    if group is None:
+        group = max(1, 64 * 18 * 64 * 64 // (kn * c * c))
     r2 = float(np.float32(grid.cell_width * grid.cell_width))  # h² rounded to f32, as JAX compares
     eye = torch.eye(c, dtype=torch.float32, device=e.device)
     out = torch.zeros_like(e)
@@ -1114,9 +1134,10 @@ def eigen_pool_fused_reference(grid: GridParams, e, g, group=64):
 
 def eigen_pool_fused(grid: GridParams, cfg, e, cand):
     """The pooling kernel (replaces sparkl_tpu/fused/kernels.py:
-    eigen_pool_fused): e [D, 8, C] f32 eigen rows, cand [D, KN] i32
-    candidate chunk ids (D = none) -> [D, 2, C] f32, the pooled m·psi_pos
-    and m. The TPU kernel takes the candidates' rows gathered in XLA
+    eigen_pool_fused): e [D, 8, C] f32 eigen rows (3D: C 128, 2D: 64),
+    cand [D, KN] i32 candidate chunk ids (D = none; KN = 3^d times the
+    chunks per block) -> [D, 2, C] f32, the pooled m·psi_pos and m. The TPU
+    kernel takes the candidates' rows gathered in XLA
     ([D, KN, 8, C]); the CUDA kernel reads e and cand directly, and on the
     CPU eigen_candidate_rows builds that tensor for the plain version."""
     dim = grid.dim
@@ -1128,11 +1149,10 @@ def eigen_pool_fused(grid: GridParams, cfg, e, cand):
     if route(dev) == "cpu":
         pooled = eigen_pool_fused_reference(grid, e, eigen_candidate_rows(e, cand))
         return pooled[:, :2].contiguous()
-    if (dim, c) != (2, 64):
-        raise NotImplementedError(f"the pooling kernel takes 2D chunks of 64, not {dim}D of {c}")
+    _check_shape_route("the pooling kernel", dim, c)
     out = torch.empty((d_, 2, c), dtype=torch.float32, device=dev)
     r2 = float(np.float32(grid.cell_width * grid.cell_width))
     launch("sparkl_eigen_pool", e.data_ptr(), cand.data_ptr(), out.data_ptr(), d_, kn, r2,
-           stream_ptr(dev))
+           dim, stream_ptr(dev))
     LAUNCHES["eigen_pool_fused"] += 1
     return out

@@ -10,11 +10,13 @@ drift reaches DRIFT_FRACTION of a cell (the off-by-two window tolerates
 one cell). With force_fluids_volume_recomputation, each substep first
 recomputes every fluid particle's volume from the grid mass (the mass
 kernels, the merge and the window gather), sets J = F00 = V/V0 and
-refreshes the carried dt bound, as the JAX package does. With eigenerosion
-(2D), each substep pools m·psi_pos and m over every eligible slot's
-neighbours within one cell width (the pooling kernel over the chunks of the
-3^d neighbouring blocks) before the kernels, after the dt is taken; kernel
-A then scatters the psi channels and kernel B trips maximum-stress failure.
+refreshes the carried dt bound, as the JAX package does. With eigenerosion,
+each substep pools m·psi_pos and m over every eligible slot's neighbours
+within one cell width (the pooling kernel over the chunks of the 3^d
+neighbouring blocks) before the kernels, after the dt is taken; kernel A
+then scatters the psi channels and kernel B trips maximum-stress failure.
+With modified eigenerosion there is no pooling: the grid carries the psi
+ratio to the windows and kernel B trips the crack energy it gathers.
 
 Unlike the JAX package, which runs a frame span as one device program,
 this port runs eagerly with a host loop over substeps and one host read
@@ -26,18 +28,16 @@ on resort substeps runs it again after the resort and reads the bound
 again, which gives the reference's order (resort, volume pass, dt).
 Capturing the substep in a CUDA graph is later work.
 
-The port carries 3D scenes with corotated elasticity (± Drucker-Prager)
-and Monaghan EOS fluids, static heightfield or cuboid colliders, no damage
-and the stress cache on; and 2D scenes with corotated elasticity, with
-Drucker-Prager, Rankine or Snow plasticity, eigenerosion and
-maximum-stress failure, Monaghan EOS fluids, static heightfield or cuboid
-colliders and grid hooks, the stress cache on without damage and failure
-and off with them (sparse.pipeline.unsupported lists the rest). The
-constructor raises NotImplementedError for anything else (3D damage and
-failure, 3D Rankine and Snow, modified eigenerosion, CD-MPM, other
-models, penalty colliders, boundary particle projection, GPU boundary
-semantics, collider pose functions): those wait for later ports and never
-fall back to another path.
+The port carries 3D and 2D scenes with corotated elasticity (±
+Drucker-Prager; in 2D also Rankine or Snow plasticity), eigenerosion,
+modified eigenerosion and maximum-stress failure, Monaghan EOS fluids,
+static heightfield or cuboid colliders and grid hooks, the stress cache on
+without damage and failure and off with them (sparse.pipeline.unsupported
+lists the rest). The constructor raises NotImplementedError for anything
+else (3D Rankine and Snow, CD-MPM, NACC, neo-Hookean and other models,
+penalty colliders, boundary particle projection, GPU boundary semantics,
+collider pose functions): those wait for later ports and never fall back
+to another path.
 """
 
 from typing import Optional

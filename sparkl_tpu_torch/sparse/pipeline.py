@@ -61,10 +61,10 @@ def unsupported(grid, models, colliders, params, hooks, fused=False):
     reasons, empty if they can. The sparse pipeline carries 3D corotated
     (± Drucker-Prager) scenes on heightfields, with no damage, failure,
     fluids or hooks. With `fused`, what the fused pipeline carries on top:
-    fluids (EOS models, fluid volume recomputation), cuboid colliders, and
-    in 2D heightfields, eigenerosion, maximum-stress failure, Rankine and
-    Snow plasticity and grid hooks (the kernels' own limits are
-    fused.kernels.meta_unsupported)."""
+    fluids (EOS models, fluid volume recomputation), cuboid colliders,
+    eigenerosion, modified eigenerosion, maximum-stress failure and grid
+    hooks, and in 2D heightfields, Rankine and Snow plasticity (the
+    kernels' own limits are fused.kernels.meta_unsupported)."""
     why = []
     m = models.unsupported()
     if m:

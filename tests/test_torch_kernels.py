@@ -222,8 +222,13 @@ def test_wrappers_check_arguments(state):
         TK.p2g_fused(b.grid, cfg, t["meta"], t["slots"], t["ints"].long(), DT, t["nchunks"])
     with pytest.raises(ValueError):
         TK.merge_blocks(t["slots"][:, :8, :].contiguous(), t["first"][:-1], t["nblk"])
-    with pytest.raises(NotImplementedError):
+    # The 3D cache-off form is carried, and forms the stress from the
+    # model tables; 3D Rankine is not carried.
+    with pytest.raises(ValueError):
         TK.p2g_fused(b.grid, cfg, dict(t["meta"], stress_cache=False), t["slots"],
+                     t["ints"], DT, t["nchunks"])
+    with pytest.raises(NotImplementedError):
+        TK.p2g_fused(b.grid, cfg, dict(t["meta"], present_p=(3,)), t["slots"],
                      t["ints"], DT, t["nchunks"])
     with pytest.raises(NotImplementedError):
         TK.g2p_fused(b.grid, cfg, dict(t["meta"], present_p=(2,)), dict(gpu_velocity_clamp=False),

@@ -136,15 +136,11 @@ def test_constructor_refuses_what_the_slice_does_not_carry():
     other_failure = treg.ModelSet.from_tables([0], [[1.0, 1.0, 0.5, 0.0]], [0], np.zeros((1, 8)),
                                               [2], [[1.0, 1.0]], "cpu")  # not maximum stress
 
-    # 3D: damage and failure models stay refused (the 2D fracture path
-    # carries them, below), as do the options no path carries.
+    # 3D: CD-MPM, other models and failure types stay refused, as do the
+    # options no path carries.
     cases = [
         dict(models=neo),
-        dict(params=SolverParameters(damage_model=DamageModel.EIGENEROSION)),
-        dict(models=treg.ModelSet.from_tables([0], [[1.0, 1.0, 0.5, 0.0]], [0], np.zeros((1, 8)),
-                                              [1], [[1.0, 1.0]], "cpu")),  # max-stress in 3D
         dict(models=other_failure),
-        dict(params=SolverParameters(damage_model=DamageModel.MODIFIED_EIGENEROSION)),
         dict(params=SolverParameters(damage_model=DamageModel.CD_MPM)),
         dict(params=SolverParameters(enable_boundary_particle_projection=True)),
         dict(params=SolverParameters(gpu_boundary_semantics=True)),
@@ -154,6 +150,14 @@ def test_constructor_refuses_what_the_slice_does_not_carry():
     for over in cases:
         with pytest.raises(NotImplementedError):
             FusedMpmPipeline(**dict(base, **over))
+    # 3D damage and failure are carried (the stress cache off): eigenerosion,
+    # modified eigenerosion and maximum-stress failure.
+    max_stress = treg.ModelSet.from_tables([0], [[1.0, 1.0, 0.5, 0.0]], [0], np.zeros((1, 8)),
+                                           [1], [[1.0, 1.0]], "cpu")
+    for over in (dict(params=SolverParameters(damage_model=DamageModel.EIGENEROSION)),
+                 dict(models=max_stress),
+                 dict(params=SolverParameters(damage_model=DamageModel.MODIFIED_EIGENEROSION))):
+        assert not FusedMpmPipeline(**dict(base, **over))._meta["stress_cache"]
     # Fluids are carried: EOS models and fluid volume recomputation (the
     # sparse pipeline still refuses both, tests/test_torch_sparse.py).
     fluid = treg.ModelSet.pack([treg.ParticleModel(treg.monaghan_sph_eos(1e6, 7, 1e-3))], "cpu")
@@ -164,8 +168,8 @@ def test_constructor_refuses_what_the_slice_does_not_carry():
     # failure, the cuboid ground under STICK, the Dirichlet hook), through
     # the constructor and auto_pipeline, and so are 2D solids without damage
     # or failure (the stress cache on), the 2D heightfield (elasticity2,
-    # basic2) and 2D fluids with the volume pass (fluids2); modified
-    # eigenerosion, CD-MPM, another failure type and a 3D heightfield in a
+    # basic2), 2D fluids with the volume pass (fluids2) and modified
+    # eigenerosion; CD-MPM, another failure type and a 3D heightfield in a
     # 2D grid are refused.
     lp = tscenes.build("l_panel2", cell_width=0.02, device="cpu")
     base2 = dict(grid=lp.grid, models=lp.models, colliders=lp.colliders, params=lp.params,
@@ -177,8 +181,9 @@ def test_constructor_refuses_what_the_slice_does_not_carry():
     for name, kw in (("elasticity2", {}), ("basic2", {}), ("fluids2", dict(n=40))):
         assert isinstance(tsk.auto_pipeline(tscenes.build(name, device="cpu", **kw),
                                             device="cpu"), FusedMpmPipeline)
+    FusedMpmPipeline(**dict(base2, params=SolverParameters(
+        damage_model=DamageModel.MODIFIED_EIGENEROSION)))
     cases2 = [
-        dict(params=SolverParameters(damage_model=DamageModel.MODIFIED_EIGENEROSION)),
         dict(params=SolverParameters(damage_model=DamageModel.CD_MPM)),
         dict(models=other_failure),
         dict(colliders=(heightfield(np.zeros((3, 3)), (1.0, 1.0, 1.0)),)),
