@@ -8,9 +8,13 @@ failure, a STICK cuboid ground and a Dirichlet velocity hook), its two
 the stress cache on; basic2: Snow, Drucker-Prager and a maximum-stress
 star on a 2D heightfield, the stress cache off), its 2D fluid path
 (fluids2: a Monaghan EOS dam break between cuboid walls, with fluid
-volume recomputation) and its 3D fracture path (l_panel3: l_panel2's two
+volume recomputation), its 3D fracture path (l_panel3: l_panel2's two
 damage mechanisms in a 3D slab of 600,000 particles, built here by
-`l_panel3`; also under modified eigenerosion, and l_panel2 under it).
+`l_panel3`; also under modified eigenerosion, and l_panel2 under it) and
+its material paths (materials3: sand3@1M's lattices under neo-Hookean +
+NACC, Rankine, Snow, Drucker-Prager and neo-Hookean alone; materials2:
+the 2D block under neo-Hookean + NACC, neo-Hookean and Rankine; both built
+here, and their failure forms with the stress cache off).
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It needs one CUDA device (written for an H100, sm_90a) and nvcc, and exits
@@ -135,11 +139,31 @@ Phases (one line each, longer logs under chiprun_out/):
  25. l_panel3-modified (3 frames) and l_panel2 under modified eigenerosion
      (1 frame) as main paths: kernel B's crack-energy trip launched every
      substep, no pooling, trips per panel;
- 26. a JSON line of per-kernel results (the 2D fluid forms of kernels A
+ 26. kernels A and B's material forms against their plain versions at
+     full size, one frame in and with F perturbed per model: materials3
+     (1,000,000 particles; A's cache read, B's material instance),
+     materials3-failure (A's fresh corotated and neo-Hookean stress, B's
+     damage and material instance), materials2 and materials2-failure
+     (250,000; the 2D forms), every NACC case, the Rankine and Snow maps
+     and the maximum-stress trips counted and required, NACC's ties within
+     1e-5 of a threshold counted, with times and bounds;
+ 27. the materials3 main path: materials3() -> auto_pipeline ->
+     pack_state -> 15 frames of run_frames_state -> unpack_state, launch
+     counts against the substeps, per frame the lanes per model whose
+     plastic state moved and NACC's alpha range, mass; one profiled frame
+     (materials3_profile.txt in the output directory);
+ 28. materials2 (3 frames), materials3-failure and materials2-failure (a
+     frame each) as main paths, with the same checks;
+ 29. reduced materials3 and materials2 (from perturbed particles), 3
+     substeps on the card against the port's CPU path at the card's dts:
+     |dx|, |dv|, |dF|, |d alpha|, flags and phases equal;
+ 30. a JSON line of per-kernel results (the 2D fluid forms of kernels A
      and B and the mass kernels under "fluids2"; the 3D damage forms of A,
      B and the pooling under "l_panel3", B's crack-energy trip under
-     "l_panel3-modified" and "l_panel2-modified"), the card's nvidia-smi
-     line, and the final {"ok": true, "device": ...} line.
+     "l_panel3-modified" and "l_panel2-modified"; A and B's material forms
+     under "materials3", "materials3-failure", "materials2" and
+     "materials2-failure"), the card's nvidia-smi line, and the final
+     {"ok": true, "device": ...} line.
 
 Each kernel's bound_ms is the least time the card could take for its work
 at this run's shapes: the larger of the bytes it must move (each input read
@@ -278,6 +302,33 @@ PLASTIC_AGREE_SUBSTEPS = 5
 # side of the 2D fluid block the kernels are timed on (250,000 particles).
 FLUIDS2_SUBSTEPS_IN = 20
 FLUID2_BLOCK = 500
+# materials3 and materials2 (phases 26-29): sand3@1M's lattices and the
+# 2D block with the remaining material models, their reduced forms (the CPU
+# tests' and phase 29's), the maximum-stress envelopes of their failure
+# forms (max principal, max shear; Pa), chosen below the stresses of the
+# perturbed states so that the trip is exercised, the per-model F
+# perturbations of phase 26 (scales picked so that every NACC case, the
+# Rankine and Snow maps and the trips occur), the frames of the main paths
+# (the last timed), and the card-against-CPU bounds after 3 substeps (the
+# JAX-against-port bounds of tests/test_torch_materials.py).
+MATERIALS3_COUNTS = (100, 50, 100)
+MATERIALS_E, MATERIALS_NU = 1.0e7, 0.2
+MATERIALS3_SMALL, MATERIALS2_SMALL = 0.08, 0.048
+MATERIALS3_FAILURE = (5.0e4, 5.0e4)
+MATERIALS2_FAILURE = (5.0e3, 5.0e3)
+MATERIALS_PERTURB = {"materials3": {0: 0.005, 1: 0.01, 2: 0.02, 3: 0.02},
+                     "materials3-failure": {0: 0.005, 1: 0.01, 2: 0.02, 3: 0.02, 4: 0.01},
+                     "materials2": {0: 0.02, 2: 0.02},
+                     "materials2-failure": {0: 0.02, 1: 0.05, 2: 0.02}}
+MATERIALS3_FRAMES, MATERIALS3_TIMED = 15, 3
+MATERIALS2_FRAMES = 3
+MATERIALS_AGREE_SUBSTEPS = 3
+MATERIALS_DX, MATERIALS_DV, MATERIALS_DF, MATERIALS_DA = 1e-6, 1e-4, 1e-5, 1e-5
+# Operations of the material forms, lower estimates: neo-Hookean's closed
+# form per slot (F Fᵀ, J, J^(-2/d) by exp and log, the scaling; its energy
+# alike), and per 3D NACC, Rankine or Snow lane one more cardano SVD and
+# the map (logs, exps, the rebuild of F).
+NH_SLOT_FLOPS, MAT_MAP3_FLOPS = 80, 450
 # Tolerances of the kernel-vs-plain checks (the plain versions run on the
 # same card on the same tensors); p2g_errors and g2p_errors state each one.
 
@@ -350,7 +401,8 @@ def p2g_errors(img_k, img_p):
     return out
 
 
-def g2p_errors(out_k, out_p, ints, cparams, cell_width, skip_dtb=None, skip_rows=()):
+def g2p_errors(out_k, out_p, ints, cparams, cell_width, skip_dtb=None, skip_rows=(),
+               skip_lanes=None, energy_floor=None):
     """Kernel B against its plain version, row by row, on occupied lanes
     (empty lanes hold no particle; every consumer masks them). Returns
     [(row, group, measure, tol)] with measure <= tol required:
@@ -369,12 +421,20 @@ def g2p_errors(out_k, out_p, ints, cparams, cell_width, skip_dtb=None, skip_rows
         stress, a product of (s - 1) and them, is not closer than that;
       energy (psi_pos, par1 = psi_pos·m): |err| / (2 sqrt(mu·e_max)·m_max),
         tol 2e-5: the same strain-equivalent floor through e = mu·Σ(s-1)²;
-      plastic (pdd, ph, lvg, all in strain units): |err|, tol 2e-5;
+      plastic (pdd, ph, lvg, nacc, all in strain units): |err|, tol 2e-5;
       failed: equal (measure 0 or 1, tol 0).
     skip_dtb [D, C] leaves lanes out of the dt-bound row: the EOS lanes,
     which check_g2p holds to their own bound (eos_dtb_errors);
-    skip_rows leaves rows out (the 2D phase row, held to its trips). 3D
-    (56 rows) or 2D (40)."""
+    skip_rows leaves rows out (the 2D phase row, held to its trips);
+    skip_lanes [D, C] leaves lanes out of every row (NACC lanes whose case
+    decision lies within TIE of a threshold, counted by the caller);
+    energy_floor [D, C] is an absolute error each lane's energy may carry
+    beyond the measure (par1 times the lane's mass): neo-Hookean's, whose
+    tr(F Fᵀ) J^(-2/d) - d cancels near F = I to the f32 rounding of
+    J^(-2/d) (exp and log, which the card and its plain version round
+    differently) times µh d/2, so that near rest (the free fall of a
+    frame in) the strain-equivalent measure alone would hold it to less
+    than its floor. 3D (56 rows) or 2D (40)."""
     import torch
     from sparkl_tpu_torch.fused import layout as L
     from sparkl_tpu_torch.math.kernel import inv_d
@@ -382,12 +442,18 @@ def g2p_errors(out_k, out_p, ints, cparams, cell_width, skip_dtb=None, skip_rows
     dim = 3 if out_k.shape[1] == L.Rows(3).nf else 2
     r = L.Rows(dim)
     occ = ((ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0)[:, None, :]
+    if skip_lanes is not None:
+        occ = occ & ~skip_lanes[:, None, :]
     a = torch.where(occ, out_k, 0.0)
     b = torch.where(occ, out_p, 0.0)
     if skip_dtb is not None:
         a[:, r.dtb] = torch.where(skip_dtb, 0.0, a[:, r.dtb])
         b[:, r.dtb] = torch.where(skip_dtb, 0.0, b[:, r.dtb])
-    err = (a - b).abs().amax(dim=(0, 2))
+    diff = (a - b).abs()
+    if energy_floor is not None:
+        diff[:, r.psi_pos] = torch.clamp(diff[:, r.psi_pos] - energy_floor, min=0.0)
+        diff[:, r.par1] = torch.clamp(diff[:, r.par1] - energy_floor * b[:, r.mass], min=0.0)
+    err = diff.amax(dim=(0, 2))
     rmax = b.abs().amax(dim=(0, 2)).clamp(min=1e-30)
     lam = cparams[:, 0].max().item()
     mu = cparams[:, 1].max().item()
@@ -414,7 +480,7 @@ def g2p_errors(out_k, out_p, ints, cparams, cell_width, skip_dtb=None, skip_rows
             out.append((k, "energy", e / escale, 2e-5))
         elif k == r.par1:
             out.append((k, "energy", e / (escale * max(mmax, 1e-30)), 2e-5))
-        elif k in (r.pdd, r.ph, r.lvg):
+        elif k in (r.pdd, r.ph, r.lvg, r.nacc):
             out.append((k, "plastic", e, 2e-5))
         else:
             out.append((k, "kinematic", e / rmax[k].item(), 1e-5))
@@ -1467,32 +1533,24 @@ def plastic_block(device="cuda"):
     4000), from x = -0.55, y = 0.6 (its lower part inside the valley's
     collider)."""
     from dataclasses import replace
-    import numpy as np
     import sparkl_tpu_torch.scenes as scenes
-    from sparkl_tpu_torch.core.particles import Particles
 
     b = scenes.build("basic2", device=device)
-    r = b.grid.cell_width / 4.0
-    cols = np.array_split(np.arange(PLASTIC_BLOCK, dtype=np.float32), 3)
-    ys = 0.6 + r + 2.0 * r * np.arange(PLASTIC_BLOCK, dtype=np.float32)
-    parts = []
-    for m, (xi, rho) in enumerate(zip(cols, (1000.0, 1000.0, 4000.0))):
-        gx, gy = np.meshgrid(-0.55 + r + 2.0 * r * xi, ys, indexing="ij")
-        pts = np.stack([gx.reshape(-1), gy.reshape(-1)], -1).astype(np.float32)
-        parts.append(Particles.from_positions(pts, m, r, rho, b.particles.device))
-    return replace(b, name="basic2 block", particles=Particles.concatenate(tuple(parts)))
+    return replace(b, name="basic2 block",
+                   particles=_block_thirds(b, PLASTIC_BLOCK, (1000.0, 1000.0, 4000.0)))
 
 
 def perturbed_by_model(state, scales, seed=19):
     """`state` with F += scale_m·N(0, 1) on the occupied lanes of model m
-    (numpy seed), for each model m in `scales`."""
+    (numpy seed), for each model m in `scales`. 2D or 3D slots."""
     import numpy as np
     import torch
     from sparkl_tpu_torch.fused import layout as L
 
-    r = L.Rows(2)
+    dim = slot_dim(state)
+    r = L.Rows(dim)
     d_, _, c = state.slots.shape
-    noise = torch.from_numpy(np.random.default_rng(seed).normal(size=(d_, 4, c))
+    noise = torch.from_numpy(np.random.default_rng(seed).normal(size=(d_, dim * dim, c))
                              .astype(np.float32)).to(state.slots.device)
     occ = (state.ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0
     mid = state.ints[:, L.I_MODEL, :]
@@ -1500,7 +1558,7 @@ def perturbed_by_model(state, scales, seed=19):
     for m, sc in scales.items():
         scale = torch.where(occ & (mid == m), sc, scale)
     slots = state.slots.clone()
-    slots[:, r.defgrad : r.defgrad + 4] += scale[:, None, :] * noise
+    slots[:, r.defgrad : r.defgrad + dim * dim] += scale[:, None, :] * noise
     return state.replace(slots=slots)
 
 
@@ -2856,22 +2914,24 @@ def panel_stats(state):
     return per, mass
 
 
-def phase_damage_main(b, frames, timed_frames, phase):
-    """A damage main path (l_panel2, l_panel3, and both under modified
-    eigenerosion): the bundle `b` -> auto_pipeline -> pack_state -> `frames`
-    frames of run_frames_state (the last `timed_frames` timed, each frame
-    clocked alone) -> unpack_state, with
-    each kernel's launches held against the substeps the pipeline ran
+def phase_damage_main(b, frames, timed_frames, phase, stats=None):
+    """A fused main path (l_panel2, l_panel3, both under modified
+    eigenerosion, and materials3 and materials2): the bundle `b` ->
+    auto_pipeline -> pack_state -> `frames` frames of run_frames_state (the
+    last `timed_frames` timed, each frame clocked alone) -> unpack_state,
+    with each kernel's launches held against the substeps the pipeline ran
     (retried spans included): A, the merge and B once per substep, the
     pooling once per substep under eigenerosion and never under modified
-    eigenerosion, the resort kernels by branch; per frame the substeps, the
-    broken and failed counts per panel, the candidate-list regrows and the
-    mass (held to 1e-6). Returns (the pipeline, the final state, the
+    eigenerosion or without damage, the resort kernels by branch; per frame
+    the substeps, `stats(state)` (by default panel_stats: the broken and
+    failed counts per panel) and the mass it returns (held to 1e-6), and the
+    candidate-list regrows. Returns (the pipeline, the final state, the
     launches, results)."""
     import torch
     import sparkl_tpu_torch as sk
     from sparkl_tpu_torch.fused import kernels as K
 
+    stats = panel_stats if stats is None else stats
     n_active = int(b.particles.active.sum())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2903,8 +2963,8 @@ def phase_damage_main(b, frames, timed_frames, phase):
             timed += n
         substeps += n
         resorts += pipe.last_resorts
-        per, mass = panel_stats(state)
-        out_frames.append(dict(frame=i, substeps=n, broken_failed_per_panel=per, mass=mass,
+        per, mass = stats(state)
+        out_frames.append(dict(frame=i, substeps=n, per_model=per, mass=mass,
                                eigen_regrow=pipe.eigen_regrows > regrows))
         require(abs(mass - mass0) <= 1e-6 * mass0, f"{b.name} frame {i}: mass {mass} "
                                                    f"against {mass0}")
@@ -2938,11 +2998,11 @@ def phase_damage_main(b, frames, timed_frames, phase):
                   permute_slots=branches["mixed"])
     expect[merge] = ran[0]
     require(launches == expect, f"{b.name} path launch counts {launches}, expected {expect}")
-    per, _ = panel_stats(state)
+    per, _ = stats(state)
     return pipe, state, launches, dict(
         particles=n_active, substeps=substeps, substeps_run=ran[0], resorts=resorts,
         branches=branches, timed_substeps=timed, seconds=seconds, pups=pups, peak_gib=peak_gib,
-        eigen_regrows=pipe.eigen_regrows, broken_failed_per_panel=per, frames=out_frames,
+        eigen_regrows=pipe.eigen_regrows, per_model=per, frames=out_frames,
         config=str(pipe._cfg))
 
 
@@ -3081,6 +3141,508 @@ def phase_fracture_regrow():
             "the eigenerosion candidate list did not regrow as required")
     require(not differ and n2 == n4, f"the regrown run differs from the unregrown one in {differ}")
     return dict(particles=p.capacity, kmax=kmax, regrows=g2, substeps=n2, bit_equal=not differ)
+
+
+# ---------------------------------------------------------------------------
+# The remaining material models (phases 26-29): materials3 and materials2
+# ---------------------------------------------------------------------------
+
+
+def materials3(scale=1.0, failure=False, device="cuda"):
+    """sand3@1M with the remaining material models, built with the port's
+    API: scenes.build("sand3", nx=100, ny=50, nz=100)'s grid, heightfield,
+    gravity, dt 1/60 and two 100 x 50 x 100 lattices (density 2700, E =
+    1e7, nu = 0.2 throughout). The upper lattice is split along x into four
+    bands of 25 lattice columns: model 0 neo-Hookean + NACC (cohesion β
+    0.5, hardening on, ξ 0.8, friction angle 35°, sand3's Drucker-Prager
+    h0), model 1 corotated + Rankine (tensile strength 5e4, elasticity2's
+    ratio to E, softening 5), model 2 corotated + Snow (the registry's
+    defaults), model 3 corotated + Drucker-Prager (sand3's sand). The lower
+    lattice, model 4, is neo-Hookean alone; with `failure` it also fails by
+    maximum stress at MATERIALS3_FAILURE, which turns the stress cache off.
+    `scale` < 1 cuts each lattice's counts by it (0.08: 8 x 4 x 8 each,
+    1,024 particles; the x count must stay a multiple of 4)."""
+    import math
+    from dataclasses import replace
+    import torch
+    import sparkl_tpu_torch.scenes as scenes
+    from sparkl_tpu_torch.models import registry as reg
+
+    nx, ny, nz = (int(round(c * scale)) for c in MATERIALS3_COUNTS)
+    require(nx % 4 == 0 and min(nx, ny, nz) > 0, f"materials3 lattice {nx} x {ny} x {nz}")
+    b = scenes.build("sand3", nx=nx, ny=ny, nz=nz, device=device)
+    e, nu = MATERIALS_E, MATERIALS_NU
+    nh = reg.neo_hookean_elasticity(e, nu)
+    co = reg.corotated_linear_elasticity(e, nu)
+    models = reg.ModelSet.pack([
+        reg.ParticleModel(nh, reg.nacc_plasticity(e, nu, 0.5, True, 0.8, math.radians(35.0))),
+        reg.ParticleModel(co, reg.rankine_plasticity(e, nu, 5.0e4, 5.0)),
+        reg.ParticleModel(co, reg.snow_plasticity()),
+        reg.ParticleModel(co, reg.drucker_prager_plasticity(e, nu)),
+        reg.ParticleModel(nh, failure=reg.maximum_stress_failure(*MATERIALS3_FAILURE)
+                          if failure else None),
+    ], device)
+    # cube_particles orders the lattice x-major: the upper lattice's
+    # particle i sits in x column i // (ny nz).
+    n_up = nx * ny * nz
+    idx = torch.arange(b.particles.capacity, device=b.particles.position.device)
+    band = (idx // (ny * nz)) // (nx // 4)
+    mid = torch.where(idx < n_up, band, 4).to(torch.int32)
+    return replace(b, name="materials3" + ("-failure" if failure else ""), models=models,
+                   particles=b.particles.replace(model_id=mid))
+
+
+def _block_thirds(b, side, densities):
+    """A 2D lattice of side x side particles at r = h/4 over `b`'s grid
+    (basic2's), its thirds in x models 0, 1, 2 with `densities`, from x =
+    -0.55, y = 0.6."""
+    import numpy as np
+    from sparkl_tpu_torch.core.particles import Particles
+
+    r = b.grid.cell_width / 4.0
+    cols = np.array_split(np.arange(side, dtype=np.float32), 3)
+    ys = 0.6 + r + 2.0 * r * np.arange(side, dtype=np.float32)
+    parts = []
+    for m, (xi, rho) in enumerate(zip(cols, densities)):
+        gx, gy = np.meshgrid(-0.55 + r + 2.0 * r * xi, ys, indexing="ij")
+        pts = np.stack([gx.reshape(-1), gy.reshape(-1)], -1).astype(np.float32)
+        parts.append(Particles.from_positions(pts, m, r, rho, b.particles.device))
+    return Particles.concatenate(tuple(parts))
+
+
+def materials2(scale=1.0, failure=False, device="cuda"):
+    """The 2D forms' scene: plastic_block (basic2's grid and heightfield, a
+    500 x 500 lattice at r = h/4, 250,000 particles, densities 1000, 1000,
+    4000 by thirds in x) with its thirds' models swapped to neo-Hookean +
+    NACC (2D M), neo-Hookean alone and corotated + Rankine (tensile
+    strength 500, the same 5e-3 of E), at basic2's E = 1e5, nu = 0.2. With
+    `failure` the neo-Hookean third also fails by maximum stress at
+    MATERIALS2_FAILURE (the stress cache off). `scale` < 1 cuts the
+    lattice's side by it (0.048: 24 x 24, 576 particles)."""
+    import math
+    from dataclasses import replace
+    import sparkl_tpu_torch.scenes as scenes
+    from sparkl_tpu_torch.models import registry as reg
+
+    b = scenes.build("basic2", device=device)
+    e, nu = 1.0e5, 0.2
+    nh = reg.neo_hookean_elasticity(e, nu)
+    models = reg.ModelSet.pack([
+        reg.ParticleModel(nh, reg.nacc_plasticity(e, nu, 0.5, True, 0.8, math.radians(35.0),
+                                                  dim=2)),
+        reg.ParticleModel(nh, failure=reg.maximum_stress_failure(*MATERIALS2_FAILURE)
+                          if failure else None),
+        reg.ParticleModel(reg.corotated_linear_elasticity(e, nu),
+                          reg.rankine_plasticity(e, nu, 500.0, 5.0)),
+    ], device)
+    side = int(round(PLASTIC_BLOCK * scale))
+    return replace(b, name="materials2" + ("-failure" if failure else ""), models=models,
+                   particles=_block_thirds(b, side, (1000.0, 1000.0, 4000.0)))
+
+
+def materials_stats(state):
+    """Per model id of a materials state: the occupied lanes, and those whose
+    plastic state moved from the pack's (NACC α off -0.01, Rankine and
+    Drucker-Prager hardening off 1, Snow's plastic volume off 1), the broken
+    (phase 0) and failed lanes, and NACC's α range; with the deactivated
+    mass. The mass returned is that of every occupied slot, active or not
+    (a slot lost or doubled by a resort shows)."""
+    import torch
+    from sparkl_tpu_torch.fused import layout as L
+
+    r = L.Rows(slot_dim(state))
+    flags = state.ints[:, L.I_FLAGS, :]
+    occ = (flags & L.OCCUPIED) != 0
+    act = (flags & L.ACTIVE) != 0
+    mid = state.ints[:, L.I_MODEL, :]
+    s = state.slots
+    moved = ((s[:, r.nacc] != -0.01) | (s[:, r.ph] != 1.0) | (s[:, r.pdd] != 1.0))
+    per = {}
+    for m in range(int(mid[occ].max()) + 1 if bool(occ.any()) else 0):
+        sel = occ & (mid == m)
+        alpha = s[:, r.nacc][sel]
+        per[m] = dict(lanes=int(sel.sum()), plastic=int((sel & moved).sum()),
+                      broken=int((sel & (s[:, r.phase] == 0.0)).sum()),
+                      failed=int((sel & (s[:, r.failed] != 0.0)).sum()),
+                      alpha=[round(alpha.min().item(), 6), round(alpha.max().item(), 6)]
+                      if alpha.numel() else None)
+    mass = torch.where(occ, s[:, r.mass], 0.0).double().sum().item()
+    per["deactivated_mass"] = torch.where(occ & ~act, s[:, r.mass], 0.0).double().sum().item()
+    return per, mass
+
+
+def material_counts(pipe, state, out, dt):
+    """Lanes of each branch kernel B takes on `state` (its output `out`),
+    from each return map's input F (the slot's F updated with out's
+    gradient rows): NACC by case (A the max tip, B the min tip, C inside, D
+    projected) and the lanes whose α hardened, Rankine by case (elastic,
+    the largest, the two largest (3D) or every principal strain capped),
+    Snow lanes with a singular value clamped below or above, Drucker-Prager
+    lanes with flow, and maximum-stress trips (phase 1 -> 0). Returns
+    (counts, the NACC lanes whose decisions lie within TIE of a threshold
+    (plasticity.nacc_margin), NACC's α range in out)."""
+    import torch
+    from sparkl_tpu_torch.fused import kernels as K
+    from sparkl_tpu_torch.fused import layout as L
+    from sparkl_tpu_torch.math import cmat, svd
+    from sparkl_tpu_torch.models import failure as fail
+    from sparkl_tpu_torch.models import plasticity as plas
+
+    dim = slot_dim(state)
+    r = L.Rows(dim)
+    slots = state.slots
+    occ = (state.ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0
+    (pt, ft), cols = K.model_columns(pipe._tab_f, pipe._tab_i, state.ints, range(16), (1, 2))
+    pp = cols[K.TAB_P : K.TAB_P + 8]
+    f = [[slots[:, r.defgrad + dim * i + j] for j in range(dim)] for i in range(dim)]
+    g = [[out[:, r.grad + dim * i + j] for j in range(dim)] for i in range(dim)]
+    gf = cmat.matmul_c(g, f)
+    fu = [[f[i][j] + dt * gf[i][j] for j in range(dim)] for i in range(dim)]
+    counts = {}
+    na = occ & (pt == plas.NACC)
+    _, _, case, margin = plas.nacc_project_c(pp[:6], fu, slots[:, r.nacc])
+    for code, name in ((plas.NACC_TIP_MAX, "nacc_a_tip_max"), (plas.NACC_TIP_MIN, "nacc_b_tip_min"),
+                       (plas.NACC_INSIDE, "nacc_c_inside"), (plas.NACC_PROJECT, "nacc_d_project")):
+        counts[name] = int((na & (case == code)).sum())
+    counts["nacc_hardened"] = int((na & (out[:, r.nacc] != slots[:, r.nacc])).sum())
+    tie = na & (margin <= TIE)
+    alpha = out[:, r.nacc][na]
+    s = svd.svd_c(fu)[1]
+    srt = torch.sort(torch.stack([torch.log(torch.clamp(x, min=1e-20)) for x in s]),
+                     dim=0).values  # ascending principal Hencky strains
+    e_sum = srt.sum(0)
+    e1, e2, e3 = srt[-1], srt[-2], srt[0]
+    mu, lam, ts = pp[0], pp[1], pp[2]
+    soft = ts - (slots[:, r.ph] - 1.0)
+    case0 = lam * e_sum + 2.0 * mu * e1 <= soft
+    cond1 = (2.0 * mu + lam) * e2 + lam * (e_sum - e1) <= soft
+    cond2 = ((2.0 * mu + 3.0 * lam) * e3 <= soft) if dim == 3 else torch.zeros_like(case0)
+    rk = occ & (pt == plas.RANKINE)
+    sn = occ & (pt == plas.SNOW)
+    below = torch.zeros_like(occ)
+    above = torch.zeros_like(occ)
+    for x in s:
+        below = below | (x < 1.0 - pp[0])
+        above = above | (x > 1.0 + pp[1])
+    counts.update(
+        rankine_elastic=int((rk & case0).sum()),
+        rankine_cap_largest=int((rk & ~case0 & cond1).sum()),
+        rankine_cap_two=int((rk & ~case0 & ~cond1 & cond2).sum()),
+        rankine_uniform=int((rk & ~case0 & ~cond1 & ~cond2).sum()),
+        snow_below=int((sn & below).sum()), snow_above=int((sn & above).sum()),
+        dp_flow=int((occ & (pt == plas.DRUCKER_PRAGER) & (out[:, r.ph] != slots[:, r.ph])).sum()),
+        max_stress_trips=int((occ & (ft == fail.MAXIMUM_STRESS) & (out[:, r.phase] == 0.0)
+                              & (slots[:, r.phase] != 0.0)).sum()))
+    return counts, tie, ([alpha.min().item(), alpha.max().item()] if alpha.numel() else None)
+
+
+def envelope_ties(pipe, ints, slots_in, out):
+    """Lanes failing by maximum stress whose envelope decision on the fresh
+    stress of out's F (the input phase) lies within TIE of a threshold: the
+    largest principal stress against max_principal, half the spread
+    against max_shear."""
+    import torch
+    from sparkl_tpu_torch.fused import kernels as K
+    from sparkl_tpu_torch.fused import layout as L
+    from sparkl_tpu_torch.math import svd
+    from sparkl_tpu_torch.models import failure as fail
+
+    dim = 3 if out.shape[1] == L.Rows(3).nf else 2
+    r = L.Rows(dim)
+    (ct, ft), p = K.model_columns(pipe._tab_f, pipe._tab_i, ints, range(16), (0, 2))
+    f = [[out[:, r.defgrad + dim * i + j] for j in range(dim)] for i in range(dim)]
+    st = K.kirchhoff_stress_c(ct, p[0:4], slots_in[:, r.phase], out[:, r.eh], f, None, None,
+                              None, tuple(int(x) for x in pipe.models.present_c))
+    sym = [[0.5 * (st[i][j] + st[j][i]) for j in range(dim)] for i in range(dim)]
+    eig = torch.stack(svd.sym_eigvals2x2_c(sym) if dim == 2 else svd.sym_eigvals3x3_c(sym))
+    emax, emin = eig.max(0).values, eig.min(0).values
+    mp, ms = p[K.TAB_F], p[K.TAB_F + 1]
+    near = (((emax - mp).abs() <= TIE * mp.abs())
+            | (((emax - emin) / 2.0 - ms).abs() <= TIE * ms.abs()))
+    return (ft == fail.MAXIMUM_STRESS) & near
+
+
+def check_materials(pipe, state, dt, label, phase, timed=False):
+    """Kernels A and B in their material forms against their plain versions
+    on the 2D or 3D `state`, on the windows the path computes: A's stress-
+    cache read (materials3, materials2) or its fresh corotated and
+    neo-Hookean stress (the failure forms), p2g_errors's bound; the merge
+    on its images, bit-equal; B's material instance (NACC, neo-Hookean's
+    energy, cached or failure stress and dt bound, Rankine and Snow, and in
+    the failure forms the damage instance with the maximum-stress trip),
+    g2p_errors's row tolerances on occupied lanes but those whose NACC
+    decision lies within TIE of a threshold (counted: there the case, and
+    so F and α, may differ), the phase row equal but on lanes whose
+    envelope decision lies within TIE (counted). Each branch's lanes are
+    counted (material_counts). With `timed`, times and bounds. Returns
+    {name: {...}}."""
+    import torch
+    from sparkl_tpu_torch.fused import kernels as K
+    from sparkl_tpu_torch.fused import layout as L
+    from sparkl_tpu_torch.models import constitutive as con
+    from sparkl_tpu_torch.models import plasticity as plas
+    from sparkl_tpu_torch.sparse import transfer as T
+
+    meta = pipe._meta
+    cache = bool(meta["stress_cache"])
+    grid, cfg = pipe.grid, pipe._cfg
+    dim = grid.dim
+    r = L.Rows(dim)
+    nch = state.structure.num_chunks
+    tables = (pipe._tab_f, pipe._tab_i)
+    img_k = K.p2g_fused(grid, cfg, meta, state.slots, state.ints, dt, nch, tables)
+    img_p = K.p2g_fused_reference(grid, state.slots, state.ints, dt, nch, tables,
+                                  stress_cache=cache)
+    rows = image_rows(cfg, img_k)
+    first, nblk = state.structure.block_first_chunk, state.structure.block_num_chunks
+    m_k = K.merge_blocks(rows, first, nblk)
+    m_p = K.merge_blocks_reference(rows, first, nblk, T.MERGE_KMAX)
+    windows = pipe._grid_windows(state, img_k, dt)
+    slots_in = state.slots.clone()
+    args = (pipe._tab_f, pipe._tab_i, nch)
+    out_p = K.g2p_fused_reference(grid, slots_in, state.ints, windows, dt, *args,
+                                  velocity_clamp=pipe._kparams["gpu_velocity_clamp"],
+                                  stress_cache=cache)
+    out_k = K.g2p_fused(grid, cfg, meta, pipe._kparams, slots_in.clone(), state.ints, windows,
+                        dt, *args)
+    if out_k.is_cuda:
+        torch.cuda.synchronize()
+    per_ch = p2g_errors(img_k, img_p)
+    occ = (state.ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0
+    counts, nacc_tie, alpha = material_counts(pipe, state, out_p, dt)
+    # neo-Hookean's energy floor: µh d/2 times 4 ulp(1) of J^(-2/d), within
+    # 1e-6 µh in 2D and 3D.
+    (ct,), cp = K.model_columns(pipe._tab_f, pipe._tab_i, state.ints, (K.TAB_C + 1,))
+    floor = torch.where(ct == con.NEO_HOOKEAN, 1e-6 * cp[0] * out_p[:, r.eh], 0.0)
+    row_errs = g2p_errors(out_k, out_p, state.ints, pipe.models.cparams, grid.cell_width,
+                          skip_rows=(r.phase,), skip_lanes=nacc_tie, energy_floor=floor)
+    worst = {}
+    for _, grp, m, tol in row_errs:
+        worst[grp] = max(worst.get(grp, 0.0), m / tol if tol else m)
+    trip_tie = envelope_ties(pipe, state.ints, slots_in, out_k) & occ
+    differ = occ & (out_k[:, r.phase] != out_p[:, r.phase])
+    mid = state.ints[:, L.I_MODEL, :]
+    lanes_per_model = {m: int((occ & (mid == m)).sum()) for m in range(pipe.models.num_models)}
+    # Warps (32 lanes) whose occupied lanes hold more than one model: where
+    # kernel B's branches diverge.
+    w_mid = torch.where(occ, mid, -1).reshape(mid.shape[0], -1, 32)
+    w_occ = occ.reshape(mid.shape[0], -1, 32)
+    big = torch.where(w_occ, w_mid, -1).amax(-1)
+    small = torch.where(w_occ, w_mid, 1 << 20).amin(-1)
+    mixed_warps = int((w_occ.any(-1) & (big != small)).sum())
+    res = {
+        "p2g_fused": dict(max_abs_err=max(e for _, e in per_ch),
+                          over_bound=max(m for m, _ in per_ch), stress_cache=cache,
+                          mats_form=K.mats_form(meta, dim)),
+        "merge_blocks": dict(max_abs_err=(m_k - m_p).abs().max().item(),
+                             bit_equal=torch.equal(m_k, m_p)),
+        "g2p_fused": dict(max_abs_err=torch.where((occ & ~nacc_tie)[:, None, :], out_k - out_p,
+                                                  0.0).abs().max().item(),
+                          worst_over_tol=worst, counts=counts, nacc_alpha=alpha,
+                          nacc_tie_lanes=int(nacc_tie.sum()), trips_differ=int(differ.sum()),
+                          trip_tie_lanes=int(trip_tie.sum()), lanes_per_model=lanes_per_model,
+                          mixed_warps=mixed_warps,
+                          warps=int(w_occ.any(-1).sum())),
+    }
+    say(phase, f"material kernels on the {label} state ({dim}D, stress cache {cache}, material "
+               f"form {K.mats_form(meta, dim)}): p2g_fused images {tuple(img_k.shape)} "
+               f"max|err|/bound {[f'{m:.2e}' for m, _ in per_ch]} (pass <= 1); merge_blocks "
+               f"bit-equal {res['merge_blocks']['bit_equal']}; g2p_fused worst measure/tol "
+               f"{({g: round(v, 4) for g, v in worst.items()})} off {int(nacc_tie.sum())} NACC "
+               f"tie lanes; lanes per model {lanes_per_model}, warps with more than one model "
+               f"{mixed_warps} of {res['g2p_fused']['warps']}; lanes per branch {counts}; NACC "
+               f"alpha range {alpha}; phase differing {int(differ.sum())} (envelope ties "
+               f"{int(trip_tie.sum())})")
+    failures = []
+    if not (all(m <= 1.0 for m, _ in per_ch) and torch.isfinite(img_k).all().item()):
+        failures.append("p2g_fused")
+    if not res["merge_blocks"]["bit_equal"]:
+        failures.append("merge_blocks")
+    if not (all(v <= 1.0 for v in worst.values()) and not bool((differ & ~trip_tie).any())
+            and torch.isfinite(torch.where(occ[:, None, :], out_k, 0.0)).all().item()):
+        failures.append("g2p_fused")
+    require(not failures, f"{failures} disagree with their plain versions on the {label} state")
+    if not timed:
+        return res
+    live, row = int(nch), 4 * cfg.chunk_size
+    act = (state.ints[:, L.I_FLAGS, :] & L.ACTIVE) != 0
+    lanes = int(act.sum())
+    (ct, pt), _ = K.model_columns(pipe._tab_f, pipe._tab_i, state.ints, (), (0, 1))
+    neo = int((act & (ct == con.NEO_HOOKEAN)).sum())
+    mapped = int((act & ((pt == plas.NACC) | (pt == plas.RANKINE) | (pt == plas.SNOW))).sum())
+    scratch = slots_in.clone()
+    # Bytes counted from what the forms read and write per live chunk. A
+    # reads pos, vel, grad, mass, vol0 and failed, then the stress rows
+    # (cache on) or F, phase and eh (fresh), and flags, model and the origin
+    # (d + 2 i32 rows), and writes every chunk's [1 + d, 8^d] image. B reads
+    # the rows check_kernels_3d and check_kernels_2d count (3D 34 f32 and 5
+    # i32, 2D 26 and 4) and the [d, 8^d] velocity window, and writes every
+    # row. Operations: per tap as the other forms; per slot A's affine (and
+    # fresh, the corotated SVD stress or neo-Hookean's NH_SLOT_FLOPS), B's
+    # lane, and per NACC, Rankine or Snow lane one more SVD and its map.
+    cells = 512 if dim == 3 else 64
+    a_rows = (3 * dim + 3 + (6 if dim == 3 else 3)) if cache else (
+        2 * dim + dim * dim + 5 + dim * dim)
+    a_bytes = live * (a_rows + dim + 2) * row + cfg.max_chunks * img_k.shape[1] * cells * 4
+    b_bytes = live * ((34 + 5 + r.nf) * row + 3 * 512 * 4 if dim == 3 else
+                      (26 + 4 + r.nf) * row + 2 * 64 * 4)
+    if dim == 3:
+        a_slot = A_SLOT_FLOPS if cache else A3_FRESH_SLOT_FLOPS
+        a_flops = lanes * (27 * P2G_TAP_FLOPS + a_slot)
+        b_flops = (lanes * (27 * G2P_TAP_FLOPS + B_LANE_FLOPS) + mapped * MAT_MAP3_FLOPS
+                   + (0 if cache else lanes * B3_FAILURE_FLOPS))
+    else:
+        a_slot = A2_CACHED_SLOT_FLOPS if cache else A2_SLOT_FLOPS
+        a_flops = lanes * (9 * P2G2_TAP_FLOPS + a_slot)
+        b_flops = lanes * (9 * G2P2_TAP_FLOPS + B2_LANE_FLOPS) + mapped * B2_PLASTIC_FLOPS
+    a_flops += 0 if cache else neo * NH_SLOT_FLOPS
+    b_flops += neo * NH_SLOT_FLOPS
+    for name, fn, plain, nbytes, flops in (
+            ("p2g_fused", lambda: K.p2g_fused(grid, cfg, meta, state.slots, state.ints, dt, nch,
+                                              tables),
+             lambda: K.p2g_fused_reference(grid, state.slots, state.ints, dt, nch, tables,
+                                           stress_cache=cache), a_bytes, a_flops),
+            ("g2p_fused", lambda: K.g2p_fused(grid, cfg, meta, pipe._kparams, scratch,
+                                              state.ints, windows, dt, *args),
+             lambda: K.g2p_fused_reference(grid, slots_in, state.ints, windows, dt, *args,
+                                           stress_cache=cache), b_bytes, b_flops)):
+        v = res[name]
+        v["ms"], v["plain_ms"] = cuda_median_ms(fn), cuda_median_ms(plain)
+        v["library_ms"] = None
+        v["bytes"], v["flops"] = nbytes, flops
+        v["bound_ms"], v["bound_by"] = bound(nbytes, flops)
+        say(phase, f"{name} ({label}): kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms "
+                   f"(median of 20); {nbytes / 1e9:.4f} GB and {flops / 1e9:.4f} GFLOP counted; "
+                   f"bound {v['bound_ms']:.4f} ms ({v['bound_by']})")
+    return res
+
+
+def perturbed_particles(p, seed=110, f_scale=0.005, v_scale=0.2):
+    """`p` with F = I + f_scale N and velocities v_scale N (numpy seed, F
+    drawn first), so that the first substeps of a scene that starts at rest
+    in free fall load every model."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n, d = p.capacity, p.dim
+    f = (np.eye(d) + f_scale * rng.normal(size=(n, d, d))).astype(np.float32)
+    v = rng.normal(scale=v_scale, size=(n, d)).astype(np.float32)
+    return p.replace(deformation_gradient=torch.from_numpy(f).to(p.device),
+                     velocity=torch.from_numpy(v).to(p.device))
+
+
+def material_state(b, frames=1):
+    """(pipeline, state): `b` through auto_pipeline and pack_state, run
+    `frames` frames in (so that velocities, stress and plastic state are the
+    path's own)."""
+    import sparkl_tpu_torch as sk
+
+    pipe = sk.auto_pipeline(b)
+    state = pipe.pack_state(b.particles)
+    if frames:
+        state, _ = pipe.run_frames_state(state, frames)
+    return pipe, state
+
+
+def phase_materials_kernels():
+    """Kernels A and B in their material forms against their plain versions
+    on the card, at full size, one frame in: materials3 (A's cache read, B's
+    material instance), materials3-failure (A's fresh corotated and
+    neo-Hookean stress, B's damage and material instance with the
+    maximum-stress trip), materials2 and materials2-failure (the 2D forms);
+    each also with F perturbed per model (MATERIALS_PERTURB) so that every
+    NACC case, the Rankine and Snow maps and, in the failure forms, the
+    maximum-stress trips occur (counted, each required over a form's two
+    states); with times and bounds. Returns {config: {name: {...}}}."""
+    import torch
+
+    out = {}
+    builders = (("materials3", lambda: materials3()),
+                ("materials3-failure", lambda: materials3(failure=True)),
+                ("materials2", lambda: materials2()),
+                ("materials2-failure", lambda: materials2(failure=True)))
+    for name, builder in builders:
+        t0 = time.perf_counter()
+        b = builder()
+        pipe, state = material_state(b)
+        dt = float(pipe._min_dtb(state))
+        say(26, f"{name}: {int(b.particles.active.sum())} particles, {pipe._cfg}, grid "
+                f"{b.grid.res}, one frame in, dt {dt:.3e}, live chunks "
+                f"{int(state.structure.num_chunks)}, set-up {time.perf_counter() - t0:.1f} s")
+        res = check_materials(pipe, state, dt, name, 26, timed=True)
+        pres = check_materials(pipe, perturbed_by_model(state, MATERIALS_PERTURB[name]), dt,
+                               f"{name} perturbed-F", 26)
+        res["g2p_fused"]["perturbed"] = pres["g2p_fused"]
+        res["p2g_fused"]["perturbed"] = pres["p2g_fused"]
+        both = {k: v + pres["g2p_fused"]["counts"][k]
+                for k, v in res["g2p_fused"]["counts"].items()}
+        need = ["nacc_a_tip_max", "nacc_b_tip_min", "nacc_c_inside", "nacc_d_project",
+                "nacc_hardened"]
+        need += ["rankine_cap_largest"] if name.startswith("materials2") else [
+            "rankine_cap_largest", "snow_below", "snow_above", "dp_flow"]
+        if name.endswith("failure"):
+            need.append("max_stress_trips")
+        missing = [k for k in need if both[k] == 0]
+        require(not missing, f"{name}: branches no lane took on its two states: {missing}")
+        out[name] = res
+        del pipe, state, b
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_materials_agreement(name, phase=29):
+    """Reduced materials3 or materials2 (MATERIALS3_SMALL, MATERIALS2_SMALL),
+    from perturbed_particles (the reduced lattices start at rest in free
+    fall, where no model would act), MATERIALS_AGREE_SUBSTEPS single
+    substeps on the card against the port's CPU path taking the card's dt
+    at every substep: |dx|, |dv|, |dF| and |d alpha| within MATERIALS_DX,
+    _DV, _DF, _DA, phases and flags equal."""
+    from dataclasses import replace
+    import torch
+    import sparkl_tpu_torch as sk
+
+    build = materials3 if name == "materials3" else materials2
+    small = MATERIALS3_SMALL if name == "materials3" else MATERIALS2_SMALL
+    runs, dts = {}, []
+    for dev in ("cuda", "cpu"):
+        b = build(scale=small, device=dev)
+        pipe = sk.auto_pipeline(replace(b, params=replace(b.params, stop_after_one_substep=True)),
+                                device=dev)
+        min_dtb = pipe._min_dtb
+        if dev == "cuda":
+            pipe._min_dtb = lambda st: dts.append(min_dtb(st)) or dts[-1]
+        else:
+            replay = iter([float(x) for x in dts])
+            pipe._min_dtb = lambda st: torch.tensor(next(replay), dtype=torch.float32)
+        state = pipe.pack_state(perturbed_particles(b.particles))
+        ps = []
+        for _ in range(MATERIALS_AGREE_SUBSTEPS):
+            state, _ = pipe.run_frames_state(state, 1)
+            ps.append(pipe.unpack_state(state).to("cpu"))
+        runs[dev] = ps
+    worst = dict(dx=0.0, dv=0.0, df=0.0, dalpha=0.0)
+    for k, (a, c) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        act = c.active
+        for key, fa, fc in (("dx", a.position, c.position), ("dv", a.velocity, c.velocity),
+                            ("df", a.deformation_gradient, c.deformation_gradient),
+                            ("dalpha", a.nacc_alpha, c.nacc_alpha)):
+            worst[key] = max(worst[key], (fa[act] - fc[act]).abs().max().item())
+        require(torch.equal(a.active, c.active) and torch.equal(a.failed[act], c.failed[act])
+                and torch.equal(a.phase[act], c.phase[act]),
+                f"reduced {name} substep {k + 1}: flags or phases differ")
+    c = runs["cpu"][-1]
+    moved = int((c.active & (c.nacc_alpha != -0.01)).sum())
+    say(phase, f"reduced {name} ({int(c.active.sum())} particles), {MATERIALS_AGREE_SUBSTEPS} "
+               f"substeps at the card's dts {[f'{float(x):.3e}' for x in dts]}, card against "
+               f"CPU: max|dx| {worst['dx']:.3e} ({MATERIALS_DX:g}), max|dv| {worst['dv']:.3e} "
+               f"({MATERIALS_DV:g}), max|dF| {worst['df']:.3e} ({MATERIALS_DF:g}), max|d alpha| "
+               f"{worst['dalpha']:.3e} ({MATERIALS_DA:g}); flags and phases equal; NACC alpha "
+               f"moved on {moved}")
+    require(worst["dx"] <= MATERIALS_DX and worst["dv"] <= MATERIALS_DV
+            and worst["df"] <= MATERIALS_DF and worst["dalpha"] <= MATERIALS_DA,
+            f"reduced {name}: card and CPU disagree")
+    return dict(worst, dts=[float(x) for x in dts], alpha_moved=moved)
 
 
 def main():
@@ -3362,6 +3924,34 @@ def main():
                 f"{name}: kernel B not launched, or the pooling launched")
         del mpipe, b
 
+    # 26. The material forms of kernels A and B against their plain
+    # versions at full size (materials3, materials2 and their failure forms).
+    mat_res = {"kernels": phase_materials_kernels()}
+
+    # 27. The materials3 main path, 15 frames; one profiled frame.
+    mpipe, mstate, mat_launches, mat_res["materials3"] = phase_damage_main(
+        materials3(), MATERIALS3_FRAMES, MATERIALS3_TIMED, 27, stats=materials_stats)
+    _, mat_res["profile"] = profile_frame(mpipe, mstate, "materials3_profile.txt", 27,
+                                          "materials3")
+    mat_launches = {"materials3": mat_launches}
+    del mpipe, mstate
+
+    # 28. materials2 (3 frames), and the failure forms (a frame each) as
+    # main paths: the damage and material instances launched every substep.
+    for name, b, frames in (("materials2", materials2(), MATERIALS2_FRAMES),
+                            ("materials3-failure", materials3(failure=True), 1),
+                            ("materials2-failure", materials2(failure=True), 1)):
+        mpipe, _, mat_launches[name], mat_res[name] = phase_damage_main(
+            b, frames, 1, 28, stats=materials_stats)
+        del mpipe, b
+    for name, ml in mat_launches.items():
+        missing = [k for k in ("p2g_fused", "g2p_fused") if ml[k] == 0]
+        require(not missing, f"kernels the {name} path never launched: {missing}")
+
+    # 29. Reduced materials3 and materials2, card against CPU.
+    for name in ("materials3", "materials2"):
+        mat_res[name]["agreement"] = phase_materials_agreement(name)
+
     by_path = dict(fused=launches, sparse=sparse_launches, fluid=fluid_launches,
                    fracture=fracture_launches, elasticity2=plastic_launches["elasticity2"],
                    basic2=plastic_launches["basic2"], fluids2=fluid2_launches)
@@ -3370,9 +3960,10 @@ def main():
     missing = [k for k in REPLACES if launches[k] == 0]
     require(not missing, f"kernels their main paths (or checks) never launched: {missing}")
 
-    # 26. Results. The 2D fluid forms of four kernels carry their own
+    # 30. Results. The 2D fluid forms of four kernels carry their own
     # numbers (the fluids2 path's launches, times on the 2D column), and so
-    # do the damage forms (their paths' launches, times at their size).
+    # do the damage forms and the material forms (their paths' launches,
+    # times at their size).
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     block = fluid2_res["kernels"]["fluids2 block"]
     dk = damage_res["kernels"]
@@ -3386,6 +3977,11 @@ def main():
     for label in ("l_panel3-modified", "l_panel2-modified"):
         forms_of["g2p_fused"][label] = dict(launches=mod_launches[label]["g2p_fused"],
                                             **{k: dk[label]["g2p_fused"].get(k) for k in keys})
+    for label, ml in mat_launches.items():
+        for name in ("p2g_fused", "g2p_fused"):
+            forms_of[name][label] = dict(launches=ml[name],
+                                         **{k: mat_res["kernels"][label][name].get(k)
+                                            for k in keys})
     kernels = [
         dict(name=name, route="cuda",
              source=WINDOW_SOURCE if name in SPARSE_KERNELS else FUSED_SOURCE,
@@ -3400,7 +3996,7 @@ def main():
                        resort_branches=branches, resort_ms=resort_ms, peak_gib=peak_gib,
                        build_s=build_s, kernel_checks=kres, sparse=sparse_res,
                        fluid=fluid_res, fracture=fracture_res, plastic2d=plastic_res,
-                       fluids2=fluid2_res, damage=damage_res), f,
+                       fluids2=fluid2_res, damage=damage_res, materials=mat_res), f,
                   indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(smi)

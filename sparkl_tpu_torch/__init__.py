@@ -20,7 +20,9 @@ elasticity2's and basic2's, 2D Rankine, Snow and Drucker-Prager plasticity
 on cuboids and a 2D heightfield; fluids2's, the 2D Monaghan EOS fluid
 with its volume pass between cuboid walls; and fracture in 3D (l_panel2's
 two mechanisms in a slab), with eigenerosion or modified eigenerosion and
-maximum-stress failure; all on the fused pipeline.
+maximum-stress failure; and neo-Hookean elasticity with NACC plasticity,
+and Rankine and Snow in 3D (chip_smoke.py's materials3 and materials2);
+all on the fused pipeline.
 Every entry point that takes a device defaults to
 "cuda" and raises without one; pass device="cpu" for the plain PyTorch
 versions.

@@ -35,7 +35,9 @@
 // dimension and the chunk size, instantiated for (3, 128) and (2, 64); A
 // also on its psi channels and B on its damage form (the stress cache off:
 // damage and failure scenes), so that the scenes without damage keep their
-// code. The launchers pick the instance. Each launcher is
+// code; both also on their material form (MATS: neo-Hookean, NACC, and
+// Rankine and Snow in 3D), so that the scenes without these materials keep
+// their code and registers. The launchers pick the instance. Each launcher is
 // a plain C function that enqueues on the given stream and returns
 // cudaGetLastError() (cudaErrorInvalidValue for a shape it has no instance
 // for); the caller allocates every output.
@@ -151,8 +153,10 @@ constexpr int FLAG_STATIC = 2;
 constexpr int FLAG_KINEMATIC = 4;
 
 constexpr int COROTATED = 0;
+constexpr int NEO_HOOKEAN = 1;
 constexpr int EOS_MONAGHAN_SPH = 2;
 constexpr int DRUCKER_PRAGER = 1;
+constexpr int NACC = 2;
 constexpr int RANKINE = 3;
 constexpr int SNOW = 4;
 constexpr int MAXIMUM_STRESS = 1;
@@ -165,6 +169,7 @@ constexpr int OPT_STRESS_CACHE = 2;  // A reads the stress rows, B writes them
 constexpr int OPT_CLAMP = 1;         // kernel B: the GPU velocity clamp
 constexpr int OPT_SVD_REUSE = 4;     // kernel B: one SVD for DP, energy and stress
 constexpr int OPT_MODIFIED = 8;      // kernel B: the modified-eigenerosion trip
+constexpr int OPT_MATS = 16;         // kernels A and B: the material instance
 
 // 8^d window cells.
 template <int D>
@@ -234,7 +239,9 @@ __device__ __forceinline__ void quadratic_weights(float f, float w[3]) {
 // gradient (kernel B leaves their rows zero); without it (damage
 // and failure scenes, whose phase changes between the kernels), fresh from
 // F: corotated through the SVD (2x2 closed form in 2D), with the phase
-// split for broken particles. Failed debris contributes no stress. The JAX
+// split for broken particles, and in the MATS instance neo-Hookean in
+// closed form (the cached read is the same for every model). Failed debris
+// contributes no stress. The JAX
 // kernel folds the model test statically for single-type model sets; this
 // one branches per slot on the model's type, so mixed sets take the same
 // values.
@@ -251,7 +258,7 @@ __device__ __forceinline__ void quadratic_weights(float f, float w[3]) {
 // coalesced. A faster design scatters each slot's taps (shared-memory
 // atomics, losing determinism) or sorts slots by cell first.
 // ---------------------------------------------------------------------------
-template <int DIM, int C, bool PSI>
+template <int DIM, int C, bool PSI, bool MATS>
 __global__ void __launch_bounds__(C) p2g_fused_kernel(
     const float* __restrict__ slots, const int* __restrict__ ints,
     const int* __restrict__ nchunks, const float* __restrict__ tab_f,
@@ -315,6 +322,14 @@ __global__ void __launch_bounds__(C) p2g_fused_kernel(
       sparkl::corotated_stress<DIM>(mid_ok ? p[0] : 0.0f, mid_ok ? p[1] : 0.0f,
                                     mid_ok ? p[3] : 0.0f, phase, SROW(R::EH), f, u, sv, v,
                                     stress);
+    }
+    if constexpr (MATS) {
+      if (ctype == NEO_HOOKEAN) {
+        float f[DIM][DIM];
+        for (int i = 0; i < DIM; ++i)
+          for (int j = 0; j < DIM; ++j) f[i][j] = SROW(R::DEFGRAD + i * DIM + j);
+        sparkl::neo_hookean_stress<DIM>(p[0], p[1], phase, SROW(R::EH), f, stress);
+      }
     }
   }
   const float coeff = vol0 * g.invd * dt;
@@ -682,7 +697,13 @@ __global__ void __launch_bounds__(128) permute_chunks_kernel(
 // The DAMAGE instance (the stress cache off: damage and failure scenes)
 // compiles the psi gather and both trips; the other instance leaves them
 // out, so that the scenes without damage or failure keep their code and
-// registers.
+// registers. The MATS instance (neo-Hookean or NACC present, or Rankine or
+// Snow in 3D) compiles NACC (sparkl_tpu/fused/kernels.py:1377, with the
+// nacc row), neo-Hookean's energy, cached or failure stress and dt bound
+// (closed form, no SVD: its slots skip the final decomposition), and in 3D
+// Rankine and Snow; the instances without it are the code of the scenes
+// that need none of these. Each lane runs its own model's one return map,
+// in the JAX order (Drucker-Prager, NACC, Rankine, Snow).
 //
 // EOS fluid slots (branch per slot on the model's type) update only J
 // = F00 by tr(grad v), take no SVD and no return map, skip the |F00|
@@ -697,11 +718,13 @@ __global__ void __launch_bounds__(128) permute_chunks_kernel(
 // slot before writing it, and no thread touches another lane, so the
 // in-place update is safe. Dead chunks (>= num_chunks) return untouched.
 // Bound on this card: per-thread arithmetic and registers (in 3D one
-// Cardano SVD and ~3 transcendental DP steps; a Rankine or Snow lane two
-// SVDs, logs and exps) at one CTA per chunk; the slot read/write is 2 x NF
-// rows, coalesced.
+// Cardano SVD and ~3 transcendental DP steps; a NACC, Rankine or Snow lane
+// two SVDs, logs and exps; a neo-Hookean lane no SVD) at one CTA per chunk;
+// the slot read/write is 2 x NF rows, coalesced. Lanes of different models
+// in one warp take their branches in turn: the slots are sorted by space,
+// so the warps that straddle two models are the band edges.
 // ---------------------------------------------------------------------------
-template <int DIM, int C, bool DAMAGE>
+template <int DIM, int C, bool DAMAGE, bool MATS>
 __global__ void __launch_bounds__(C) g2p_fused_kernel(
     float* __restrict__ slots, const int* __restrict__ ints,
     const float* __restrict__ windows, const int* __restrict__ nchunks,
@@ -839,7 +862,7 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
   float ph = SROW(R::PH);
   float pdd = SROW(R::PDD);
   float lvg = SROW(R::LVG);
-  const float nacc = SROW(R::NACC);
+  float nacc = SROW(R::NACC);
   float psi_pos = SROW(R::PSI_POS);
   float f[DIM][DIM];
   for (int i = 0; i < DIM; ++i)
@@ -899,9 +922,12 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
     if (svd_reuse || ti[1] == DRUCKER_PRAGER) sparkl::svd(fnew, u, s, v);
     if (ti[1] == DRUCKER_PRAGER)
       sparkl::dp_update<DIM>(tf + 4, phase, fnew, u, s, v, pdd, ph, lvg);
-    // Rankine and Snow in 3D are refused (fused.kernels.meta_unsupported):
-    // the 3D instance leaves them out and keeps its registers.
-    if constexpr (DIM == 2) {
+    if constexpr (MATS) {
+      if (ti[1] == NACC) sparkl::nacc_update<DIM>(tf + 4, fnew, nacc);
+    }
+    // Rankine and Snow: every 2D instance, and in 3D the MATS one (the 3D
+    // instance without it leaves them out and keeps its registers).
+    if constexpr (DIM == 2 || MATS) {
       if (ti[1] == RANKINE)
         sparkl::rankine_update<DIM>(tf + 4, fnew, ph);
       else if (ti[1] == SNOW)
@@ -932,12 +958,16 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
   }
   // Without SVD reuse: one SVD of the final F serves the energy and the
   // cached or the failure stress (the JAX kernel decomposes the same F for
-  // each).
-  if (!svd_reuse && !fluid) sparkl::svd(fnew, u, s, v);
+  // each). Neo-Hookean slots need none.
+  const bool corot = ti[0] == COROTATED;
+  const bool neo = MATS && ti[0] == NEO_HOOKEAN;
+  if (!svd_reuse && !fluid && !neo) sparkl::svd(fnew, u, s, v);
 
   const float lam = tf[0], mu = tf[1], cfl = tf[2], split = tf[3];
-  const bool corot = ti[0] == COROTATED;
-  const float energy = corot ? sparkl::corotated_pos_energy<DIM>(lam, mu, eh, fnew, s) : 0.0f;
+  float energy = corot ? sparkl::corotated_pos_energy<DIM>(lam, mu, eh, fnew, s) : 0.0f;
+  if constexpr (MATS) {
+    if (neo) energy = sparkl::neo_hookean_pos_energy<DIM>(lam, mu, phase, eh, fnew);
+  }
   psi_pos = fmaxf(psi_pos, energy);
   const float par1 = psi_pos * mass;
   const float par2 = mass;
@@ -949,6 +979,9 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
       for (int i = 0; i < DIM; ++i)
         for (int j = 0; j < DIM; ++j) st[i][j] = 0.0f;
       if (corot) sparkl::corotated_stress<DIM>(lam, mu, split, phase, eh, fnew, u, s, v, st);
+      if constexpr (MATS) {
+        if (neo) sparkl::neo_hookean_stress<DIM>(lam, mu, phase, eh, fnew, st);
+      }
       if (sparkl::maximum_stress_failed(tf[TAB_F], tf[TAB_F + 1], st)) phase = 0.0f;
     }
   }
@@ -976,9 +1009,10 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
   const float vel_bound = vtot > 0.0f ? g.h / fmaxf(vtot, 1e-20f) : INFINITY;
   float con_bound = INFINITY;
   const float density0 = mass / fmaxf(vol0, 1e-30f);
-  if (corot) {
-    // lam + 2 mu / 3 as jitted XLA forms it: mu f32(2/3) contracted into one FMA
-    // (an explicit fmaf: the build does not contract).
+  if (corot || neo) {
+    // Corotated and neo-Hookean alike. lam + 2 mu / 3 as jitted XLA forms
+    // it: mu f32(2/3) contracted into one FMA (an explicit fmaf: the build
+    // does not contract).
     const float bulk = fmaf(mu, 2.0f * (1.0f / 3.0f), lam) * eh;
     const float shear = mu * eh;
     con_bound = sparkl::sound_speed_bound(cfl, bulk, shear, density0, vnorm, g.h);
@@ -1004,6 +1038,9 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
     for (int j = 0; j < DIM; ++j) st[i][j] = 0.0f;
   if (stress_cache && corot)
     sparkl::corotated_stress<DIM>(lam, mu, split, phase, eh, fnew, u, s, v, st);
+  if constexpr (MATS) {
+    if (stress_cache && neo) sparkl::neo_hookean_stress<DIM>(lam, mu, phase, eh, fnew, st);
+  }
 
   // --- write the slot (every row of this lane was read above) ---
   for (int ax = 0; ax < DIM; ++ax) {
@@ -1134,21 +1171,30 @@ int sparkl_p2g_fused(const float* slots, const int* ints, const int* nchunks,
                      void* stream) {
   const GridArgs g = grid_args(ox, oy, oz, h, invd, d_coeff, rx, ry, rz);
   const bool psi = (opts & OPT_PSI) != 0;
+  const bool mats = (opts & OPT_MATS) != 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dim == 3 && psi)
-    p2g_fused_kernel<3, 128, true><<<max_chunks, 128, 0, st>>>(
-        slots, ints, nchunks, tab_f, tab_i, m_count, out, dt, g, opts);
+#define SPARKL_A(D, C, P, M)                                                          \
+  p2g_fused_kernel<D, C, P, M><<<max_chunks, C, 0, st>>>(slots, ints, nchunks, tab_f, \
+                                                         tab_i, m_count, out, dt, g, opts)
+  if (dim == 3 && psi && mats)
+    SPARKL_A(3, 128, true, true);
+  else if (dim == 3 && psi)
+    SPARKL_A(3, 128, true, false);
+  else if (dim == 3 && mats)
+    SPARKL_A(3, 128, false, true);
   else if (dim == 3)
-    p2g_fused_kernel<3, 128, false><<<max_chunks, 128, 0, st>>>(
-        slots, ints, nchunks, tab_f, tab_i, m_count, out, dt, g, opts);
+    SPARKL_A(3, 128, false, false);
+  else if (dim == 2 && psi && mats)
+    SPARKL_A(2, 64, true, true);
   else if (dim == 2 && psi)
-    p2g_fused_kernel<2, 64, true><<<max_chunks, 64, 0, st>>>(
-        slots, ints, nchunks, tab_f, tab_i, m_count, out, dt, g, opts);
+    SPARKL_A(2, 64, true, false);
+  else if (dim == 2 && mats)
+    SPARKL_A(2, 64, false, true);
   else if (dim == 2)
-    p2g_fused_kernel<2, 64, false><<<max_chunks, 64, 0, st>>>(
-        slots, ints, nchunks, tab_f, tab_i, m_count, out, dt, g, opts);
+    SPARKL_A(2, 64, false, false);
   else
     return (int)cudaErrorInvalidValue;
+#undef SPARKL_A
   return (int)cudaGetLastError();
 }
 
@@ -1231,22 +1277,32 @@ int sparkl_g2p_fused(float* slots, const int* ints, const float* windows,
                      int dim, int n_win, int opts, void* stream) {
   const GridArgs g = grid_args(ox, oy, oz, h, invd, d_coeff, rx, ry, rz);
   cudaStream_t st = (cudaStream_t)stream;
-  // The damage form: the stress cache off (damage and failure scenes).
+  // The damage form: the stress cache off (damage and failure scenes); the
+  // material form: neo-Hookean or NACC, or Rankine or Snow in 3D.
   const bool damage = (opts & OPT_STRESS_CACHE) == 0;
-  if (dim == 3 && damage)
-    g2p_fused_kernel<3, 128, true><<<max_chunks, 128, 0, st>>>(
-        slots, ints, windows, nchunks, tab_f, tab_i, m_count, dt, g, n_win, opts);
+  const bool mats = (opts & OPT_MATS) != 0;
+#define SPARKL_B(D, C, DMG, M)                                                           \
+  g2p_fused_kernel<D, C, DMG, M><<<max_chunks, C, 0, st>>>(                              \
+      slots, ints, windows, nchunks, tab_f, tab_i, m_count, dt, g, n_win, opts)
+  if (dim == 3 && damage && mats)
+    SPARKL_B(3, 128, true, true);
+  else if (dim == 3 && damage)
+    SPARKL_B(3, 128, true, false);
+  else if (dim == 3 && mats)
+    SPARKL_B(3, 128, false, true);
   else if (dim == 3)
-    g2p_fused_kernel<3, 128, false><<<max_chunks, 128, 0, st>>>(
-        slots, ints, windows, nchunks, tab_f, tab_i, m_count, dt, g, n_win, opts);
+    SPARKL_B(3, 128, false, false);
+  else if (dim == 2 && damage && mats)
+    SPARKL_B(2, 64, true, true);
   else if (dim == 2 && damage)
-    g2p_fused_kernel<2, 64, true><<<max_chunks, 64, 0, st>>>(
-        slots, ints, windows, nchunks, tab_f, tab_i, m_count, dt, g, n_win, opts);
+    SPARKL_B(2, 64, true, false);
+  else if (dim == 2 && mats)
+    SPARKL_B(2, 64, false, true);
   else if (dim == 2)
-    g2p_fused_kernel<2, 64, false><<<max_chunks, 64, 0, st>>>(
-        slots, ints, windows, nchunks, tab_f, tab_i, m_count, dt, g, n_win, opts);
+    SPARKL_B(2, 64, false, false);
   else
     return (int)cudaErrorInvalidValue;
+#undef SPARKL_B
   return (int)cudaGetLastError();
 }
 

@@ -13,6 +13,8 @@
 //                     drucker_prager_project_s_c + _update_with_svd_c
 //   rankine_update .. plasticity.py rankine_update_c
 //   snow_update ..... plasticity.py snow_update_c
+//   nacc_update ..... plasticity.py nacc_update_c (the reference's NACC,
+//                     cases A-D, with math/cmat.py sinh_c)
 //   corotated_* ..... sparkl_tpu/models/constitutive.py
 //                     corotated_kirchhoff_stress_from_svd_c,
 //                     corotated_pos_energy_from_s_c (2D and 3D),
@@ -20,6 +22,9 @@
 //   maximum_stress_failed  sparkl_tpu/models/failure.py
 //                     maximum_stress_failed_c (sym_eigvals2x2_c in 2D,
 //                     sym_eigvals3x3_c's cardano form in 3D)
+//   neo_hookean_* ... constitutive.py neo_hookean_phase_coeff,
+//                     neo_hookean_kirchhoff_stress_c, neo_hookean_pos_energy_c
+//                     (its dt bound is the corotated one)
 //   eos_* ........... sparkl_tpu/models/constitutive.py eos_pressure,
 //                     eos_kirchhoff_stress_c, eos_timestep_bound_c (with
 //                     math/cmat.py pow_pos, strain_rate_c, deviatoric_c)
@@ -32,9 +37,12 @@
 // (1/d in Drucker-Prager and the EOS trace, the EOS bound's 1/0.1) is the
 // product with the f32 reciprocal, as jitted XLA rewrites the JAX
 // package's (linalg.div_const in the plain versions); the Cardano SVD keeps
-// its true divisions by 3 and 6 (svd.py says why). The 2D functions, the
-// 3D eigenvalues and the failure envelope are __host__ __device__; the
-// rest serve the kernels only.
+// its true divisions by 3 and 6 (svd.py says why). Where a difference
+// cancels near F = I, neo-Hookean takes the FMAs jitted XLA forms (J^2 -
+// 1, tr(F F^T) J^(-2/d) - d and the squares of tr(F F^T)) as explicit
+// fmaf, as its plain version does (linalg.fma). The 2D functions, the 3D
+// eigenvalues, the failure envelope and neo-Hookean are __host__
+// __device__; the rest serve the kernels only (NACC calls the SVD).
 #pragma once
 
 #include <math.h>
@@ -574,7 +582,7 @@ __device__ __forceinline__ float sound_speed_bound(float alpha, float bulk,
 
 // x^p for x > 0 as exp(p log(max(x, 1e-30))), cmat.pow_pos's form (not
 // powf: the EOS pressure multiplies its rounding by p0).
-__device__ __forceinline__ float pow_pos(float x, float p) {
+__host__ __device__ inline float pow_pos(float x, float p) {
   return expf(p * logf(fmaxf(x, 1e-30f)));
 }
 
@@ -633,6 +641,161 @@ __device__ __forceinline__ float eos_timestep_bound(float p0, float gamma,
   float c_sq = fmaxf(vsq, 1.0f) * (1.0f / 0.1f);
   float cfl = h * (1.0f / sqrtf(c_sq));  // h / sqrt as jitted XLA forms it: h rsqrt
   return fminf(single, cfl);
+}
+
+// Neo-Hookean phase coefficient (1 - r) c^2 + r, r = 0.001.
+__host__ __device__ inline float neo_hookean_phase_coeff(float phase) {
+  return 0.999f * phase * phase + 0.001f;
+}
+
+// Kirchhoff stress of neo-Hookean elasticity, 2D or 3D: mu h J^(-2/D)
+// dev(F F^T) + K/2 (J^2 - 1) I with K = (2/3 mu + lam) h; the deviatoric
+// part, and the volumetric one where J >= 1, scaled by the phase
+// coefficient. J^(-2/D) = 1 where J <= 0.
+template <int D>
+__host__ __device__ inline void neo_hookean_stress(float lam, float mu, float phase,
+                                                   float hardening, const float f[D][D],
+                                                   float out[D][D]) {
+  const float pc = neo_hookean_phase_coeff(phase);
+  const float j = det(f);
+  const float k = (2.0f / 3.0f) * mu * hardening + lam * hardening;
+  const float jpow = j > 0.0f ? pow_pos(j, -2.0f / (float)D) : 1.0f;
+  float cg[D][D];
+  for (int i = 0; i < D; ++i)
+    for (int jj = 0; jj < D; ++jj) {
+      float acc = f[i][0] * f[jj][0];
+      for (int c = 1; c < D; ++c) acc = acc + f[i][c] * f[jj][c];
+      cg[i][jj] = acc;
+    }
+  float tr = cg[0][0];
+  for (int i = 1; i < D; ++i) tr = tr + cg[i][i];
+  // The diagonal (F F^T)_ii - tr f32(1/d) as one FMA, as jitted XLA
+  // contracts the JAX package's deviatoric_c.
+  const float neg_inv_d = -(1.0f / (float)D);
+  const float coeff = mu * hardening * jpow;
+  const float vol = k / 2.0f * fmaf(j, j, -1.0f);
+  const bool expanded = j >= 1.0f;
+  for (int i = 0; i < D; ++i)
+    for (int jj = 0; jj < D; ++jj) {
+      const float dev = (i == jj ? fmaf(tr, neg_inv_d, cg[i][jj]) : cg[i][jj]) * coeff;
+      const float pos = i == jj ? dev + (expanded ? vol : 0.0f) : dev;
+      const float o = pos * pc;
+      out[i][jj] = i == jj ? o + (expanded ? 0.0f : vol) : o;
+    }
+}
+
+// Tensile energy of neo-Hookean elasticity, 2D or 3D: h mu/2 (tr(F F^T)
+// J^(-2/D) - D) times the phase coefficient where J < 1; where J >= 1 with
+// K/2 ((J^2 - 1)/2 - ln J) added and times the phase itself (the
+// reference's quirk). tr(F F^T) per row as fma(F_i0, F_i0, F_i1^2) then
+// fma(F_i2, F_i2, .), the rows summed in order.
+template <int D>
+__host__ __device__ inline float neo_hookean_pos_energy(float lam, float mu, float phase,
+                                                        float hardening, const float f[D][D]) {
+  const float pc = neo_hookean_phase_coeff(phase);
+  const float j = det(f);
+  const float k = (2.0f / 3.0f) * mu * hardening + lam * hardening;
+  float fr = 0.0f;
+  for (int i = 0; i < D; ++i) {
+    float r = fmaf(f[i][0], f[i][0], f[i][1] * f[i][1]);
+    for (int c = 2; c < D; ++c) r = fmaf(f[i][c], f[i][c], r);
+    fr = i == 0 ? r : fr + r;
+  }
+  const float jpow = j > 0.0f ? pow_pos(j, -2.0f / (float)D) : 1.0f;
+  const float dev = hardening * mu / 2.0f * fmaf(fr, jpow, -(float)D);
+  const float safe_j = j > 0.0f ? j : 1.0f;
+  const float vol = k / 2.0f * (fmaf(j, j, -1.0f) / 2.0f - logf(safe_j));
+  return j < 1.0f ? dev * pc : (dev + vol) * phase;
+}
+
+// NACC case codes (plasticity.py nacc_project_c).
+constexpr int NACC_TIP_MAX = 0, NACC_TIP_MIN = 1, NACC_INSIDE = 2, NACC_PROJECT = 3;
+
+// NACC return map (plasticity.py nacc_project_c), 2D or 3D, on its own SVD
+// of f: the trial pressure p_tr = -kappa/2 (J - 1/J) J and deviatoric
+// stress s_tr = mu J^(-2/D) (s_k^2 - tr/D) of the elastic J and singular
+// values; p0 = kappa (1e-5 + sinh(xi max(-alpha, 0))). Case A (p_tr > p0)
+// and B (p_tr < -beta p0) put every singular value at the tip's J^(1/D);
+// C (the yield function y < 1e-4) keeps F; D projects onto the yield
+// surface along the line to its centre (p_c, 0). With hardening alpha
+// gains ln(J / J_new) (in D only where p0 > 1e-4, p_tr inside the tips by
+// 1e-4 and the projected J > 1e-4). pp = [mu, kappa, hardening_enabled,
+// xi, beta, M]. Each lane computes only its case's branch, with the plain
+// version's expressions; f is rebuilt except in case C. Returns the case.
+template <int D>
+__device__ __forceinline__ int nacc_update(const float pp[6], float f[D][D], float& alpha) {
+  const float mu = pp[0], kappa = pp[1], xi = pp[3], beta = pp[4], m = pp[5];
+  const bool hardening = pp[2] != 0.0f;
+  const float d = (float)D;
+  const float inv_d = 1.0f / d;  // x / d as jitted XLA rounds it
+  float u[D][D], s[D], v[D][D];
+  svd(f, u, s, v);
+  float sq[D];
+  float sq_trace = 0.0f;
+  for (int k = 0; k < D; ++k) {
+    sq[k] = s[k] * s[k];
+    sq_trace = k == 0 ? sq[0] : sq_trace + sq[k];
+  }
+  const float sa = xi * fmaxf(-alpha, 0.0f);
+  const float e = expf(sa);
+  const float p0 = kappa * (1.0e-5f + 0.5f * (e - 1.0f / e));
+  float j = s[0];
+  for (int k = 1; k < D; ++k) j = j * s[k];
+  const float safe_j = fmaxf(j, 1e-20f);
+  const float s_tr_coeff = mu * pow_pos(safe_j, -2.0f / d);
+  float s_tr[D];
+  float s_tr_norm_sq = 0.0f;
+  for (int k = 0; k < D; ++k) {
+    s_tr[k] = s_tr_coeff * (sq[k] - sq_trace * inv_d);
+    s_tr_norm_sq = k == 0 ? s_tr[0] * s_tr[0] : s_tr_norm_sq + s_tr[k] * s_tr[k];
+  }
+  const float psi_kappa = kappa / 2.0f * (j - 1.0f / safe_j);
+  const float p_tr = -psi_kappa * j;
+  const float y0 = (1.0f + 2.0f * beta) * ((6.0f - d) / 2.0f);
+  const float y1 = m * m * (p_tr + beta * p0) * (p_tr - p0);
+  const float y = y0 * s_tr_norm_sq + y1;
+
+  int kase;
+  float ns[D];
+  if (p_tr > p0 || p_tr < -beta * p0) {  // A: the max tip; B: the min tip
+    kase = p_tr > p0 ? NACC_TIP_MAX : NACC_TIP_MIN;
+    const float jt = kase == NACC_TIP_MAX ? sqrtf(fmaxf(-2.0f * p0 / kappa + 1.0f, 0.0f))
+                                          : sqrtf(2.0f * beta * p0 / kappa + 1.0f);
+    const float st = pow_pos(fmaxf(jt, 1e-20f), 1.0f / d);
+    for (int k = 0; k < D; ++k) ns[k] = st;
+    if (hardening) alpha = alpha + logf(safe_j / fmaxf(jt, 1e-20f));
+  } else if (y < 1.0e-4f) {  // C: inside
+    return NACC_INSIDE;
+  } else {  // D: the projection
+    kase = NACC_PROJECT;
+    const float p_c = (1.0f - beta) * p0 / 2.0f;
+    const float q_tr = sqrtf((6.0f - d) / 2.0f) * sqrtf(s_tr_norm_sq);
+    float dir0 = p_c - p_tr;
+    float dir1 = 0.0f - q_tr;
+    const float dir_norm = sqrtf(dir0 * dir0 + dir1 * dir1);
+    dir0 = safe_div(dir0, dir_norm);
+    dir1 = safe_div(dir1, dir_norm);
+    const float c_q = m * m * (p_c + beta * p0) * (p_c - p0);
+    const float b_q = m * m * dir0 * (2.0f * p_c - p0 + beta * p0);
+    const float a_q = m * m * dir0 * dir0 + (1.0f + 2.0f * beta) * dir1 * dir1;
+    const float discr = sqrtf(fmaxf(b_q * b_q - 4.0f * a_q * c_q, 0.0f));
+    const float l1 = safe_div(-b_q + discr, 2.0f * a_q);
+    const float l2 = safe_div(-b_q - discr, 2.0f * a_q);
+    const float p1 = p_c + l1 * dir0;
+    const float p2 = p_c + l2 * dir0;
+    const float p_x = (p_tr - p_c) * (p1 - p_c) > 0.0f ? p1 : p2;
+    const float j_e_x = sqrtf(fabsf(-2.0f * p_x / kappa + 1.0f));
+    const bool do_hardening = hardening && (p0 > 1.0e-4f) && (p_tr < p0 - 1.0e-4f) &&
+                              (p_tr > -beta * p0 + 1.0e-4f) && (j_e_x > 1.0e-4f);
+    if (do_hardening) alpha = alpha + logf(safe_j / fmaxf(j_e_x, 1e-20f));
+    const float s_tr_norm = sqrtf(s_tr_norm_sq);
+    const float b_coeff = sqrtf(fmaxf(safe_div(-y1, y0), 0.0f)) * pow_pos(safe_j, 2.0f / d) /
+                          fmaxf(mu, 1e-20f);
+    for (int k = 0; k < D; ++k)
+      ns[k] = sqrtf(fmaxf(b_coeff * safe_div(s_tr[k], s_tr_norm) + sq_trace * inv_d, 0.0f));
+  }
+  recompose<D>(u, ns, v, f);
+  return kase;
 }
 
 }  // namespace sparkl

@@ -5,13 +5,15 @@ source-row and permute kernels, each a hand-written CUDA kernel
 (csrc/fused_kernels.cu) with its plain PyTorch version beside it.
 
 Port of sparkl_tpu/fused/kernels.py for the configurations the port
-carries: corotated elasticity with optional Drucker-Prager plasticity (in
-2D, chunks of 64 slots with row-major window cells, also Rankine or Snow)
-and the Monaghan EOS fluid with its volume pass, in 3D and 2D; with the
-stress cache on (no damage, no failure) or off (kernel A forms the stress
-from F: eigenerosion or modified eigenerosion with the psi channels,
-maximum-stress failure; kernel B trips maximum stress, and under modified
-eigenerosion the crack energy of the gathered psi). `permute_chunks`,
+carries: corotated or neo-Hookean elasticity with optional Drucker-Prager,
+NACC, Rankine or Snow plasticity, and the Monaghan EOS fluid with its
+volume pass, in 3D and 2D (in 2D chunks of 64 slots with row-major window
+cells); with the stress cache on (no damage, no failure) or off (kernel A
+forms the stress from F: eigenerosion or modified eigenerosion with the
+psi channels, maximum-stress failure; kernel B trips maximum stress, and
+under modified eigenerosion the crack energy of the gathered psi).
+Neo-Hookean and NACC, and Rankine and Snow in 3D, run in the kernels'
+material instances (mats_form), so that the other scenes keep their code. `permute_chunks`,
 the JAX package's older resort lane router, comes with its kernel too,
 though no path calls it.
 A wrapper runs the plain version when its tensors lie on the CPU and
@@ -88,26 +90,33 @@ def kernel_meta(models, params):
 
 def meta_unsupported(meta, dim):
     """Why the fused kernels cannot run this scene in `dim` dimensions: a
-    list of reasons, empty if they can. Both dimensions run corotated
-    solids with the stress cache on or off (eigenerosion, modified
-    eigenerosion, maximum-stress failure) and Monaghan EOS fluids; 3D takes
-    Drucker-Prager as the only plastic model, 2D also Rankine and Snow.
-    CD-MPM is refused."""
+    list of reasons, empty if they can. Both dimensions run corotated and
+    neo-Hookean solids with Drucker-Prager, NACC, Rankine or Snow
+    plasticity, with the stress cache on or off (eigenerosion, modified
+    eigenerosion, maximum-stress failure), and Monaghan EOS fluids. CD-MPM,
+    custom models and other failure types are refused."""
     why = []
     if meta["damage_model"] not in (DamageModel.NONE, DamageModel.EIGENEROSION,
                                     DamageModel.MODIFIED_EIGENEROSION):
         why.append(f"damage model {DamageModel(meta['damage_model']).name}")
-    if set(meta["present_c"]) - {con.COROTATED, con.EOS_MONAGHAN_SPH}:
+    if set(meta["present_c"]) - {con.COROTATED, con.NEO_HOOKEAN, con.EOS_MONAGHAN_SPH}:
         why.append(f"constitutive types {meta['present_c']}")
-    if set(meta["present_p"]) - {plas.DRUCKER_PRAGER, plas.RANKINE, plas.SNOW}:
+    if set(meta["present_p"]) - {plas.DRUCKER_PRAGER, plas.NACC, plas.RANKINE, plas.SNOW}:
         why.append(f"plastic types {meta['present_p']}")
     if set(meta["present_f"]) - {fail.MAXIMUM_STRESS}:
         why.append(f"failure types {meta['present_f']}")
-    if dim == 3 and set(meta["present_p"]) & {plas.RANKINE, plas.SNOW}:
-        why.append("3D Rankine or Snow plasticity")
     if dim not in (2, 3):
         why.append(f"{dim}D")
     return why
+
+
+def mats_form(meta, dim):
+    """Whether kernels A and B take their material instances: neo-Hookean
+    or NACC present, or Rankine or Snow in 3D (the 2D instances without it
+    carry Rankine and Snow already). The instances without it are the
+    code of the scenes that need none of these, with their registers."""
+    return bool(con.NEO_HOOKEAN in meta["present_c"] or plas.NACC in meta["present_p"]
+                or (dim == 3 and set(meta["present_p"]) & {plas.RANKINE, plas.SNOW}))
 
 
 def svd_reuse(stress_cache, present_c, present_p):
@@ -224,16 +233,17 @@ def _eos_stress_c(p, mass, vol0, fluid_j, g):
 
 def timestep_bound_c(ct, p, eh, f, mass, vol0, vel, h, present_c):
     """Per-slot constitutive dt bound (the JAX package's _timestep_bound_c):
-    the corotated sound-speed bound, the EOS bound from J = F00, +inf for
-    other model types. ct [D, C] model types, p the four constitutive
+    the sound-speed bound for corotated and neo-Hookean solids, the EOS
+    bound from J = F00, +inf for other model types. ct [D, C] model types, p the four constitutive
     parameter rows, vel the d velocity rows; present_c the model set's
     types (only their bounds are formed, with no host read)."""
     vnorm, vsq = _vnorm(vel)
     density0 = mass / torch.clamp(vol0, min=1e-30)
     out = torch.full_like(mass, float("inf"))
-    if con.COROTATED in present_c:
+    if con.COROTATED in present_c or con.NEO_HOOKEAN in present_c:
+        # The same sound-speed bound for both solids.
         b = con.corotated_timestep_bound_c(p[0], p[1], p[2], eh, density0, vnorm, h)
-        out = torch.where(ct == con.COROTATED, b, out)
+        out = torch.where((ct == con.COROTATED) | (ct == con.NEO_HOOKEAN), b, out)
     if con.EOS_MONAGHAN_SPH in present_c:
         fluid_j = f[0][0]
         density_fluid = density0 / torch.clamp(fluid_j, min=1e-20)
@@ -265,13 +275,17 @@ def dt_bound_row(h, vel, g, con_bound, failed, active):
 def kirchhoff_stress_c(ct, p, phase, eh, f, g, mass, vol0, present_c, usv=None):
     """Fresh per-slot Kirchhoff stress (the JAX package's
     _kirchhoff_stress_c): corotated from an SVD of f (`usv`, if the caller
-    has one), EOS from J = F00, zero for other model types. ct [D, C] model
-    types, p the four constitutive parameter rows."""
+    has one), neo-Hookean in closed form, EOS from J = F00, zero for other
+    model types. ct [D, C] model types, p the four constitutive parameter
+    rows."""
     out = cmat.zeros_like_mat(f)
     if con.COROTATED in present_c:
         u, s, v = svd_c(f) if usv is None else usv
         st = con.corotated_kirchhoff_stress_from_svd_c(p[0], p[1], p[3], phase, eh, f, u, s, v)
         out = cmat.where_mat(ct == con.COROTATED, st, out)
+    if con.NEO_HOOKEAN in present_c:
+        st = con.neo_hookean_kirchhoff_stress_c(p[0], p[1], phase, eh, f)
+        out = cmat.where_mat(ct == con.NEO_HOOKEAN, st, out)
     if con.EOS_MONAGHAN_SPH in present_c:
         out = cmat.where_mat(ct == con.EOS_MONAGHAN_SPH,
                              _eos_stress_c(p, mass, vol0, f[0][0], g), out)
@@ -316,7 +330,7 @@ def p2g_fused_reference(grid: GridParams, slots, ints, dt, nchunks, tables=None,
     active & in-window & in-grid. σ comes from the stress-cache rows (with
     a fresh EOS stress for EOS slots when the model `tables` (tab_f, tab_i)
     are given), or, with `stress_cache` off, fresh from F through the
-    tables (corotated through the SVD of F)."""
+    tables (corotated through the SVD of F, neo-Hookean in closed form)."""
     dim = grid.dim
     r = L.Rows(dim)
     d_all = slots.shape[0]
@@ -440,7 +454,8 @@ def p2g_fused(grid: GridParams, cfg, meta, slots, ints, dt, nchunks, tables=None
     launch("sparkl_p2g_fused", slots.data_ptr(), ints.data_ptr(),
            nchunks.data_ptr(), tab_f.data_ptr() if m else None,
            tab_i.data_ptr() if m else None, m, out.data_ptr(), d_, float(dt), *args,
-           dim, int(with_psi) | 2 * int(stress_cache), stream_ptr(dev))
+           dim, int(with_psi) | 2 * int(stress_cache) | 16 * int(mats_form(meta, dim)),
+           stream_ptr(dev))
     LAUNCHES["p2g_fused"] += 1
     return out
 
@@ -885,13 +900,15 @@ def g2p_fused_reference(grid: GridParams, slots, ints, windows, dt, tab_f, tab_i
     positive energy and par1 = psi_pos·m, par2 = m, trips maximum-stress
     failure (phase = 0) on a fresh stress of the final F, marks particles
     out of the grid, and writes the next dt bound and the accumulated
-    drift. The return maps run in the JAX order, Drucker-Prager, Rankine,
-    Snow, each on every lane and kept where the model's plastic type is
-    its own. Under svd_reuse one SVD serves the Drucker-Prager return map,
-    the energy and the stress-cache epilogue (zero stress rows for fluids);
-    otherwise each return map decomposes its own F, and one SVD of the
-    final F serves the energy and either the cached stress or, with the
-    cache off, the failure stress (the stress rows then zero)."""
+    drift. The return maps run in the JAX order, Drucker-Prager, NACC
+    (with the nacc row), Rankine, Snow, each on every lane and kept where
+    the model's plastic type is its own. Under svd_reuse one SVD serves the
+    Drucker-Prager return map, the energy and the stress-cache epilogue
+    (zero stress rows for fluids); otherwise each return map decomposes its
+    own F, and one SVD of the final F serves the corotated energy and
+    either the cached stress or, with the cache off, the failure stress
+    (the stress rows then zero). Neo-Hookean slots take their energy,
+    cached or failure stress and dt bound in closed form."""
     dim = grid.dim
     r = L.Rows(dim)
     n_live = _live_count(nchunks, slots.shape[0])
@@ -953,7 +970,7 @@ def g2p_fused_reference(grid: GridParams, slots, ints, windows, dt, tab_f, tab_i
     f = cmat.where_mat(is_fluid, f, f_solid)
     f[0][0] = torch.where(is_fluid, f00_fluid, f[0][0])
 
-    pdd, ph, lvg = row(r.pdd), row(r.ph), row(r.lvg)
+    pdd, ph, lvg, nacc = row(r.pdd), row(r.ph), row(r.lvg), row(r.nacc)
     # Every lane runs each present return map; lanes of other plastic
     # types keep their values (their parameters may give NaN, masked).
     if reuse:
@@ -970,6 +987,11 @@ def g2p_fused_reference(grid: GridParams, slots, ints, windows, dt, tab_f, tab_i
         pdd = torch.where(m, pdd2, pdd)
         ph = torch.where(m, ph2, ph)
         lvg = torch.where(m, lvg2, lvg)
+    if plas.NACC in present_p:
+        m = pt == plas.NACC
+        f2, na2 = plas.nacc_update_c(pp[:6], f, nacc)
+        f = cmat.where_mat(m, f2, f)
+        nacc = torch.where(m, na2, nacc)
     if plas.RANKINE in present_p:
         m = pt == plas.RANKINE
         f2, ph2 = plas.rankine_update_c(pp[:4], f, ph)
@@ -995,7 +1017,10 @@ def g2p_fused_reference(grid: GridParams, slots, ints, windows, dt, tab_f, tab_i
         u, s, v = svd_c(f)
 
     corot = ct == con.COROTATED
+    neo = ct == con.NEO_HOOKEAN
     energy = torch.where(corot, con.corotated_pos_energy_from_s_c(p[0], p[1], eh, f, s), 0.0)
+    if con.NEO_HOOKEAN in present_c:
+        energy = torch.where(neo, con.neo_hookean_pos_energy_c(p[0], p[1], phase, eh, f), energy)
     psi_pos = torch.maximum(row(r.psi_pos), energy)
 
     if bool((ft == fail.MAXIMUM_STRESS).any()):
@@ -1021,14 +1046,17 @@ def g2p_fused_reference(grid: GridParams, slots, ints, windows, dt, tab_f, tab_i
     rows = list(pos) + vel
     rows += [g[i][j] for i in range(dim) for j in range(dim)]
     rows += [f[i][j] for i in range(dim) for j in range(dim)]
-    rows += [mass, vol0, phase, psi_pos, pdd, ph, eh, lvg, row(r.nacc)]
+    rows += [mass, vol0, phase, psi_pos, pdd, ph, eh, lvg, nacc]
     rows += kin
     rows += [row(r.cpf), row(r.cthr), bound, failed_new.to(torch.float32), row(r.radius0),
              psi_pos * mass, mass, row(r.m_c), row(r.g), row(r.debug), cumd]
     if stress_cache:
         st = con.corotated_kirchhoff_stress_from_svd_c(p[0], p[1], p[3], phase, eh, f, u, s, v)
-        rows += [torch.clamp(torch.where(corot, st[i][j], 0.0), -L.BIGF, L.BIGF)
-                 for i in range(dim) for j in range(i, dim)]
+        st = cmat.where_mat(corot, st, cmat.zeros_like_mat(st))
+        if con.NEO_HOOKEAN in present_c:
+            st = cmat.where_mat(neo, con.neo_hookean_kirchhoff_stress_c(p[0], p[1], phase, eh, f),
+                                st)
+        rows += [torch.clamp(st[i][j], -L.BIGF, L.BIGF) for i in range(dim) for j in range(i, dim)]
     zero = torch.zeros_like(mass)
     rows += [zero] * (r.nf - len(rows))
     # Dead chunks pass through unchanged.
@@ -1069,8 +1097,8 @@ def g2p_fused(grid: GridParams, cfg, meta, kparams, slots, ints, windows, dt,
     launch("sparkl_g2p_fused", slots.data_ptr(), ints.data_ptr(),
            windows.data_ptr(), nchunks.data_ptr(), tab_f.data_ptr(),
            tab_i.data_ptr(), m, d_, float(dt), *args, dim, n_win,
-           int(clamp) | 2 * int(stress_cache) | 4 * int(reuse) | 8 * int(modified),
-           stream_ptr(dev))
+           int(clamp) | 2 * int(stress_cache) | 4 * int(reuse) | 8 * int(modified)
+           | 16 * int(mats_form(meta, dim)), stream_ptr(dev))
     LAUNCHES["g2p_fused"] += 1
     return slots
 

@@ -28,16 +28,16 @@ on resort substeps runs it again after the resort and reads the bound
 again, which gives the reference's order (resort, volume pass, dt).
 Capturing the substep in a CUDA graph is later work.
 
-The port carries 3D and 2D scenes with corotated elasticity (±
-Drucker-Prager; in 2D also Rankine or Snow plasticity), eigenerosion,
-modified eigenerosion and maximum-stress failure, Monaghan EOS fluids,
-static heightfield or cuboid colliders and grid hooks, the stress cache on
-without damage and failure and off with them (sparse.pipeline.unsupported
-lists the rest). The constructor raises NotImplementedError for anything
-else (3D Rankine and Snow, CD-MPM, NACC, neo-Hookean and other models,
-penalty colliders, boundary particle projection, GPU boundary semantics,
-collider pose functions): those wait for later ports and never fall back
-to another path.
+The port carries 3D and 2D scenes with corotated or neo-Hookean
+elasticity (± Drucker-Prager, NACC, Rankine or Snow plasticity),
+eigenerosion, modified eigenerosion and maximum-stress failure, Monaghan
+EOS fluids, static heightfield or cuboid colliders and grid hooks, the
+stress cache on without damage and failure and off with them
+(sparse.pipeline.unsupported lists the rest). The constructor raises
+NotImplementedError for anything else (CD-MPM, custom models, penalty
+colliders, boundary particle projection, GPU boundary semantics, collider
+pose functions): those wait for later ports and never fall back to
+another path.
 """
 
 from typing import Optional

@@ -71,6 +71,11 @@ def recompose_c(u, s, v):
     ]
 
 
+def aat_c(a):
+    """a @ a^T."""
+    return matmul_nt_c(a, a)
+
+
 def scale_c(m, k):
     return [[mij * k for mij in row] for row in m]
 
@@ -125,3 +130,10 @@ def pow_pos(x, p, tiny=1e-30):
     """x**p for x > 0 as exp(p·log(max(x, tiny))), the JAX package's form
     (not torch.pow: the EOS pressure multiplies this rounding by p₀)."""
     return torch.exp(p * torch.log(torch.clamp(x, min=tiny)))
+
+
+def sinh_c(x):
+    """sinh(x) as 0.5 (e^x - 1/e^x), the JAX package's form (NACC's
+    hardened p0)."""
+    e = torch.exp(x)
+    return 0.5 * (e - linalg.rdiv(1.0, e))

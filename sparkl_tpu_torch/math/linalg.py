@@ -56,10 +56,13 @@ def fma(a, b, c):
     f64, where the product of two f32 is exact: it differs from a true f32
     FMA only where the f64 sum rounds onto an f32 halfway point, which
     random inputs hit about once in 2^29. The port contracts only where a
-    result must match the reference to the bit (the corotated dt bound);
-    elsewhere it rounds each operation, as the CUDA kernels do."""
+    result must match the reference to the bit (the corotated dt bound)
+    or where a difference cancels (neo-Hookean's J² - 1 and tr(F Fᵀ)
+    J^(-2/d) - d); elsewhere it rounds each operation, as the CUDA kernels
+    do."""
     b = b.double() if torch.is_tensor(b) else float(b)
-    return (a.double() * b + c.double()).to(a.dtype)
+    c = c.double() if torch.is_tensor(c) else float(c)
+    return (a.double() * b + c).to(a.dtype)
 
 
 def rdiv(s, x):

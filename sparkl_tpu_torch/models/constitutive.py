@@ -1,12 +1,12 @@
-"""Constitutive models (port of the corotated and Monaghan EOS parts of
-sparkl_tpu/models/constitutive.py).
+"""Constitutive models (port of sparkl_tpu/models/constitutive.py:
+corotated linear elasticity, neo-Hookean elasticity and the Monaghan SPH
+equation of state).
 
 Component-wise functions on nested-list matrices of tensors, with raw
 parameter tensors. Ref: sparkl
 `src_core/dynamics/models/elasticity_corotated_linear.rs:12-147`,
-`eos_monaghan_sph.rs` and
+`elasticity_neo_hookean.rs:11-166`, `eos_monaghan_sph.rs` and
 `src_core/dynamics/timestep/elasticity_sound_speed_timestep_bound.rs`.
-Neo-Hookean is not ported yet.
 """
 
 import numpy as np
@@ -110,6 +110,96 @@ def corotated_timestep_bound_c(lam, mu, cfl, hardening, density0, vnorm, cell_wi
     shear = mu * hardening
     return sound_speed_timestep_bound_c(cfl, _bulk(lam, mu, hardening), shear, density0,
                                         vnorm, cell_width)
+
+
+# ---------------------------------------------------------------------------
+# Neo-Hookean elasticity
+# ---------------------------------------------------------------------------
+
+
+def neo_hookean_phase_coeff(phase):
+    """(1 - r)·c² + r with r = 0.001. Ref: elasticity_neo_hookean.rs
+    `phase_coeff`."""
+    r = 0.001
+    return (1.0 - r) * phase * phase + r
+
+
+def neo_hookean_kirchhoff_stress(lam, mu, phase, hardening, f):
+    """[..., d, d] form of neo_hookean_kirchhoff_stress_c."""
+    return cmat.pack(neo_hookean_kirchhoff_stress_c(lam, mu, phase, hardening, cmat.unpack(f)))
+
+
+def neo_hookean_kirchhoff_stress_c(lam, mu, phase, hardening, f):
+    """µh J^(-2/d) dev(F Fᵀ) + K/2 (J² - 1) I, K = (2/3 µ + λ) h, the
+    deviatoric part (and the volumetric one when J >= 1) scaled by the
+    phase coefficient. J^(-2/d) is pow_pos (exp of log), 1 where J <= 0.
+    J² - 1 and the deviatoric diagonal (F Fᵀ)_ii - tr·f32(1/d), which
+    cancel near F = I, are one FMA each, as jitted XLA contracts the JAX
+    package's j * j - 1.0 and deviatoric_c (so that the stress-cache rows a
+    pack seeds at F = I are the JAX package's to the bit: -2.98e-8·µh on
+    the diagonal in 3D, not 0; the CUDA kernels take fmaf there too).
+    Ref: elasticity_neo_hookean.rs `kirchhoff_stress`."""
+    d = len(f)
+    phase_coeff = neo_hookean_phase_coeff(phase)
+    j = cmat.det_c(f)
+    k = 2.0 / 3.0 * mu * hardening + lam * hardening
+    jpow = torch.where(j > 0.0, cmat.pow_pos(j, -2.0 / d), 1.0)
+    cg = cmat.aat_c(f)
+    tr = cmat.trace_c(cg)
+    inv_d = -float(np.float32(1.0) / np.float32(d))
+    cg = [[linalg.fma(tr, inv_d, cg[i][i]) if i == jj else cg[i][jj] for jj in range(d)]
+          for i in range(d)]
+    dev = cmat.scale_c(cg, mu * hardening * jpow)
+    vol = k / 2.0 * linalg.fma(j, j, -1.0)
+    expanded = j >= 1.0
+    pos_part = cmat.add_diag_c(dev, torch.where(expanded, vol, 0.0))
+    out = cmat.scale_c(pos_part, phase_coeff)
+    return cmat.add_diag_c(out, torch.where(expanded, 0.0, vol))
+
+
+def _frob2_contracted(f):
+    """Σ F_ij² as jitted XLA on the CPU computes the JAX package's frob2_c:
+    per row fma(F_i0, F_i0, F_i1²), then fma(F_i2, F_i2, ·) in 3D, the rows
+    summed in order (bit-equal to it on every random F measured). The
+    energy's tr(F Fᵀ) J^(-2/d) - d cancels near F = I and keeps this
+    rounding."""
+    total = None
+    for row in f:
+        r = linalg.fma(row[0], row[0], row[1] * row[1])
+        for x in row[2:]:
+            r = linalg.fma(x, x, r)
+        total = r if total is None else total + r
+    return total
+
+
+def neo_hookean_pos_energy(lam, mu, phase, hardening, f):
+    """Tensile energy of [..., d, d] matrices (ref: `pos_energy`)."""
+    return neo_hookean_pos_energy_c(lam, mu, phase, hardening, cmat.unpack(f))
+
+
+def neo_hookean_pos_energy_c(lam, mu, phase, hardening, f):
+    """hµ/2 (tr(F Fᵀ) J^(-2/d) - d) scaled by the phase coefficient where
+    J < 1; with K/2 ((J² - 1)/2 - ln J) added and scaled by the phase
+    itself where J >= 1 (the reference's quirk, kept). The two terms that
+    cancel near F = I, tr(F Fᵀ) J^(-2/d) - d and J² - 1, are one FMA each
+    and tr(F Fᵀ) is _frob2_contracted, as jitted XLA contracts them
+    (measured: the product-then-difference agrees with it on under 1% of
+    random F near I, the FMA on all)."""
+    d = len(f)
+    phase_coeff = neo_hookean_phase_coeff(phase)
+    j = cmat.det_c(f)
+    k = 2.0 / 3.0 * mu * hardening + lam * hardening
+    jpow = torch.where(j > 0.0, cmat.pow_pos(j, -2.0 / d), 1.0)
+    dev = hardening * mu / 2.0 * linalg.fma(_frob2_contracted(f), jpow, -float(d))
+    safe_j = torch.where(j > 0.0, j, 1.0)
+    vol = k / 2.0 * (linalg.fma(j, j, -1.0) / 2.0 - torch.log(safe_j))
+    return torch.where(j < 1.0, dev * phase_coeff, (dev + vol) * phase)
+
+
+def neo_hookean_timestep_bound(lam, mu, cfl, hardening, density0, velocity, cell_width):
+    """The sound-speed bound with K = (λ + 2µ/3) h and G = µh, as the
+    corotated model's."""
+    return corotated_timestep_bound(lam, mu, cfl, hardening, density0, velocity, cell_width)
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,12 @@
 """Plastic return maps on the singular values of the deformation gradient
-(port of the Drucker-Prager, Rankine and Snow parts of
-sparkl_tpu/models/plasticity.py), 2D and 3D.
+(port of sparkl_tpu/models/plasticity.py: Drucker-Prager, NACC, Rankine
+and Snow), 2D and 3D.
 
 Each map is branch-free (selects, not early returns) and has a
 component-wise core (`*_update_c`, nested-list matrices and per-particle
 parameter tensors) that kernel B's plain version composes; the array API
 wraps it. Ref: sparkl `src_core/dynamics/models/plasticity_drucker_prager.rs:10-105`,
-`plasticity_rankine.rs`, `plasticity_snow.rs`. NACC is not ported yet.
+`plasticity_nacc.rs:12-166`, `plasticity_rankine.rs`, `plasticity_snow.rs`.
 """
 
 import math
@@ -116,6 +116,140 @@ def drucker_prager_update_with_svd_c(
     )
     f_new = cmat.where_mat(applied, cmat.recompose_c(u, s_sel, v), f)
     return f_new, new_pdd, new_ph, new_lvg, s_sel
+
+
+# ---------------------------------------------------------------------------
+# NACC (non-associated Cam-Clay)
+# ---------------------------------------------------------------------------
+
+# nacc_project_c's case codes: A the max tip, B the min tip, C inside the
+# yield surface (F kept), D projection onto it.
+NACC_TIP_MAX, NACC_TIP_MIN, NACC_INSIDE, NACC_PROJECT = 0, 1, 2, 3
+
+
+def nacc_update(params, f, nacc_alpha):
+    """NACC return map of [..., d, d] matrices; params [..., 6] rows [mu,
+    kappa, hardening_enabled, xi, beta, M]. Returns (f, nacc_alpha)."""
+    fc, na = nacc_update_c([params[..., k] for k in range(6)], cmat.unpack(f), nacc_alpha)
+    return cmat.pack(fc), na
+
+
+def nacc_update_c(params, f, nacc_alpha):
+    """Component-wise core; params = list of 6 scalars. Returns (f,
+    nacc_alpha)."""
+    return nacc_project_c(params, f, nacc_alpha)[:2]
+
+
+def nacc_margin(kappa, beta, p0, p_tr, y_terms, j_e_x, tips, gate):
+    """How close a lane's NACC decisions lie to their thresholds, over the
+    decisions that choose its result: |p_tr - p0| and |p_tr + β p0| (the
+    tips, every lane) over κ, a J-equivalent strain (p_tr ~ κ (1 - J));
+    where neither tip is taken, |y - 1e-4| over the magnitude of y's two
+    terms (inside or projected); where the projection hardens or could
+    (`gate`: case D with hardening on), |p_tr - (p0 - 1e-4)|, |p_tr - (-β
+    p0 + 1e-4)| and |p0 - 1e-4| over κ, and |J_x - 1e-4|. Two computations
+    of the same lane (another rounding of F, exp or log) may decide
+    differently only where this is near their rounding."""
+    y0s, y1 = y_terms
+    k = torch.clamp(torch.abs(kappa), min=1e-30)
+    out = torch.minimum(torch.abs(p_tr - p0) / k, torch.abs(p_tr + beta * p0) / k)
+    far = torch.full_like(out, float("inf"))
+    y = torch.abs(y0s + y1 - 1.0e-4) / torch.clamp(torch.abs(y0s) + torch.abs(y1), min=1e-30)
+    out = torch.minimum(out, torch.where(tips, far, y))
+    g = torch.minimum(torch.abs(p_tr - (p0 - 1.0e-4)) / k,
+                      torch.abs(p_tr - (-beta * p0 + 1.0e-4)) / k)
+    g = torch.minimum(g, torch.minimum(torch.abs(p0 - 1.0e-4) / k, torch.abs(j_e_x - 1.0e-4)))
+    return torch.minimum(out, torch.where(gate, g, far))
+
+
+def nacc_project_c(params, f, nacc_alpha):
+    """NACC on its own SVD of f (ref: plasticity_nacc.rs
+    `project_deformation_gradient`): the trial pressure p_tr and deviatoric
+    Kirchhoff stress from the elastic J and singular values, p0 = κ(1e-5 +
+    sinh(ξ max(-α, 0))); case A (p_tr > p0) and B (p_tr < -β p0) move the
+    singular values to the max or min tip, C (the yield function y < 1e-4)
+    keeps F, D projects onto the yield surface along the line to its
+    centre. With hardening, α gains ln(J / J_new) (in D only where p0 >
+    1e-4, p_tr within the tips by 1e-4 and the projected J > 1e-4). Returns
+    (f, nacc_alpha, case, margin): the case codes above, and nacc_margin
+    of the lane's decisions."""
+    mu, kappa, hardening_flag, xi, beta, m = params
+    hardening_enabled = hardening_flag != 0.0
+    d = float(len(f))
+
+    u, s, v = svd_c(f)
+    sq = [si * si for si in s]
+    sq_trace = sum(sq)
+
+    p0 = kappa * (1.0e-5 + cmat.sinh_c(xi * torch.clamp(-nacc_alpha, min=0.0)))
+    j_e_tr = s[0]
+    for si in s[1:]:
+        j_e_tr = j_e_tr * si
+    safe_j = torch.clamp(j_e_tr, min=1e-20)
+    s_tr_coeff = mu * cmat.pow_pos(safe_j, -2.0 / d)
+    s_tr = [s_tr_coeff * (q - linalg.div_const(sq_trace, d)) for q in sq]
+    psi_kappa = kappa / 2.0 * (j_e_tr - linalg.rdiv(1.0, safe_j))
+    p_tr = -psi_kappa * j_e_tr
+
+    # Case A: the max tip.
+    j_a = torch.sqrt(torch.clamp(-2.0 * p0 / kappa + 1.0, min=0.0))
+    s_a = cmat.pow_pos(torch.clamp(j_a, min=1e-20), 1.0 / d)
+    alpha_a = nacc_alpha + torch.where(
+        hardening_enabled, torch.log(safe_j / torch.clamp(j_a, min=1e-20)), 0.0)
+    # Case B: the min tip.
+    j_b = torch.sqrt(2.0 * beta * p0 / kappa + 1.0)
+    s_b = cmat.pow_pos(torch.clamp(j_b, min=1e-20), 1.0 / d)
+    alpha_b = nacc_alpha + torch.where(
+        hardening_enabled, torch.log(safe_j / torch.clamp(j_b, min=1e-20)), 0.0)
+
+    # The yield function.
+    y0 = (1.0 + 2.0 * beta) * ((6.0 - d) / 2.0)
+    y1 = m * m * (p_tr + beta * p0) * (p_tr - p0)
+    s_tr_norm_sq = sum(x * x for x in s_tr)
+    y = y0 * s_tr_norm_sq + y1
+
+    # Case D: the projection, with optional hardening.
+    p_c = (1.0 - beta) * p0 / 2.0
+    q_tr = math.sqrt((6.0 - d) / 2.0) * torch.sqrt(s_tr_norm_sq)
+    dir0 = p_c - p_tr
+    dir1 = 0.0 - q_tr
+    dir_norm = torch.sqrt(dir0 * dir0 + dir1 * dir1)
+    dir0 = _safe_div(dir0, dir_norm)
+    dir1 = _safe_div(dir1, dir_norm)
+    c_q = m * m * (p_c + beta * p0) * (p_c - p0)
+    b_q = m * m * dir0 * (2.0 * p_c - p0 + beta * p0)
+    a_q = m * m * dir0 * dir0 + (1.0 + 2.0 * beta) * dir1 * dir1
+    discr = torch.sqrt(torch.clamp(b_q * b_q - 4.0 * a_q * c_q, min=0.0))
+    l1 = _safe_div(-b_q + discr, 2.0 * a_q)
+    l2 = _safe_div(-b_q - discr, 2.0 * a_q)
+    p1 = p_c + l1 * dir0
+    p2 = p_c + l2 * dir0
+    p_x = torch.where((p_tr - p_c) * (p1 - p_c) > 0.0, p1, p2)
+    j_e_x = torch.sqrt(torch.abs(-2.0 * p_x / kappa + 1.0))
+    do_hardening = (hardening_enabled & (p0 > 1.0e-4) & (p_tr < p0 - 1.0e-4)
+                    & (p_tr > -beta * p0 + 1.0e-4) & (j_e_x > 1.0e-4))
+    alpha_d = nacc_alpha + torch.where(
+        do_hardening, torch.log(safe_j / torch.clamp(j_e_x, min=1e-20)), 0.0)
+    s_tr_norm = torch.sqrt(s_tr_norm_sq)
+    b_coeff = (torch.sqrt(torch.clamp(_safe_div(-y1, y0), min=0.0))
+               * cmat.pow_pos(safe_j, 2.0 / d) / torch.clamp(mu, min=1e-20))
+    s_d = [torch.sqrt(torch.clamp(b_coeff * _safe_div(x, s_tr_norm)
+                                  + linalg.div_const(sq_trace, d), min=0.0)) for x in s_tr]
+
+    case_a = p_tr > p0
+    case_b = (~case_a) & (p_tr < -beta * p0)
+    case_c = (~case_a) & (~case_b) & (y < 1.0e-4)
+    case_d = (~case_a) & (~case_b) & (~case_c)
+    new_s = [torch.where(case_a, s_a, torch.where(case_b, s_b, torch.where(case_d, sd, si)))
+             for sd, si in zip(s_d, s)]
+    new_alpha = torch.where(case_a, alpha_a, torch.where(
+        case_b, alpha_b, torch.where(case_d, alpha_d, nacc_alpha)))
+    case = torch.where(case_a, NACC_TIP_MAX, torch.where(
+        case_b, NACC_TIP_MIN, torch.where(case_c, NACC_INSIDE, NACC_PROJECT)))
+    f_new = cmat.where_mat(~case_c, cmat.recompose_c(u, new_s, v), f)
+    margin = nacc_margin(kappa, beta, p0, p_tr, (y0 * s_tr_norm_sq, y1), j_e_x,
+                         case_a | case_b, case_d & hardening_enabled)
+    return f_new, new_alpha, case, margin
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """Model registry: per-model parameters packed into small tables, per-particle
 dispatch by model id (port of sparkl_tpu/models/registry.py for the models
-the port carries: corotated elasticity with optional Drucker-Prager,
-Rankine or Snow plasticity, the Monaghan SPH equation of state for fluids,
-and maximum-stress failure).
+the port carries: corotated or neo-Hookean elasticity with optional
+Drucker-Prager, NACC, Rankine or Snow plasticity, the Monaghan SPH
+equation of state for fluids, and maximum-stress failure; no custom or
+external models).
 
 The table layout is the JAX package's: ctype [M] i32, cparams [M, 4] f32,
 ptype [M] i32, pparams [M, 8] f32, ftype [M] i32, fparams [M, 2] f32.
@@ -15,7 +16,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from sparkl_tpu_torch.math.lame import lame_lambda_mu
+from sparkl_tpu_torch.math.lame import bulk_modulus, lame_lambda_mu, shear_modulus
 from sparkl_tpu_torch.models import constitutive as con
 from sparkl_tpu_torch.models import failure as fail
 from sparkl_tpu_torch.models import plasticity as plas
@@ -36,6 +37,12 @@ def corotated_linear_elasticity(
         con.COROTATED,
         (lam, mu, cfl_coeff, 1.0 if split_stress_on_failure else 0.0),
     )
+
+
+def neo_hookean_elasticity(young_modulus, poisson_ratio, cfl_coeff=0.5):
+    """Ref: elasticity_neo_hookean.rs `NeoHookeanElasticity::new`."""
+    lam, mu = lame_lambda_mu(young_modulus, poisson_ratio)
+    return (con.NEO_HOOKEAN, (lam, mu, cfl_coeff, 0.0))
 
 
 def monaghan_sph_eos(pressure0, gamma, viscosity, max_neg_pressure=1.0):
@@ -67,6 +74,24 @@ def drucker_prager_plasticity(
             1.0 if only_active_when_failed else 0.0,
             volume_correction,
         ),
+    )
+
+
+def nacc_plasticity(young_modulus, poisson_ratio, cohesion, hardening_enabled,
+                    hardening_factor, friction_angle=None, m=None, dim=3):
+    """Ref: plasticity_nacc.rs `NaccPlasticity::{new, with_m}`: M from the
+    friction angle (radians) in `dim` dimensions unless given; cohesion is
+    β, hardening_factor ξ."""
+    mu = shear_modulus(young_modulus, poisson_ratio)
+    kappa = bulk_modulus(young_modulus, poisson_ratio)
+    if m is None:
+        sin_f = math.sin(friction_angle)
+        d = float(dim)
+        m = (math.sqrt(2.0 / 3.0) * 2.0 * sin_f / (3.0 - sin_f) * d
+             / math.sqrt(2.0 / (6.0 - d)))
+    return (
+        plas.NACC,
+        (mu, kappa, 1.0 if hardening_enabled else 0.0, hardening_factor, cohesion, m),
     )
 
 
@@ -164,14 +189,14 @@ class ModelSet:
 
     def unsupported(self):
         """Why the port cannot run this model set, or '' if it can."""
-        extra_c = set(self.present_c) - {con.COROTATED, con.EOS_MONAGHAN_SPH}
+        extra_c = set(self.present_c) - {con.COROTATED, con.NEO_HOOKEAN, con.EOS_MONAGHAN_SPH}
         if extra_c:
-            return (f"constitutive model types {sorted(extra_c)} (only corotated and the "
-                    "Monaghan EOS are ported)")
-        extra_p = set(self.present_p) - {plas.DRUCKER_PRAGER, plas.RANKINE, plas.SNOW}
+            return (f"constitutive model types {sorted(extra_c)} (only corotated, neo-Hookean "
+                    "and the Monaghan EOS are ported)")
+        extra_p = set(self.present_p) - {plas.DRUCKER_PRAGER, plas.NACC, plas.RANKINE, plas.SNOW}
         if extra_p:
-            return (f"plastic model types {sorted(extra_p)} (only Drucker-Prager, Rankine and "
-                    "Snow are ported)")
+            return (f"plastic model types {sorted(extra_p)} (only Drucker-Prager, NACC, Rankine "
+                    "and Snow are ported)")
         extra_f = set(self.present_f) - {fail.MAXIMUM_STRESS}
         if extra_f:
             return (f"failure model types {sorted(extra_f)} (only maximum stress is "
@@ -197,6 +222,9 @@ def kirchhoff_stress(ms: ModelSet, model_id, phase, elastic_hardening, f,
         s = con.corotated_kirchhoff_stress(cp[..., 0], cp[..., 1], cp[..., 3], phase,
                                            elastic_hardening, f)
         out = torch.where((ct == con.COROTATED)[..., None, None], s, out)
+    if con.NEO_HOOKEAN in ms.present_c:
+        s = con.neo_hookean_kirchhoff_stress(cp[..., 0], cp[..., 1], phase, elastic_hardening, f)
+        out = torch.where((ct == con.NEO_HOOKEAN)[..., None, None], s, out)
     if con.EOS_MONAGHAN_SPH in ms.present_c:
         fluid_j = f[..., 0, 0]
         density_fluid = (mass / volume0) / torch.clamp(fluid_j, min=1e-20)
@@ -216,6 +244,9 @@ def pos_energy(ms: ModelSet, model_id, phase, elastic_hardening, f):
     if con.COROTATED in ms.present_c:
         e = con.corotated_pos_energy(cp[..., 0], cp[..., 1], elastic_hardening, f)
         out = torch.where(ct == con.COROTATED, e, out)
+    if con.NEO_HOOKEAN in ms.present_c:
+        e = con.neo_hookean_pos_energy(cp[..., 0], cp[..., 1], phase, elastic_hardening, f)
+        out = torch.where(ct == con.NEO_HOOKEAN, e, out)
     return out
 
 
@@ -231,6 +262,10 @@ def timestep_bound(ms: ModelSet, model_id, phase, elastic_hardening, f, mass,
         b = con.corotated_timestep_bound(cp[..., 0], cp[..., 1], cp[..., 2],
                                          elastic_hardening, density0, velocity, cell_width)
         out = torch.where(ct == con.COROTATED, b, out)
+    if con.NEO_HOOKEAN in ms.present_c:
+        b = con.neo_hookean_timestep_bound(cp[..., 0], cp[..., 1], cp[..., 2],
+                                           elastic_hardening, density0, velocity, cell_width)
+        out = torch.where(ct == con.NEO_HOOKEAN, b, out)
     if con.EOS_MONAGHAN_SPH in ms.present_c:
         fluid_j = f[..., 0, 0]
         density_fluid = density0 / torch.clamp(fluid_j, min=1e-20)
@@ -255,6 +290,11 @@ def apply_plasticity(ms: ModelSet, model_id, phase, f, plastic_def_det, plastic_
         plastic_def_det = torch.where(m, pdd2, plastic_def_det)
         plastic_hardening = torch.where(m, ph2, plastic_hardening)
         log_vol_gain = torch.where(m, lvg2, log_vol_gain)
+    if plas.NACC in ms.present_p:
+        f2, na2 = plas.nacc_update(ms.pparams[model_id][..., :6], f, nacc_alpha)
+        m = ms.ptype[model_id] == plas.NACC
+        f = torch.where(m[..., None, None], f2, f)
+        nacc_alpha = torch.where(m, na2, nacc_alpha)
     if plas.RANKINE in ms.present_p:
         f2, ph2 = plas.rankine_update(ms.pparams[model_id][..., :4], f, plastic_hardening)
         m = ms.ptype[model_id] == plas.RANKINE

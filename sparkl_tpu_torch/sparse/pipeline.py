@@ -20,8 +20,8 @@ frame is retried from its unchanged input with grown capacities.
 The port carries 3D scenes with corotated elasticity (± Drucker-Prager),
 static heightfield colliders and no damage on this pipeline. The
 constructor raises NotImplementedError for anything else (2D, damage
-models, fluid models and fluid volume recomputation, failure models, other
-constitutive or plastic models (Rankine and Snow included), penalty
+models, fluid models and fluid volume recomputation, failure models,
+neo-Hookean elasticity, NACC, Rankine and Snow plasticity, penalty
 colliders, other collider shapes, boundary particle projection, GPU
 boundary semantics, grid hooks), and
 step_with_stats for runtime collider poses: those wait for later ports and
@@ -60,10 +60,12 @@ def unsupported(grid, models, colliders, params, hooks, fused=False):
     """Why the port's pipelines cannot run this configuration: a list of
     reasons, empty if they can. The sparse pipeline carries 3D corotated
     (± Drucker-Prager) scenes on heightfields, with no damage, failure,
-    fluids or hooks. With `fused`, what the fused pipeline carries on top:
-    fluids (EOS models, fluid volume recomputation), cuboid colliders,
-    eigenerosion, modified eigenerosion, maximum-stress failure and grid
-    hooks, and in 2D heightfields, Rankine and Snow plasticity (the
+    fluids or hooks; it refuses neo-Hookean elasticity and NACC, Rankine
+    and Snow plasticity by name. With `fused`, what the fused pipeline
+    carries on top: neo-Hookean elasticity, NACC, Rankine and Snow
+    plasticity (2D and 3D), fluids (EOS models, fluid volume
+    recomputation), cuboid colliders, eigenerosion, modified eigenerosion,
+    maximum-stress failure and grid hooks, and 2D heightfields (the
     kernels' own limits are fused.kernels.meta_unsupported)."""
     why = []
     m = models.unsupported()
@@ -85,8 +87,12 @@ def unsupported(grid, models, colliders, params, hooks, fused=False):
         return why
     if grid.dim != 3:
         why.append(f"{grid.dim}D grids")
-    if set(models.present_p) - {plas.DRUCKER_PRAGER}:
-        why.append(f"plastic model types {list(models.present_p)}")
+    if con.NEO_HOOKEAN in models.present_c:
+        why.append("neo-Hookean elasticity")
+    named = {plas.NACC: "NACC", plas.RANKINE: "Rankine", plas.SNOW: "Snow"}
+    for t in models.present_p:
+        if t != plas.DRUCKER_PRAGER:
+            why.append(f"{named.get(t, f'type {t}')} plasticity")
     if con.EOS_MONAGHAN_SPH in models.present_c:
         why.append("fluid models")
     if models.present_f:

@@ -295,8 +295,9 @@ def test_dirichlet_hook_3d_matches_jax(small):
 
 def test_meta_carries_3d_damage_and_modified():
     """meta_unsupported takes 3D eigenerosion, 3D maximum-stress failure
-    and modified eigenerosion in 2D and 3D; CD-MPM, NACC, neo-Hookean and
-    3D Rankine or Snow stay refused."""
+    and modified eigenerosion in 2D and 3D (and, since the material slice,
+    NACC, neo-Hookean and 3D Rankine and Snow: tests/test_torch_materials.py);
+    CD-MPM and another failure type stay refused."""
     base = dict(with_psi=False, m_count=1, present_c=(tcon.COROTATED,), present_p=(),
                 present_f=(), damage_model=int(DamageModel.NONE), stress_cache=True)
     carried = [dict(with_psi=True, damage_model=int(DamageModel.EIGENEROSION),
@@ -308,10 +309,7 @@ def test_meta_carries_3d_damage_and_modified():
         for dim in (2, 3):
             assert TK.meta_unsupported(dict(base, **over), dim) == [], (over, dim)
     refused = [(dict(damage_model=int(DamageModel.CD_MPM), stress_cache=False), (2, 3)),
-               (dict(present_p=(tplas.NACC,)), (2, 3)),
-               (dict(present_c=(tcon.NEO_HOOKEAN,)), (2, 3)),
-               (dict(present_p=(tplas.RANKINE,)), (3,)),
-               (dict(present_p=(tplas.SNOW,)), (3,))]
+               (dict(present_f=(tfail.MAXIMUM_STRESS + 1,), stress_cache=False), (2, 3))]
     for over, dims in refused:
         for dim in dims:
             assert TK.meta_unsupported(dict(base, **over), dim), (over, dim)

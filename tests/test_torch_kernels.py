@@ -21,7 +21,7 @@ from sparkl_tpu.fused.pipeline import FusedMpmPipeline as JPipeline
 from sparkl_tpu.sparse.blocks import BlockConfig as JBlockConfig
 
 from sparkl_tpu_torch import interop
-from sparkl_tpu_torch.core.params import SolverParameters
+from sparkl_tpu_torch.core.params import DamageModel, SolverParameters
 from sparkl_tpu_torch.fused import kernels as TK
 from sparkl_tpu_torch.fused import layout as TL
 from sparkl_tpu_torch.sparse.blocks import BlockConfig
@@ -223,15 +223,17 @@ def test_wrappers_check_arguments(state):
     with pytest.raises(ValueError):
         TK.merge_blocks(t["slots"][:, :8, :].contiguous(), t["first"][:-1], t["nblk"])
     # The 3D cache-off form is carried, and forms the stress from the
-    # model tables; 3D Rankine is not carried.
+    # model tables; CD-MPM and an unknown plastic type are not carried (3D
+    # Rankine and NACC are, since the material slice).
     with pytest.raises(ValueError):
         TK.p2g_fused(b.grid, cfg, dict(t["meta"], stress_cache=False), t["slots"],
                      t["ints"], DT, t["nchunks"])
     with pytest.raises(NotImplementedError):
-        TK.p2g_fused(b.grid, cfg, dict(t["meta"], present_p=(3,)), t["slots"],
+        TK.p2g_fused(b.grid, cfg, dict(t["meta"], present_p=(7,)), t["slots"],
                      t["ints"], DT, t["nchunks"])
     with pytest.raises(NotImplementedError):
-        TK.g2p_fused(b.grid, cfg, dict(t["meta"], present_p=(2,)), dict(gpu_velocity_clamp=False),
+        TK.g2p_fused(b.grid, cfg, dict(t["meta"], damage_model=int(DamageModel.CD_MPM)),
+                     dict(gpu_velocity_clamp=False),
                      t["slots"], t["ints"], torch.zeros(CFG["max_chunks"], 3, 512), DT,
                      t["tab_f"], t["tab_i"], t["nchunks"])
     with pytest.raises(NotImplementedError):

@@ -538,20 +538,25 @@ def test_frame0_matches_golden(name):
 
 
 def test_pipelines_refuse_what_they_do_not_carry():
-    """The fused pipeline refuses NACC in 2D and Rankine or Snow in 3D; the
-    sparse pipeline refuses Rankine and Snow (and 2D)."""
+    """The sparse pipeline refuses Rankine and Snow (and 2D); the fused
+    pipeline, which refused Rankine and Snow in 3D and NACC in 2D before the
+    material slice, now carries them (tests/test_torch_materials.py holds
+    their kernels) and refuses an unknown plastic type."""
     b = tscenes.build("sand3", nx=4, ny=2, nz=2, device="cpu")
     el = treg.corotated_linear_elasticity(E, NU)
     for spec in (treg.rankine_plasticity(E, NU, 1.0e2, 5.0), treg.snow_plasticity()):
         ms = treg.ModelSet.pack([treg.ParticleModel(el, spec)], "cpu")
-        for cls in (FusedMpmPipeline, SparseMpmPipeline):
-            with pytest.raises(NotImplementedError):
-                cls(b.grid, ms, b.colliders, b.params, device="cpu")
+        with pytest.raises(NotImplementedError):
+            SparseMpmPipeline(b.grid, ms, b.colliders, b.params, device="cpu")
+        FusedMpmPipeline(b.grid, ms, b.colliders, b.params, device="cpu")
     e2 = tscenes.build("elasticity2", device="cpu")
     nacc = treg.ModelSet.from_tables([0], [[1.0, 1.0, 0.5, 1.0]], [2], np.ones((1, 8)), [0],
                                      np.zeros((1, 2)), "cpu")
+    FusedMpmPipeline(e2.grid, nacc, e2.colliders, e2.params, device="cpu")
+    unknown = treg.ModelSet.from_tables([0], [[1.0, 1.0, 0.5, 1.0]], [7], np.ones((1, 8)), [0],
+                                        np.zeros((1, 2)), "cpu")
     with pytest.raises(NotImplementedError):
-        FusedMpmPipeline(e2.grid, nacc, e2.colliders, e2.params, device="cpu")
+        FusedMpmPipeline(e2.grid, unknown, e2.colliders, e2.params, device="cpu")
     with pytest.raises(NotImplementedError):
         tsk.auto_pipeline(e2, prefer="sparse", device="cpu")
 
@@ -559,7 +564,7 @@ def test_pipelines_refuse_what_they_do_not_carry():
 def test_cuda_model_codes_match():
     """The type codes and kernel B's option bits the CUDA source branches
     on are the Python modules' (the wrapper passes clamp | 2·cache |
-    4·svd_reuse)."""
+    4·svd_reuse | 8·modified | 16·material form)."""
     from sparkl_tpu_torch.models import constitutive as tcon
     from sparkl_tpu_torch.models import failure as tfail
 
@@ -571,5 +576,7 @@ def test_cuda_model_codes_match():
                                                                  tcon.EOS_MONAGHAN_SPH)
     assert (consts["DRUCKER_PRAGER"], consts["RANKINE"], consts["SNOW"]) == (
         tplas.DRUCKER_PRAGER, tplas.RANKINE, tplas.SNOW)
+    assert (consts["NEO_HOOKEAN"], consts["NACC"]) == (tcon.NEO_HOOKEAN, tplas.NACC)
     assert consts["MAXIMUM_STRESS"] == tfail.MAXIMUM_STRESS
     assert (consts["OPT_CLAMP"], consts["OPT_STRESS_CACHE"], consts["OPT_SVD_REUSE"]) == (1, 2, 4)
+    assert (consts["OPT_MODIFIED"], consts["OPT_MATS"]) == (8, 16)

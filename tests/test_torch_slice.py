@@ -20,6 +20,7 @@ import sparkl_tpu_torch.scenes as tscenes
 from sparkl_tpu_torch import interop
 from sparkl_tpu_torch.core.grid import GridParams
 from sparkl_tpu_torch.core.params import DamageModel, SolverParameters
+from sparkl_tpu_torch.fused import kernels as TK
 from sparkl_tpu_torch.fused.pipeline import FusedMpmPipeline
 from sparkl_tpu_torch.geometry.colliders import heightfield
 from sparkl_tpu_torch.models import registry as treg
@@ -139,7 +140,6 @@ def test_constructor_refuses_what_the_slice_does_not_carry():
     # 3D: CD-MPM, other models and failure types stay refused, as do the
     # options no path carries.
     cases = [
-        dict(models=neo),
         dict(models=other_failure),
         dict(params=SolverParameters(damage_model=DamageModel.CD_MPM)),
         dict(params=SolverParameters(enable_boundary_particle_projection=True)),
@@ -158,6 +158,9 @@ def test_constructor_refuses_what_the_slice_does_not_carry():
                  dict(models=max_stress),
                  dict(params=SolverParameters(damage_model=DamageModel.MODIFIED_EIGENEROSION))):
         assert not FusedMpmPipeline(**dict(base, **over))._meta["stress_cache"]
+    # Neo-Hookean elasticity is carried since the material slice (the
+    # kernels' material instances, tests/test_torch_materials.py).
+    assert TK.mats_form(FusedMpmPipeline(**dict(base, models=neo))._meta, 3)
     # Fluids are carried: EOS models and fluid volume recomputation (the
     # sparse pipeline still refuses both, tests/test_torch_sparse.py).
     fluid = treg.ModelSet.pack([treg.ParticleModel(treg.monaghan_sph_eos(1e6, 7, 1e-3))], "cpu")
