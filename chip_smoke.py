@@ -14,7 +14,10 @@ damage mechanisms in a 3D slab of 600,000 particles, built here by
 its material paths (materials3: sand3@1M's lattices under neo-Hookean +
 NACC, Rankine, Snow, Drucker-Prager and neo-Hookean alone; materials2:
 the 2D block under neo-Hookean + NACC, neo-Hookean and Rankine; both built
-here, and their failure forms with the stress cache off).
+here, and their failure forms with the stress cache off), and the
+block-sparse pipeline on the four 2D scenes (elasticity2, basic2, fluids2
+and l_panel2, through the 2D forms of the window kernels, l_panel2's with
+the psi channels).
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It needs one CUDA device (written for an H100, sm_90a) and nvcc, and exits
@@ -44,10 +47,11 @@ Phases (one line each, longer logs under chiprun_out/):
   6. the block-sparse path's two window kernels against their plain
      versions on the card, on the inputs of a substep one frame into the
      fall at sand3@1M, without and with the psi channels, with times;
-  7. the sparse main path: SparseMpmPipeline.step_with_stats, then
-     run_frames, 6 frames at sand3@1M, with the kernels' launch counts held
-     against the substeps; one more frame timed, then under torch.profiler (the
-     frame's device-time split, written to chiprun_out/sparse_profile.txt);
+  7. the sparse main path: auto_pipeline(prefer="sparse") ->
+     step_with_stats, then run_frames, 6 frames at sand3@1M, with the
+     kernels' launch counts (and their 3D form) held against the substeps;
+     one more frame timed, then under torch.profiler (the frame's
+     device-time split, written to chiprun_out/sparse_profile.txt);
   8. one frame of sand3@1M through each path, sparse against fused, two
      sparse frames from the same particles bit-equal, and a small sand3
      frame through the sparse path on the card against the port's CPU path;
@@ -157,12 +161,32 @@ Phases (one line each, longer logs under chiprun_out/):
  29. reduced materials3 and materials2 (from perturbed particles), 3
      substeps on the card against the port's CPU path at the card's dts:
      |dx|, |dv|, |dF|, |d alpha|, flags and phases equal;
- 30. a JSON line of per-kernel results (the 2D fluid forms of kernels A
+ 30. the window kernels' 2D forms against their plain versions (and,
+     in 2D, against the plain versions run on the CPU, bit for bit):
+     elasticity2 and basic2 20 substeps into the sparse path (without psi,
+     and with seeded psi rows), l_panel2 as far in (its psi form, and
+     without), timed on the 250,000-particle block (without psi) and on
+     l_panel2 at cell width 0.0025 (with psi); the 3D psi forms on the
+     reduced l_panel3's sparse path;
+ 31. the four 2D sparse main paths at published size: scenes.build ->
+     auto_pipeline(prefer="sparse") -> step_with_stats / run_frames,
+     elasticity2 and basic2 6 frames against the goldens, fluids2 5 frames
+     as published and 10 at n = 40 against its golden, l_panel2 2 frames
+     with its broken and failed counts per panel beside the fused path's;
+     the window kernels' launches held against the substeps and their
+     forms (2D; with psi on l_panel2 only), mass, particle-updates/s; one
+     profiled elasticity2 frame (chiprun_out/sparse2d_profile.txt);
+ 32. the sparse path card against CPU, 3 substeps at the card's dts
+     (elasticity2, basic2, fluids2 at n = 40, l_panel2, fluids3 as
+     published, reduced l_panel3), and one frame of each 2D scene twice on
+     the card, bit-equal;
+ 33. a JSON line of per-kernel results (the 2D fluid forms of kernels A
      and B and the mass kernels under "fluids2"; the 3D damage forms of A,
      B and the pooling under "l_panel3", B's crack-energy trip under
      "l_panel3-modified" and "l_panel2-modified"; A and B's material forms
      under "materials3", "materials3-failure", "materials2" and
-     "materials2-failure"), the card's nvidia-smi line, and the final
+     "materials2-failure"; the window kernels' 2D forms under "sparse2d"
+     and "sparse2d-psi"), the card's nvidia-smi line, and the final
      {"ok": true, "device": ...} line.
 
 Each kernel's bound_ms is the least time the card could take for its work
@@ -977,139 +1001,32 @@ def g2p_window_errors(out_k, out_p, valid, win, cell_width):
     max|kernel - plain| over the bound 2e-5 * scale + 1e-5 * |plain|. The
     scale is the row's largest magnitude, and for a gradient row at least
     invd·h·max|window velocity|: the gather sums w·dpt·v terms of that
-    size, which cancel. Both sum the same 27 products per slot in other
-    orders. Returns [(err/bound, max|err|)]."""
+    size, which cancel. Both sum the same 3^d products per slot in other
+    orders. 3D or 2D (from the window's 8^d cells). Returns [(err/bound,
+    max|err|)]."""
     import torch
     from sparkl_tpu_torch.math.kernel import inv_d
 
+    dim = 3 if win.shape[2] == 512 else 2
     m = valid[:, None, :]
     a, b = torch.where(m, out_k, 0.0), torch.where(m, out_p, 0.0)
-    vscale = inv_d(cell_width) * cell_width * win[:, :3].abs().max().item()
+    vscale = inv_d(cell_width) * cell_width * win[:, :dim].abs().max().item()
     out = []
     for r in range(b.shape[1]):
         d = (a[:, r] - b[:, r]).abs()
         scale = b[:, r].abs().max().item()
-        if 3 <= r < 12:
+        if dim <= r < dim + dim * dim:
             scale = max(scale, vscale)
         bnd = 2e-5 * scale + 1e-5 * b[:, r].abs()
         out.append(((d / bnd.clamp(min=1e-30)).max().item(), d.max().item()))
     return out
 
 
-def phase_window_kernels(grid, cfg, slot_data, windows):
-    """Both window kernels against their plain versions on the sparse
-    path's own inputs, without the psi channels (the path) and with them
-    (numpy-seeded psi rows and window channel); times of the path's form.
-    Returns {name: {max_abs_err, ms, plain_ms, library_ms, bytes, flops,
-    bound_ms, bound_by, with_psi}}."""
-    import numpy as np
-    import torch
-    from sparkl_tpu_torch.ops import transfer_kernels as WK
-
-    dev = slot_data.device
-    d_, _, c = slot_data.shape
-    valid = slot_data[:, 3, :] != 0.0  # the mass row; padded slots are zero
-    n_valid = int(valid.sum())
-    rng = np.random.default_rng(5)
-    res = {name: {} for name in SPARSE_KERNELS}
-    for psi in (False, True):
-        sd, win = slot_data, windows
-        if psi:
-            sd = slot_data.clone()
-            noise = rng.uniform(0.5, 1.5, size=(d_, 2, c)).astype(np.float32)
-            sd[:, 16:18] = torch.from_numpy(noise).to(dev) * valid[:, None, :]
-            extra = rng.normal(size=(d_, 1, 512)).astype(np.float32)
-            win = torch.cat([windows, torch.from_numpy(extra).to(dev)], dim=1)
-        img_k = WK.p2g_windows(grid, cfg, sd, with_psi=psi)
-        img_p = WK.p2g_windows_reference(grid, sd, psi)
-        out_k = WK.g2p_windows(grid, cfg, sd, win, with_psi=psi)
-        out_p = WK.g2p_windows_reference(grid, sd, win, psi)
-        torch.cuda.synchronize()
-        per_ch = p2g_errors(img_k, img_p)
-        per_row = g2p_window_errors(out_k, out_p, valid, win, grid.cell_width)
-        errs = {"p2g_windows": per_ch, "g2p_windows": per_row}
-        finite = torch.isfinite(img_k).all().item() and torch.isfinite(
-            torch.where(valid[:, None, :], out_k, 0.0)).all().item()
-        for name, e in errs.items():
-            res[name]["with_psi" if psi else "path"] = dict(
-                max_abs_err=max(x for _, x in e), worst_over_bound=max(m for m, _ in e))
-            say(6, f"{name} with_psi={psi}: max|err| {max(x for _, x in e):.3e}; per "
-                   f"{'channel' if name == 'p2g_windows' else 'row'} max|err|/bound "
-                   f"{[f'{m:.2e}' for m, _ in e]} (pass <= 1)")
-        require(finite and all(m <= 1.0 for e in errs.values() for m, _ in e),
-                f"a window kernel disagrees with its plain version (with_psi={psi})")
-    sd0 = slot_data
-    res["p2g_windows"].update(
-        ms=cuda_median_ms(lambda: WK.p2g_windows(grid, cfg, sd0, with_psi=False)),
-        plain_ms=cuda_median_ms(lambda: WK.p2g_windows_reference(grid, sd0, False)),
-        bytes=d_ * (16 * c + 4 * 512) * 4, flops=n_valid * 27 * P2G_TAP_FLOPS)
-    res["g2p_windows"].update(
-        ms=cuda_median_ms(lambda: WK.g2p_windows(grid, cfg, sd0, windows, with_psi=False)),
-        plain_ms=cuda_median_ms(lambda: WK.g2p_windows_reference(grid, sd0, windows, False)),
-        bytes=d_ * (3 * c + 3 * 512 + 12 * c) * 4, flops=n_valid * 27 * G2P_TAP_FLOPS)
-    for name, v in res.items():
-        v["max_abs_err"] = v["path"]["max_abs_err"]
-        v["library_ms"] = None
-        v["bound_ms"], v["bound_by"] = bound(v["bytes"], v["flops"])
-        say(6, f"{name}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms (median of 20); "
-               f"{v['bytes'] / 1e9:.4f} GB counted from shapes = {v['bytes'] / v['ms'] / 1e6:.1f} "
-               f"GB/s; bound {v['bound_ms']:.4f} ms ({v['bound_by']}); {d_} chunks, "
-               f"{n_valid} valid slots")
-    return res
-
-
-def phase_sparse_main(b):
-    """The sparse main path: SPARSE_FRAMES frames of sand3@1M through
-    step_with_stats and then run_frames, the last SPARSE_TIMED timed, with
-    the window kernels' launches held against the substeps. Returns (the
-    pipeline, the particles, the window kernels' launches, results)."""
-    import torch
-    from sparkl_tpu_torch.fused import kernels as K
-    from sparkl_tpu_torch.ops import transfer_kernels as WK
-    from sparkl_tpu_torch.sparse.pipeline import SparseMpmPipeline
-
-    n_active = int(b.particles.active.sum())
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    pipe = SparseMpmPipeline(b.grid, b.models, b.colliders, b.params, b.gravity, device="cuda")
-    mass0 = b.particles.mass[b.particles.active].double().sum().item()
-    p = b.particles
-    substeps = 0
-    WK.reset_launch_counts()
-    K.reset_launch_counts()
-    for _ in range(SPARSE_FRAMES - SPARSE_TIMED):
-        p, n = pipe.step_with_stats(p)
-        substeps += n
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    p, timed = pipe.run_frames(p, SPARSE_TIMED)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = dict(WK.LAUNCHES, merge_scatter=K.LAUNCHES["merge_scatter"])
-    substeps += timed
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    act = p.active
-    deact = b.particles.mass[b.particles.active & ~act].double().sum().item()
-    mass = p.mass[act].double().sum().item()
-    pups = n_active * timed / seconds
-    say(7, f"sparse path, {SPARSE_FRAMES} frames: {substeps} substeps, {pipe._cfg}; last "
-           f"{SPARSE_TIMED} frames {timed} substeps in {seconds:.3f} s = {pups:.4g} "
-           f"particle-updates/s; peak memory {peak_gib:.2f} GiB; launches {launches}; mass "
-           f"{mass:.6e} (initial {mass0:.6e}, deactivated {deact:.3e})")
-    require(bool(torch.isfinite(p.position[act]).all()), "sparse path: non-finite positions")
-    require(abs(mass - (mass0 - deact)) <= 1e-6 * mass0, "sparse path: active mass not conserved")
-    # The window kernels and the scatter merge once per substep.
-    expect = {name: substeps for name in SPARSE_KERNELS + ("merge_scatter",)}
-    require(launches == expect, f"sparse path launch counts {launches}, expected {expect}")
-    return pipe, p, launches, dict(substeps=substeps, timed_substeps=timed, seconds=seconds,
-                                   pups=pups, peak_gib=peak_gib, config=str(pipe._cfg))
-
-
-def profile_sparse_frame(pipe, p):
+def profile_sparse_frame(pipe, p, fname="sparse_profile.txt", phase=7):
     """One sparse frame under torch.profiler, with a named range around each
     stage (set here, not in the library). Writes the table to
-    chiprun_out/sparse_profile.txt; returns {stage: device ms}, the device's
-    busy and wall ms and its idle share."""
+    chiprun_out/<fname>; returns {stage: device ms}, the device's busy and
+    wall ms and its idle share."""
     import importlib
     import torch
     from torch.autograd import DeviceType
@@ -1199,16 +1116,16 @@ def profile_sparse_frame(pipe, p):
     idle = 1.0 - busy_ms / wall_ms
     idle_plain = 1.0 - busy_ms / plain_wall_ms
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60)
-    with open(os.path.join(OUT_DIR, "sparse_profile.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, fname), "w") as f:
         f.write(f"{n} substeps; wall {wall_ms:.3f} ms profiled, {plain_wall_ms:.3f} ms not; "
                 f"device busy {busy_ms:.3f} ms; idle share {idle:.3f} profiled, "
                 f"{idle_plain:.3f} against the unprofiled wall\n")
         f.write("".join(f"{k:45s} {v:9.3f} ms\n" for k, v in split.items()))
         f.write(table)
-    say(7, f"profiled sparse frame: {n} substeps, wall {wall_ms:.2f} ms ({plain_wall_ms:.2f} ms "
-           f"unprofiled), device busy {busy_ms:.2f} ms, idle share {idle:.3f} "
-           f"({idle_plain:.3f} of the unprofiled wall); device ms per frame "
-           f"{ {k: round(v, 3) for k, v in split.items()} }")
+    say(phase, f"profiled sparse frame: {n} substeps, wall {wall_ms:.2f} ms ({plain_wall_ms:.2f} "
+               f"ms unprofiled), device busy {busy_ms:.2f} ms, idle share {idle:.3f} "
+               f"({idle_plain:.3f} of the unprofiled wall); device ms per frame "
+               f"{ {k: round(v, 3) for k, v in split.items()} }")
     require(busy_ms > 0.0, "the profiler saw no device time")
     return dict(substeps=n, wall_ms=wall_ms, plain_wall_ms=plain_wall_ms, busy_ms=busy_ms,
                 idle_share=idle, idle_share_unprofiled=idle_plain, split_ms=split)
@@ -1844,18 +1761,12 @@ def phase_plastic_main(name, phase=16, golden=True, timed_frames=PLASTIC_TIMED, 
     the centre of mass, box and kinetic energy within its fused tolerances
     (the worst measure over tolerance reported). Returns (pipeline, state,
     launches, results)."""
-    import json as _json
     import torch
     import sparkl_tpu_torch as sk
     import sparkl_tpu_torch.scenes as scenes
     from sparkl_tpu_torch.fused import kernels as K
 
-    gold = None
-    if golden:
-        with open(os.path.join(HERE, "tests", "golden_scenes.json")) as fh:
-            rec = _json.load(fh)[name]
-        require(rec["config"] == kw, f"{name}: the golden's configuration is {rec['config']}")
-        gold = rec["frames"]
+    gold = golden_frames(name, **kw) if golden else None
     b = scenes.build(name, **kw)
     n_active = int(b.particles.active.sum())
     mass0 = b.particles.mass[b.particles.active].double().sum().item()
@@ -1888,8 +1799,8 @@ def phase_plastic_main(name, phase=16, golden=True, timed_frames=PLASTIC_TIMED, 
         resorts += pipe.last_resorts
         p = pipe.unpack_state(state)
         act = p.active
-        pos, vel = p.position[act].double(), p.velocity[act].double()
         mass = p.mass[act].double().sum().item()
+        vel = p.velocity[act].double()
         ke = 0.5 * (p.mass[act].double()[:, None] * vel**2).sum().item()
         failed = int(p.failed[act].sum())
         broken = int((p.phase[act] == 0.0).sum())
@@ -1899,17 +1810,11 @@ def phase_plastic_main(name, phase=16, golden=True, timed_frames=PLASTIC_TIMED, 
         if gold is None:
             continue
         rec = gold[i]
-        ratios = []
-        for got, want, atol, rtol in ((pos.mean(0), rec["com"], 3e-3, 1e-3),
-                                      (pos.min(0).values, rec["pos_min"], 8e-3, 1e-3),
-                                      (pos.max(0).values, rec["pos_max"], 8e-3, 1e-3),
-                                      (torch.tensor([ke]), [rec["ke"]], 1e-8, 3e-2)):
-            want = torch.tensor(want, dtype=torch.float64)
-            ratios.append(((got.cpu() - want).abs() / (atol + rtol * want.abs())).max().item())
+        measure = golden_measures(p, rec)[0]
         slack = max(2, int(0.02 * n_active))
-        frames[-1].update(golden_substeps=rec["substeps"], worst_over_tol=max(ratios))
-        worst = max(worst, max(ratios))
-        require(abs(n - rec["substeps"]) <= 1 and max(ratios) <= 1.0
+        frames[-1].update(golden_substeps=rec["substeps"], worst_over_tol=measure)
+        worst = max(worst, measure)
+        require(abs(n - rec["substeps"]) <= 1 and measure <= 1.0
                 and abs(failed - rec["failed"]) <= slack and abs(broken - rec["broken"]) <= slack,
                 f"{name} frame {i} against the golden: {frames[-1]}")
     pipe._substep = substep
@@ -2138,7 +2043,8 @@ def kernel_group(name):
     """A device kernel's group in a frame's split: the port's kernels by
     name, torch's by kind."""
     port = ("p2g_fused", "g2p_fused", "merge_blocks", "merge_scatter", "mass_p2g",
-            "mass_g2p", "eigen_pool", "src_rows", "permute_slots", "permute_chunks")
+            "mass_g2p", "eigen_pool", "src_rows", "permute_slots", "permute_chunks",
+            "p2g_windows", "g2p_windows")
     for k in port:
         if f"{k}_kernel" in name:
             return k
@@ -3015,7 +2921,6 @@ def trip_ties(pipe, p_in, p_out):
     import torch
     from sparkl_tpu_torch.fused import kernels as K
     from sparkl_tpu_torch.fused import layout as L
-    from sparkl_tpu_torch.models import registry as reg
 
     state = pipe.pack_state(p_in)
     r = L.Rows(pipe.grid.dim)
@@ -3030,13 +2935,7 @@ def trip_ties(pipe, p_in, p_out):
         cthr = p_in.crack_threshold
         tie = tie | ((p_in.crack_propagation_factor != 0) & ((energy - cthr).abs()
                                                               <= TIE * cthr.abs()))
-    st = reg.kirchhoff_stress(pipe.models, p_in.model_id, p_in.phase, p_in.elastic_hardening,
-                              p_out.deformation_gradient, p_out.velocity_gradient, p_in.mass,
-                              p_in.volume0)
-    emax = torch.linalg.eigvalsh(0.5 * (st + st.transpose(1, 2)).double())[:, -1]
-    mp = pipe.models.fparams[p_in.model_id.long(), 0].double()
-    failing = pipe.models.ftype[p_in.model_id.long()] != 0
-    return tie | (failing & ((emax - mp).abs() <= TIE * mp.abs()))
+    return tie | stress_ties(pipe.models, p_in, p_out)
 
 
 def phase_lpanel3_agreement():
@@ -3645,6 +3544,524 @@ def phase_materials_agreement(name, phase=29):
     return dict(worst, dts=[float(x) for x in dts], alpha_moved=moved)
 
 
+# ---------------------------------------------------------------------------
+# The block-sparse pipeline on the 2D scenes (phases 30-32)
+# ---------------------------------------------------------------------------
+
+# Substeps run before the window-kernel checks; frames of the main paths
+# (elasticity2 and basic2 against the goldens, fluids2 as published and at
+# the golden's n = 40, l_panel2); substeps of the card-against-CPU checks.
+SPARSE2D_SUBSTEPS_IN = 20
+SPARSE2D_FRAMES, SPARSE2D_TIMED = 6, 2
+SPARSE2D_FLUIDS2_FRAMES, SPARSE2D_GOLDEN_FLUIDS2_FRAMES = 5, 10
+SPARSE2D_LPANEL2_FRAMES = 2
+SPARSE2D_AGREE_SUBSTEPS = 3
+# Useful f32 operations per stencil tap of the 2D window kernels (9 taps a
+# slot): P2G forms W, W_x and W_y (3 products) and adds the mass and 2
+# momenta with their 2 affine terms each (2 + 2 x 6), the psi channels 4
+# more; G2P forms the same 3 weights and adds v and 2 gradient terms per
+# velocity channel (2 x 6), the psi channel 2 more. The 3D psi forms add 4
+# (P2G, P2G3_PSI_TAP_FLOPS) and 2 (G2P) to the 3D taps.
+WIN2_P2G_TAP_FLOPS, WIN2_G2P_TAP_FLOPS = 17, 15
+WIN_PSI_P2G_TAP_FLOPS, WIN_PSI_G2P_TAP_FLOPS = 4, 2
+
+
+def window_flops(dim, psi):
+    """(P2G, G2P) f32 operations per stencil tap of the window kernels."""
+    p2g, g2p = (WIN2_P2G_TAP_FLOPS, WIN2_G2P_TAP_FLOPS) if dim == 2 else (P2G_TAP_FLOPS,
+                                                                         G2P_TAP_FLOPS)
+    if psi:
+        p2g, g2p = p2g + WIN_PSI_P2G_TAP_FLOPS, g2p + WIN_PSI_G2P_TAP_FLOPS
+    return p2g, g2p
+
+
+def window_bytes(dim, psi, d_, c):
+    """(P2G, G2P) bytes each window kernel must move at D chunks: P2G reads
+    the position, mass, velocity and affine rows (and the two psi rows) of
+    the slot data and writes the image; G2P reads the position rows and the
+    window and writes its rows."""
+    rc = 8**dim
+    n_in = 2 * dim + 1 + dim * dim + (2 if psi else 0)
+    nf = 1 + dim + (2 if psi else 0)
+    n_win = dim + (1 if psi else 0)
+    return (d_ * (n_in * c + nf * rc) * 4,
+            d_ * (dim * c + n_win * rc + (dim + dim * dim + (1 if psi else 0)) * c) * 4)
+
+
+def check_windows(grid, cfg, slot_data, windows, path_psi, phase, label, timed=True, seed=5):
+    """Both window kernels against their plain versions on a sparse path's
+    inputs (3D or 2D): the path's form (`path_psi`) on its own inputs, and
+    the other form, without the psi channels (the path's with them
+    dropped) or with them (numpy-seeded psi rows and window channel);
+    times of the path's form (20 CUDA-event-timed launches). In 2D also
+    whether each kernel's output is bit-equal to its plain version on the
+    CPU (the plain versions sum in the kernels' order there; reported).
+    Returns {name: {max_abs_err, ms, plain_ms, library_ms, bytes, flops,
+    bound_ms, bound_by, path, other}}."""
+    import numpy as np
+    import torch
+    from sparkl_tpu_torch.ops import transfer_kernels as WK
+
+    dev = slot_data.device
+    dim = grid.dim
+    d_, _, c = slot_data.shape
+    psi_row = 2 * dim + 1 + dim * dim
+    valid = slot_data[:, dim, :] != 0.0  # the mass row; padded slots are zero
+    n_valid = int(valid.sum())
+    rng = np.random.default_rng(seed)
+    res = {name: {} for name in SPARSE_KERNELS}
+    inputs = {}
+    for psi in (path_psi, not path_psi):
+        sd, win = slot_data, windows
+        if psi and not path_psi:
+            sd = slot_data.clone()
+            noise = rng.uniform(0.5, 1.5, size=(d_, 2, c)).astype(np.float32)
+            sd[:, psi_row : psi_row + 2] = torch.from_numpy(noise).to(dev) * valid[:, None, :]
+            extra = rng.normal(size=(d_, 1, 8**dim)).astype(np.float32)
+            win = torch.cat([windows, torch.from_numpy(extra).to(dev)], dim=1)
+        elif not psi:
+            win = windows[:, :dim].contiguous()
+        inputs[psi] = (sd, win)
+        img_k = WK.p2g_windows(grid, cfg, sd, with_psi=psi)
+        img_p = WK.p2g_windows_reference(grid, sd, psi)
+        out_k = WK.g2p_windows(grid, cfg, sd, win, with_psi=psi)
+        out_p = WK.g2p_windows_reference(grid, sd, win, psi)
+        torch.cuda.synchronize()
+        errs = {"p2g_windows": p2g_errors(img_k, img_p),
+                "g2p_windows": g2p_window_errors(out_k, out_p, valid, win, grid.cell_width)}
+        finite = torch.isfinite(img_k).all().item() and torch.isfinite(
+            torch.where(valid[:, None, :], out_k, 0.0)).all().item()
+        cpu_equal = {}
+        if dim == 2:
+            sd_c, win_c = sd.cpu(), win.cpu()
+            cpu_equal = {
+                "p2g_windows": torch.equal(img_k.cpu(), WK.p2g_windows_reference(grid, sd_c, psi)),
+                "g2p_windows": torch.equal(
+                    torch.where(valid[:, None, :], out_k, 0.0).cpu(),
+                    torch.where(valid[:, None, :].cpu(),
+                                WK.g2p_windows_reference(grid, sd_c, win_c, psi), 0.0))}
+        for name, e in errs.items():
+            res[name]["path" if psi == path_psi else "other"] = dict(
+                with_psi=psi, max_abs_err=max(x for _, x in e),
+                worst_over_bound=max(m for m, _ in e), cpu_bit_equal=cpu_equal.get(name))
+            say(phase, f"{label} {name} with_psi={psi}: max|err| {max(x for _, x in e):.3e}; per "
+                       f"{'channel' if name == 'p2g_windows' else 'row'} max|err|/bound "
+                       f"{[f'{m:.2e}' for m, _ in e]} (pass <= 1)"
+                       + (f"; bit-equal to its plain version on the CPU {cpu_equal[name]}"
+                          if cpu_equal else ""))
+        require(finite and all(m <= 1.0 for e in errs.values() for m, _ in e),
+                f"{label}: a window kernel disagrees with its plain version (with_psi={psi})")
+    taps = 3**dim
+    f_p2g, f_g2p = window_flops(dim, path_psi)
+    b_p2g, b_g2p = window_bytes(dim, path_psi, d_, c)
+    res["p2g_windows"].update(bytes=b_p2g, flops=n_valid * taps * f_p2g)
+    res["g2p_windows"].update(bytes=b_g2p, flops=n_valid * taps * f_g2p)
+    sd0, win0 = inputs[path_psi]
+    if timed:
+        res["p2g_windows"].update(
+            ms=cuda_median_ms(lambda: WK.p2g_windows(grid, cfg, sd0, with_psi=path_psi)),
+            plain_ms=cuda_median_ms(lambda: WK.p2g_windows_reference(grid, sd0, path_psi)))
+        res["g2p_windows"].update(
+            ms=cuda_median_ms(lambda: WK.g2p_windows(grid, cfg, sd0, win0, with_psi=path_psi)),
+            plain_ms=cuda_median_ms(lambda: WK.g2p_windows_reference(grid, sd0, win0,
+                                                                     path_psi)))
+    for name, v in res.items():
+        v["max_abs_err"] = v["path"]["max_abs_err"]
+        v["library_ms"] = None
+        v["bound_ms"], v["bound_by"] = bound(v["bytes"], v["flops"])
+        if timed:
+            say(phase, f"{label} {name} (with_psi={path_psi}): kernel {v['ms']:.3f} ms, plain "
+                       f"{v['plain_ms']:.3f} ms (median of 20); {v['bytes'] / 1e9:.4f} GB "
+                       f"counted from shapes = {v['bytes'] / v['ms'] / 1e6:.1f} GB/s; bound "
+                       f"{v['bound_ms']:.4f} ms ({v['bound_by']}); {d_} chunks, {n_valid} valid "
+                       f"slots")
+    return res
+
+
+def sparse_inputs(b, substeps):
+    """The window kernels' inputs (slot data, windows) of the substep after
+    `substeps` single substeps of the sparse pipeline on bundle `b`, and the
+    pipeline (on the bundle's device)."""
+    from dataclasses import replace
+    import sparkl_tpu_torch as sk
+
+    pipe = sk.auto_pipeline(replace(b, params=replace(b.params, stop_after_one_substep=True)),
+                            prefer="sparse", device=b.particles.device)
+    p = b.particles
+    for _ in range(substeps):
+        p = pipe.step(p)
+    slot_data, windows = capture_window_inputs(pipe, p)
+    return pipe, slot_data, windows
+
+
+def phase_sparse2d_kernels(phase=30):
+    """The window kernels' 2D forms (and the 3D psi forms) against their
+    plain versions: elasticity2 and basic2 SPARSE2D_SUBSTEPS_IN substeps
+    into the sparse path (their form without psi, and with seeded psi),
+    l_panel2 as far in (its psi form, and without psi); timed on the
+    250,000-particle block under basic2's models (without psi) and on
+    l_panel2 at cell width 0.0025 (240,000 particles, with psi), and the
+    3D psi forms on the reduced l_panel3's sparse path. Returns {label:
+    check_windows result}."""
+    import sparkl_tpu_torch.scenes as scenes
+
+    out = {}
+    cases = (("elasticity2", lambda: scenes.build("elasticity2"), SPARSE2D_SUBSTEPS_IN, False),
+             ("basic2", lambda: scenes.build("basic2"), SPARSE2D_SUBSTEPS_IN, False),
+             ("l_panel2", fracture_bundle, SPARSE2D_SUBSTEPS_IN, False),
+             ("block", plastic_block, 3, True),
+             ("l_panel2 fine", lambda: fracture_bundle(FRACTURE_FINE_CELL), 3, True),
+             ("l_panel3 reduced", lambda: l_panel3(scale=LPANEL3_SMALL,
+                                                   layers=LPANEL3_SMALL_LAYERS),
+              SPARSE2D_SUBSTEPS_IN, True))
+    for label, build, substeps, timed in cases:
+        b = build()
+        pipe, slot_data, windows = sparse_inputs(b, substeps)
+        say(phase, f"{label}: {int(b.particles.active.sum())} particles, {pipe._cfg}, "
+                   f"{substeps} substeps in, psi channels on the path {pipe._with_psi}")
+        out[label] = check_windows(b.grid, pipe._cfg, slot_data, windows, pipe._with_psi,
+                                   phase, label, timed=timed)
+        del pipe, slot_data, windows, b
+    return out
+
+
+def sparse_panel_stats(p):
+    """[broken, failed] counts of the active particles of model ids 0 and 1
+    (l_panel2's two panels)."""
+    act = p.active
+    return [[int((act & (p.model_id == m) & (p.phase == 0.0)).sum()),
+             int((act & (p.model_id == m) & p.failed).sum())] for m in (0, 1)]
+
+
+def golden_measures(p, rec):
+    """A frame of particles `p` against its golden record: the worst of the
+    centre of mass, box and kinetic energy over tests/test_regression.py's
+    non-dense tolerances (pass <= 1), and the failed and broken counts of
+    the active particles."""
+    import torch
+
+    act = p.active
+    pos, vel = p.position[act].double(), p.velocity[act].double()
+    ke = 0.5 * (p.mass[act].double()[:, None] * vel**2).sum().item()
+    ratios = []
+    for got, want, atol, rtol in ((pos.mean(0), rec["com"], 3e-3, 1e-3),
+                                  (pos.min(0).values, rec["pos_min"], 8e-3, 1e-3),
+                                  (pos.max(0).values, rec["pos_max"], 8e-3, 1e-3),
+                                  (torch.tensor([ke]), [rec["ke"]], 1e-8, 3e-2)):
+        want = torch.tensor(want, dtype=torch.float64)
+        ratios.append(((got.cpu() - want).abs() / (atol + rtol * want.abs())).max().item())
+    return max(ratios), int(p.failed[act].sum()), int((p.phase[act] == 0.0).sum()), ke
+
+
+def phase_sparse_main(b, frames, timed_frames, phase, gold=None, profile=None):
+    """A sparse main path: bundle `b` -> auto_pipeline(prefer="sparse") ->
+    step_with_stats per frame, the last `timed_frames` through run_frames
+    and timed (each frame clocked alone), with the window kernels' launches
+    held against the substeps run (the scatter merge once more per fluid
+    volume pass) and every launch in the path's form (the grid's dimension,
+    with the psi channels exactly when the path carries them); per frame
+    the substeps, the mass held to 1e-6 (net of deactivated particles),
+    the broken and failed counts of model ids 0 and 1 (l_panel2's panels),
+    and with `gold` (the golden's frame records) the golden statistics
+    within tests/test_regression.py's non-dense tolerances. With `profile`, one
+    more frame under torch.profiler written there. Returns (pipeline,
+    particles, launches, results)."""
+    import torch
+    import sparkl_tpu_torch as sk
+    from sparkl_tpu_torch.fused import kernels as K
+    from sparkl_tpu_torch.ops import transfer_kernels as WK
+
+    label = b.name
+    n_active = int(b.particles.active.sum())
+    act0 = b.particles.active
+    mass0 = b.particles.mass[act0].double().sum().item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pipe = sk.auto_pipeline(b, prefer="sparse")
+    require(isinstance(pipe, sk.SparseMpmPipeline), f"{label}: not the sparse pipeline")
+    ran = dict(substeps=0, passes=0)
+    substep, fluid_pass = pipe._substep, pipe._recompute_fluids_sparse
+
+    def counted(*a):
+        ran["substeps"] += 1
+        return substep(*a)
+
+    def counted_pass(*a):
+        ran["passes"] += 1
+        return fluid_pass(*a)
+
+    forms = {}
+    p2g, g2p = WK.p2g_windows, WK.g2p_windows
+
+    def spy_p2g(grid, cfg, slot_data, with_psi=True):
+        key = ("p2g_windows", grid.dim, with_psi)
+        forms[key] = forms.get(key, 0) + 1
+        return p2g(grid, cfg, slot_data, with_psi=with_psi)
+
+    def spy_g2p(grid, cfg, slot_data, windows, with_psi=True):
+        key = ("g2p_windows", grid.dim, with_psi)
+        forms[key] = forms.get(key, 0) + 1
+        return g2p(grid, cfg, slot_data, windows, with_psi=with_psi)
+
+    pipe._substep, pipe._recompute_fluids_sparse = counted, counted_pass
+    WK.p2g_windows, WK.g2p_windows = spy_p2g, spy_g2p
+    WK.reset_launch_counts()
+    K.reset_launch_counts()
+    p = b.particles
+    substeps = timed = 0
+    seconds, worst = 0.0, 0.0
+    out_frames = []
+    try:
+        for i in range(frames):
+            if i >= frames - timed_frames:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                p, n = pipe.run_frames(p, 1)
+                torch.cuda.synchronize()
+                seconds += time.perf_counter() - t0
+                timed += n
+            else:
+                p, n = pipe.step_with_stats(p)
+            substeps += n
+            act = p.active
+            deact = b.particles.mass[act0 & ~act].double().sum().item()
+            mass = p.mass[act].double().sum().item()
+            fr = dict(frame=i, substeps=n, mass=mass, per_panel=sparse_panel_stats(p))
+            out_frames.append(fr)
+            require(abs(mass - (mass0 - deact)) <= 1e-6 * mass0,
+                    f"{label} frame {i}: mass {mass} against {mass0 - deact}")
+            if gold is None:
+                continue
+            rec = gold[i]
+            measure, failed, broken, _ = golden_measures(p, rec)
+            slack = max(2, int(0.02 * n_active))
+            fr.update(golden_substeps=rec["substeps"], worst_over_tol=measure)
+            worst = max(worst, measure)
+            require(abs(n - rec["substeps"]) <= 1 and measure <= 1.0
+                    and abs(failed - rec["failed"]) <= slack
+                    and abs(broken - rec["broken"]) <= slack,
+                    f"{label} frame {i} against the golden: {fr}")
+    finally:
+        pipe._substep, pipe._recompute_fluids_sparse = substep, fluid_pass
+        WK.p2g_windows, WK.g2p_windows = p2g, g2p
+    launches = dict(WK.LAUNCHES, merge_scatter=K.LAUNCHES["merge_scatter"])
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    act = p.active
+    pups = n_active * timed / seconds if timed else None
+    for fr in out_frames:
+        say(phase, f"{label} sparse frame {fr['frame']}: " + ", ".join(
+            f"{k} {v}" for k, v in fr.items() if k != "frame"))
+    against = (f"frames 0-{frames - 1} against the golden: worst measure/tol {worst:.3e}; "
+               if gold else "")
+    rate = (f"last {timed_frames} frames {timed} substeps in {seconds:.3f} s = {pups:.4g} "
+            f"particle-updates/s; " if timed else "")
+    say(phase, f"{label} sparse path, {frames} frames, {n_active} particles: {substeps} "
+               f"substeps, {ran['substeps']} run, {ran['passes']} volume passes; {against}{rate}"
+               f"{pipe._cfg}; eigenerosion buckets {pipe._eigen_k} deep, regrown "
+               f"{pipe.eigen_regrows} times; peak memory {peak_gib:.2f} GiB; launches "
+               f"{launches}; forms {forms}")
+    require(bool(torch.isfinite(p.position[act]).all()), f"{label} sparse path: non-finite "
+                                                         f"positions")
+    require(ran["substeps"] >= substeps and (ran["substeps"] == substeps
+                                             or pipe.eigen_regrows > 0),
+            f"{label}: ran {ran['substeps']} substeps for {substeps} kept, with no regrow")
+    expect = dict(p2g_windows=ran["substeps"], g2p_windows=ran["substeps"],
+                  merge_scatter=ran["substeps"] + ran["passes"])
+    require(launches == expect, f"{label} sparse path launch counts {launches}, expected "
+                                f"{expect}")
+    dim, psi = b.grid.dim, pipe._with_psi
+    require(forms == {("p2g_windows", dim, psi): ran["substeps"],
+                      ("g2p_windows", dim, psi): ran["substeps"]},
+            f"{label}: window kernel forms {forms}, expected {dim}D with_psi={psi} only")
+    res = dict(particles=n_active, substeps=substeps, substeps_run=ran["substeps"],
+               volume_passes=ran["passes"], timed_substeps=timed, seconds=seconds, pups=pups,
+               peak_gib=peak_gib, worst_over_tol=worst if gold else None, with_psi=psi,
+               frames=out_frames, eigen_regrows=pipe.eigen_regrows, config=str(pipe._cfg))
+    if profile:
+        res["profile"] = profile_sparse_frame(pipe, p, profile, phase)
+    return pipe, p, launches, res
+
+
+def golden_frames(name, **kw):
+    """tests/golden_scenes.json's frame records of `name`, whose
+    configuration must be `kw`."""
+    import json as _json
+
+    with open(os.path.join(HERE, "tests", "golden_scenes.json")) as fh:
+        rec = _json.load(fh)[name]
+    require(rec["config"] == kw, f"{name}: the golden's configuration is {rec['config']}")
+    return rec["frames"]
+
+
+def phase_sparse2d_paths(phase=31):
+    """The four 2D sparse main paths at their published sizes (elasticity2
+    and basic2 SPARSE2D_FRAMES frames against the goldens, fluids2 as
+    published and at the golden's n = 40, l_panel2 with its per-panel
+    counts beside the fused path's over the same frames), one profiled
+    elasticity2 frame. Returns (launches per path, results per path)."""
+    from dataclasses import replace
+    import sparkl_tpu_torch.scenes as scenes
+
+    launches, res = {}, {}
+    for label, build, frames, timed, gold, profile in (
+            ("elasticity2", lambda: scenes.build("elasticity2"), SPARSE2D_FRAMES,
+             SPARSE2D_TIMED, golden_frames("elasticity2"), "sparse2d_profile.txt"),
+            ("basic2", lambda: scenes.build("basic2"), SPARSE2D_FRAMES, SPARSE2D_TIMED,
+             golden_frames("basic2"), None),
+            ("fluids2", lambda: scenes.build("fluids2"), SPARSE2D_FLUIDS2_FRAMES,
+             SPARSE2D_TIMED, None, None),
+            ("fluids2-n40", lambda: scenes.build("fluids2", n=40),
+             SPARSE2D_GOLDEN_FLUIDS2_FRAMES, 0, golden_frames("fluids2", n=40), None),
+            ("l_panel2", fracture_bundle, SPARSE2D_LPANEL2_FRAMES, 1, None, None)):
+        b = replace(build(), name=label)
+        _, _, launches[label], res[label] = phase_sparse_main(b, frames, timed, phase, gold,
+                                                              profile)
+    fpipe, fstate, _, fused = phase_damage_main(fracture_bundle(), SPARSE2D_LPANEL2_FRAMES, 0,
+                                                phase)
+    del fpipe, fstate
+    sparse = [fr["per_panel"] for fr in res["l_panel2"]["frames"]]
+    fused_per = [fr["per_model"] for fr in fused["frames"]]
+    say(phase, f"l_panel2 per frame [broken, failed] per panel, sparse {sparse}, fused "
+               f"{fused_per}; substeps sparse "
+               f"{[fr['substeps'] for fr in res['l_panel2']['frames']]}, fused "
+               f"{[fr['substeps'] for fr in fused['frames']]}")
+    res["l_panel2"]["fused_per_panel"] = fused_per
+    return launches, res
+
+
+def stress_ties(models, p_in, p_out):
+    """Particles of a maximum-stress model whose largest principal stress,
+    from p_out's F at p_in's phase, lies within TIE of the envelope."""
+    import torch
+    from sparkl_tpu_torch.models import registry as reg
+
+    st = reg.kirchhoff_stress(models, p_in.model_id, p_in.phase, p_in.elastic_hardening,
+                              p_out.deformation_gradient, p_out.velocity_gradient, p_in.mass,
+                              p_in.volume0)
+    emax = torch.linalg.eigvalsh(0.5 * (st + st.transpose(1, 2)).double())[:, -1]
+    mp = models.fparams[p_in.model_id.long(), 0].double()
+    failing = models.ftype[p_in.model_id.long()] != 0
+    return failing & ((emax - mp).abs() <= TIE * mp.abs())
+
+
+def sparse_trip_ties(pipe, p_in, p_out, psi=None):
+    """Particles whose trip decision in the sparse substep from p_in to p_out
+    lies within TIE of its threshold, on the pipeline's device: the
+    eigenerosion energy pooled from p_in (eigenerosion), the crack energy of
+    the gathered psi (modified eigenerosion; `psi` [N]), and the largest
+    principal stress (stress_ties)."""
+    from sparkl_tpu_torch.core.params import DamageModel
+    from sparkl_tpu_torch.solver import dense
+    from sparkl_tpu_torch.solver.eigenerosion import evolve_eigenerosion
+
+    grid, dm = pipe.grid, pipe.params.damage_model
+    tie = stress_ties(pipe.models, p_in, p_out)
+    cthr = p_in.crack_threshold
+    if dm == DamageModel.EIGENEROSION:
+        energy = evolve_eigenerosion(grid, dense.mark_out_of_grid_failed(grid, p_in),
+                                     pipe._eigen_k)[0].parameter1
+        tie = tie | ((p_in.crack_propagation_factor != 0)
+                     & ((energy - cthr).abs() <= TIE * cthr.abs()))
+    if dm == DamageModel.MODIFIED_EIGENEROSION:
+        energy = p_in.crack_propagation_factor * grid.cell_width * psi
+        tie = tie | ((energy - cthr).abs() <= TIE * cthr.abs())
+    return tie
+
+
+def phase_sparse2d_agreement(phase=32):
+    """The sparse path card against CPU: elasticity2, basic2, fluids2 at the
+    golden's n = 40, l_panel2, fluids3 as published (3D, the volume pass)
+    and the reduced l_panel3 (3D psi forms and the bucket pooling),
+    SPARSE2D_AGREE_SUBSTEPS single substeps each, the CPU taking the
+    card's dt at every substep (the EOS bound turns on J's last bits): the
+    JAX package's fused-vs-dense tolerances on x, v and F, flags equal, the
+    phase equal but on particles whose trip decision in some substep lay
+    within TIE of its threshold (sparse_trip_ties); then one frame of each
+    2D scene as published run twice on the card, bit-equal in every
+    particle field. Returns {name: results}."""
+    from dataclasses import replace
+    import torch
+    import sparkl_tpu_torch as sk
+    import sparkl_tpu_torch.scenes as scenes
+    from sparkl_tpu_torch import interop
+    from sparkl_tpu_torch.solver import dense
+
+    cases = (("elasticity2", lambda dev: scenes.build("elasticity2", device=dev)),
+             ("basic2", lambda dev: scenes.build("basic2", device=dev)),
+             ("fluids2(n=40)", lambda dev: scenes.build("fluids2", n=40, device=dev)),
+             ("l_panel2", lambda dev: fracture_bundle(device=dev)),
+             ("fluids3", lambda dev: scenes.build("fluids3", device=dev)),
+             ("l_panel3 reduced", lambda dev: l_panel3(scale=LPANEL3_SMALL,
+                                                       layers=LPANEL3_SMALL_LAYERS, device=dev)))
+    adaptive = dense.adaptive_timestep
+    out = {}
+    for name, build in cases:
+        runs, dts = {}, []
+        for dev in ("cuda", "cpu"):
+            b = build(dev)
+            pipe = sk.auto_pipeline(replace(b, params=replace(b.params,
+                                                              stop_after_one_substep=True)),
+                                    prefer="sparse", device=dev)
+            if dev == "cuda":
+                dense.adaptive_timestep = lambda *a: dts.append(adaptive(*a)) or dts[-1]
+            else:
+                replay = iter([float(x) for x in dts])
+                dense.adaptive_timestep = lambda *a: torch.tensor(next(replay),
+                                                                  dtype=torch.float32)
+            try:
+                ps = [b.particles.to("cpu")]
+                p = b.particles
+                for _ in range(SPARSE2D_AGREE_SUBSTEPS):
+                    p = pipe.step(p)
+                    ps.append(p.to("cpu"))
+            finally:
+                dense.adaptive_timestep = adaptive
+            runs[dev] = (pipe, ps)
+        cpipe, pc = runs["cpu"]
+        pg = runs["cuda"][1]
+        ties = torch.zeros_like(pc[0].active)
+        worst = dict(dx=0.0, dv=0.0, df=0.0)
+        mismatch = net = 0
+        for k in range(1, SPARSE2D_AGREE_SUBSTEPS + 1):
+            a, c = pg[k], pc[k]
+            act = c.active
+            for key, fa, fc in (("dx", a.position, c.position), ("dv", a.velocity, c.velocity),
+                                ("df", a.deformation_gradient, c.deformation_gradient)):
+                worst[key] = max(worst[key], (fa[act] - fc[act]).abs().max().item())
+            ties = ties | sparse_trip_ties(cpipe, pc[k - 1], c)
+            differ = act & (a.phase != c.phase)
+            mismatch = int(differ.sum())
+            net = int((differ & ~ties).sum())
+            require(torch.equal(a.active, c.active) and torch.equal(a.failed[act], c.failed[act]),
+                    f"{name} substep {k}: active or failed flags differ, card against CPU")
+        act = pc[-1].active
+        say(phase, f"{name} ({int(act.sum())} particles, sparse), {SPARSE2D_AGREE_SUBSTEPS} "
+                   f"substeps at the card's dts {[f'{float(x):.3e}' for x in dts]}, card "
+                   f"against CPU: max|dx| {worst['dx']:.3e} ({FRACTURE_DX:g}), max|dv| "
+                   f"{worst['dv']:.3e} ({FRACTURE_DV:g}; max|v| "
+                   f"{pc[-1].velocity[act].abs().max().item():.4f}), max|dF| {worst['df']:.3e} "
+                   f"({FRACTURE_DF:g}); phase differing {mismatch}, net of {int(ties.sum())} tie "
+                   f"particles {net}")
+        require(net == 0, f"{name}: card and CPU phases differ off the ties")
+        require(worst["dx"] <= FRACTURE_DX and worst["dv"] <= FRACTURE_DV
+                and worst["df"] <= FRACTURE_DF, f"{name}: card and CPU disagree (sparse)")
+        out[name] = dict(worst, phase_differ=mismatch, phase_differ_net_of_ties=net,
+                         dts=[float(x) for x in dts])
+    for name in ("elasticity2", "basic2", "fluids2", "l_panel2"):
+        runs = []
+        for _ in range(2):
+            b = scenes.build(name)
+            p, n = sk.auto_pipeline(b, prefer="sparse").step_with_stats(b.particles)
+            runs.append((interop.particles_to_numpy(p), n))
+        (a, na), (a2, na2) = runs
+        differ = [k for k in a if not (a[k] == a2[k]).all()]
+        say(phase, f"{name} one sparse frame twice on the card: substeps {na}/{na2}, bit-equal "
+                   f"in every particle field {not differ} (differ: {differ})")
+        require(not differ and na == na2, f"two sparse card frames of {name} differ in {differ}")
+        out.setdefault(name, {})["repeat_bit_equal"] = not differ
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "sparkl_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -3676,6 +4093,7 @@ def main():
     usage = [ln.strip() for ln in log.splitlines() if "registers" in ln]
     say(2, f"built {os.path.relpath(path, HERE)} in {build_s:.1f} s; ptxas: " + " | ".join(usage))
 
+    from dataclasses import replace
     import sparkl_tpu_torch.scenes as scenes
     from sparkl_tpu_torch.fused import kernels as K
     from sparkl_tpu_torch.fused import layout as L
@@ -3779,13 +4197,13 @@ def main():
     spipe = SparseMpmPipeline(b.grid, b.models, b.colliders, b.params, b.gravity, device="cuda")
     p1, _ = spipe.step_with_stats(b.particles)
     slot_data, windows = capture_window_inputs(spipe, p1)
-    kres.update(phase_window_kernels(b.grid, spipe._cfg, slot_data, windows))
+    kres.update(check_windows(b.grid, spipe._cfg, slot_data, windows, False, 6, "sand3@1M"))
     del spipe, p1, slot_data, windows
 
     # 7. The sparse main path, then one profiled frame.
-    spipe, sp, sparse_launches, sparse_res = phase_sparse_main(b)
-    sparse_res["profile"] = profile_sparse_frame(spipe, sp)
-    del spipe, sp
+    _, _, sparse_launches, sparse_res = phase_sparse_main(
+        replace(b, name="sand3@1M"), SPARSE_FRAMES, SPARSE_TIMED, 7,
+        profile="sparse_profile.txt")
 
     # 8. Sparse against fused at full size; the sparse path card vs CPU.
     sparse_res["vs_fused"] = phase_sparse_vs_fused(b)
@@ -3952,6 +4370,19 @@ def main():
     for name in ("materials3", "materials2"):
         mat_res[name]["agreement"] = phase_materials_agreement(name)
 
+    # 30. The window kernels' 2D forms (and 3D psi forms) against their
+    # plain versions; timed on the 250,000-particle block and l_panel2 fine.
+    sparse2d_res = {"kernels": phase_sparse2d_kernels()}
+
+    # 31. The four 2D sparse main paths at published size; one profiled
+    # elasticity2 frame.
+    sparse2d_launches, paths = phase_sparse2d_paths()
+    sparse2d_res.update(paths)
+
+    # 32. The sparse path card against CPU (2D, fluids3, reduced l_panel3),
+    # and card against card.
+    sparse2d_res["agreement"] = phase_sparse2d_agreement()
+
     by_path = dict(fused=launches, sparse=sparse_launches, fluid=fluid_launches,
                    fracture=fracture_launches, elasticity2=plastic_launches["elasticity2"],
                    basic2=plastic_launches["basic2"], fluids2=fluid2_launches)
@@ -3960,10 +4391,11 @@ def main():
     missing = [k for k in REPLACES if launches[k] == 0]
     require(not missing, f"kernels their main paths (or checks) never launched: {missing}")
 
-    # 30. Results. The 2D fluid forms of four kernels carry their own
+    # 33. Results. The 2D fluid forms of four kernels carry their own
     # numbers (the fluids2 path's launches, times on the 2D column), and so
-    # do the damage forms and the material forms (their paths' launches,
-    # times at their size).
+    # do the damage forms, the material forms (their paths' launches, times
+    # at their size) and the window kernels' 2D forms (the 2D sparse paths'
+    # launches, times on the block and on l_panel2 fine).
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     block = fluid2_res["kernels"]["fluids2 block"]
     dk = damage_res["kernels"]
@@ -3982,6 +4414,15 @@ def main():
             forms_of[name][label] = dict(launches=ml[name],
                                          **{k: mat_res["kernels"][label][name].get(k)
                                             for k in keys})
+    sk2 = sparse2d_res["kernels"]
+    for name in SPARSE_KERNELS:
+        forms_of[name]["sparse2d"] = dict(
+            launches=sum(sparse2d_launches[path][name] for path in
+                         ("elasticity2", "basic2", "fluids2", "fluids2-n40")),
+            **{k: sk2["block"][name].get(k) for k in keys})
+        forms_of[name]["sparse2d-psi"] = dict(
+            launches=sparse2d_launches["l_panel2"][name],
+            **{k: sk2["l_panel2 fine"][name].get(k) for k in keys})
     kernels = [
         dict(name=name, route="cuda",
              source=WINDOW_SOURCE if name in SPARSE_KERNELS else FUSED_SOURCE,
@@ -3996,7 +4437,8 @@ def main():
                        resort_branches=branches, resort_ms=resort_ms, peak_gib=peak_gib,
                        build_s=build_s, kernel_checks=kres, sparse=sparse_res,
                        fluid=fluid_res, fracture=fracture_res, plastic2d=plastic_res,
-                       fluids2=fluid2_res, damage=damage_res, materials=mat_res), f,
+                       fluids2=fluid2_res, damage=damage_res, materials=mat_res,
+                       sparse2d=sparse2d_res, sparse2d_launches=sparse2d_launches), f,
                   indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -13,16 +13,20 @@ optional Drucker-Prager plasticity, heightfield colliders and no damage, on
 two pipelines: fused.pipeline.FusedMpmPipeline (persistent slots, the stress
 cache on) and sparse.pipeline.SparseMpmPipeline (the block-sparse window
 transfers); fluids3's, the Monaghan EOS fluid with fluid volume
-recomputation (alone or mixed with those solids), on the fused pipeline;
-l_panel2's, 2D corotated fracture with eigenerosion and maximum-stress
-failure, a cuboid ground, STICK handling and a Dirichlet velocity hook;
-elasticity2's and basic2's, 2D Rankine, Snow and Drucker-Prager plasticity
-on cuboids and a 2D heightfield; fluids2's, the 2D Monaghan EOS fluid
-with its volume pass between cuboid walls; and fracture in 3D (l_panel2's
-two mechanisms in a slab), with eigenerosion or modified eigenerosion and
-maximum-stress failure; and neo-Hookean elasticity with NACC plasticity,
-and Rankine and Snow in 3D (chip_smoke.py's materials3 and materials2);
-all on the fused pipeline.
+recomputation (alone or mixed with those solids); l_panel2's, 2D corotated
+fracture with eigenerosion and maximum-stress failure, a cuboid ground,
+STICK handling and a Dirichlet velocity hook; elasticity2's and basic2's,
+2D Rankine, Snow and Drucker-Prager plasticity on cuboids and a 2D
+heightfield; fluids2's, the 2D Monaghan EOS fluid with its volume pass
+between cuboid walls; fracture in 3D (l_panel2's two mechanisms in a
+slab), with eigenerosion or modified eigenerosion and maximum-stress
+failure; and neo-Hookean elasticity with NACC plasticity, and Rankine and
+Snow in 3D (chip_smoke.py's materials3 and materials2). The fused pipeline
+carries them all; so does the sparse pipeline (the 2D scenes through the
+2D forms of its window kernels, with the psi channels under the
+eigenerosion family). Both refuse CD-MPM, penalty colliders, other
+collider shapes, boundary particle projection, GPU boundary semantics and
+runtime collider poses.
 Every entry point that takes a device defaults to
 "cuda" and raises without one; pass device="cpu" for the plain PyTorch
 versions.
@@ -45,9 +49,10 @@ from sparkl_tpu_torch.sparse.pipeline import SparseMpmPipeline
 def auto_pipeline(bundle, prefer="auto", device="cuda", **kw):
     """Build a pipeline for a scene bundle, with its hooks. "auto" and
     "fused" build the fused persistent-slot pipeline (the JAX package's
-    "auto" takes it for every configuration it supports, and the port's
-    sparse pipeline carries no configuration it does not); "sparse" builds
-    the block-sparse one; the dense pipeline is not ported."""
+    "auto" takes it for every configuration it supports); "sparse" builds
+    the block-sparse one, which carries the same scenes (the 2D ones,
+    elasticity2, basic2, fluids2 and l_panel2, through its 2D window
+    kernels); the dense pipeline is not ported."""
     args = (bundle.grid, bundle.models, bundle.colliders, bundle.params, bundle.gravity,
             bundle.hooks)
     if prefer == "dense":

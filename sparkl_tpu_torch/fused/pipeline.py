@@ -86,7 +86,7 @@ class FusedMpmPipeline:
         collider_pose_fn=None,
         device="cuda",
     ):
-        why = unsupported(grid, models, colliders, params, hooks, fused=True)
+        why = unsupported(grid, models, colliders, params, fused=True)
         if collider_pose_fn is not None:
             why.append("collider pose functions")
         if why:

@@ -138,23 +138,29 @@ def particle_update_after_gather(
     compute_dt_bound: bool = False, poses=None,
 ):
     """Particle state update from the gathered grid quantities (ref:
-    grid_to_particle.rs): kinematic override, the optional GPU velocity
-    clamp, advection, F update, plastic return map, static particles, the
-    broken-F guards and the pos-energy accumulation. With
-    compute_dt_bound, also returns the next substep's dt bounds. The
-    modified-eigenerosion trip, boundary particle projection and runtime
-    poses are not ported and raise; so do fluid model sets (the fluid J
-    update is carried by the fused pipeline's kernel B only) and failure
-    model sets (registry.apply_plasticity refuses them)."""
-    if con.EOS_MONAGHAN_SPH in models.present_c:
-        raise NotImplementedError("the particle update's fluid J update is not ported")
-    if damage_model == DamageModel.MODIFIED_EIGENEROSION:
-        raise NotImplementedError("modified eigenerosion is not ported")
+    grid_to_particle.rs): the modified-eigenerosion trip (cpf·h·psi_pos_momentum
+    over the threshold breaks the particle), kinematic override, the optional
+    GPU velocity clamp, advection, the F update (F00 += det·dt·F00 for
+    fluids, F += dt·∇v F for solids), plastic return map, static particles,
+    the broken-F guards (det F = 0, failed, and |F00| > 1e4 for solids), the
+    pos-energy accumulation, and the failure model on the updated stress.
+    With compute_dt_bound, also returns the next substep's dt bounds.
+    Boundary particle projection and runtime poses are not ported and
+    raise."""
     if enable_boundary_particle_projection:
         raise NotImplementedError("boundary particle projection is not ported")
     if poses is not None:
         raise NotImplementedError("runtime collider poses are not ported")
+    has_fluid = con.EOS_MONAGHAN_SPH in models.present_c
+    is_fluid = models.is_fluid(p.model_id) if has_fluid else None
+
+    # Modified eigenerosion: the crack energy the transfer carried (ref :66-78).
     phase = p.phase
+    if damage_model == DamageModel.MODIFIED_EIGENEROSION:
+        crack_energy = p.crack_propagation_factor * grid.cell_width * psi_pos_momentum
+        trip = ((p.crack_propagation_factor != 0.0) & (phase > 0.0)
+                & (crack_energy > p.crack_threshold))
+        phase = torch.where(trip, 0.0, phase)
 
     # Advection (kinematic override; ref :81-89).
     velocity = torch.where(p.kinematic_enabled[..., None], p.kinematic_vel, velocity)
@@ -167,10 +173,16 @@ def particle_update_after_gather(
         velocity = torch.where(over[..., None], torch.sign(velocity) * clamp, velocity)
     position = p.position + velocity * dt
 
-    # Deformation gradient update (ref :91-105).
+    # Deformation gradient update (ref :91-105): fluids carry J in F00.
     f = p.deformation_gradient
     gf = cmat.pack(cmat.matmul_c(cmat.unpack(velocity_gradient), cmat.unpack(f)))
-    f = f + dt * gf
+    f_solid = f + dt * gf
+    if has_fluid:
+        f_fluid = f.clone()
+        f_fluid[:, 0, 0] = f[:, 0, 0] + velocity_gradient_det * dt * f[:, 0, 0]
+        f = torch.where(is_fluid[..., None, None], f_fluid, f_solid)
+    else:
+        f = f_solid
 
     # Plastic return mapping (ref :107-109).
     f, pdd, ph, eh, lvg, nacc = registry.apply_plasticity(
@@ -182,8 +194,11 @@ def particle_update_after_gather(
     velocity = torch.where(p.is_static[..., None], 0.0, velocity)
     velocity_gradient = torch.where(p.is_static[..., None, None], 0.0, velocity_gradient)
 
-    # Failure guards (ref :116-127): det(F) = 0, already failed, |F00| blowup.
+    # Failure guards (ref :116-127): det(F) = 0, already failed, |F00| blowup
+    # (solids only).
     blowup = torch.abs(f[:, 0, 0]) > 1.0e4
+    if has_fluid:
+        blowup = blowup & ~is_fluid
     broken = (linalg.det(f) == 0.0) | p.failed | blowup
     eye = torch.eye(p.dim, dtype=f.dtype, device=f.device).expand_as(f)
     f = torch.where(broken[..., None, None], eye, f)
@@ -192,12 +207,19 @@ def particle_update_after_gather(
 
     # Pos energy accumulation (ref :129-138).
     psi_pos = torch.maximum(p.psi_pos, registry.pos_energy(models, p.model_id, phase, eh, f))
+    parameter1 = psi_pos * p.mass
+
+    # Failure model on the updated stress (ref :140-149).
+    if models.present_f:
+        stress = registry.kirchhoff_stress(models, p.model_id, phase, eh, f, velocity_gradient,
+                                           p.mass, p.volume0)
+        phase = registry.apply_failure(models, p.model_id, phase, stress)
 
     out = p.replace(
         position=position, velocity=velocity, velocity_gradient=velocity_gradient,
         deformation_gradient=f, plastic_def_det=pdd, plastic_hardening=ph,
         elastic_hardening=eh, log_vol_gain=lvg, nacc_alpha=nacc, phase=phase,
-        psi_pos=psi_pos, parameter1=psi_pos * p.mass, parameter2=p.mass, failed=failed,
+        psi_pos=psi_pos, parameter1=parameter1, parameter2=p.mass, failed=failed,
     )
     if compute_dt_bound:
         bound = particle_dt_bounds(

@@ -11,11 +11,11 @@ row's updates in a fixed order (fused/kernels.merge_scatter).
 
 p2g_images and g2p_from_windows are the JAX package's einsum form of the
 window transfers: per group of chunks, the dense [C, 8^d] tensor-product
-weight matrices, contracted with batched matrix products. The pipeline
-runs the window kernels instead (ops/transfer_kernels.py); the einsum form
-is the second, independent witness that the kernels' plain versions are
-held against in the tests. gather_slot_rows maps slot outputs back to
-particle order.
+weight matrices, contracted with batched matrix products. The pipeline's
+transfers run the window kernels instead (ops/transfer_kernels.py); its
+fluid volume pass runs the einsum form, as the JAX package does, and the
+tests hold the kernels' plain versions against it as a second, independent
+witness. gather_slot_rows maps slot outputs back to particle order.
 """
 
 import functools

@@ -434,18 +434,18 @@ def test_golden_fluids2_frames():
 
 
 def test_what_stays_refused(scene):
-    """The sparse pipeline still refuses 2D and fluids (fluids2 among them,
-    and auto_pipeline's sparse preference); the fused pipeline refuses a
-    2D fluid set with a 3D heightfield and GPU boundary semantics."""
+    """The sparse pipeline carries fluids2 since the 2D slice (with
+    auto_pipeline's sparse preference; tests/test_torch_sparse2d.py holds
+    its path); both pipelines refuse a 2D fluid set with a 3D heightfield
+    and GPU boundary semantics."""
     b = scene.tb
-    with pytest.raises(NotImplementedError):
-        SparseMpmPipeline(b.grid, b.models, b.colliders, b.params, b.gravity, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tsk.auto_pipeline(b, prefer="sparse", device="cpu")
+    SparseMpmPipeline(b.grid, b.models, b.colliders, b.params, b.gravity, device="cpu")
+    assert isinstance(tsk.auto_pipeline(b, prefer="sparse", device="cpu"), SparseMpmPipeline)
     from sparkl_tpu_torch.geometry.colliders import heightfield
     for over in (dict(colliders=(heightfield(np.zeros((3, 3)), (1.0, 1.0, 1.0)),)),
                  dict(params=replace(b.params, gpu_boundary_semantics=True))):
         kw = dict(grid=b.grid, models=b.models, colliders=b.colliders, params=b.params,
                   gravity=b.gravity, device="cpu")
-        with pytest.raises(NotImplementedError):
-            FusedMpmPipeline(**dict(kw, **over))
+        for pipeline in (FusedMpmPipeline, SparseMpmPipeline):
+            with pytest.raises(NotImplementedError):
+                pipeline(**dict(kw, **over))

@@ -5,8 +5,8 @@ random F, kernels A and B's material forms (their plain versions) against
 the Pallas kernels in interpret mode on reduced materials3 and materials2
 with the stress cache on and off, the materials3 build and pack, three
 substeps of reduced materials3 through both fused pipelines, a JAX model
-set carried across, and what the kernels and the sparse pipeline carry
-and refuse.
+set carried across, and what the kernels and both pipelines carry and
+refuse.
 
 The port builds materials3 and materials2 with chip_smoke.py's builders
 (the port's API); this file builds them again with the JAX package's API.
@@ -646,9 +646,9 @@ def test_meta_and_sparse_refusals():
     """meta_unsupported and registry.unsupported carry neo-Hookean, NACC,
     and Rankine and Snow in 2D and 3D, and refuse CD-MPM; mats_form picks
     the kernels' material instances for neo-Hookean or NACC, and for
-    Rankine or Snow only in 3D. The fused pipeline takes the material
-    scenes; the sparse pipeline refuses neo-Hookean and NACC by name (beside
-    Rankine and Snow)."""
+    Rankine or Snow only in 3D. Both pipelines take the material scenes'
+    models (the sparse one since the 2D slice) and refuse an unknown
+    constitutive type."""
     base = dict(with_psi=False, m_count=1, present_c=(tcon.COROTATED,), present_p=(),
                 present_f=(), damage_model=int(DamageModel.NONE), stress_cache=True)
     carried = [dict(present_c=(tcon.NEO_HOOKEAN,)), dict(present_p=(tplas.NACC,)),
@@ -679,10 +679,12 @@ def test_meta_and_sparse_refusals():
                        ((el, treg.rankine_plasticity(e, nu, 5e4, 5.0)), "Rankine"),
                        ((el, treg.snow_plasticity()), "Snow")):
         ms = treg.ModelSet.pack([treg.ParticleModel(*spec)], "cpu")
-        assert not ms.unsupported()
-        with pytest.raises(NotImplementedError, match=word):
-            SparseMpmPipeline(b.grid, ms, b.colliders, b.params, device="cpu")
+        assert not ms.unsupported(), word
+        SparseMpmPipeline(b.grid, ms, b.colliders, b.params, device="cpu")
         FusedMpmPipeline(b.grid, ms, b.colliders, b.params, device="cpu")
     other = treg.ModelSet.from_tables([5], [[1.0, 1.0, 0.5, 0.0]], [0], np.zeros((1, 8)), [0],
                                       np.zeros((1, 2)), "cpu")
     assert other.unsupported()
+    for pipeline in (FusedMpmPipeline, SparseMpmPipeline):
+        with pytest.raises(NotImplementedError, match="constitutive model types"):
+            pipeline(b.grid, other, b.colliders, b.params, device="cpu")

@@ -538,27 +538,30 @@ def test_frame0_matches_golden(name):
 
 
 def test_pipelines_refuse_what_they_do_not_carry():
-    """The sparse pipeline refuses Rankine and Snow (and 2D); the fused
-    pipeline, which refused Rankine and Snow in 3D and NACC in 2D before the
-    material slice, now carries them (tests/test_torch_materials.py holds
-    their kernels) and refuses an unknown plastic type."""
+    """Both pipelines carry Rankine and Snow in 3D and the 2D plastic scenes
+    (the fused one since the material slice, the sparse one since the 2D
+    slice: tests/test_torch_sparse2d.py holds its path) and 2D NACC, and
+    both refuse an unknown plastic type."""
     b = tscenes.build("sand3", nx=4, ny=2, nz=2, device="cpu")
     el = treg.corotated_linear_elasticity(E, NU)
     for spec in (treg.rankine_plasticity(E, NU, 1.0e2, 5.0), treg.snow_plasticity()):
         ms = treg.ModelSet.pack([treg.ParticleModel(el, spec)], "cpu")
-        with pytest.raises(NotImplementedError):
-            SparseMpmPipeline(b.grid, ms, b.colliders, b.params, device="cpu")
+        SparseMpmPipeline(b.grid, ms, b.colliders, b.params, device="cpu")
         FusedMpmPipeline(b.grid, ms, b.colliders, b.params, device="cpu")
     e2 = tscenes.build("elasticity2", device="cpu")
     nacc = treg.ModelSet.from_tables([0], [[1.0, 1.0, 0.5, 1.0]], [2], np.ones((1, 8)), [0],
                                      np.zeros((1, 2)), "cpu")
-    FusedMpmPipeline(e2.grid, nacc, e2.colliders, e2.params, device="cpu")
+    for pipeline in (FusedMpmPipeline, SparseMpmPipeline):
+        pipeline(e2.grid, nacc, e2.colliders, e2.params, device="cpu")
     unknown = treg.ModelSet.from_tables([0], [[1.0, 1.0, 0.5, 1.0]], [7], np.ones((1, 8)), [0],
                                         np.zeros((1, 2)), "cpu")
-    with pytest.raises(NotImplementedError):
-        FusedMpmPipeline(e2.grid, unknown, e2.colliders, e2.params, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tsk.auto_pipeline(e2, prefer="sparse", device="cpu")
+    for pipeline in (FusedMpmPipeline, SparseMpmPipeline):
+        with pytest.raises(NotImplementedError):
+            pipeline(e2.grid, unknown, e2.colliders, e2.params, device="cpu")
+    for name in ("elasticity2", "basic2"):
+        b2 = tscenes.build(name, device="cpu")
+        assert isinstance(tsk.auto_pipeline(b2, prefer="sparse", device="cpu"),
+                          SparseMpmPipeline)
 
 
 def test_cuda_model_codes_match():

@@ -6,7 +6,7 @@ forms and the particle update the path calls, one sand3 frame against the
 JAX SparseMpmPipeline (its XLA path, which tests/test_sparse.py holds to the
 interpret-mode kernels), a 4-frame replay of the sand3 golden, the
 constructor's refusals, auto_pipeline's routing and the entry points'
-device defaults.
+device defaults. tests/test_torch_sparse2d.py holds the 2D path.
 
 Every port call passes device="cpu"; small BlockConfigs keep the JAX
 references cheap. The CUDA kernels run only on the card, where
@@ -46,6 +46,7 @@ from sparkl_tpu_torch.models import registry as treg
 from sparkl_tpu_torch.ops import transfer_kernels as TK
 from sparkl_tpu_torch.scenes import scenes3d
 from sparkl_tpu_torch.solver import dense as tdense
+from sparkl_tpu_torch.solver.pipeline import MpmHooks
 from sparkl_tpu_torch.sparse import blocks as TB
 from sparkl_tpu_torch.sparse import transfer as TT
 from sparkl_tpu_torch.sparse.pipeline import SparseMpmPipeline
@@ -451,22 +452,34 @@ def test_golden_sand3_four_frames():
 
 
 def test_constructor_refuses_what_the_port_does_not_carry():
+    """What the sparse pipeline carries since the 2D slice (2D grids,
+    neo-Hookean, eigenerosion, fluids and the volume pass, grid hooks) it
+    constructs; what it does not (CD-MPM, boundary particle projection, GPU
+    boundary semantics, penalty colliders, other collider shapes, runtime
+    poses) it refuses, with no fallback."""
     b = tscenes.build("sand3", nx=4, ny=2, nz=2, device="cpu")
     base = dict(grid=b.grid, models=b.models, colliders=b.colliders, params=b.params,
                 device="cpu")
     grid2 = GridParams(origin=(0.0, 0.0), cell_width=0.1, res=(32, 32))
     neo = treg.ModelSet.pack([treg.ParticleModel((1, (1.0, 1.0, 0.5, 0.0)))], "cpu")
-    cases = [
-        dict(grid=grid2),
+    carried = [
+        dict(grid=grid2, colliders=()),
         dict(models=neo),
         dict(params=SolverParameters(damage_model=DamageModel.EIGENEROSION)),
+        dict(params=SolverParameters(damage_model=DamageModel.MODIFIED_EIGENEROSION)),
         dict(params=SolverParameters(force_fluids_volume_recomputation=True)),
         dict(models=treg.ModelSet.pack([treg.ParticleModel(treg.monaghan_sph_eos(1e6, 7, 1e-3))],
                                        "cpu")),
+        dict(hooks=MpmHooks()),
+    ]
+    for over in carried:
+        SparseMpmPipeline(**dict(base, **over))
+    cases = [
+        dict(params=SolverParameters(damage_model=DamageModel.CD_MPM)),
         dict(params=SolverParameters(enable_boundary_particle_projection=True)),
         dict(params=SolverParameters(gpu_boundary_semantics=True)),
         dict(colliders=(heightfield(np.zeros((3, 3)), (1.0, 1.0, 1.0), penalty_stiffness=1.0),)),
-        dict(hooks=object()),
+        dict(grid=grid2),  # a 3D heightfield in a 2D grid
     ]
     for over in cases:
         with pytest.raises(NotImplementedError):
