@@ -17,7 +17,8 @@ the 2D block under neo-Hookean + NACC, neo-Hookean and Rankine; both built
 here, and their failure forms with the stress cache off), and the
 block-sparse pipeline on the four 2D scenes (elasticity2, basic2, fluids2
 and l_panel2, through the 2D forms of the window kernels, l_panel2's with
-the psi channels).
+the psi channels); and the two probe microbenchmarks, the counterparts of
+the JAX package's TPU probe scripts.
 
 Run from the repository root with no arguments: `python3 chip_smoke.py`.
 It needs one CUDA device (written for an H100, sm_90a) and nvcc, and exits
@@ -180,14 +181,23 @@ Phases (one line each, longer logs under chiprun_out/):
      (elasticity2, basic2, fluids2 at n = 40, l_panel2, fluids3 as
      published, reduced l_panel3), and one frame of each 2D scene twice on
      the card, bit-equal;
- 33. a JSON line of per-kernel results (the 2D fluid forms of kernels A
+ 33. the probes, the TPU probe scripts' kernels (sparkl_tpu_torch/scripts/,
+     on no path): the serial chain at 8192 x 128 and N_OPS = 1024, fma and
+     exp kinds, at every R of the sweep, and the two layout kernels at D =
+     6656 in both layouts, against their plain versions (the fma chain and
+     the layout kernels bit-equal, the exp chain within EXP_CHAIN_ULPS);
+     then both probes' main(), which print the scripts' tables (their
+     launches are the kernels' counts); plain and library times, bounds,
+     and each chain instance's registers and spill from ptxas;
+ 34. a JSON line of per-kernel results (the 2D fluid forms of kernels A
      and B and the mass kernels under "fluids2"; the 3D damage forms of A,
      B and the pooling under "l_panel3", B's crack-energy trip under
      "l_panel3-modified" and "l_panel2-modified"; A and B's material forms
      under "materials3", "materials3-failure", "materials2" and
      "materials2-failure"; the window kernels' 2D forms under "sparse2d"
-     and "sparse2d-psi"), the card's nvidia-smi line, and the final
-     {"ok": true, "device": ...} line.
+     and "sparse2d-psi"; the probes' kinds, R and layouts under their own
+     labels), the card's nvidia-smi line, and the final {"ok": true,
+     "device": ...} line.
 
 Each kernel's bound_ms is the least time the card could take for its work
 at this run's shapes: the larger of the bytes it must move (each input read
@@ -197,7 +207,6 @@ run's data needs over 67 TFLOP/s (the H100 SXM's published peaks at 700 W).
 
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -218,21 +227,31 @@ REPLACES = {
     "merge_scatter": "sparkl_tpu/sparse/transfer.py:237",
     "eigen_pool_fused": "sparkl_tpu/fused/kernels.py:851",
     "permute_chunks": "sparkl_tpu/fused/kernels.py:1156",
+    "vreg_chain": "scripts/vreg_probe.py:47",
+    "layout_read": "scripts/layout_probe.py:23",
+    "layout_rw": "scripts/layout_probe.py:82",
 }
 # The main path each kernel's launch count is read from.
 PATH_OF = dict.fromkeys(("p2g_fused", "merge_blocks", "g2p_fused", "src_rows_from_order",
                          "permute_slots"), "fused")
 PATH_OF.update(p2g_windows="sparse", g2p_windows="sparse", mass_p2g_fused="fluid",
                mass_g2p_fused="fluid", merge_scatter="fluid", eigen_pool_fused="fracture",
-               permute_chunks=None)
+               permute_chunks=None, vreg_chain=None, layout_read=None, layout_rw=None)
 # permute_chunks is on no path: no path of the JAX package calls it (its
 # one caller is tests/test_lowering.py), and the port's resort permutes with
 # permute_slots. Its launches are those of its checks on the resorts of
 # phases 5 and 12.
-NO_PATH = ("none: no path of the JAX package calls it (its only caller is "
-           "tests/test_lowering.py:100); launches from its checks on the phase 5 and 12 resorts")
+# The probes (phase 33) are the TPU probe scripts' kernels: microbenchmarks
+# on no path, whose launches are those of their sweeps.
+PROBES = ("vreg_chain", "layout_read", "layout_rw")
+NO_PATH = {"permute_chunks": "none: no path of the JAX package calls it (its only caller is "
+                             "tests/test_lowering.py:100); launches from its checks on the "
+                             "phase 5 and 12 resorts",
+           **dict.fromkeys(PROBES, "none: a microbenchmark; launches from its sweep "
+                                   "(phase 33)")}
 FUSED_SOURCE = "sparkl_tpu_torch/csrc/fused_kernels.cu"
 WINDOW_SOURCE = "sparkl_tpu_torch/csrc/window_kernels.cu"
+PROBE_SOURCE = "sparkl_tpu_torch/csrc/probe_kernels.cu"
 SPARSE_KERNELS = ("p2g_windows", "g2p_windows")
 FRAMES, TIMED_FRAMES = 15, 3
 SPARSE_FRAMES, SPARSE_TIMED = 6, 2
@@ -353,6 +372,15 @@ MATERIALS_DX, MATERIALS_DV, MATERIALS_DF, MATERIALS_DA = 1e-6, 1e-4, 1e-5, 1e-5
 # alike), and per 3D NACC, Rankine or Snow lane one more cardano SVD and
 # the map (logs, exps, the rebuild of F).
 NH_SLOT_FLOPS, MAT_MAP3_FLOPS = 80, 450
+# The probes (phase 33): the exp chain may differ from its plain version by
+# this many f32 ulps. The kernel's expf is CUDA's, built here with
+# -fmad=false, torch.exp on the card CUDA's in PyTorch's own build, so the
+# two may round an exp differently in the last bit; near its fixed point the
+# chain contracts (|d/dx| < 0.5), so a difference does not grow. The fma
+# chain and the layout kernels must be bit-equal. Operations of one exp step:
+# |x|, the exp of its negation (one) and the FMA (two).
+EXP_CHAIN_ULPS = 4
+EXP_STEP_FLOPS = 4
 # Tolerances of the kernel-vs-plain checks (the plain versions run on the
 # same card on the same tensors); p2g_errors and g2p_errors state each one.
 
@@ -392,22 +420,6 @@ def bound(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def cuda_median_ms(fn, reps=20):
-    """Median of `reps` launches of fn(), each between two CUDA events."""
-    import torch
-
-    fn()  # warm-up
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
 
 
 def p2g_errors(img_k, img_p):
@@ -517,6 +529,7 @@ def phase_kernels(pipe, state, dt):
     import torch
     from sparkl_tpu_torch.fused import kernels as K
     from sparkl_tpu_torch.fused import layout as L
+    from sparkl_tpu_torch.scripts import median_ms
     from sparkl_tpu_torch.sparse import transfer as T
 
     grid, cfg = pipe.grid, pipe._cfg
@@ -536,11 +549,11 @@ def phase_kernels(pipe, state, dt):
     failures = []
     if not (all(m <= 1.0 for m, _ in per_ch) and torch.isfinite(img_k).all().item()):
         failures.append("p2g_fused disagrees with its plain version")
-    res["p2g_fused"]["ms"] = cuda_median_ms(
+    res["p2g_fused"]["ms"] = median_ms(
         lambda: K.p2g_fused(grid, cfg, pipe._meta, state.slots, state.ints, dt, nchunks,
                             tables))
-    res["p2g_fused"]["plain_ms"] = cuda_median_ms(
-        lambda: K.p2g_fused_reference(grid, state.slots, state.ints, dt, nchunks, tables))
+    res["p2g_fused"]["plain_ms"] = median_ms(
+        lambda: K.p2g_fused_reference(grid, state.slots, state.ints, dt, nchunks, tables), reps=5)
 
     # Merge, on the rows the main path hands it.
     rows = image_rows(cfg, img_k)
@@ -553,9 +566,9 @@ def phase_kernels(pipe, state, dt):
     say(3, f"merge_blocks {tuple(m_k.shape)}: bit-equal {torch.equal(m_k, m_p)}, max|err| {err:.3e}")
     if not torch.equal(m_k, m_p):
         failures.append("merge_blocks is not bit-equal to its plain version")
-    res["merge_blocks"]["ms"] = cuda_median_ms(lambda: K.merge_blocks(rows, first, nblk))
-    res["merge_blocks"]["plain_ms"] = cuda_median_ms(
-        lambda: K.merge_blocks_reference(rows, first, nblk, T.MERGE_KMAX))
+    res["merge_blocks"]["ms"] = median_ms(lambda: K.merge_blocks(rows, first, nblk))
+    res["merge_blocks"]["plain_ms"] = median_ms(
+        lambda: K.merge_blocks_reference(rows, first, nblk, T.MERGE_KMAX), reps=5)
     # The library yardstick: one segment sum over the valid chunks' rows
     # (blocks own contiguous chunk ranges; none here holds more than kmax).
     n_valid = int(nblk.sum())
@@ -563,7 +576,7 @@ def phase_kernels(pipe, state, dt):
     flat, lengths = rows.reshape(cfg.max_chunks, -1)[:n_valid], nblk.long()
     seg = torch.segment_reduce(flat, "sum", lengths=lengths, axis=0)
     seg_err = (seg.reshape(m_k.shape) - m_k).abs().max().item()
-    res["merge_blocks"]["library_ms"] = cuda_median_ms(
+    res["merge_blocks"]["library_ms"] = median_ms(
         lambda: torch.segment_reduce(flat, "sum", lengths=lengths, axis=0))
     say(3, f"merge_blocks against torch.segment_reduce: max|diff| {seg_err:.3e}")
 
@@ -576,11 +589,11 @@ def phase_kernels(pipe, state, dt):
     # Kernel B, on the windows the main path computes from these images.
     res["g2p_fused"], (slots_in, windows, args) = check_g2p(pipe, state, dt, "one frame", 3)
     scratch = slots_in.clone()
-    res["g2p_fused"]["ms"] = cuda_median_ms(
+    res["g2p_fused"]["ms"] = median_ms(
         lambda: K.g2p_fused(grid, cfg, pipe._meta, pipe._kparams, scratch, state.ints,
                             windows, dt, *args))
-    res["g2p_fused"]["plain_ms"] = cuda_median_ms(
-        lambda: K.g2p_fused_reference(grid, slots_in, state.ints, windows, dt, *args))
+    res["g2p_fused"]["plain_ms"] = median_ms(
+        lambda: K.g2p_fused_reference(grid, slots_in, state.ints, windows, dt, *args), reps=5)
     traffic = substep_bytes(state.structure, cfg)
     lanes = int(((state.ints[:, L.I_FLAGS, :] & L.ACTIVE) != 0).sum())
     flops = dict(p2g_fused=lanes * (27 * P2G_TAP_FLOPS + A_SLOT_FLOPS),
@@ -592,7 +605,7 @@ def phase_kernels(pipe, state, dt):
         v["bound_ms"], v["bound_by"] = bound(v["bytes"], v["flops"])
         v.setdefault("library_ms", None)
         say(3, f"{name}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, library "
-               f"{v['library_ms']} ms (median of 20); {traffic[name] / 1e9:.4f} GB counted from "
+               f"{v['library_ms']} ms (batched medians); {traffic[name] / 1e9:.4f} GB counted from "
                f"shapes = {traffic[name] / v['ms'] / 1e6:.1f} GB/s; bound {v['bound_ms']:.4f} ms "
                f"({v['bound_by']})")
     return res
@@ -619,6 +632,7 @@ def check_merge_scatter(cfg, structure, rows, phase, label="", timed=True):
     library_ms, bytes, flops, bound_ms, bound_by}."""
     import torch
     from sparkl_tpu_torch.fused import kernels as K
+    from sparkl_tpu_torch.scripts import median_ms
     from sparkl_tpu_torch.sparse import transfer as T
 
     d_, ncorners, w = rows.shape
@@ -643,16 +657,16 @@ def check_merge_scatter(cfg, structure, rows, phase, label="", timed=True):
     require(same_p and same_k, "merge_scatter is not bit-equal to its plain version and itself")
     if not timed:
         return v
-    v["ms"] = cuda_median_ms(lambda: K.merge_scatter(flat, order, starts))
-    v["plain_ms"] = cuda_median_ms(lambda: K.merge_scatter_reference(flat, order, starts))
-    v["library_ms"] = cuda_median_ms(lambda: torch.index_add(zeros, 0, dest, flat))
+    v["ms"] = median_ms(lambda: K.merge_scatter(flat, order, starts))
+    v["plain_ms"] = median_ms(lambda: K.merge_scatter_reference(flat, order, starts), reps=5)
+    v["library_ms"] = median_ms(lambda: torch.index_add(zeros, 0, dest, flat))
     # Every live update row read once (dead chunks' rows are left out of the
     # plan), each node row written once, and the plan read.
     v["bytes"] = (int(starts[-1]) * w + g * w) * 4 + (order.numel() + starts.numel()) * 4
     v["flops"] = int(starts[-1]) * w
     v["bound_ms"], v["bound_by"] = bound(v["bytes"], v["flops"])
     say(phase, f"merge_scatter{label}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, "
-               f"library (index_add) {v['library_ms']:.3f} ms (median of 20); "
+               f"library (index_add) {v['library_ms']:.3f} ms (batched medians); "
                f"{v['bytes'] / 1e9:.4f} GB counted from shapes = "
                f"{v['bytes'] / v['ms'] / 1e6:.1f} GB/s; bound {v['bound_ms']:.4f} ms "
                f"({v['bound_by']})")
@@ -825,6 +839,7 @@ def phase_resort(pipe, pre, phase=5):
     from sparkl_tpu_torch.fused import kernels as K
     from sparkl_tpu_torch.fused import layout as L
     from sparkl_tpu_torch.fused import structure as S
+    from sparkl_tpu_torch.scripts import median_ms
 
     grid, cfg = pipe.grid, pipe._cfg
     dim = grid.dim
@@ -912,12 +927,12 @@ def phase_resort(pipe, pre, phase=5):
              lambda: (gathered[gd, gk, :, gl], gathered_i[gd, gk, :, gl]))):
         v = res[name]
         v["ms"], v["plain_ms"], v["library_ms"] = (
-            cuda_median_ms(fn), cuda_median_ms(plain), cuda_median_ms(lib))
+            median_ms(fn), median_ms(plain, reps=5), median_ms(lib))
         v["flops"] = 0
         v["bound_ms"], v["bound_by"] = bound(v["bytes"], 0)
         say(phase, f"{name}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, library (one "
-               f"gather) {v['library_ms']:.3f} ms (median of 20); {v['bytes'] / 1e9:.4f} GB counted "
-               f"from shapes = {v['bytes'] / v['ms'] / 1e6:.1f} GB/s; bound {v['bound_ms']:.4f} ms")
+               f"gather) {v['library_ms']:.3f} ms (batched medians); {v['bytes'] / 1e9:.4f} GB "
+               f"counted from shapes = {v['bytes'] / v['ms'] / 1e6:.1f} GB/s; bound {v['bound_ms']:.4f} ms")
 
     res["permute_chunks"]["launches"] = K.LAUNCHES["permute_chunks"] - n0
     del gathered, gathered_i, pc_k, pc_p, bits
@@ -935,10 +950,10 @@ def phase_resort(pipe, pre, phase=5):
     differ = {k: int((g.cpu() != c).sum()) for k, (g, c) in pairs.items()
               if not torch.equal(g.cpu(), c)}
     same = not differ
-    resort_ms = cuda_median_ms(lambda: L.resort(grid, cfg, pre, dim), reps=5)
+    resort_ms = median_ms(lambda: L.resort(grid, cfg, pre, dim), reps=5)
     say(phase, f"whole resort, card against a CPU copy: branches {branch_g} / {branch_c}, overflow "
            f"{ov_g} / {ov_c}, slots, ints and structure bit-equal {same}; card {resort_ms:.3f} ms "
-           f"(median of 5, host reads included)")
+           f"(median of 5 batches of 10, host reads included)")
     require(same and branch_g == branch_c and ov_g == ov_c and not ov_g,
             f"the resort on the card differs from the CPU resort (elements differing: {differ})")
     return res, resort_ms
@@ -1233,6 +1248,7 @@ def phase_fluid_kernels(pipe, state, dt, label, phase, timed):
     import torch
     from sparkl_tpu_torch.fused import kernels as K
     from sparkl_tpu_torch.fused import layout as L
+    from sparkl_tpu_torch.scripts import median_ms
     from sparkl_tpu_torch.sparse import transfer as T
 
     grid, cfg = pipe.grid, pipe._cfg
@@ -1348,15 +1364,15 @@ def phase_fluid_kernels(pipe, state, dt, label, phase, timed):
              lambda: K.p2g_fused_reference(grid, sl, ints, dt, nch, tables),
              live * a_rows * row + cfg.max_chunks * (1 + dim) * cells * 4, lanes * a_flops)):
         v = res[name]
-        v["ms"], v["plain_ms"] = cuda_median_ms(fn), cuda_median_ms(plain)
+        v["ms"], v["plain_ms"] = median_ms(fn), median_ms(plain, reps=5)
         v["bytes"], v["flops"], v["library_ms"] = nbytes, flops, None
         v["bound_ms"], v["bound_by"] = bound(nbytes, flops)
     scratch = slots_in.clone()
     v = res["g2p_fused"]
-    v["ms"] = cuda_median_ms(lambda: K.g2p_fused(grid, cfg, pipe._meta, pipe._kparams, scratch,
+    v["ms"] = median_ms(lambda: K.g2p_fused(grid, cfg, pipe._meta, pipe._kparams, scratch,
                                                  ints, windows, dt, *args))
-    v["plain_ms"] = cuda_median_ms(
-        lambda: K.g2p_fused_reference(grid, slots_in, ints, windows, dt, *args))
+    v["plain_ms"] = median_ms(
+        lambda: K.g2p_fused_reference(grid, slots_in, ints, windows, dt, *args), reps=5)
     v["bytes"] = live * ((b_read + b_written) * row + 4 * dim * cells)
     v["flops"] = lanes * b_flops
     v["library_ms"] = None
@@ -1366,7 +1382,7 @@ def phase_fluid_kernels(pipe, state, dt, label, phase, timed):
             continue
         say(phase, f"{name} ({dim}D fluid, {label}): kernel {v['ms']:.3f} ms, plain "
                    f"{v['plain_ms']:.3f} ms "
-                   f"(median of 20); {v['bytes'] / 1e9:.4f} GB counted from shapes = "
+                   f"(batched medians); {v['bytes'] / 1e9:.4f} GB counted from shapes = "
                    f"{v['bytes'] / v['ms'] / 1e6:.1f} GB/s; bound {v['bound_ms']:.4f} ms "
                    f"({v['bound_by']})")
     return res
@@ -1544,6 +1560,7 @@ def check_kernels_2d(pipe, state, dt, label, phase, meta=None, timed=False):
     from sparkl_tpu_torch.fused import layout as L
     from sparkl_tpu_torch.math import svd
     from sparkl_tpu_torch.models import failure as fail
+    from sparkl_tpu_torch.scripts import median_ms
     from sparkl_tpu_torch.sparse import transfer as T
 
     meta = pipe._meta if meta is None else meta
@@ -1668,12 +1685,12 @@ def check_kernels_2d(pipe, state, dt, label, phase, meta=None, timed=False):
              live * ((26 + 4 + 40) * row + 2 * 64 * 4),
              lanes * (9 * G2P2_TAP_FLOPS + B2_LANE_FLOPS) + plastic * B2_PLASTIC_FLOPS)):
         v = res[name]
-        v["ms"], v["plain_ms"] = cuda_median_ms(fn), cuda_median_ms(plain)
-        v["library_ms"] = cuda_median_ms(lib) if lib else None
+        v["ms"], v["plain_ms"] = median_ms(fn), median_ms(plain, reps=5)
+        v["library_ms"] = median_ms(lib) if lib else None
         v["bytes"], v["flops"] = nbytes, flops
         v["bound_ms"], v["bound_by"] = bound(nbytes, flops)
         say(phase, f"{name} (2D, {label}): kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, "
-                   f"library {v['library_ms']} ms (median of 20); {nbytes / 1e9:.4f} GB and "
+                   f"library {v['library_ms']} ms (batched medians); {nbytes / 1e9:.4f} GB and "
                    f"{flops / 1e9:.4f} GFLOP counted; bound {v['bound_ms']:.4f} ms "
                    f"({v['bound_by']})")
     return res
@@ -2354,6 +2371,7 @@ def check_eigen(pipe, state, label, phase, timed=False):
     import torch
     from sparkl_tpu_torch.fused import kernels as K
     from sparkl_tpu_torch.fused import layout as L
+    from sparkl_tpu_torch.scripts import median_ms
 
     grid, cfg = pipe.grid, pipe._cfg
     dim = grid.dim
@@ -2410,13 +2428,15 @@ def check_eigen(pipe, state, label, phase, timed=False):
         return torch.cat(out)
 
     lib_err = (library().transpose(1, 2) - out_k).abs().max().item()
-    # The plain version walks 3D's candidates 4 chunks at a time (~1 s a
-    # call at l_panel3's size): fewer repetitions.
-    reps = 20 if dim == 2 else 5
-    res["ms"] = cuda_median_ms(lambda: K.eigen_pool_fused(grid, cfg, e, cand))
-    res["plain_ms"] = cuda_median_ms(
-        lambda: K.eigen_pool_fused_reference(grid, e, K.eigen_candidate_rows(e, cand)), reps)
-    res["library_ms"] = cuda_median_ms(library, reps)
+    # The plain version walks 3D's candidates 4 chunks at a time (~5 s a
+    # call at l_panel3's size) and the library call takes ~0.3 s there: in
+    # 3D both are timed alone, where a batch hides nothing.
+    reps, batch = (20, 10) if dim == 2 else (5, 1)
+    res["ms"] = median_ms(lambda: K.eigen_pool_fused(grid, cfg, e, cand))
+    res["plain_ms"] = median_ms(
+        lambda: K.eigen_pool_fused_reference(grid, e, K.eigen_candidate_rows(e, cand)), reps=5,
+        batch=batch)
+    res["library_ms"] = median_ms(library, reps=reps, batch=batch)
     live = int(state.structure.num_chunks)
     valid = (cand < d_).sum(dim=1)
     res["pairs"] = int((elig.sum(dim=1) * valid).sum()) * c
@@ -2425,7 +2445,8 @@ def check_eigen(pipe, state, label, phase, timed=False):
     res["bound_ms"], res["bound_by"] = bound(res["bytes"], res["flops"])
     say(phase, f"eigen_pool_fused ({label}): kernel {res['ms']:.3f} ms, plain "
                f"{res['plain_ms']:.3f} ms, library (cdist + masked bmm) {res['library_ms']:.3f} ms "
-               f"(medians of 20, {reps} and {reps}; library max|diff| {lib_err:.2e}); "
+               f"(medians of 20 batches of 10, 5 and {reps} batches of {batch}; library "
+               f"max|diff| {lib_err:.2e}); "
                f"{res['pairs']} pair tests; "
                f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
     return res
@@ -2610,6 +2631,7 @@ def check_kernels_3d(pipe, state, dt, label, phase, timed=False):
     from sparkl_tpu_torch.fused import layout as L
     from sparkl_tpu_torch.math import svd
     from sparkl_tpu_torch.models import failure as fail
+    from sparkl_tpu_torch.scripts import median_ms
     from sparkl_tpu_torch.sparse import transfer as T
 
     meta = pipe._meta
@@ -2718,12 +2740,12 @@ def check_kernels_3d(pipe, state, dt, label, phase, timed=False):
              lanes * (27 * (G2P_TAP_FLOPS + (2 if modified else 0)) + B_LANE_FLOPS
                       + B3_FAILURE_FLOPS))):
         v = res[name]
-        v["ms"], v["plain_ms"] = cuda_median_ms(fn), cuda_median_ms(plain)
+        v["ms"], v["plain_ms"] = median_ms(fn), median_ms(plain, reps=5)
         v["library_ms"] = None
         v["bytes"], v["flops"] = nbytes, flops
         v["bound_ms"], v["bound_by"] = bound(nbytes, flops)
         say(phase, f"{name} (3D damage, {label}): kernel {v['ms']:.3f} ms, plain "
-                   f"{v['plain_ms']:.3f} ms (median of 20); window channels {n_win}; "
+                   f"{v['plain_ms']:.3f} ms (batched medians); window channels {n_win}; "
                    f"{nbytes / 1e9:.4f} GB and {flops / 1e9:.4f} GFLOP counted; bound "
                    f"{v['bound_ms']:.4f} ms ({v['bound_by']})")
     return res
@@ -3280,6 +3302,7 @@ def check_materials(pipe, state, dt, label, phase, timed=False):
     from sparkl_tpu_torch.fused import layout as L
     from sparkl_tpu_torch.models import constitutive as con
     from sparkl_tpu_torch.models import plasticity as plas
+    from sparkl_tpu_torch.scripts import median_ms
     from sparkl_tpu_torch.sparse import transfer as T
 
     meta = pipe._meta
@@ -3406,12 +3429,12 @@ def check_materials(pipe, state, dt, label, phase, timed=False):
              lambda: K.g2p_fused_reference(grid, slots_in, state.ints, windows, dt, *args,
                                            stress_cache=cache), b_bytes, b_flops)):
         v = res[name]
-        v["ms"], v["plain_ms"] = cuda_median_ms(fn), cuda_median_ms(plain)
+        v["ms"], v["plain_ms"] = median_ms(fn), median_ms(plain, reps=5)
         v["library_ms"] = None
         v["bytes"], v["flops"] = nbytes, flops
         v["bound_ms"], v["bound_by"] = bound(nbytes, flops)
         say(phase, f"{name} ({label}): kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms "
-                   f"(median of 20); {nbytes / 1e9:.4f} GB and {flops / 1e9:.4f} GFLOP counted; "
+                   f"(batched medians); {nbytes / 1e9:.4f} GB and {flops / 1e9:.4f} GFLOP counted; "
                    f"bound {v['bound_ms']:.4f} ms ({v['bound_by']})")
     return res
 
@@ -3601,6 +3624,7 @@ def check_windows(grid, cfg, slot_data, windows, path_psi, phase, label, timed=T
     import numpy as np
     import torch
     from sparkl_tpu_torch.ops import transfer_kernels as WK
+    from sparkl_tpu_torch.scripts import median_ms
 
     dev = slot_data.device
     dim = grid.dim
@@ -3659,19 +3683,19 @@ def check_windows(grid, cfg, slot_data, windows, path_psi, phase, label, timed=T
     sd0, win0 = inputs[path_psi]
     if timed:
         res["p2g_windows"].update(
-            ms=cuda_median_ms(lambda: WK.p2g_windows(grid, cfg, sd0, with_psi=path_psi)),
-            plain_ms=cuda_median_ms(lambda: WK.p2g_windows_reference(grid, sd0, path_psi)))
+            ms=median_ms(lambda: WK.p2g_windows(grid, cfg, sd0, with_psi=path_psi)),
+            plain_ms=median_ms(lambda: WK.p2g_windows_reference(grid, sd0, path_psi), reps=5))
         res["g2p_windows"].update(
-            ms=cuda_median_ms(lambda: WK.g2p_windows(grid, cfg, sd0, win0, with_psi=path_psi)),
-            plain_ms=cuda_median_ms(lambda: WK.g2p_windows_reference(grid, sd0, win0,
-                                                                     path_psi)))
+            ms=median_ms(lambda: WK.g2p_windows(grid, cfg, sd0, win0, with_psi=path_psi)),
+            plain_ms=median_ms(lambda: WK.g2p_windows_reference(grid, sd0, win0, path_psi),
+                               reps=5))
     for name, v in res.items():
         v["max_abs_err"] = v["path"]["max_abs_err"]
         v["library_ms"] = None
         v["bound_ms"], v["bound_by"] = bound(v["bytes"], v["flops"])
         if timed:
             say(phase, f"{label} {name} (with_psi={path_psi}): kernel {v['ms']:.3f} ms, plain "
-                       f"{v['plain_ms']:.3f} ms (median of 20); {v['bytes'] / 1e9:.4f} GB "
+                       f"{v['plain_ms']:.3f} ms (batched medians); {v['bytes'] / 1e9:.4f} GB "
                        f"counted from shapes = {v['bytes'] / v['ms'] / 1e6:.1f} GB/s; bound "
                        f"{v['bound_ms']:.4f} ms ({v['bound_by']}); {d_} chunks, {n_valid} valid "
                        f"slots")
@@ -4062,6 +4086,170 @@ def phase_sparse2d_agreement(phase=32):
     return out
 
 
+def max_ulps(a, b):
+    """Largest distance between a and b in f32 units in the last place."""
+    import torch
+
+    def key(t):
+        i = t.contiguous().view(torch.int32).long()
+        return torch.where(i >= 0, i, -(i & 0x7FFFFFFF))
+
+    return int((key(a) - key(b)).abs().max())
+
+
+def chain_registers(log):
+    """{(R, exp kind): (registers, spill bytes stored + loaded)} of each
+    chain_kernel instance, from the build's ptxas -v log."""
+    import re
+
+    out = {}
+    for entry in log.split("Compiling entry function")[1:]:
+        m = re.search(r"chain_kernelILi(\d+)ELb([01])E", entry.splitlines()[0])
+        if not m:
+            continue
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", entry)
+        require(regs and spill, f"no ptxas register line for {m.group(0)}")
+        out[(int(m.group(1)), m.group(2) == "1")] = (
+            int(regs.group(1)), int(spill.group(1)) + int(spill.group(2)))
+    return out
+
+
+def phase_probes(log, phase=33):
+    """The probes' kernels against their plain versions at the published
+    sizes, then both sweeps through the probes' main(), with times, bounds
+    and the chain instances' registers. Returns {name: {max_abs_err, ms,
+    plain_ms, bound_ms, bound_by, library_ms, launches, forms}}."""
+    import torch
+    from sparkl_tpu_torch.scripts import layout_probe as LP
+    from sparkl_tpu_torch.scripts import median_ms
+    from sparkl_tpu_torch.scripts import vreg_probe as VP
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator().manual_seed(33)
+    failures = []
+
+    # Row 12: every R against one plain chain per kind (the chain's values
+    # do not depend on R), on seeded input in [-2, 2).
+    regs = chain_registers(log)
+    require(sorted(regs) == sorted((r, e) for r in VP.ROWS for e in (False, True)),
+            f"ptxas lines for the chain instances: {sorted(regs)}")
+    x = (torch.rand((VP.TOTAL_ROWS, VP.C), generator=gen) * 4.0 - 2.0).to(dev)
+    chain_forms = {}
+    for transcend in (False, True):
+        kind = "exp" if transcend else "fma"
+        plain = VP.chain_plain(x, VP.N_OPS, transcend)
+        for r in VP.ROWS:
+            y = VP.chain(x, r, VP.N_OPS, transcend)
+            torch.cuda.synchronize()
+            err, ulps = (y - plain).abs().max().item(), max_ulps(y, plain)
+            n_reg, n_spill = regs[(r, transcend)]
+            chain_forms[f"{kind} R={r}"] = dict(max_abs_err=err, max_ulps=ulps,
+                                                registers=n_reg, spill_bytes=n_spill)
+            say(phase, f"chain {kind} R={r}: max|err| {err:.3e}, {ulps} ulps; {n_reg} "
+                       f"registers, {n_spill} bytes spilled")
+            if not torch.isfinite(y).all().item() or ulps > (EXP_CHAIN_ULPS if transcend else 0):
+                failures.append(f"chain {kind} R={r}: {ulps} ulps from its plain version")
+    del x, y, plain
+
+    # Rows 13-14: both layouts hold the same values, so the two read kernels
+    # (and the two written tensors, transposed) must agree with each other too.
+    xc = torch.randn((LP.D, LP.NF, LP.C), generator=gen).to(dev)
+    xf = xc.transpose(0, 1).contiguous()
+    layout_out = {}
+    for name, kernel, plain, x_, fm in (
+            ("read chunk-major", LP.read_chunk_major, LP.read_plain, xc, False),
+            ("read field-major", LP.read_field_major, LP.read_plain, xf, True),
+            ("rw chunk-major", LP.rw_chunk_major, LP.rw_plain, xc, False),
+            ("rw field-major", LP.rw_field_major, LP.rw_plain, xf, True)):
+        y, p = kernel(x_), plain(x_, fm)
+        torch.cuda.synchronize()
+        err = (y - p).abs().max().item()
+        say(phase, f"{name} {tuple(y.shape)}: bit-equal {torch.equal(y, p)}, max|err| {err:.3e}")
+        if not torch.equal(y, p):
+            failures.append(f"{name} is not bit-equal to its plain version")
+        layout_out[name] = (y, err)
+    same = (torch.equal(layout_out["read chunk-major"][0], layout_out["read field-major"][0])
+            and torch.equal(layout_out["rw chunk-major"][0].transpose(0, 1),
+                            layout_out["rw field-major"][0]))
+    say(phase, f"chunk-major and field-major kernels agree bit for bit: {same}")
+    if not same:
+        failures.append("the two layouts' kernels differ")
+    require(not failures, "; ".join(failures))
+
+    # The sweeps: the probes' own entry points, which print the TPU scripts'
+    # tables; their launches are the kernels' counts.
+    VP.reset_launch_counts()
+    LP.reset_launch_counts()
+    chain_ms = VP.main()
+    layout_ms = LP.main()
+    launches = dict(VP.LAUNCHES, **LP.LAUNCHES)
+    say(phase, f"launches from the sweeps {launches}")
+    require(all(launches[k] > 0 for k in PROBES), f"probe kernels never launched: {launches}")
+
+    # Plain and library times, bounds. The chain's plain version takes about
+    # a quarter of a second: 3 single calls, where a batch hides nothing.
+    ones = torch.ones((VP.TOTAL_ROWS, VP.C), dtype=torch.float32, device=dev)
+    elems = VP.TOTAL_ROWS * VP.C
+    for transcend in (False, True):
+        kind = "exp" if transcend else "fma"
+        plain_ms = median_ms(lambda: VP.chain_plain(ones, VP.N_OPS, transcend), reps=3,
+                             batch=1)
+        flops = (EXP_STEP_FLOPS * (VP.N_OPS // 16) if transcend else 2 * VP.N_OPS) * elems
+        b_ms, b_by = bound(2 * 4 * elems, flops)
+        for r in VP.ROWS:
+            f = chain_forms[f"{kind} R={r}"]
+            f.update(ms=chain_ms[(f"{kind}-chain", r)], plain_ms=plain_ms, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=None, bytes=2 * 4 * elems, flops=flops)
+        say(phase, f"chain {kind}: {flops:.4g} operations, bound {b_ms:.4f} ms ({b_by}); plain "
+                   f"{plain_ms:.3f} ms; kernel " + ", ".join(
+                       f"R={r} {chain_forms[f'{kind} R={r}']['ms']:.4f}" for r in VP.ROWS))
+    w = LP.weights(dev)
+    rows_c, rows_f = xc[:, :LP.NROWS], xf[:LP.NROWS]
+    d, c, n = LP.D, LP.C, LP.NROWS
+    layout_forms = {}
+    for name, x_, fm, key, lib in (
+            ("read chunk-major", xc, False, "chunk-major [D,NF,C]",
+             lambda: torch.einsum("dkc,k->dc", rows_c, w)),
+            ("read field-major", xf, True, "field-major [NF,D,C]",
+             lambda: torch.einsum("kdc,k->dc", rows_f, w)),
+            ("rw chunk-major", xc, False, "r+w chunk-major",
+             lambda: torch.mul(rows_c, LP.RW_SCALE)),
+            ("rw field-major", xf, True, "r+w field-major",
+             lambda: torch.mul(rows_f, LP.RW_SCALE))):
+        rw = name.startswith("rw")
+        plain = LP.rw_plain if rw else LP.read_plain
+        nbytes = 2 * d * n * c * 4 if rw else d * n * c * 4 + d * c * 4
+        flops = d * n * c if rw else 2 * d * n * c
+        b_ms, b_by = bound(nbytes, flops)
+        lib_err = (lib() - layout_out[name][0]).abs().max().item()
+        layout_forms[name] = dict(
+            max_abs_err=layout_out[name][1], ms=layout_ms[key],
+            plain_ms=median_ms(lambda: plain(x_, fm), reps=5),
+            bound_ms=b_ms, bound_by=b_by, library_ms=median_ms(lib), library_err=lib_err,
+            bytes=nbytes, flops=flops)
+        v = layout_forms[name]
+        say(phase, f"{name}: kernel {v['ms']:.4f} ms = {nbytes / v['ms'] / 1e9:.3f} TB/s, plain "
+                   f"{v['plain_ms']:.3f}, library {v['library_ms']:.4f} (max|diff| {lib_err:.2e}), "
+                   f"bound {b_ms:.4f} ms ({b_by})")
+    del xc, xf, layout_out
+
+    def row(forms, main_form, count):
+        top = forms[main_form]
+        return dict(max_abs_err=max(f["max_abs_err"] for f in forms.values()),
+                    **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms")},
+                    launches=count, forms={k: v for k, v in forms.items() if k != main_form})
+
+    return {
+        "vreg_chain": row(chain_forms, "fma R=8", launches["vreg_chain"]),
+        "layout_read": row({k[5:]: v for k, v in layout_forms.items() if k.startswith("read")},
+                           "chunk-major", launches["layout_read"]),
+        "layout_rw": row({k[3:]: v for k, v in layout_forms.items() if k.startswith("rw")},
+                         "chunk-major", launches["layout_rw"]),
+    }
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "sparkl_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -4383,6 +4571,10 @@ def main():
     # and card against card.
     sparse2d_res["agreement"] = phase_sparse2d_agreement()
 
+    # 33. The probes: each kernel against its plain version at the published
+    # sizes, then both sweeps (their tables), times, bounds and registers.
+    kres.update(phase_probes(log))
+
     by_path = dict(fused=launches, sparse=sparse_launches, fluid=fluid_launches,
                    fracture=fracture_launches, elasticity2=plastic_launches["elasticity2"],
                    basic2=plastic_launches["basic2"], fluids2=fluid2_launches)
@@ -4391,7 +4583,7 @@ def main():
     missing = [k for k in REPLACES if launches[k] == 0]
     require(not missing, f"kernels their main paths (or checks) never launched: {missing}")
 
-    # 33. Results. The 2D fluid forms of four kernels carry their own
+    # 34. Results. The 2D fluid forms of four kernels carry their own
     # numbers (the fluids2 path's launches, times on the 2D column), and so
     # do the damage forms, the material forms (their paths' launches, times
     # at their size) and the window kernels' 2D forms (the 2D sparse paths'
@@ -4423,11 +4615,14 @@ def main():
         forms_of[name]["sparse2d-psi"] = dict(
             launches=sparse2d_launches["l_panel2"][name],
             **{k: sk2["l_panel2 fine"][name].get(k) for k in keys})
+    for name in PROBES:
+        forms_of[name] = kres[name]["forms"]
+    source_of = dict.fromkeys(SPARSE_KERNELS, WINDOW_SOURCE)
+    source_of.update(dict.fromkeys(PROBES, PROBE_SOURCE))
     kernels = [
-        dict(name=name, route="cuda",
-             source=WINDOW_SOURCE if name in SPARSE_KERNELS else FUSED_SOURCE,
+        dict(name=name, route="cuda", source=source_of.get(name, FUSED_SOURCE),
              replaces=REPLACES[name], launches=launches[name],
-             path=PATH_OF[name] or NO_PATH, **{k: kres[name][k] for k in keys},
+             path=PATH_OF[name] or NO_PATH[name], **{k: kres[name][k] for k in keys},
              **forms_of[name])
         for name in REPLACES
     ]

@@ -26,7 +26,7 @@ import torch
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "sparkl_tpu_torch")
-SOURCES = ("fused_kernels.cu", "particle_physics.cuh", "window_kernels.cu")
+SOURCES = ("fused_kernels.cu", "particle_physics.cuh", "window_kernels.cu", "probe_kernels.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false keeps the kernels' rounding that of the plain versions (no
 # contraction of a*b+c); never --use_fast_math (expf/logf/sinf, sqrtf).
@@ -76,6 +76,11 @@ _SIGNATURES = {
     # slot_data, windows, out, max_chunks, dim, with_psi, ox, oy, oz, h, invd,
     # stream
     "sparkl_g2p_windows": [_VP, _VP, _VP, _I, _I, _I, _F, _F, _F, _F, _F, _VP],
+    # x, out, rows, r, n_ops, transcend, stream
+    "sparkl_vreg_chain": [_VP, _VP, _I, _I, _I, _I, _VP],
+    # x, out, d_count, nf, field_major, stream
+    "sparkl_layout_read": [_VP, _VP, _I, _I, _I, _VP],
+    "sparkl_layout_rw": [_VP, _VP, _I, _I, _I, _VP],
 }
 
 

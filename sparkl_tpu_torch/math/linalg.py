@@ -50,19 +50,29 @@ def div_const(x, c):
 
 
 def fma(a, b, c):
-    """a·b + c rounded once, as jitted XLA on an x86 CPU with FMA computes
-    the JAX package's a * b + c (its LLVM backend contracts every such
-    pair; measured on 100,000 of 100,000 random f32 triples). Emulated in
-    f64, where the product of two f32 is exact: it differs from a true f32
-    FMA only where the f64 sum rounds onto an f32 halfway point, which
-    random inputs hit about once in 2^29. The port contracts only where a
-    result must match the reference to the bit (the corotated dt bound)
-    or where a difference cancels (neo-Hookean's J² - 1 and tr(F Fᵀ)
-    J^(-2/d) - d); elsewhere it rounds each operation, as the CUDA kernels
-    do."""
-    b = b.double() if torch.is_tensor(b) else float(b)
-    c = c.double() if torch.is_tensor(c) else float(c)
-    return (a.double() * b + c).to(a.dtype)
+    """a·b + c rounded once, bit for bit a hardware FMA: CUDA's fmaf, and
+    what jitted XLA on an x86 CPU with FMA computes for the JAX package's
+    a * b + c (its LLVM backend contracts every such pair; measured on
+    100,000 of 100,000 random f32 triples). The product of two f32 is exact
+    in f64; the sum is formed in f64 with its rounding error (two-sum) and
+    rounded to odd, so the f64 result then rounds to f32 correctly. a is an
+    f32 tensor; b and c f32 tensors or Python floats taken as they are
+    (pass f32 values). The port contracts where a result must match the
+    reference to the bit (the corotated dt bound, the heightfield's
+    coordinates, the probes' chains) or where a difference cancels
+    (neo-Hookean's J² - 1 and tr(F Fᵀ) J^(-2/d) - d); elsewhere it rounds
+    each operation, as the CUDA kernels do."""
+    s = a.double() * (b.double() if torch.is_tensor(b) else float(b))
+    if not torch.is_tensor(c):
+        c = torch.full((), float(c), dtype=torch.float64, device=a.device)
+    c = c.double()
+    t = s + c
+    bv = t - s
+    err = (s - (t - bv)) + (c - bv)
+    even = (t.view(torch.int64) & 1) == 0
+    away = torch.where(err > 0, float("inf"), float("-inf")).to(torch.float64)
+    t = torch.where((err != 0) & even, torch.nextafter(t, away), t)
+    return t.to(a.dtype)
 
 
 def rdiv(s, x):
