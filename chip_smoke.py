@@ -134,11 +134,12 @@ Phases (one line each, longer logs under chiprun_out/):
      (also with psi_pos perturbed so that it trips) and in 2D on l_panel2
      under modified eigenerosion, with times, bounds and the pooling's
      library yardstick;
- 23. the l_panel3 main path: l_panel3() -> auto_pipeline -> pack_state ->
-     10 frames of run_frames_state -> unpack_state, launch counts against
-     the substeps (A, B and the pooling once per substep), per frame the
-     substeps, broken and failed counts per panel and mass; one profiled
-     frame (lpanel3_profile.txt in the output directory);
+ 23. the l_panel3 main path: l_panel3(load_speed=LPANEL3_LOAD_SPEED) ->
+     auto_pipeline -> pack_state -> 10 frames of run_frames_state ->
+     unpack_state, launch counts against the substeps (A, B and the pooling
+     once per substep), per frame the substeps, broken and failed counts
+     per panel and mass, at least one eigenerosion trip required; one
+     profiled frame (lpanel3_profile.txt in the output directory);
  24. reduced l_panel3 (2,304 particles), 3 substeps on the card against
      the port's CPU path at the card's dts, phase mismatches net of ties;
  25. l_panel3-modified (3 frames) and l_panel2 under modified eigenerosion
@@ -153,12 +154,14 @@ Phases (one line each, longer logs under chiprun_out/):
      and the maximum-stress trips counted and required, NACC's ties within
      1e-5 of a threshold counted, with times and bounds;
  27. the materials3 main path: materials3() -> auto_pipeline ->
-     pack_state -> 15 frames of run_frames_state -> unpack_state, launch
+     pack_state -> 20 frames of run_frames_state -> unpack_state, launch
      counts against the substeps, per frame the lanes per model whose
-     plastic state moved and NACC's alpha range, mass; one profiled frame
-     (materials3_profile.txt in the output directory);
- 28. materials2 (3 frames), materials3-failure and materials2-failure (a
-     frame each) as main paths, with the same checks;
+     plastic state moved and NACC's alpha range, mass, Rankine flow
+     required; one profiled frame (materials3_profile.txt in the output
+     directory);
+ 28. materials2 (3 frames), materials3-failure (4 frames, a maximum-stress
+     trip required) and materials2-failure (a frame) as main paths, with
+     the same checks;
  29. reduced materials3 and materials2 (from perturbed particles), 3
      substeps on the card against the port's CPU path at the card's dts:
      |dx|, |dv|, |dF|, |d alpha|, flags and phases equal;
@@ -203,8 +206,16 @@ Each kernel's bound_ms is the least time the card could take for its work
 at this run's shapes: the larger of the bytes it must move (each input read
 once, each output written once) over 3.35 TB/s and the f32 operations this
 run's data needs over 67 TFLOP/s (the H100 SXM's published peaks at 700 W).
+
+Each kernel and library call is timed three ways (sparkl_tpu_torch/scripts):
+ms, batches of 10 calls between two CUDA events (what a path pays a call:
+the device's time, or the host's where the host cannot keep the device
+fed); device_ms, 10 calls captured in a CUDA graph and replayed between two
+events (the device alone); and host_us, the host's time to issue one call.
+A library call that reads the host (torch.segment_reduce) has no device_ms.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -246,7 +257,8 @@ PATH_OF.update(p2g_windows="sparse", g2p_windows="sparse", mass_p2g_fused="fluid
 PROBES = ("vreg_chain", "layout_read", "layout_rw")
 NO_PATH = {"permute_chunks": "none: no path of the JAX package calls it (its only caller is "
                              "tests/test_lowering.py:100); launches from its checks on the "
-                             "phase 5 and 12 resorts",
+                             "phase 5 and 12 resorts (a graph of the device timer counts its "
+                             "captured calls, not its replays)",
            **dict.fromkeys(PROBES, "none: a microbenchmark; launches from its sweep "
                                    "(phase 33)")}
 FUSED_SOURCE = "sparkl_tpu_torch/csrc/fused_kernels.cu"
@@ -286,6 +298,10 @@ FRACTURE_DX, FRACTURE_DV, FRACTURE_DF = 5e-5, 5e-4, 5e-4
 # l_panel2 runs on past the main path until a frame holds its first lazy
 # resort, at most this many more frames.
 FRACTURE_RESORT_FRAMES = 600
+# The main-path resorts whose kernels phases 16, 19 and 20 hold to their
+# plain versions, at most, per kernel and path (in the untimed frames: the
+# spy copies their operands on the card).
+RESORT_SPY_CALLS = 4
 # Trip decisions (eigenerosion energy, the maximum-stress envelope) may
 # differ between a kernel and its plain version only where the decided
 # quantity lies within this relative distance of its threshold.
@@ -363,8 +379,8 @@ MATERIALS_PERTURB = {"materials3": {0: 0.005, 1: 0.01, 2: 0.02, 3: 0.02},
                      "materials3-failure": {0: 0.005, 1: 0.01, 2: 0.02, 3: 0.02, 4: 0.01},
                      "materials2": {0: 0.02, 2: 0.02},
                      "materials2-failure": {0: 0.02, 1: 0.05, 2: 0.02}}
-MATERIALS3_FRAMES, MATERIALS3_TIMED = 15, 3
-MATERIALS2_FRAMES = 3
+MATERIALS3_FRAMES, MATERIALS3_TIMED = 20, 3
+MATERIALS2_FRAMES, MATERIALS3_FAILURE_FRAMES = 3, 4
 MATERIALS_AGREE_SUBSTEPS = 3
 MATERIALS_DX, MATERIALS_DV, MATERIALS_DF, MATERIALS_DA = 1e-6, 1e-4, 1e-5, 1e-5
 # Operations of the material forms, lower estimates: neo-Hookean's closed
@@ -420,6 +436,29 @@ def bound(nbytes, flops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def add_split(v, fn, lib=None, lib_captured=True):
+    """Add to the result v the device/host split of a kernel's wrapper fn()
+    and of its library call lib() (scripts.split_times): device_ms, host_us,
+    library_device_ms (None where lib reads the host and cannot be
+    captured) and library_host_us."""
+    from sparkl_tpu_torch.scripts import split_times
+
+    v.update(split_times(fn, lib, lib_captured))
+    return v
+
+
+def split_text(v):
+    """The split of add_split as text."""
+    if "device_ms" not in v:
+        return ""
+    lib = v.get("library_host_us")
+    lib_dev = v.get("library_device_ms")
+    return (f"; device {v['device_ms']:.4f} ms, host {v['host_us']:.1f} us a call" +
+            ("" if lib is None else
+             f"; library device {'-' if lib_dev is None else f'{lib_dev:.4f}'} ms, host "
+             f"{lib:.1f} us"))
 
 
 def p2g_errors(img_k, img_p):
@@ -578,6 +617,10 @@ def phase_kernels(pipe, state, dt):
     seg_err = (seg.reshape(m_k.shape) - m_k).abs().max().item()
     res["merge_blocks"]["library_ms"] = median_ms(
         lambda: torch.segment_reduce(flat, "sum", lengths=lengths, axis=0))
+    # segment_reduce checks its lengths on the host: no graph captures it.
+    add_split(res["merge_blocks"], lambda: K.merge_blocks(rows, first, nblk),
+              lambda: torch.segment_reduce(flat, "sum", lengths=lengths, axis=0),
+              lib_captured=False)
     say(3, f"merge_blocks against torch.segment_reduce: max|diff| {seg_err:.3e}")
 
     # The scatter merge (the fluid and sparse paths' merge) on the same rows:
@@ -607,7 +650,7 @@ def phase_kernels(pipe, state, dt):
         say(3, f"{name}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, library "
                f"{v['library_ms']} ms (batched medians); {traffic[name] / 1e9:.4f} GB counted from "
                f"shapes = {traffic[name] / v['ms'] / 1e6:.1f} GB/s; bound {v['bound_ms']:.4f} ms "
-               f"({v['bound_by']})")
+               f"({v['bound_by']}){split_text(v)}")
     return res
 
 
@@ -660,6 +703,8 @@ def check_merge_scatter(cfg, structure, rows, phase, label="", timed=True):
     v["ms"] = median_ms(lambda: K.merge_scatter(flat, order, starts))
     v["plain_ms"] = median_ms(lambda: K.merge_scatter_reference(flat, order, starts), reps=5)
     v["library_ms"] = median_ms(lambda: torch.index_add(zeros, 0, dest, flat))
+    add_split(v, lambda: K.merge_scatter(flat, order, starts),
+              lambda: torch.index_add(zeros, 0, dest, flat))
     # Every live update row read once (dead chunks' rows are left out of the
     # plan), each node row written once, and the plan read.
     v["bytes"] = (int(starts[-1]) * w + g * w) * 4 + (order.numel() + starts.numel()) * 4
@@ -669,7 +714,7 @@ def check_merge_scatter(cfg, structure, rows, phase, label="", timed=True):
                f"library (index_add) {v['library_ms']:.3f} ms (batched medians); "
                f"{v['bytes'] / 1e9:.4f} GB counted from shapes = "
                f"{v['bytes'] / v['ms'] / 1e6:.1f} GB/s; bound {v['bound_ms']:.4f} ms "
-               f"({v['bound_by']})")
+               f"({v['bound_by']}){split_text(v)}")
     return v
 
 
@@ -928,11 +973,13 @@ def phase_resort(pipe, pre, phase=5):
         v = res[name]
         v["ms"], v["plain_ms"], v["library_ms"] = (
             median_ms(fn), median_ms(plain, reps=5), median_ms(lib))
+        add_split(v, fn, lib)
         v["flops"] = 0
         v["bound_ms"], v["bound_by"] = bound(v["bytes"], 0)
-        say(phase, f"{name}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, library (one "
-               f"gather) {v['library_ms']:.3f} ms (batched medians); {v['bytes'] / 1e9:.4f} GB "
-               f"counted from shapes = {v['bytes'] / v['ms'] / 1e6:.1f} GB/s; bound {v['bound_ms']:.4f} ms")
+        say(phase, f"{name}: kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.3f} ms, library (one "
+               f"gather) {v['library_ms']:.4f} ms (batched medians); {v['bytes'] / 1e9:.4f} GB "
+               f"counted from shapes = {v['bytes'] / v['ms'] / 1e6:.1f} GB/s; bound "
+               f"{v['bound_ms']:.4f} ms{split_text(v)}")
 
     res["permute_chunks"]["launches"] = K.LAUNCHES["permute_chunks"] - n0
     del gathered, gathered_i, pc_k, pc_p, bits
@@ -957,6 +1004,66 @@ def phase_resort(pipe, pre, phase=5):
     require(same and branch_g == branch_c and ov_g == ov_c and not ov_g,
             f"the resort on the card differs from the CPU resort (elements differing: {differ})")
     return res, resort_ms
+
+
+class ResortSpy:
+    """While entered, keeps copies of the inputs and outputs of the resort
+    kernels' wrappers (K.src_rows_from_order, K.permute_slots) on a main
+    path, at most RESORT_SPY_CALLS calls each; check() then holds each
+    output to the plain version on the same inputs, bit for bit. The
+    wrappers launch their kernels and count as without the spy; the plain
+    versions run after the path."""
+
+    def __init__(self):
+        self.calls = {"src_rows_from_order": [], "permute_slots": []}
+        self._orig = {}
+
+    def __enter__(self):
+        import torch
+        from sparkl_tpu_torch.fused import kernels as K
+
+        def copy(x):
+            if isinstance(x, torch.Tensor):
+                return x.clone()
+            return tuple(copy(y) for y in x) if isinstance(x, tuple) else x
+
+        for name, kept in self.calls.items():
+            fn = self._orig[name] = getattr(K, name)
+
+            def spy(*args, _fn=fn, _kept=kept):
+                out = _fn(*args)
+                if len(_kept) < RESORT_SPY_CALLS:
+                    _kept.append((copy(args), copy(out)))
+                return out
+
+            setattr(K, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        from sparkl_tpu_torch.fused import kernels as K
+
+        for name, fn in self._orig.items():
+            setattr(K, name, fn)
+
+    def check(self, phase, label):
+        """Each kept call against its plain version; returns {name: calls}."""
+        import torch
+        from sparkl_tpu_torch.fused import kernels as K
+
+        plain = dict(src_rows_from_order=K.src_rows_from_order_reference,
+                     permute_slots=K.permute_slots_reference)
+        for name, kept in self.calls.items():
+            for args, out in kept:
+                ref = plain[name](*args)
+                outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+                same = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                           for a, b in zip(outs, refs))
+                require(same, f"{label}: {name} on a main-path resort differs from its plain "
+                              "version")
+        n = {name: len(kept) for name, kept in self.calls.items()}
+        say(phase, f"{label}: the resort kernels on the path's own resorts bit-equal to their "
+                   f"plain versions ({n} calls checked)")
+        return n
 
 
 def slot_dim(state):
@@ -1365,12 +1472,15 @@ def phase_fluid_kernels(pipe, state, dt, label, phase, timed):
              live * a_rows * row + cfg.max_chunks * (1 + dim) * cells * 4, lanes * a_flops)):
         v = res[name]
         v["ms"], v["plain_ms"] = median_ms(fn), median_ms(plain, reps=5)
+        add_split(v, fn)
         v["bytes"], v["flops"], v["library_ms"] = nbytes, flops, None
         v["bound_ms"], v["bound_by"] = bound(nbytes, flops)
     scratch = slots_in.clone()
     v = res["g2p_fused"]
     v["ms"] = median_ms(lambda: K.g2p_fused(grid, cfg, pipe._meta, pipe._kparams, scratch,
                                                  ints, windows, dt, *args))
+    add_split(v, lambda: K.g2p_fused(grid, cfg, pipe._meta, pipe._kparams, scratch, ints,
+                                     windows, dt, *args))
     v["plain_ms"] = median_ms(
         lambda: K.g2p_fused_reference(grid, slots_in, ints, windows, dt, *args), reps=5)
     v["bytes"] = live * ((b_read + b_written) * row + 4 * dim * cells)
@@ -1384,7 +1494,7 @@ def phase_fluid_kernels(pipe, state, dt, label, phase, timed):
                    f"{v['plain_ms']:.3f} ms "
                    f"(batched medians); {v['bytes'] / 1e9:.4f} GB counted from shapes = "
                    f"{v['bytes'] / v['ms'] / 1e6:.1f} GB/s; bound {v['bound_ms']:.4f} ms "
-                   f"({v['bound_by']})")
+                   f"({v['bound_by']}){split_text(v)}")
     return res
 
 
@@ -1687,12 +1797,14 @@ def check_kernels_2d(pipe, state, dt, label, phase, meta=None, timed=False):
         v = res[name]
         v["ms"], v["plain_ms"] = median_ms(fn), median_ms(plain, reps=5)
         v["library_ms"] = median_ms(lib) if lib else None
+        # The merge's library call, segment_reduce, reads the host.
+        add_split(v, fn, lib, lib_captured=False)
         v["bytes"], v["flops"] = nbytes, flops
         v["bound_ms"], v["bound_by"] = bound(nbytes, flops)
-        say(phase, f"{name} (2D, {label}): kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, "
+        say(phase, f"{name} (2D, {label}): kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.3f} ms, "
                    f"library {v['library_ms']} ms (batched medians); {nbytes / 1e9:.4f} GB and "
                    f"{flops / 1e9:.4f} GFLOP counted; bound {v['bound_ms']:.4f} ms "
-                   f"({v['bound_by']})")
+                   f"({v['bound_by']}){split_text(v)}")
     return res
 
 
@@ -1802,12 +1914,14 @@ def phase_plastic_main(name, phase=16, golden=True, timed_frames=PLASTIC_TIMED, 
     frames, worst = [], 0.0
     timed, seconds = 0, 0.0
     first_timed = PLASTIC_FRAMES - timed_frames
+    spy = ResortSpy()
     for i in range(PLASTIC_FRAMES):
         # A timed frame is clocked alone; its checks run after the clock.
         if i >= first_timed:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-        state, n = pipe.run_frames_state(state, 1)
+        with spy if i < first_timed else contextlib.nullcontext():
+            state, n = pipe.run_frames_state(state, 1)
         if i >= first_timed:
             torch.cuda.synchronize()
             seconds += time.perf_counter() - t0
@@ -1865,9 +1979,11 @@ def phase_plastic_main(name, phase=16, golden=True, timed_frames=PLASTIC_TIMED, 
                   permute_slots=branches["mixed"])
     expect[merge] = substeps + passes
     require(launches == expect, f"{name} path launch counts {launches}, expected {expect}")
+    resort_checks = spy.check(phase, f"{name} path")
     return pipe, state, launches, dict(
         substeps=substeps, resorts=resorts, branches=branches, timed_substeps=timed,
-        seconds=seconds, pups=pups, worst_over_tol=worst, frames=frames, config=str(pipe._cfg))
+        seconds=seconds, pups=pups, worst_over_tol=worst, frames=frames, config=str(pipe._cfg),
+        resort_checks=resort_checks)
 
 
 def phase_plastic_agreement(name, phase=17):
@@ -2224,9 +2340,17 @@ LPANEL3_SMALL, LPANEL3_SMALL_LAYERS = 0.08, 6
 # The load point of each panel, from its origin (l_panel2's), and the
 # panel polygon's corner, in units of the panel's size.
 LPANEL_LOAD = (0.47, 0.25)
+# The load's speed (m/s): l_panel2's 0.1 in the reduced form (the CPU
+# tests' and phase 24's), and ten times that at full size (phases 22, 23,
+# 25), where at 0.1 no eigenerosion trip comes within the main path's 10
+# frames (measured: the maximum-stress panel breaks from frame 0, the
+# eigenerosion panel not at all; at 1.0 465 trips in frame 0; NVIDIA H100
+# 80GB HBM3, 700 W).
+LPANEL_LOAD_SPEED, LPANEL3_LOAD_SPEED = 0.1, 1.0
 
 
-def l_panel3(damage="eigenerosion", scale=1.0, layers=LPANEL3_LAYERS, device="cuda"):
+def l_panel3(damage="eigenerosion", scale=1.0, layers=LPANEL3_LAYERS, device="cuda",
+             load_speed=LPANEL_LOAD_SPEED):
     """l_panel2's two damage mechanisms in a 3D slab, built with the port's
     API: the particle rows of scenes.build("l_panel2") as published (cell
     width h = 0.005, r = h/4, density 2500) extruded into `layers` layers at
@@ -2239,7 +2363,8 @@ def l_panel3(damage="eigenerosion", scale=1.0, layers=LPANEL3_LAYERS, device="cu
     dt 1/6000; GridParams.for_domain over l_panel2's x/y domain and the
     slab's z range, pad 3; the load as l_panel2's Dirichlet hook, each
     panel's load point (0.47, 0.25) from its origin repeated at every grid
-    node plane z = k h across the slab, velocity (0, 0.1, 0). `damage`
+    node plane z = k h across the slab, velocity (0, load_speed, 0) (l_panel2's
+    0.1 by default; the full-size paths take LPANEL3_LOAD_SPEED). `damage`
     "modified" runs modified eigenerosion instead. `scale` < 1 keeps the 2D
     rows inside the panel polygon scaled by it (about each panel's origin;
     the load point scales with it): the reduced form, every particle inside
@@ -2291,7 +2416,7 @@ def l_panel3(damage="eigenerosion", scale=1.0, layers=LPANEL3_LAYERS, device="cu
     load = [(ox + LPANEL_LOAD[0] * scale, oy + LPANEL_LOAD[1] * scale) for ox, oy in origins]
     hooks = DirichletVelocityHook(
         points=[[x, y, z] for x, y in load for z in planes],
-        velocities=[[0.0, 0.1, 0.0]] * (len(load) * len(planes)))
+        velocities=[[0.0, load_speed, 0.0]] * (len(load) * len(planes)))
     model = DamageModel.MODIFIED_EIGENEROSION if damage == "modified" else DamageModel.EIGENEROSION
     return scenes.SceneBundle(
         name="l_panel3" + ("-modified" if damage == "modified" else ""), grid=grid,
@@ -2437,6 +2562,9 @@ def check_eigen(pipe, state, label, phase, timed=False):
         lambda: K.eigen_pool_fused_reference(grid, e, K.eigen_candidate_rows(e, cand)), reps=5,
         batch=batch)
     res["library_ms"] = median_ms(library, reps=reps, batch=batch)
+    # In 3D the library call takes ~0.3 s: its split is not taken.
+    add_split(res, lambda: K.eigen_pool_fused(grid, cfg, e, cand),
+              library if dim == 2 else None)
     live = int(state.structure.num_chunks)
     valid = (cand < d_).sum(dim=1)
     res["pairs"] = int((elig.sum(dim=1) * valid).sum()) * c
@@ -2448,7 +2576,7 @@ def check_eigen(pipe, state, label, phase, timed=False):
                f"(medians of 20 batches of 10, 5 and {reps} batches of {batch}; library "
                f"max|diff| {lib_err:.2e}); "
                f"{res['pairs']} pair tests; "
-               f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+               f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}){split_text(res)}")
     return res
 
 
@@ -2767,7 +2895,7 @@ def phase_lpanel3_kernels():
     out = {}
     for damage in ("eigenerosion", "modified"):
         t0 = time.perf_counter()
-        b = l_panel3(damage)
+        b = l_panel3(damage, load_speed=LPANEL3_LOAD_SPEED)
         pipe, state = substep_state(b, LPANEL3_SUBSTEPS_IN)
         dt = float(pipe._min_dtb(state))
         h = b.grid.cell_width
@@ -3430,12 +3558,13 @@ def check_materials(pipe, state, dt, label, phase, timed=False):
                                            stress_cache=cache), b_bytes, b_flops)):
         v = res[name]
         v["ms"], v["plain_ms"] = median_ms(fn), median_ms(plain, reps=5)
+        add_split(v, fn)
         v["library_ms"] = None
         v["bytes"], v["flops"] = nbytes, flops
         v["bound_ms"], v["bound_by"] = bound(nbytes, flops)
-        say(phase, f"{name} ({label}): kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms "
+        say(phase, f"{name} ({label}): kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.3f} ms "
                    f"(batched medians); {nbytes / 1e9:.4f} GB and {flops / 1e9:.4f} GFLOP counted; "
-                   f"bound {v['bound_ms']:.4f} ms ({v['bound_by']})")
+                   f"bound {v['bound_ms']:.4f} ms ({v['bound_by']}){split_text(v)}")
     return res
 
 
@@ -3689,6 +3818,9 @@ def check_windows(grid, cfg, slot_data, windows, path_psi, phase, label, timed=T
             ms=median_ms(lambda: WK.g2p_windows(grid, cfg, sd0, win0, with_psi=path_psi)),
             plain_ms=median_ms(lambda: WK.g2p_windows_reference(grid, sd0, win0, path_psi),
                                reps=5))
+        add_split(res["p2g_windows"], lambda: WK.p2g_windows(grid, cfg, sd0, with_psi=path_psi))
+        add_split(res["g2p_windows"],
+                  lambda: WK.g2p_windows(grid, cfg, sd0, win0, with_psi=path_psi))
     for name, v in res.items():
         v["max_abs_err"] = v["path"]["max_abs_err"]
         v["library_ms"] = None
@@ -3698,7 +3830,7 @@ def check_windows(grid, cfg, slot_data, windows, path_psi, phase, label, timed=T
                        f"{v['plain_ms']:.3f} ms (batched medians); {v['bytes'] / 1e9:.4f} GB "
                        f"counted from shapes = {v['bytes'] / v['ms'] / 1e6:.1f} GB/s; bound "
                        f"{v['bound_ms']:.4f} ms ({v['bound_by']}); {d_} chunks, {n_valid} valid "
-                       f"slots")
+                       f"slots{split_text(v)}")
     return res
 
 
@@ -4201,6 +4333,7 @@ def phase_probes(log, phase=33):
             f = chain_forms[f"{kind} R={r}"]
             f.update(ms=chain_ms[(f"{kind}-chain", r)], plain_ms=plain_ms, bound_ms=b_ms,
                      bound_by=b_by, library_ms=None, bytes=2 * 4 * elems, flops=flops)
+            add_split(f, lambda: VP.chain(ones, r, VP.N_OPS, transcend))
         say(phase, f"chain {kind}: {flops:.4g} operations, bound {b_ms:.4f} ms ({b_by}); plain "
                    f"{plain_ms:.3f} ms; kernel " + ", ".join(
                        f"R={r} {chain_forms[f'{kind} R={r}']['ms']:.4f}" for r in VP.ROWS))
@@ -4208,14 +4341,14 @@ def phase_probes(log, phase=33):
     rows_c, rows_f = xc[:, :LP.NROWS], xf[:LP.NROWS]
     d, c, n = LP.D, LP.C, LP.NROWS
     layout_forms = {}
-    for name, x_, fm, key, lib in (
-            ("read chunk-major", xc, False, "chunk-major [D,NF,C]",
+    for name, x_, fm, key, kernel, lib in (
+            ("read chunk-major", xc, False, "chunk-major [D,NF,C]", LP.read_chunk_major,
              lambda: torch.einsum("dkc,k->dc", rows_c, w)),
-            ("read field-major", xf, True, "field-major [NF,D,C]",
+            ("read field-major", xf, True, "field-major [NF,D,C]", LP.read_field_major,
              lambda: torch.einsum("kdc,k->dc", rows_f, w)),
-            ("rw chunk-major", xc, False, "r+w chunk-major",
+            ("rw chunk-major", xc, False, "r+w chunk-major", LP.rw_chunk_major,
              lambda: torch.mul(rows_c, LP.RW_SCALE)),
-            ("rw field-major", xf, True, "r+w field-major",
+            ("rw field-major", xf, True, "r+w field-major", LP.rw_field_major,
              lambda: torch.mul(rows_f, LP.RW_SCALE))):
         rw = name.startswith("rw")
         plain = LP.rw_plain if rw else LP.read_plain
@@ -4228,17 +4361,19 @@ def phase_probes(log, phase=33):
             plain_ms=median_ms(lambda: plain(x_, fm), reps=5),
             bound_ms=b_ms, bound_by=b_by, library_ms=median_ms(lib), library_err=lib_err,
             bytes=nbytes, flops=flops)
-        v = layout_forms[name]
+        v = add_split(layout_forms[name], lambda: kernel(x_), lib)
         say(phase, f"{name}: kernel {v['ms']:.4f} ms = {nbytes / v['ms'] / 1e9:.3f} TB/s, plain "
                    f"{v['plain_ms']:.3f}, library {v['library_ms']:.4f} (max|diff| {lib_err:.2e}), "
-                   f"bound {b_ms:.4f} ms ({b_by})")
+                   f"bound {b_ms:.4f} ms ({b_by}){split_text(v)}")
     del xc, xf, layout_out
 
     def row(forms, main_form, count):
         top = forms[main_form]
         return dict(max_abs_err=max(f["max_abs_err"] for f in forms.values()),
                     **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                           "library_ms")},
+                                           "library_ms", "device_ms", "host_us",
+                                           "library_device_ms", "library_host_us")
+                       if k in top},
                     launches=count, forms={k: v for k, v in forms.items() if k != main_form})
 
     return {
@@ -4508,13 +4643,18 @@ def main():
 
     # 23. The l_panel3 main path; one profiled frame.
     l3pipe, l3state, lp3_launches, damage_res["l_panel3"] = phase_damage_main(
-        l_panel3(), LPANEL3_FRAMES, LPANEL3_TIMED, 23)
+        l_panel3(load_speed=LPANEL3_LOAD_SPEED), LPANEL3_FRAMES, LPANEL3_TIMED, 23)
     _, damage_res["profile"] = profile_frame(l3pipe, l3state, "lpanel3_profile.txt", 23,
                                              "l_panel3")
     del l3pipe, l3state
     forms3 = ("p2g_fused", "g2p_fused", "eigen_pool_fused")
     missing = [k for k in forms3 if lp3_launches[k] == 0]
     require(not missing, f"kernels the l_panel3 path never launched: {missing}")
+    # The eigenerosion panel (model 0, no failure model: every phase 0 there
+    # is an eigenerosion trip) must break on the main path.
+    trips = damage_res["l_panel3"]["per_model"][0][0]
+    say(23, f"l_panel3 main path: {trips} eigenerosion trips (panel 0 broken)")
+    require(trips > 0, "l_panel3's main path took no eigenerosion trip")
 
     # 24. Reduced l_panel3, card against CPU.
     damage_res["agreement"] = phase_lpanel3_agreement()
@@ -4522,7 +4662,9 @@ def main():
     # 25. l_panel3 and l_panel2 under modified eigenerosion: kernel B's
     # crack-energy trip on a main path, no pooling.
     mod_launches = {}
-    for name, b, frames in (("l_panel3-modified", l_panel3("modified"), LPANEL3_MODIFIED_FRAMES),
+    for name, b, frames in (("l_panel3-modified",
+                             l_panel3("modified", load_speed=LPANEL3_LOAD_SPEED),
+                             LPANEL3_MODIFIED_FRAMES),
                             ("l_panel2-modified", l_panel2_modified(), 1)):
         mpipe, _, mod_launches[name], damage_res[name] = phase_damage_main(b, frames, 1, 25)
         require(mod_launches[name]["g2p_fused"] > 0 and
@@ -4534,18 +4676,25 @@ def main():
     # versions at full size (materials3, materials2 and their failure forms).
     mat_res = {"kernels": phase_materials_kernels()}
 
-    # 27. The materials3 main path, 15 frames; one profiled frame.
+    # 27. The materials3 main path, 20 frames (Rankine flow from about
+    # frame 16 on); one profiled frame.
     mpipe, mstate, mat_launches, mat_res["materials3"] = phase_damage_main(
         materials3(), MATERIALS3_FRAMES, MATERIALS3_TIMED, 27, stats=materials_stats)
     _, mat_res["profile"] = profile_frame(mpipe, mstate, "materials3_profile.txt", 27,
                                           "materials3")
     mat_launches = {"materials3": mat_launches}
     del mpipe, mstate
+    rankine = mat_res["materials3"]["per_model"][1]["plastic"]
+    say(27, f"materials3 main path: {rankine} Rankine lanes with plastic flow")
+    require(rankine > 0, "materials3's main path took no Rankine flow")
 
-    # 28. materials2 (3 frames), and the failure forms (a frame each) as
-    # main paths: the damage and material instances launched every substep.
+    # 28. materials2 (3 frames), materials3-failure (MATERIALS3_FAILURE_FRAMES:
+    # the lower lattice lands and trips maximum stress from frame 2 on) and
+    # materials2-failure (a frame) as main paths: the damage and material
+    # instances launched every substep.
     for name, b, frames in (("materials2", materials2(), MATERIALS2_FRAMES),
-                            ("materials3-failure", materials3(failure=True), 1),
+                            ("materials3-failure", materials3(failure=True),
+                             MATERIALS3_FAILURE_FRAMES),
                             ("materials2-failure", materials2(failure=True), 1)):
         mpipe, _, mat_launches[name], mat_res[name] = phase_damage_main(
             b, frames, 1, 28, stats=materials_stats)
@@ -4553,6 +4702,10 @@ def main():
     for name, ml in mat_launches.items():
         missing = [k for k in ("p2g_fused", "g2p_fused") if ml[k] == 0]
         require(not missing, f"kernels the {name} path never launched: {missing}")
+    # The lower lattice (model 4) alone fails by maximum stress.
+    trips = mat_res["materials3-failure"]["per_model"][4]["broken"]
+    say(28, f"materials3-failure main path: {trips} maximum-stress trips")
+    require(trips > 0, "materials3-failure's main path took no maximum-stress trip")
 
     # 29. Reduced materials3 and materials2, card against CPU.
     for name in ("materials3", "materials2"):
@@ -4588,7 +4741,8 @@ def main():
     # do the damage forms, the material forms (their paths' launches, times
     # at their size) and the window kernels' 2D forms (the 2D sparse paths'
     # launches, times on the block and on l_panel2 fine).
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms", "host_us", "library_device_ms", "library_host_us")
     block = fluid2_res["kernels"]["fluids2 block"]
     dk = damage_res["kernels"]
     forms_of = {name: {} for name in REPLACES}
@@ -4622,7 +4776,7 @@ def main():
     kernels = [
         dict(name=name, route="cuda", source=source_of.get(name, FUSED_SOURCE),
              replaces=REPLACES[name], launches=launches[name],
-             path=PATH_OF[name] or NO_PATH[name], **{k: kres[name][k] for k in keys},
+             path=PATH_OF[name] or NO_PATH[name], **{k: kres[name].get(k) for k in keys},
              **forms_of[name])
         for name in REPLACES
     ]

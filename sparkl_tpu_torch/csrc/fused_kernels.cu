@@ -584,20 +584,52 @@ __global__ void __launch_bounds__(C) mass_g2p_kernel(
 
 // ---------------------------------------------------------------------------
 // Resort source rows: out[i, k] = concat(order2[i, 0], order2[i, 1])[shift_i
-// + k], the destination chunk's slice of the sorted order. One CTA of C
-// threads per chunk (C = 128 in 3D, 64 in 2D), one thread per lane. The TPU
-// kernel routes lanes with f32 selection matmuls, exact only below 2^24
-// slots; this one copies int32, so it has no such limit. Bound on this
-// card: launch latency (12 B per lane).
+// + k], 0 outside the two rows: the destination chunk's slice of the sorted
+// order. The TPU kernel routes lanes with two one-hot f32 selection matmuls
+// per chunk, exact only below 2^24 slots; this one copies int32, so it has
+// no such limit. Bound on this card: 12 B a lane (8 read, 4 written), a few
+// microseconds at the main paths' sizes, so the launch and two dependent
+// memory latencies (the shift, then the row it selects) set its time. So a
+// block of 256 threads takes 256 / (C/4) chunks (8 at C = 128, 16 at C =
+// 64; C/4 threads a chunk, four output lanes a thread), and every thread
+// issues all its loads at once: its int4 of each of the chunk's two order
+// rows (16-byte aligned: the wrapper checks it) and the chunk's shift. The
+// chunk's 2C order ints then sit in shared memory, where the shift routes
+// them (the counterpart of the selection matmuls), and each thread stores
+// one int4 of the output row.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(128) src_rows_kernel(const int* __restrict__ order2,
-                                                       const int* __restrict__ shifts,
-                                                       int* __restrict__ out) {
-  const int c = blockDim.x;
-  const int i = blockIdx.x;
-  const int j = threadIdx.x + shifts[i];
-  const int* rows = order2 + (size_t)i * 2 * c;
-  out[(size_t)i * c + threadIdx.x] = (j >= 0 && j < 2 * c) ? rows[j] : 0;
+constexpr int SRC_ROWS_THREADS = 256;
+
+template <int C>
+__global__ void __launch_bounds__(SRC_ROWS_THREADS) src_rows_kernel(
+    const int* __restrict__ order2, const int* __restrict__ shifts, int* __restrict__ out,
+    int max_chunks) {
+  constexpr int Q = C / 4;                          // threads (int4s) a chunk
+  constexpr int PER_BLOCK = SRC_ROWS_THREADS / Q;   // chunks a block
+  __shared__ int4 rows[PER_BLOCK][2 * Q];
+  const int local = threadIdx.x / Q, q = threadIdx.x % Q;
+  const int i = blockIdx.x * PER_BLOCK + local;
+  const bool live = i < max_chunks;
+  int4 a = make_int4(0, 0, 0, 0), b = a;
+  int shift = 0;
+  if (live) {
+    const int4* src = reinterpret_cast<const int4*>(order2) + (size_t)i * 2 * Q;
+    a = src[q];
+    b = src[Q + q];
+    shift = shifts[i];
+  }
+  rows[local][q] = a;
+  rows[local][Q + q] = b;
+  __syncthreads();
+  if (!live) return;
+  const int* r = reinterpret_cast<const int*>(rows[local]);
+  int v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const long long j = (long long)shift + 4 * q + k;
+    v[k] = (j >= 0 && j < 2 * C) ? r[j] : 0;
+  }
+  reinterpret_cast<int4*>(out)[(size_t)i * Q + q] = make_int4(v[0], v[1], v[2], v[3]);
 }
 
 // ---------------------------------------------------------------------------
@@ -607,34 +639,63 @@ __global__ void __launch_bounds__(128) src_rows_kernel(const int* __restrict__ o
 // structure, as the TPU kernel finalizes them. The TPU kernel fetches at
 // most K = 8 whole source chunks per destination by DMA and routes lanes
 // among them with selection matmuls, so its package falls back to a
-// per-slot gather past K; here each thread copies its own source slot, with
-// no K limit and bit-exact. One CTA of C threads per destination chunk, nf
-// f32 rows per slot (3D: 56 rows, C = 128; 2D: 40, 64). Bound on this card:
-// bytes. Each thread reads its source slot's nf + 8 rows, 4 B each with a
-// 4C B stride; lanes of one warp mostly read neighbouring lanes of one
-// source chunk (the sort is stable), so the reads coalesce, and every write
-// is a full row.
+// per-slot gather past K; here each lane copies its own source slot, as
+// 32-bit words, with no K limit and bit-exact.
+//
+// Bound on this card: bytes, (NF + NI) words a slot read and written. A
+// lane's rows lie 4C B apart in its source chunk, and lanes of one
+// destination mostly read neighbouring lanes of a few source chunks (the
+// sort is stable), so a warp's read of one row coalesces into a few
+// segments and every write is a full row. What limits it is the bytes in
+// flight: a block is C lanes x PERMUTE_GROUPS row groups (512 threads in
+// 3D, 256 in 2D), group g takes rows g, g + G, ... of the slot's NF + NI,
+// and NF is a template parameter, so each thread's 16 (3D) or 12 (2D) loads
+// unroll and all issue before its first store. The source index is read
+// once a lane, into shared memory. TMA and cp.async do not fit: they copy
+// tiles, and each lane here gathers its own column with a 4C-byte stride.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(128) permute_slots_kernel(
-    const float* __restrict__ slots, const int* __restrict__ ints,
+constexpr int PERMUTE_GROUPS = 4;
+
+template <int NF_, int C, int DIM>
+__global__ void __launch_bounds__(C * PERMUTE_GROUPS) permute_slots_kernel(
+    const unsigned* __restrict__ slots, const unsigned* __restrict__ ints,
     const int* __restrict__ src, const int* __restrict__ origin,
-    float* __restrict__ out_f, int* __restrict__ out_i, int max_chunks, int dim,
-    int r_cumd, int nf) {
-  const int c = blockDim.x;
+    unsigned* __restrict__ out_f, unsigned* __restrict__ out_i, int max_chunks, int r_cumd) {
+  constexpr int ROWS = NF_ + NI;
+  constexpr int PER = ROWS / PERMUTE_GROUPS;
+  static_assert(ROWS % PERMUTE_GROUPS == 0, "rows split evenly among the groups");
+  __shared__ int s_src[C];
   const int d = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int s = src[(size_t)d * c + lane];
-  const bool ok = s >= 0 && s < max_chunks * c;
-  const int cid = ok ? s / c : 0, sl = ok ? s % c : 0;
-  const float* S = slots + (size_t)cid * nf * c + sl;
-  const int* I = ints + (size_t)cid * NI * c + sl;
-  float* OF = out_f + (size_t)d * nf * c + lane;
-  int* OI = out_i + (size_t)d * NI * c + lane;
-  for (int f = 0; f < nf; ++f) OF[f * c] = (ok && f != r_cumd) ? S[f * c] : 0.0f;
-  for (int r = 0; r < NI; ++r) {
-    int v = ok ? I[r * c] : 0;
-    if (r >= I_ORIGIN && r < I_ORIGIN + dim) v = origin[(size_t)d * dim + r - I_ORIGIN];
-    OI[r * c] = v;
+  const int lane = threadIdx.x % C;
+  const int g = threadIdx.x / C;
+  if (g == 0) s_src[lane] = src[(size_t)d * C + lane];
+  __syncthreads();
+  const int s = s_src[lane];
+  const bool ok = s >= 0 && (long long)s < (long long)max_chunks * C;
+  const size_t cid = ok ? (size_t)(s / C) : 0;
+  const int sl = ok ? s % C : 0;
+  const unsigned* S = slots + cid * NF_ * C + sl;
+  const unsigned* I = ints + cid * NI * C + sl;
+  unsigned v[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int f = g + k * PERMUTE_GROUPS;
+    const bool copy = ok && f != r_cumd &&
+                      !(f >= NF_ + I_ORIGIN && f < NF_ + I_ORIGIN + DIM);
+    v[k] = copy ? (f < NF_ ? S[f * C] : I[(f - NF_) * C]) : 0u;
+  }
+  unsigned* OF = out_f + (size_t)d * NF_ * C + lane;
+  unsigned* OI = out_i + (size_t)d * NI * C + lane;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int f = g + k * PERMUTE_GROUPS;
+    if (f < NF_) {
+      OF[f * C] = v[k];
+    } else {
+      const int r = f - NF_;
+      OI[r * C] = (r >= I_ORIGIN && r < I_ORIGIN + DIM)
+                      ? (unsigned)origin[(size_t)d * DIM + r - I_ORIGIN] : v[k];
+    }
   }
 }
 
@@ -1247,17 +1308,36 @@ int sparkl_merge_blocks(const float* rows, const int* first, const int* nch,
 
 int sparkl_src_rows_from_order(const int* order2, const int* shifts, int* out,
                                int max_chunks, int c, void* stream) {
+  if ((((uintptr_t)order2) | ((uintptr_t)out)) & 15) return (int)cudaErrorMisalignedAddress;
   if (c != 64 && c != 128) return (int)cudaErrorInvalidValue;
-  src_rows_kernel<<<max_chunks, c, 0, (cudaStream_t)stream>>>(order2, shifts, out);
+  if (max_chunks <= 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int per_block = SRC_ROWS_THREADS / (c / 4);
+  const int blocks = (max_chunks + per_block - 1) / per_block;
+  if (c == 128)
+    src_rows_kernel<128><<<blocks, SRC_ROWS_THREADS, 0, st>>>(order2, shifts, out, max_chunks);
+  else
+    src_rows_kernel<64><<<blocks, SRC_ROWS_THREADS, 0, st>>>(order2, shifts, out, max_chunks);
   return (int)cudaGetLastError();
 }
 
 int sparkl_permute_slots(const float* slots, const int* ints, const int* src,
-                        const int* origin, float* out_f, int* out_i, int max_chunks,
-                        int dim, int r_cumd, int nf, int c, void* stream) {
-  if (c != 64 && c != 128) return (int)cudaErrorInvalidValue;
-  permute_slots_kernel<<<max_chunks, c, 0, (cudaStream_t)stream>>>(
-      slots, ints, src, origin, out_f, out_i, max_chunks, dim, r_cumd, nf);
+                         const int* origin, float* out_f, int* out_i, int max_chunks,
+                         int dim, int r_cumd, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const unsigned* sf = (const unsigned*)slots;
+  const unsigned* si = (const unsigned*)ints;
+  unsigned* of = (unsigned*)out_f;
+  unsigned* oi = (unsigned*)out_i;
+  if (max_chunks <= 0) return (int)cudaSuccess;
+  if (dim == 3)
+    permute_slots_kernel<56, 128, 3><<<max_chunks, 128 * PERMUTE_GROUPS, 0, st>>>(
+        sf, si, src, origin, of, oi, max_chunks, r_cumd);
+  else if (dim == 2)
+    permute_slots_kernel<40, 64, 2><<<max_chunks, 64 * PERMUTE_GROUPS, 0, st>>>(
+        sf, si, src, origin, of, oi, max_chunks, r_cumd);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

@@ -10,7 +10,13 @@ the loaded library. Only the machine with the card has nvcc: elsewhere
 
 The kernel wrappers call in through `launch`, after `check_tensor` on each
 argument; `route` sends CPU tensors to the plain versions and CUDA tensors
-to the kernels, and refuses any other device.
+to the kernels, and refuses any other device. Many kernels take a few
+microseconds on the card, about what the host takes to enqueue one, so the
+launch path is kept near one torch op's host time: each C launcher is bound
+once, as a ctypes prototype, when the library loads (`launch` is then a dict
+lookup and the call), `stream_ptr` and `raw_stream` read the raw current
+stream without building a torch.cuda.Stream, and `check_tensor` tests the
+common case in one expression before it works out which message to raise.
 """
 
 import ctypes
@@ -36,6 +42,8 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _lib = None
+# The library's C launchers by name, resolved once when it loads.
+_fns = {}
 
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,9 +71,8 @@ _SIGNATURES = {
                          _F, _F, _F, _I, _I, _I, _I, _I, _I, _VP],
     # order2, shifts, out, max_chunks, c, stream
     "sparkl_src_rows_from_order": [_VP, _VP, _VP, _I, _I, _VP],
-    # slots, ints, src, origin, out_f, out_i, max_chunks, dim, r_cumd, nf, c,
-    # stream
-    "sparkl_permute_slots": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
+    # slots, ints, src, origin, out_f, out_i, max_chunks, dim, r_cumd, stream
+    "sparkl_permute_slots": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     # gathered, gathered_i, target, out_f, out_i, max_chunks, k_src, nf, ni, c,
     # stream
     "sparkl_permute_chunks": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
@@ -156,15 +163,18 @@ def library():
             path, _ = build()
             lib = ctypes.CDLL(path)
             for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                # A prototype binds faster per call than a function with
+                # argtypes set (~0.1 µs an argument on the host).
+                _fns[name] = ctypes.CFUNCTYPE(ctypes.c_int, *argtypes)((name, lib))
             _lib = lib
         return _lib
 
 
 def check_tensor(name, t, dtype, shape, device):
     """Raise unless `t` is a contiguous tensor of this dtype, shape and device."""
+    if (isinstance(t, torch.Tensor) and t.dtype == dtype and t.shape == shape
+            and t.device == device and t.is_contiguous()):
+        return
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.dtype != dtype:
@@ -184,13 +194,24 @@ def route(device):
     raise NotImplementedError(f"no kernel route for device {device}")
 
 
+def raw_stream(index):
+    """The raw handle of the current CUDA stream on device `index` (a CUDA
+    graph's capture stream while one is captured)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def stream_ptr(device):
-    return torch.cuda.current_stream(device).cuda_stream
+    """raw_stream of a torch.device."""
+    return raw_stream(device.index)
 
 
 def launch(name, *args):
-    """Call the library's C launcher `name` (building the library on first
-    use); raise if the launch was refused."""
-    err = getattr(library(), name)(*args)
+    """Call the library's C launcher `name` (building and loading the
+    library on first use); raise if the launch was refused."""
+    fn = _fns.get(name)
+    if fn is None:
+        library()
+        fn = _fns[name]
+    err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")

@@ -27,7 +27,7 @@ import torch
 
 from sparkl_tpu_torch.core.grid import GridParams
 from sparkl_tpu_torch.core.params import DamageModel
-from sparkl_tpu_torch.cuda_build import check_tensor, launch, route, stream_ptr
+from sparkl_tpu_torch.cuda_build import check_tensor, launch, raw_stream, route, stream_ptr
 from sparkl_tpu_torch.math import cmat, linalg
 from sparkl_tpu_torch.math.kernel import inv_d as kernel_inv_d, quadratic_weights_1d
 from sparkl_tpu_torch.math.svd import svd_c
@@ -47,6 +47,8 @@ TAB_F = 12
 LAUNCHES = {"p2g_fused": 0, "merge_blocks": 0, "merge_scatter": 0, "g2p_fused": 0,
             "mass_p2g_fused": 0, "mass_g2p_fused": 0, "src_rows_from_order": 0,
             "permute_slots": 0, "eigen_pool_fused": 0, "permute_chunks": 0}
+
+_I32 = torch.int32
 
 # Rows of the packed eigen tensor: pos (d), m·psi_pos, m, eligible; row 7
 # of the candidate tensor flags "candidate == own chunk".
@@ -688,20 +690,32 @@ def src_rows_from_order_reference(order2, shifts):
 def src_rows_from_order(order2, shifts):
     """The source-row kernel (replaces sparkl_tpu/fused/kernels.py:
     src_rows_from_order, which returns [D, 1, C]): order2 [D, 2, C] i32,
-    shifts [D] i32 -> [D, C] i32, C = 128 (3D) or 64 (2D)."""
+    shifts [D] i32 -> [D, C] i32, C = 128 (3D) or 64 (2D). On the card
+    order2 must start on a 16-byte boundary: the kernel reads it in int4s.
+
+    The kernel takes a few microseconds, less than the host takes to issue
+    it, so the common case (CUDA operands that pass every check) is tested
+    in one expression; anything else goes through check_tensor's raises."""
+    d_, two, c = order2.shape
+    if (order2.is_cuda and two == 2 and order2.dtype == _I32 and shifts.dtype == _I32
+            and shifts.shape == (d_,) and shifts.device == order2.device
+            and order2.is_contiguous() and shifts.is_contiguous() and (c == 64 or c == 128)):
+        ptr = order2.data_ptr()
+        if not ptr & 15:
+            out = order2.new_empty(d_, c)
+            launch("sparkl_src_rows_from_order", ptr, shifts.data_ptr(), out.data_ptr(), d_, c,
+                   raw_stream(order2.get_device()))
+            LAUNCHES["src_rows_from_order"] += 1
+            return out
     dev = order2.device
-    d_, _, c = order2.shape
     check_tensor("order2", order2, torch.int32, (d_, 2, c), dev)
     check_tensor("shifts", shifts, torch.int32, (d_,), dev)
-    if route(dev) == "cpu":
+    if not order2.is_cuda:
+        route(dev)
         return src_rows_from_order_reference(order2, shifts)
-    if c not in (64, 128):
+    if c != 64 and c != 128:
         raise NotImplementedError(f"chunk size {c}: the source-row kernel takes 64 or 128")
-    out = torch.empty((d_, c), dtype=torch.int32, device=dev)
-    launch("sparkl_src_rows_from_order", order2.data_ptr(), shifts.data_ptr(),
-           out.data_ptr(), d_, c, stream_ptr(dev))
-    LAUNCHES["src_rows_from_order"] += 1
-    return out
+    raise ValueError("order2: the source-row kernel needs a 16-byte aligned tensor")
 
 
 def permute_slots_reference(slots, ints, src, origin, r_cumd):
@@ -724,6 +738,10 @@ def permute_slots_reference(slots, ints, src, origin, r_cumd):
     return out_f, out_i
 
 
+# The permute kernel's instances: dim -> (NF, C).
+_PERMUTE_FORMS = {dim: (L.Rows(dim).nf, default_chunk_size(dim)) for dim in (2, 3)}
+
+
 def permute_slots(slots, ints, src, origin, r_cumd):
     """The permute kernel (replaces sparkl_tpu/fused/kernels.py:
     permute_chunks_dma): slots [D, NF, C] f32 (3D: NF 56, C 128; 2D: 40,
@@ -734,7 +752,7 @@ def permute_slots(slots, ints, src, origin, r_cumd):
     The TPU kernel takes the same permute as at most K = 8 whole source
     chunks per destination (DMA) and a per-lane routing among them (MXU),
     so its package computes that routing and falls back to a per-slot
-    gather past K. On the card each thread copies its own source slot, so
+    gather past K. On the card each lane copies its own source slot, so
     the kernel takes `src` directly and has no K limit."""
     dev = slots.device
     d_, nf, c = slots.shape
@@ -743,18 +761,20 @@ def permute_slots(slots, ints, src, origin, r_cumd):
     check_tensor("ints", ints, torch.int32, (d_, L.NI, c), dev)
     check_tensor("src", src, torch.int32, (d_, c), dev)
     check_tensor("origin", origin, torch.int32, (d_, dim), dev)
-    if route(dev) == "cpu":
+    if not slots.is_cuda:
+        route(dev)
         return permute_slots_reference(slots, ints, src, origin, r_cumd)
-    if dim not in (2, 3) or (nf, c) != (L.Rows(dim).nf, default_chunk_size(dim)):
+    if (nf, c) != _PERMUTE_FORMS.get(dim):
         raise NotImplementedError(f"slots {tuple(slots.shape)}, dim {dim}: the permute "
                                   "kernel takes slots [D, 56, 128] in 3D, [D, 40, 64] in 2D")
     out_f = torch.empty_like(slots)
     out_i = torch.empty_like(ints)
-    launch("sparkl_permute_slots", slots.data_ptr(), ints.data_ptr(),
-           src.data_ptr(), origin.data_ptr(), out_f.data_ptr(), out_i.data_ptr(),
-           d_, dim, int(r_cumd), nf, c, stream_ptr(dev))
+    launch("sparkl_permute_slots", slots.data_ptr(), ints.data_ptr(), src.data_ptr(),
+           origin.data_ptr(), out_f.data_ptr(), out_i.data_ptr(), d_, dim, int(r_cumd),
+           stream_ptr(dev))
     LAUNCHES["permute_slots"] += 1
     return out_f, out_i
+
 
 
 def permute_chunks_operands(slots, ints, src):

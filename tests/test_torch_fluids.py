@@ -48,7 +48,7 @@ from sparkl_tpu_torch.models import registry as treg
 from sparkl_tpu_torch.sparse import transfer as TT
 from sparkl_tpu_torch.sparse.blocks import BlockConfig
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 CFG = dict(max_blocks=64, max_chunks=32, chunk_size=128, max_grid_blocks=128)
 DT = 1.0e-3

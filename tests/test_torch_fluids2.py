@@ -44,7 +44,7 @@ from sparkl_tpu_torch.fused.structure import SlotStructure
 from sparkl_tpu_torch.models import constitutive as tcon
 from sparkl_tpu_torch.sparse.pipeline import SparseMpmPipeline
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 GOLD = json.load(open(os.path.join(os.path.dirname(__file__), "golden_scenes.json")))
 R2 = TL.Rows(2)

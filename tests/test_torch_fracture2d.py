@@ -54,7 +54,7 @@ from sparkl_tpu_torch.models import registry as treg
 from sparkl_tpu_torch.solver import dense as tdense
 from sparkl_tpu_torch.sparse.blocks import BlockConfig
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 jsvd = importlib.import_module("sparkl_tpu.math.svd")  # the package re-exports a function `svd`
 R2 = TL.Rows(2)

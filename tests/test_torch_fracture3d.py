@@ -15,6 +15,7 @@ seeds; the JAX kernels run in interpret mode, the port's through their
 plain versions. Each comparison states its tolerance.
 """
 
+import functools
 import importlib
 from dataclasses import fields
 from types import SimpleNamespace
@@ -53,7 +54,7 @@ from sparkl_tpu_torch.models import failure as tfail
 from sparkl_tpu_torch.models import plasticity as tplas
 from sparkl_tpu_torch.sparse.blocks import BlockConfig
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 jsvd = importlib.import_module("sparkl_tpu.math.svd")  # the package re-exports a function `svd`
 R3 = TL.Rows(3)
@@ -97,12 +98,20 @@ def _compare(pj, pt, msg=""):
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=1)
+def _jax_l_panel2():
+    """jscenes.build("l_panel2"), built once a process (its eager build
+    compiles an op per shape): the reduced scenes, the full one and
+    test_torch_sparse2d's cases take their rows from it."""
+    return jscenes.build("l_panel2")
+
+
 def _jax_panels(scale, layers=None):
     """l_panel2's particle rows (JAX build) inside the panel polygon scaled
     by `scale` about each panel's origin, as particles: 2D with `layers`
     None, else extruded into `layers` layers at z = (2k + 1) h/4. Returns
     (particles, h, origins, z_top)."""
-    b2 = jscenes.build("l_panel2")
+    b2 = _jax_l_panel2()
     h = b2.grid.cell_width
     r = h / 4.0
     gs = h * 40.0
@@ -136,7 +145,8 @@ def _jax_models():
     ])
 
 
-def jax_l_panel3(damage="eigenerosion", scale=1.0, layers=chip_smoke.LPANEL3_LAYERS):
+def jax_l_panel3(damage="eigenerosion", scale=1.0, layers=chip_smoke.LPANEL3_LAYERS,
+                 load_speed=chip_smoke.LPANEL_LOAD_SPEED):
     """chip_smoke.l_panel3's configuration built with the JAX package's
     API: (grid, models, colliders, particles, params, gravity, hooks)."""
     particles, h, origins, z_top = _jax_panels(scale, layers)
@@ -146,7 +156,7 @@ def jax_l_panel3(damage="eigenerosion", scale=1.0, layers=chip_smoke.LPANEL3_LAY
     planes = [k * h for k in range(int(round(z_top / h)) + 1)]
     load = [(ox + 0.47 * scale, oy + 0.25 * scale) for ox, oy in origins]
     hooks = JHook(points=[[x, y, z] for x, y in load for z in planes],
-                  velocities=[[0.0, 0.1, 0.0]] * (len(load) * len(planes)))
+                  velocities=[[0.0, load_speed, 0.0]] * (len(load) * len(planes)))
     dm = JDM.MODIFIED_EIGENEROSION if damage == "modified" else JDM.EIGENEROSION
     params = JParams(dt=1.0 / 6000.0, boundary_handling=JBH.STICK, damage_model=dm)
     return grid, _jax_models(), colliders, particles, params, (0.0, 0.0, 0.0), hooks
@@ -195,8 +205,11 @@ def small():
 
 @pytest.fixture(scope="module")
 def full():
-    """l_panel3 at full size (600,000 particles) from both packages."""
-    return SimpleNamespace(j=jax_l_panel3(), tb=chip_smoke.l_panel3(device="cpu"))
+    """l_panel3 at full size (600,000 particles) from both packages, with
+    the full-size paths' load speed."""
+    speed = chip_smoke.LPANEL3_LOAD_SPEED
+    return SimpleNamespace(j=jax_l_panel3(load_speed=speed),
+                           tb=chip_smoke.l_panel3(device="cpu", load_speed=speed))
 
 
 # ---------------------------------------------------------------------------
@@ -397,7 +410,7 @@ def _pipelines_2d_modified():
     """The reduced 2D panels under modified eigenerosion: (JAX pipeline,
     port pipeline, JAX pack), CFG2."""
     p, h, origins, _ = _jax_panels(SMALL)
-    b2 = jscenes.build("l_panel2")
+    b2 = _jax_l_panel2()
     load = [(ox + 0.47 * SMALL, oy + 0.25 * SMALL) for ox, oy in origins]
     hooks = JHook(points=load, velocities=[[0.0, 0.1]] * 2)
     params = JParams(dt=b2.params.dt, boundary_handling=JBH.STICK,

@@ -26,7 +26,7 @@ from sparkl_tpu_torch.fused import kernels as TK
 from sparkl_tpu_torch.fused import layout as TL
 from sparkl_tpu_torch.sparse.blocks import BlockConfig
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 CFG = dict(max_blocks=64, max_chunks=32, chunk_size=128, max_grid_blocks=128)
 DT = 1.0e-3
@@ -98,23 +98,81 @@ def test_merge_blocks_reference_bit_equal_to_pallas(state):
     assert int(t["nblk"].max()) > 1  # some block sums several chunks
 
 
-def test_src_rows_from_order_reference_matches_pallas(state):
+@pytest.mark.parametrize("c", [64, 128])
+def test_src_rows_from_order_reference_matches_pallas(state, c):
+    """At both chunk sizes (2D and 3D), on slices at shifts 0, 1 and C - 1,
+    whole rows, and the last chunk clamped to the last row (both operand
+    rows the last: source_order_rows clamps a start past D·C - C), among
+    random slices of a random order."""
     _, pipe, _, _ = state
-    d_, c = CFG["max_chunks"], CFG["chunk_size"]
-    rng = np.random.default_rng(10)
+    d_ = CFG["max_chunks"]
+    rng = np.random.default_rng(10 + c)
     order = rng.permutation(d_ * c).astype(np.int32).reshape(d_, c)
     start = rng.integers(0, d_ * c - c + 1, size=d_).astype(np.int32)
-    start[:3] = [0, c, d_ * c - c]  # whole rows, and the last row alone
+    start[:6] = [0, 1, c - 1, c, d_ * c - c, d_ * c - 1]
+    start = np.minimum(start, d_ * c - c)  # the clamp of source_order_rows
     r0 = start // c
     order2 = order[np.stack([r0, np.minimum(r0 + 1, d_ - 1)], axis=1)]  # [D, 2, C]
+    shifts = start % c
+    assert {0, 1, c - 1} <= set(shifts.tolist()) and (r0 == d_ - 1).sum() >= 2
     out_j = np.asarray(JK.src_rows_from_order(
-        pipe._cfg, jnp.asarray(order2), jnp.asarray(start % c), interpret=True))[:, 0, :]
+        pipe._cfg, jnp.asarray(order2), jnp.asarray(shifts), interpret=True))[:, 0, :]
     TK.reset_launch_counts()
-    out_t = TK.src_rows_from_order(torch.tensor(order2), torch.tensor(start % c)).numpy()
+    out_t = TK.src_rows_from_order(torch.tensor(order2), torch.tensor(shifts)).numpy()
     assert TK.LAUNCHES["src_rows_from_order"] == 0
     # Integer slot indices: exact, and equal to the slice of the flat order.
     np.testing.assert_array_equal(out_t, out_j)
     np.testing.assert_array_equal(out_t, order.reshape(-1)[start[:, None] + np.arange(c)])
+
+
+def _resort_args(d_=8, dim=2):
+    """Valid CPU operands of the two resort wrappers: (src_rows_from_order's,
+    permute_slots')."""
+    c, nf = (64, TL.Rows(2).nf) if dim == 2 else (128, TL.Rows(3).nf)
+    order2 = torch.arange(d_ * 2 * c, dtype=torch.int32).reshape(d_, 2, c)
+    shifts = torch.arange(d_, dtype=torch.int32) % c
+    slots = torch.arange(d_ * nf * c, dtype=torch.float32).reshape(d_, nf, c)
+    ints = torch.arange(d_ * TL.NI * c, dtype=torch.int32).reshape(d_, TL.NI, c)
+    src = torch.arange(d_ * c, dtype=torch.int32).flip(0).reshape(d_, c)
+    origin = torch.zeros((d_, dim), dtype=torch.int32)
+    return [order2, shifts], [slots, ints, src, origin, TL.Rows(dim).cumd]
+
+
+def _faulty(t, fault):
+    """`t` with one fault: another dtype, shape or device, or not contiguous
+    (same shape and dtype)."""
+    if fault == "dtype":
+        return t.double() if t.is_floating_point() else t.long()
+    if fault == "shape":
+        return torch.cat([t, t[:1]])
+    if fault == "device":
+        return t.to("meta")
+    return torch.stack([t, t], dim=-1)[..., 0]
+
+
+@pytest.mark.parametrize("fault", ["dtype", "shape", "device", "contiguous"])
+@pytest.mark.parametrize("wrapper,arg", [("src_rows_from_order", 1), ("permute_slots", 0),
+                                         ("permute_slots", 2), ("permute_slots", 3)])
+def test_resort_wrappers_check_arguments(wrapper, arg, fault):
+    """The two resort wrappers (after their launch path was made cheaper)
+    still raise on an operand of another dtype (TypeError), shape, device or
+    a non-contiguous one (ValueError), and on the CPU run their plain
+    versions and count no launch."""
+    fn = getattr(TK, wrapper)
+    args = _resort_args()[wrapper == "permute_slots"]
+    TK.reset_launch_counts()
+    ok = fn(*args)
+    plain = getattr(TK, wrapper + "_reference")(*args)
+    for a, b in zip(ok if isinstance(ok, tuple) else (ok,),
+                    plain if isinstance(plain, tuple) else (plain,)):
+        assert torch.equal(a, b)
+    bad = list(args)
+    bad[arg] = _faulty(args[arg], fault)
+    if fault == "contiguous":
+        assert not bad[arg].is_contiguous() and bad[arg].shape == args[arg].shape
+    with pytest.raises(TypeError if fault == "dtype" else ValueError):
+        fn(*bad)
+    assert TK.LAUNCHES[wrapper] == 0
 
 
 def _dma_routing(src, valid, k_src=8):

@@ -59,7 +59,7 @@ from sparkl_tpu_torch.models import registry as treg
 from sparkl_tpu_torch.sparse.blocks import BlockConfig
 from sparkl_tpu_torch.sparse.pipeline import SparseMpmPipeline
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 TIE = 1e-5
 DT = 1e-4

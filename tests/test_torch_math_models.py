@@ -40,7 +40,7 @@ from sparkl_tpu_torch.geometry import colliders as tcol
 from sparkl_tpu_torch.solver import dense as tdense
 from sparkl_tpu_torch.fused import layout as TL
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 E, NU = 1.0e7, 0.2

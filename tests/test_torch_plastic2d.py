@@ -50,7 +50,7 @@ from sparkl_tpu_torch.models import registry as treg
 from sparkl_tpu_torch.sparse.blocks import BlockConfig
 from sparkl_tpu_torch.sparse.pipeline import SparseMpmPipeline
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 GOLD = json.load(open(os.path.join(os.path.dirname(__file__), "golden_scenes.json")))
 R2 = TL.Rows(2)

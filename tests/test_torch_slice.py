@@ -26,7 +26,7 @@ from sparkl_tpu_torch.geometry.colliders import heightfield
 from sparkl_tpu_torch.models import registry as treg
 from sparkl_tpu_torch.sparse.blocks import BlockConfig
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 CFG = dict(max_blocks=64, max_chunks=32, chunk_size=128, max_grid_blocks=128)
 GOLD = json.load(open(os.path.join(os.path.dirname(__file__), "golden_scenes.json")))

@@ -51,7 +51,7 @@ from sparkl_tpu_torch.sparse import blocks as TB
 from sparkl_tpu_torch.sparse import transfer as TT
 from sparkl_tpu_torch.sparse.pipeline import SparseMpmPipeline
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 # Capacities that fit sand3 at nx=8 (8 blocks, 8 chunks at rest; the
 # kernels' inputs keep 2 padding chunks) and at nx=12 (the golden's 19

@@ -64,7 +64,7 @@ from test_torch_fluids import _blob
 from test_torch_fracture2d import _port_models, _port_particles, _small_scene
 from test_torch_fracture3d import jax_l_panel3
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 GOLD = json.load(open(os.path.join(os.path.dirname(__file__), "golden_scenes.json")))
 # Trip decisions may differ only where the decided quantity lies within

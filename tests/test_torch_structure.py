@@ -30,7 +30,7 @@ from sparkl_tpu_torch.fused import layout as TL
 from sparkl_tpu_torch.fused import structure as TS
 from sparkl_tpu_torch.sparse.blocks import BlockConfig
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 CFG = dict(max_blocks=64, max_chunks=32, chunk_size=128, max_grid_blocks=128)
 
