@@ -32,11 +32,13 @@ Phases (one line each, longer logs under chiprun_out/):
   3. the substep kernels against their plain versions on the card, at the
      main path's shapes (sand3 at nx=100, ny=50, nz=100: ~1.02M particles),
      with times, the scatter merge bit-equal to its plain version and to a
-     second launch; and a small sand3 frame on the card against the port's
-     CPU path;
+     second launch, kernel A bit-equal to its plain version run on the CPU
+     on 256 live chunks (and its hits per CTA); and a small sand3 frame on
+     the card against the port's CPU path;
   4. the main path: FusedMpmPipeline.pack_state -> 15 frames of
      run_frames_state -> unpack_state, with the kernels' launch counts
-     held against the substeps and the resort branches taken;
+     held against the substeps and the resort branches taken; then one
+     more frame under torch.profiler (chiprun_out/sand3_profile.txt);
   5. after the main path: the resort kernels against their plain versions
      on the state the main path's first resort started from, that whole
      resort on the card against the same resort of a CPU copy, the older
@@ -60,7 +62,9 @@ Phases (one line each, longer logs under chiprun_out/):
      fluid branches, the scatter merge on both kinds of images) against
      their plain versions on the card, on the packed state of fluids3 with
      each axis of its particle counts x4 (972,800 particles) after its
-     first volume pass, with times;
+     first volume pass, with times; kernel A's mass channel bit-equal to
+     its plain version run on the CPU (its momentum channels take the EOS
+     stress through expf and logf);
  10. the fluid main path: pack_state -> 30 frames of run_frames_state
      (through a lazy resort) -> unpack_state, launch counts against the
      substeps, mass conservation, one profiled frame (written to
@@ -72,7 +76,10 @@ Phases (one line each, longer logs under chiprun_out/):
  12. l_panel2's kernels against their plain versions, at the reference
      settings (60,000 particles) and at cell width 0.0025 (240,000), on the
      path's state 20 substeps in, with times: the eigenerosion pooling (and
-     on a perturbed state whose crack energies straddle the threshold),
+     on a perturbed state whose crack energies straddle the threshold; its
+     box kernel equal to its plain version, and the chunks its cull skips,
+     the candidates it keeps and the pair tests it runs, counted by the
+     kernel and equal to the plain cull's),
      kernels A and B in their 2D damage forms and the merge at C = 64
      (kernel B also on a state with F perturbed so that maximum stress
      trips), and the resort's source-row and permute kernels (and
@@ -96,6 +103,7 @@ Phases (one line each, longer logs under chiprun_out/):
      maximum-stress branches on basic2, each 20 substeps in and with F
      perturbed so that every Rankine case, both Snow clamps,
      Drucker-Prager flow and maximum-stress trips occur (lanes counted);
+     elasticity2's kernel A bit-equal to its plain version run on the CPU;
      then, timed, a 250,000-particle block under basic2's models, also in
      the cache-on form and under Drucker-Prager alone (the one-SVD path);
  16. the two plastic main paths: scenes.build -> auto_pipeline ->
@@ -127,7 +135,8 @@ Phases (one line each, longer logs under chiprun_out/):
      (as in 17, with the volume pass);
  22. the 3D damage forms against their plain versions at l_panel3's full
      size, 20 substeps in: the 3D pooling (C = 128, 108 candidate chunks;
-     also on a perturbed state where eigenerosion trips), kernel A's 3D
+     also on a perturbed state where eigenerosion trips; its cull counted
+     as in 12), kernel A's 3D
      fresh-stress form with the psi channels and kernel B's 3D
      maximum-stress trip (also with F perturbed so that it trips), kernel
      B's crack-energy trip of modified eigenerosion on l_panel3-modified
@@ -194,7 +203,7 @@ Phases (one line each, longer logs under chiprun_out/):
      and each chain instance's registers and spill from ptxas;
  34. a JSON line of per-kernel results (the 2D fluid forms of kernels A
      and B and the mass kernels under "fluids2"; the 3D damage forms of A,
-     B and the pooling under "l_panel3", B's crack-energy trip under
+     B, the pooling and its box kernel under "l_panel3", B's crack-energy trip under
      "l_panel3-modified" and "l_panel2-modified"; A and B's material forms
      under "materials3", "materials3-failure", "materials2" and
      "materials2-failure"; the window kernels' 2D forms under "sparse2d"
@@ -237,6 +246,8 @@ REPLACES = {
     # XLA glue, not a TPU kernel: the scatter-add merge.
     "merge_scatter": "sparkl_tpu/sparse/transfer.py:237",
     "eigen_pool_fused": "sparkl_tpu/fused/kernels.py:851",
+    # The pooling's lane-group boxes, the first of its launcher's two kernels.
+    "eigen_boxes": "sparkl_tpu/fused/kernels.py:851",
     "permute_chunks": "sparkl_tpu/fused/kernels.py:1156",
     "vreg_chain": "scripts/vreg_probe.py:47",
     "layout_read": "scripts/layout_probe.py:23",
@@ -247,6 +258,7 @@ PATH_OF = dict.fromkeys(("p2g_fused", "merge_blocks", "g2p_fused", "src_rows_fro
                          "permute_slots"), "fused")
 PATH_OF.update(p2g_windows="sparse", g2p_windows="sparse", mass_p2g_fused="fluid",
                mass_g2p_fused="fluid", merge_scatter="fluid", eigen_pool_fused="fracture",
+               eigen_boxes="fracture",
                permute_chunks=None, vreg_chain=None, layout_read=None, layout_rw=None)
 # permute_chunks is on no path: no path of the JAX package calls it (its
 # one caller is tests/test_lowering.py), and the port's resort permutes with
@@ -399,6 +411,9 @@ EXP_CHAIN_ULPS = 4
 EXP_STEP_FLOPS = 4
 # Tolerances of the kernel-vs-plain checks (the plain versions run on the
 # same card on the same tensors); p2g_errors and g2p_errors state each one.
+# Kernel A is also held to its plain version run on the CPU, on this many
+# live chunks of a state (p2g_cpu_bits).
+P2G_CPU_CHUNKS = 256
 
 
 class SmokeError(RuntimeError):
@@ -474,6 +489,54 @@ def p2g_errors(img_k, img_p):
         bound = 2e-5 * img_p[:, c].abs().max() + 1e-5 * img_p[:, c].abs()
         out.append(((d / bound.clamp(min=1e-30)).max().item(), d.max().item()))
     return out
+
+
+def p2g_cpu_bits(grid, meta, slots, ints, dt, nchunks, tables, img_k, label, phase,
+                 need=None):
+    """Kernel A's images against its plain version run on the CPU, on
+    P2G_CPU_CHUNKS live chunks spread over the state: the plain version
+    scatters lane-major, so each cell sums its slots in the kernel's order,
+    and where the stress is formed alike (the cache read; not expf, logf or
+    acosf) the images agree to the bit (±0 alike). `need`: the channels
+    that must agree to the bit (all by default). Returns {channel_equal
+    (per channel), cells_differ, max_abs_err, chunks}."""
+    import torch
+    from sparkl_tpu_torch.fused import kernels as K
+
+    live = int(nchunks)
+    idx = torch.linspace(0, live - 1, min(P2G_CPU_CHUNKS, live)).round().long().unique()
+    cpu = torch.device("cpu")
+    ref = K.p2g_fused_reference(
+        grid, slots[idx].to(cpu), ints[idx].to(cpu), dt,
+        torch.tensor(len(idx), dtype=torch.int32), tables=tuple(x.to(cpu) for x in tables),
+        stress_cache=bool(meta["stress_cache"]), with_psi=bool(meta["with_psi"]))
+    got = img_k[idx.to(img_k.device)].to(cpu)
+    eq = got == ref
+    res = dict(channel_equal=[bool(eq[:, c].all()) for c in range(eq.shape[1])],
+               cells_differ=int((~eq).sum()), max_abs_err=(got - ref).abs().max().item(),
+               chunks=len(idx))
+    need = range(eq.shape[1]) if need is None else need
+    say(phase, f"p2g_fused ({label}) against its plain version on the CPU, {len(idx)} live "
+               f"chunks: equal per channel {res['channel_equal']} (channels {list(need)} "
+               f"held to the bit), cells differing {res['cells_differ']} of {eq.numel()}, "
+               f"max|err| {res['max_abs_err']:.3e}")
+    require(all(res["channel_equal"][c] for c in need),
+            f"p2g_fused ({label}) is not bit-equal to its plain version on the CPU")
+    return res
+
+
+def a_hits(grid, state):
+    """Kernel A's hits per CTA on `state`: 3^d a contributing slot (active,
+    in its window and in the grid), over the live chunks: (mean, max)."""
+    from sparkl_tpu_torch.fused import kernels as K
+    from sparkl_tpu_torch.fused import layout as L
+
+    live = int(state.structure.num_chunks)
+    slots, ints = state.slots[:live], state.ints[:live]
+    _, _, _, in_window, in_bounds = K._slot_geometry(grid, slots, ints)
+    contrib = ((ints[:, L.I_FLAGS, :] & L.ACTIVE) != 0) & in_window & in_bounds
+    hits = contrib.sum(dim=1) * 3**grid.dim
+    return hits.double().mean().item(), int(hits.max())
 
 
 def g2p_errors(out_k, out_p, ints, cparams, cell_width, skip_dtb=None, skip_rows=(),
@@ -588,9 +651,15 @@ def phase_kernels(pipe, state, dt):
     failures = []
     if not (all(m <= 1.0 for m, _ in per_ch) and torch.isfinite(img_k).all().item()):
         failures.append("p2g_fused disagrees with its plain version")
+    # The cache read: every channel bit-equal to the plain version on the CPU.
+    res["p2g_fused"]["cpu"] = p2g_cpu_bits(grid, pipe._meta, state.slots, state.ints, dt,
+                                           nchunks, tables, img_k, "sand3@1M", 3)
+    res["p2g_fused"]["hits_per_cta"] = a_hits(grid, state)
     res["p2g_fused"]["ms"] = median_ms(
         lambda: K.p2g_fused(grid, cfg, pipe._meta, state.slots, state.ints, dt, nchunks,
                             tables))
+    add_split(res["p2g_fused"], lambda: K.p2g_fused(grid, cfg, pipe._meta, state.slots,
+                                                    state.ints, dt, nchunks, tables))
     res["p2g_fused"]["plain_ms"] = median_ms(
         lambda: K.p2g_fused_reference(grid, state.slots, state.ints, dt, nchunks, tables), reps=5)
 
@@ -647,10 +716,12 @@ def phase_kernels(pipe, state, dt):
         v["bytes"], v["flops"] = traffic[name], flops[name]
         v["bound_ms"], v["bound_by"] = bound(v["bytes"], v["flops"])
         v.setdefault("library_ms", None)
+        hits = (f"; hits per CTA mean {v['hits_per_cta'][0]:.1f}, max {v['hits_per_cta'][1]}"
+                if "hits_per_cta" in v else "")
         say(3, f"{name}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, library "
                f"{v['library_ms']} ms (batched medians); {traffic[name] / 1e9:.4f} GB counted from "
                f"shapes = {traffic[name] / v['ms'] / 1e6:.1f} GB/s; bound {v['bound_ms']:.4f} ms "
-               f"({v['bound_by']}){split_text(v)}")
+               f"({v['bound_by']}){split_text(v)}{hits}")
     return res
 
 
@@ -1399,6 +1470,12 @@ def phase_fluid_kernels(pipe, state, dt, label, phase, timed):
                                  rel_err=g_err / max(g_scale, 1e-30))
     res["p2g_fused"] = dict(max_abs_err=max(e for _, e in a_err),
                             over_bound=max(m for m, _ in a_err))
+    if timed and dim == 3:
+        # The EOS stress goes through expf and logf, which the card and the
+        # CPU round apart: the mass channel is held to the bit, the
+        # momentum channels to p2g_errors's bound.
+        res["p2g_fused"]["cpu"] = p2g_cpu_bits(grid, pipe._meta, sl, ints, dt, nch, tables,
+                                               a_k, label, phase, need=(0,))
     say(phase, f"fluid kernels on the {label} state: mass_p2g_fused max|err| {m_err[1]:.3e} "
                f"({m_err[0]:.2e} of its bound; bit-equal {res['mass_p2g_fused']['bit_equal']}, "
                f"to the plain version on the CPU "
@@ -1560,7 +1637,8 @@ def phase_fluid_main(b):
                   g2p_fused=substeps, mass_p2g_fused=substeps + resorts,
                   mass_g2p_fused=substeps + resorts,
                   src_rows_from_order=resorts - branches["relabel"],
-                  permute_slots=branches["mixed"], eigen_pool_fused=0, permute_chunks=0)
+                  permute_slots=branches["mixed"], eigen_pool_fused=0, eigen_boxes=0,
+                  permute_chunks=0)
     require(launches == expect, f"fluid path launch counts {launches}, expected {expect}")
     com = p.position[act].mean(0).tolist()
     say(10, f"fluid path: centre of mass {[round(x, 4) for x in com]}")
@@ -1822,6 +1900,7 @@ def phase_plastic_kernels():
     from dataclasses import replace
     import torch
     import sparkl_tpu_torch.scenes as scenes
+    from sparkl_tpu_torch.fused import kernels as K
     from sparkl_tpu_torch.models import registry as reg
 
     out = {}
@@ -1835,6 +1914,14 @@ def phase_plastic_kernels():
                 f"{b.grid.res}, {PLASTIC_SUBSTEPS_IN} substeps in, dt {dt:.3e}, set-up "
                 f"{time.perf_counter() - t0:.1f} s")
         res = check_kernels_2d(pipe, state, dt, name, 15, timed=True)
+        # Kernel A against its plain version on the CPU: elasticity2's cache
+        # read to the bit; basic2's fresh stress (the 2x2 SVD) reported.
+        img = K.p2g_fused(pipe.grid, pipe._cfg, pipe._meta, state.slots, state.ints, dt,
+                          state.structure.num_chunks, (pipe._tab_f, pipe._tab_i))
+        res["p2g_fused"]["cpu"] = p2g_cpu_bits(
+            pipe.grid, pipe._meta, state.slots, state.ints, dt, state.structure.num_chunks,
+            (pipe._tab_f, pipe._tab_i), img, name, 15,
+            need=None if name == "elasticity2" else ())
         pres = check_kernels_2d(pipe, perturbed_by_model(state, perturb[name]), dt,
                                 f"{name} perturbed-F", 15)
         res["g2p_fused"]["perturbed"] = pres["g2p_fused"]
@@ -2176,8 +2263,8 @@ def kernel_group(name):
     """A device kernel's group in a frame's split: the port's kernels by
     name, torch's by kind."""
     port = ("p2g_fused", "g2p_fused", "merge_blocks", "merge_scatter", "mass_p2g",
-            "mass_g2p", "eigen_pool", "src_rows", "permute_slots", "permute_chunks",
-            "p2g_windows", "g2p_windows")
+            "mass_g2p", "eigen_pool", "eigen_box", "src_rows", "permute_slots",
+            "permute_chunks", "p2g_windows", "g2p_windows")
     for k in port:
         if f"{k}_kernel" in name:
             return k
@@ -2490,9 +2577,16 @@ def check_eigen(pipe, state, label, phase, timed=False):
     mask (the distance tests round alike), sums of non-negative terms in
     other orders within 2e-6 relative, bit-equal to a second launch; the
     eigenerosion trips each pool gives equal but on lanes whose energy
-    lies within TIE of the threshold (counted). With `timed`, times, the
+    lies within TIE of the threshold (counted). Its box kernel equal to
+    the boxes' plain version, and the work the kernel's cull leaves
+    (chunks skipped, candidates kept, pair tests run; its own counters)
+    equal to the plain cull's (eigen_pool_work). With `timed`, times, the
     library yardstick (torch.cdist and a masked torch.bmm over the same
-    candidate tiles) and the bound. 3D or 2D."""
+    candidate tiles) and the bound: the bytes, or the operations of the
+    pair tests the cull leaves and of the boxes, the larger (beside it the
+    bound had every eligible lane tested all its candidates' lanes,
+    all_pairs_bound_ms); and the box kernel's times and bound under
+    res["boxes"]. 3D or 2D."""
     import torch
     from sparkl_tpu_torch.fused import kernels as K
     from sparkl_tpu_torch.fused import layout as L
@@ -2528,10 +2622,33 @@ def check_eigen(pipe, state, label, phase, timed=False):
     require(same_mask and rel <= 2e-6 and res["bit_equal_relaunch"]
             and not bool((differ & ~tie).any()),
             f"eigen_pool_fused disagrees with its plain version on the {label} state")
-    if not timed:
-        return res
+    # The cull: the box kernel against its plain version, and the kernel's
+    # work counters against the plain cull's.
+    boxes_k = K.eigen_boxes(grid, cfg, e)
+    boxes_p = K.eigen_boxes_reference(e, dim)
+    counters = torch.zeros(3, dtype=torch.int64, device=e.device)
+    K.eigen_pool_fused(grid, cfg, e, cand, work=counters)
+    work = dict(zip(("skipped", "kept", "tests"), counters.tolist()))
+    plain_work = K.eigen_pool_work(grid, e, cand)
     d_, kn = cand.shape
     c = cfg.chunk_size
+    live = int(state.structure.num_chunks)
+    valid = (cand < d_).sum(dim=1)
+    res["pairs"] = int((elig.sum(dim=1) * valid).sum()) * c
+    res["work"] = work
+    res["boxes"] = dict(max_abs_err=torch.where(boxes_k == boxes_p, 0.0,
+                                                (boxes_k - boxes_p).abs()).max().item(),
+                        equal=torch.equal(boxes_k, boxes_p))
+    say(phase, f"eigen_pool_fused's cull on the {label} state: chunks skipped {work['skipped']} "
+               f"of {d_} ({live} live), candidates kept {work['kept']} of {int(valid.sum())}, "
+               f"pair tests {work['tests']} of {res['pairs']} "
+               f"({work['tests'] / max(res['pairs'], 1):.3f}); equal to the plain cull's "
+               f"{work == plain_work}; eigen_boxes equal to its plain version "
+               f"{res['boxes']['equal']}")
+    require(res["boxes"]["equal"] and work == plain_work,
+            f"the pooling's cull disagrees with its plain version on the {label} state")
+    if not timed:
+        return res
     own = e[:, 0:dim].transpose(1, 2).contiguous()  # [D, C, d]
     cpos = g[:, :, 0:dim, :].permute(0, 1, 3, 2).reshape(d_, kn * c, dim)
     vals = g[:, :, dim : dim + 2, :].permute(0, 1, 3, 2).reshape(d_, kn * c, 2)
@@ -2565,18 +2682,33 @@ def check_eigen(pipe, state, label, phase, timed=False):
     # In 3D the library call takes ~0.3 s: its split is not taken.
     add_split(res, lambda: K.eigen_pool_fused(grid, cfg, e, cand),
               library if dim == 2 else None)
-    live = int(state.structure.num_chunks)
-    valid = (cand < d_).sum(dim=1)
-    res["pairs"] = int((elig.sum(dim=1) * valid).sum()) * c
     res["bytes"] = live * K.EIG_ROWS * c * 4 + d_ * kn * 4 + d_ * 2 * c * 4
-    res["flops"] = res["pairs"] * EIG_PAIR_FLOPS
+    # The work this run's data needs: the pair tests the exact cull leaves
+    # (the plain cull's count, equal to the kernel's) and the boxes.
+    res["flops"] = plain_work["tests"] * EIG_PAIR_FLOPS + live * c * 2 * dim
     res["bound_ms"], res["bound_by"] = bound(res["bytes"], res["flops"])
-    say(phase, f"eigen_pool_fused ({label}): kernel {res['ms']:.3f} ms, plain "
+    res["all_pairs_bound_ms"] = bound(res["bytes"], res["pairs"] * EIG_PAIR_FLOPS)[0]
+    res["byte_bound_ms"] = bound(res["bytes"], 0)[0]
+    say(phase, f"eigen_pool_fused ({label}): kernel {res['ms']:.4f} ms, plain "
                f"{res['plain_ms']:.3f} ms, library (cdist + masked bmm) {res['library_ms']:.3f} ms "
                f"(medians of 20 batches of 10, 5 and {reps} batches of {batch}; library "
-               f"max|diff| {lib_err:.2e}); "
-               f"{res['pairs']} pair tests; "
-               f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}){split_text(res)}")
+               f"max|diff| {lib_err:.2e}); {res['pairs']} pair tests of the eligible lanes, "
+               f"{plain_work['tests']} run; bound {res['bound_ms']:.4f} ms ({res['bound_by']}; "
+               f"the bytes alone {res['byte_bound_ms']:.4f} ms, all pairs tested "
+               f"{res['all_pairs_bound_ms']:.4f} ms){split_text(res)}")
+    # The box kernel alone: it reads the position and eligible rows of the
+    # live chunks and writes every chunk's boxes; 2 compares an axis a lane.
+    v = res["boxes"]
+    v["ms"] = median_ms(lambda: K.eigen_boxes(grid, cfg, e))
+    v["plain_ms"] = median_ms(lambda: K.eigen_boxes_reference(e, dim), reps=5)
+    v["library_ms"] = None
+    add_split(v, lambda: K.eigen_boxes(grid, cfg, e))
+    v["bytes"] = live * (dim + 1) * c * 4 + d_ * (c // K.EIG_GROUP) * K.EIG_BOX * 4
+    v["flops"] = live * c * 2 * dim
+    v["bound_ms"], v["bound_by"] = bound(v["bytes"], v["flops"])
+    say(phase, f"eigen_boxes ({label}): kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.3f} ms "
+               f"(batched medians); bound {v['bound_ms']:.4f} ms ({v['bound_by']})"
+               f"{split_text(v)}")
     return res
 
 
@@ -2602,6 +2734,7 @@ def phase_fracture_kernels():
                 f"{b.grid.res}, {FRACTURE_SUBSTEPS_IN} substeps in, dt {dt:.3e}, set-up "
                 f"{time.perf_counter() - t0:.1f} s")
         res = {"eigen_pool_fused": check_eigen(pipe, state, label, 12, timed=True)}
+        res["eigen_boxes"] = res["eigen_pool_fused"].pop("boxes")
         res["eigen_pool_fused"]["perturbed"] = check_eigen(
             pipe, perturbed_eigen(state, h), f"{label} perturbed", 12)
         res.update(check_kernels_2d(pipe, state, dt, label, 12, timed=True))
@@ -2842,6 +2975,10 @@ def check_kernels_3d(pipe, state, dt, label, phase, timed=False):
     require(not failures, f"{failures} disagree with their plain versions on the {label} state")
     if not timed:
         return res
+    # Kernel A's fresh stress (the cardano SVD) against the CPU: reported.
+    res["p2g_fused"]["cpu"] = p2g_cpu_bits(grid, meta, state.slots, state.ints, dt, nch, tables,
+                                           img_k, label, phase, need=())
+    res["p2g_fused"]["hits_per_cta"] = a_hits(grid, state)
     live_chunks, row = int(nch), 4 * cfg.chunk_size
     lanes = int(((state.ints[:, L.I_FLAGS, :] & L.ACTIVE) != 0).sum())
     n_win = windows.shape[1]
@@ -2869,13 +3006,16 @@ def check_kernels_3d(pipe, state, dt, label, phase, timed=False):
                       + B3_FAILURE_FLOPS))):
         v = res[name]
         v["ms"], v["plain_ms"] = median_ms(fn), median_ms(plain, reps=5)
+        add_split(v, fn)
         v["library_ms"] = None
         v["bytes"], v["flops"] = nbytes, flops
         v["bound_ms"], v["bound_by"] = bound(nbytes, flops)
-        say(phase, f"{name} (3D damage, {label}): kernel {v['ms']:.3f} ms, plain "
+        hits = (f"; hits per CTA mean {v['hits_per_cta'][0]:.1f}, max {v['hits_per_cta'][1]}"
+                if "hits_per_cta" in v else "")
+        say(phase, f"{name} (3D damage, {label}): kernel {v['ms']:.4f} ms, plain "
                    f"{v['plain_ms']:.3f} ms (batched medians); window channels {n_win}; "
                    f"{nbytes / 1e9:.4f} GB and {flops / 1e9:.4f} GFLOP counted; bound "
-                   f"{v['bound_ms']:.4f} ms ({v['bound_by']})")
+                   f"{v['bound_ms']:.4f} ms ({v['bound_by']}){split_text(v)}{hits}")
     return res
 
 
@@ -2905,6 +3045,7 @@ def phase_lpanel3_kernels():
         res = {}
         if damage == "eigenerosion":
             res["eigen_pool_fused"] = check_eigen(pipe, state, b.name, 22, timed=True)
+            res["eigen_boxes"] = res["eigen_pool_fused"].pop("boxes")
             res["eigen_pool_fused"]["perturbed"] = check_eigen(
                 pipe, perturbed_eigen(state, h), f"{b.name} perturbed", 22)
             require(res["eigen_pool_fused"]["perturbed"]["trips_kernel"] > 0,
@@ -3050,6 +3191,7 @@ def phase_damage_main(b, frames, timed_frames, phase, stats=None):
     expect = dict.fromkeys(K.LAUNCHES, 0)
     expect.update(p2g_fused=ran[0], g2p_fused=ran[0],
                   eigen_pool_fused=ran[0] if pipe._eigen else 0,
+                  eigen_boxes=ran[0] if pipe._eigen else 0,
                   src_rows_from_order=resorts - branches["relabel"],
                   permute_slots=branches["mixed"])
     expect[merge] = ran[0]
@@ -4493,13 +4635,16 @@ def main():
     expect = dict(p2g_fused=substeps, merge_blocks=substeps, merge_scatter=0,
                   g2p_fused=substeps, mass_p2g_fused=0, mass_g2p_fused=0,
                   src_rows_from_order=resorts - branches["relabel"],
-                  permute_slots=branches["mixed"], eigen_pool_fused=0, permute_chunks=0)
+                  permute_slots=branches["mixed"], eigen_pool_fused=0, eigen_boxes=0,
+                  permute_chunks=0)
     require(launches == expect, f"launch counts {launches}, expected {expect}")
     missing = [k for k in K.LAUNCHES if PATH_OF[k] == "fused" and launches[k] == 0]
     require(not missing, f"kernels the main path never launched: {missing}")
     com = p.position[act].mean(0).tolist()
     say(4, f"mass {mass:.6e} (initial {mass0:.6e}, deactivated {deact:.3e}); "
            f"centre of mass {[round(x, 4) for x in com]}")
+    # One more frame of the path, profiled (its launches are not counted).
+    state, fused_profile = profile_frame(pipe, state, "sand3_profile.txt", 4, "fused sand3@1M")
 
     # 5. After the main path: the resort kernels and the whole resort on the
     # state the first resort started from; kernel B with plastic flow.
@@ -4574,6 +4719,7 @@ def main():
     fracture_res = {"kernels": phase_fracture_kernels()}
     ref = fracture_res["kernels"]["reference"]
     kres["eigen_pool_fused"] = ref["eigen_pool_fused"]
+    kres["eigen_boxes"] = ref["eigen_boxes"]
 
     # 13. The l_panel2 main path; one profiled frame; on to the first
     # resort, and the candidates and the pooling after it.
@@ -4582,7 +4728,7 @@ def main():
     frstate, fracture_res["profile"] = profile_frame(frpipe, frstate, "fracture_profile.txt", 13,
                                                      "fracture")
     fracture_res["first_resort"] = phase_fracture_first_resort(frpipe, frstate)
-    missing = [k for k in ("eigen_pool_fused", "p2g_fused", "g2p_fused") if
+    missing = [k for k in ("eigen_pool_fused", "eigen_boxes", "p2g_fused", "g2p_fused") if
                fracture_launches[k] == 0]
     require(not missing, f"kernels the fracture path never launched: {missing}")
     del frpipe, frstate
@@ -4647,7 +4793,7 @@ def main():
     _, damage_res["profile"] = profile_frame(l3pipe, l3state, "lpanel3_profile.txt", 23,
                                              "l_panel3")
     del l3pipe, l3state
-    forms3 = ("p2g_fused", "g2p_fused", "eigen_pool_fused")
+    forms3 = ("p2g_fused", "g2p_fused", "eigen_pool_fused", "eigen_boxes")
     missing = [k for k in forms3 if lp3_launches[k] == 0]
     require(not missing, f"kernels the l_panel3 path never launched: {missing}")
     # The eigenerosion panel (model 0, no failure model: every phase 0 there
@@ -4668,7 +4814,7 @@ def main():
                             ("l_panel2-modified", l_panel2_modified(), 1)):
         mpipe, _, mod_launches[name], damage_res[name] = phase_damage_main(b, frames, 1, 25)
         require(mod_launches[name]["g2p_fused"] > 0 and
-                mod_launches[name]["eigen_pool_fused"] == 0,
+                mod_launches[name]["eigen_pool_fused"] == mod_launches[name]["eigen_boxes"] == 0,
                 f"{name}: kernel B not launched, or the pooling launched")
         del mpipe, b
 
@@ -4743,6 +4889,8 @@ def main():
     # launches, times on the block and on l_panel2 fine).
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "device_ms", "host_us", "library_device_ms", "library_host_us")
+    # The pooling's bound beside the bytes alone and all pairs tested.
+    extra = ("byte_bound_ms", "all_pairs_bound_ms")
     block = fluid2_res["kernels"]["fluids2 block"]
     dk = damage_res["kernels"]
     forms_of = {name: {} for name in REPLACES}
@@ -4751,7 +4899,9 @@ def main():
                                          **{k: block[name].get(k) for k in keys})
     for name in forms3:
         forms_of[name]["l_panel3"] = dict(launches=lp3_launches[name],
-                                          **{k: dk["l_panel3"][name].get(k) for k in keys})
+                                          **{k: dk["l_panel3"][name].get(k) for k in keys},
+                                          **{k: dk["l_panel3"][name][k] for k in extra
+                                             if k in dk["l_panel3"][name]})
     for label in ("l_panel3-modified", "l_panel2-modified"):
         forms_of["g2p_fused"][label] = dict(launches=mod_launches[label]["g2p_fused"],
                                             **{k: dk[label]["g2p_fused"].get(k) for k in keys})
@@ -4777,11 +4927,12 @@ def main():
         dict(name=name, route="cuda", source=source_of.get(name, FUSED_SOURCE),
              replaces=REPLACES[name], launches=launches[name],
              path=PATH_OF[name] or NO_PATH[name], **{k: kres[name].get(k) for k in keys},
-             **forms_of[name])
+             **{k: kres[name][k] for k in extra if k in kres[name]}, **forms_of[name])
         for name in REPLACES
     ]
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(dict(card=smi, kernels=kernels, launches_by_path=by_path, substeps=substeps,
+                       fused_profile=fused_profile,
                        resorts=resorts, timed_substeps=timed, seconds=seconds, pups=pups,
                        resort_branches=branches, resort_ms=resort_ms, peak_gib=peak_gib,
                        build_s=build_s, kernel_checks=kres, sparse=sparse_res,

@@ -1,6 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels of the fused substep.
 //
-// Ten kernels, each with a plain PyTorch version beside its wrapper in
+// Eleven kernels, each with a plain PyTorch version beside its wrapper in
 // sparkl_tpu_torch/fused/kernels.py:
 //
 //   p2g_fused_kernel  replaces sparkl_tpu/fused/kernels.py:p2g_fused
@@ -21,7 +21,8 @@
 //   permute_slots_kernel replaces sparkl_tpu/fused/kernels.py:
 //                     permute_chunks_dma (_permute_dma_kernel), resort permute;
 //   eigen_pool_kernel replaces sparkl_tpu/fused/kernels.py:eigen_pool_fused
-//                     (_eigen_pool_kernel), the eigenerosion pooling;
+//                     (_eigen_pool_kernel), the eigenerosion pooling, with
+//   eigen_box_kernel  its lane-group boxes (the same launcher runs both);
 //   permute_chunks_kernel replaces sparkl_tpu/fused/kernels.py:permute_chunks
 //                     (_permute_kernel), the older resort lane router, which
 //                     no path of either package calls.
@@ -246,18 +247,49 @@ __device__ __forceinline__ void quadratic_weights(float f, float w[3]) {
 // one branches per slot on the model's type, so mixed sets take the same
 // values.
 //
-// One C-thread CTA per chunk. Each thread prepares its slot's weights, tap
-// offsets and payload in shared memory; then each thread owns 8^d / C of
-// the window cells (4 in 3D, 1 in 2D) and sums every slot's contribution to
-// them in ascending lane order. No atomics, so the image is run-to-run
-// deterministic, like the JAX path. Cell order: z-major in 3D (rows (f, z),
-// lanes xy), row-major in 2D (rows (f, x), lanes y), the JAX kernel's.
-// Bound on this card: the owner loop is C slots x 8^d/C cells of
-// shared-memory broadcasts and compares per thread (~65k per CTA in 3D, 4k
-// in 2D), almost all of them misses of the 3^d footprint; the slot read is
-// coalesced. A faster design scatters each slot's taps (shared-memory
-// atomics, losing determinism) or sorts slots by cell first.
+// One C-thread CTA per chunk. Each thread prepares its slot's payload in
+// shared memory, and per axis its 3 taps' weights and offsets at their
+// window coordinates (rows of 8), so that the walk reads them at its
+// cell's own coordinates, with no read of the slot's base cell first.
+// Cell (x, y, z) is hit by the slots whose window-relative base cell (rel
+// in [0, 5]^d) lies in x-2..x, y-2..y, z-2..z, so its lane mask (C/64
+// words) is the AND of one mask per axis and coordinate, which warp
+// ballots build in the prologue (8·d ballots a warp; no atomics, and no
+// barrier but the prologue's own). In 3D the 4 cells a thread are handed
+// out by their hit counts (a counting sort, heaviest first), so that a
+// warp's 32 cells take about as many iterations (the assignment changes
+// no sum). Each thread then walks its cells' set bits in ascending lane
+// order and evaluates the
+// hit body of the JAX kernel's contraction for exactly those slots: every
+// cell is the same left fold over the same terms as a walk over all C
+// slots, so the image is run-to-run deterministic and bit-equal to the
+// plain version's lane-major scatter on the CPU. No float atomics. In 3D
+// the image is staged in shared memory (over the consumed slot arrays)
+// and written coalesced. Cell order: z-major in 3D (rows (f, z), lanes
+// xy), row-major in 2D (rows (f, x), lanes y), the JAX kernel's.
+// Bound on this card: instruction issue in the walk (27·C hits a CTA, a
+// warp paying for its busiest lane), then the slot prologue (coalesced
+// reads); in 2D on a small grid (one wave of CTAs) the latency of the
+// walk's iterations. Shared memory (ptxas): ~35 KB a CTA in 3D, ~11 KB in 2D.
 // ---------------------------------------------------------------------------
+// The slot arrays' rows hold slot s at s + s/32 (slot_col), and each row is
+// C + C/32 + 1 long: in the walk a warp's lanes read different slots, and
+// this spreads over the shared-memory banks the slots 32 apart and a
+// slot's rows, which would otherwise share one bank.
+__device__ __forceinline__ int slot_col(int s) { return s + (s >> 5); }
+
+template <int DIM, int C, int NCH>
+union P2GShared {
+  static constexpr int SC = C + C / 32 + 1;
+  struct {
+    float w[DIM][8][SC];    // per axis and window coordinate: the 3 taps' weights
+    float d[DIM][8][SC];    // and dpt = (tap cell - px) * h (the rest never read)
+    float p0[NCH][SC];      // m, m*v (, psi momentum, psi mass)
+    float a[DIM * DIM][SC];  // contrib * affine, row-major
+  } in;
+  float out[NCH * region_cells<DIM>()];  // the image, once the slots are consumed
+};
+
 template <int DIM, int C, bool PSI, bool MATS>
 __global__ void __launch_bounds__(C) p2g_fused_kernel(
     const float* __restrict__ slots, const int* __restrict__ ints,
@@ -275,11 +307,23 @@ __global__ void __launch_bounds__(C) p2g_fused_kernel(
     return;
   }
 
-  __shared__ int s_rel[DIM][C];
-  __shared__ float s_w[DIM][3][C];    // per axis, per tap
-  __shared__ float s_d[DIM][3][C];    // dpt = (tap cell - px) * h
-  __shared__ float s_p0[NCH][C];      // m, m*v (, psi momentum, psi mass)
-  __shared__ float s_a[DIM * DIM][C];  // contrib * affine, row-major
+  // Lane masks (C/64 words each): per axis and window coordinate v in
+  // 0..7, the contributing lanes whose base cell lies in v-2..v. With more
+  // cells than threads (3D) the cells are sorted by hit count and the image
+  // is staged; in 2D each thread owns one cell and writes it.
+  using Mask = unsigned long long;
+  constexpr int NW = C / 64;
+  constexpr int NPASS = RC / C;  // cells per thread
+  constexpr bool SORT = NPASS > 1;
+  __shared__ P2GShared<DIM, C, NCH> sh;
+  __shared__ Mask s_rng[DIM * 8 * NW];
+  __shared__ int s_bin[SORT ? C + 1 : 1];          // cells per hit count, then offsets
+  __shared__ unsigned short s_list[SORT ? RC : 1];  // cells, busiest first
+  auto& s_w = sh.in.w;
+  auto& s_d = sh.in.d;
+  auto& s_p0 = sh.in.p0;
+  auto& s_a = sh.in.a;
+  const int ts = slot_col(t);
 
   const float* S = slots + (size_t)chunk * R::NF * C;
   const int* I = ints + (size_t)chunk * NI * C;
@@ -336,45 +380,120 @@ __global__ void __launch_bounds__(C) p2g_fused_kernel(
   for (int i = 0; i < DIM; ++i)
     for (int j = 0; j < DIM; ++j) {
       float aff = mass * gv[i][j] - (failed ? 0.0f : coeff * stress[i][j]);
-      s_a[i * DIM + j][t] = contrib ? aff : 0.0f;  // an empty EOS lane's stress is NaN
+      s_a[i * DIM + j][ts] = contrib ? aff : 0.0f;  // an empty EOS lane's stress is NaN
     }
   const float m_c = mass * cf;
-  s_p0[0][t] = m_c;
-  for (int ax = 0; ax < DIM; ++ax) s_p0[1 + ax][t] = m_c * SROW(R::VEL + ax);
+  s_p0[0][ts] = m_c;
+  for (int ax = 0; ax < DIM; ++ax) s_p0[1 + ax][ts] = m_c * SROW(R::VEL + ax);
   if constexpr (PSI) {
     const bool cracks = phase > 0.0f && SROW(R::CPF) != 0.0f && !failed;
     const float psi_mass = cracks ? mass : 0.0f;
-    s_p0[DIM + 1][t] = psi_mass * SROW(R::PSI_POS) * cf;
-    s_p0[DIM + 2][t] = psi_mass * cf;
+    s_p0[DIM + 1][ts] = psi_mass * SROW(R::PSI_POS) * cf;
+    s_p0[DIM + 2][ts] = psi_mass * cf;
   }
   for (int ax = 0; ax < DIM; ++ax) {
     const float f = fx[ax];
     const float px = (float)rel[ax] + f;
     float w[3];
     quadratic_weights(f, w);
-    for (int k = 0; k < 3; ++k) {
-      s_w[ax][k][t] = w[k];
-      s_d[ax][k][t] = ((float)(rel[ax] + k) - px) * g.h;
-    }
-    // Non-contributing slots never match a cell (their payload is zero).
-    s_rel[ax][t] = contrib ? rel[ax] : -1000;
+    if (contrib)
+      for (int k = 0; k < 3; ++k) {
+        s_w[ax][rel[ax] + k][ts] = w[k];
+        s_d[ax][rel[ax] + k][ts] = ((float)(rel[ax] + k) - px) * g.h;
+      }
   }
 #undef SROW
+  {
+    // One ballot a warp per axis and v: the warp's 32 bits of the word,
+    // lane ax*8 + v stores them (word w holds warps 2w and 2w + 1).
+    unsigned keep = 0u;
+#pragma unroll
+    for (int ax = 0; ax < DIM; ++ax)
+#pragma unroll
+      for (int v = 0; v < 8; ++v) {
+        const unsigned b = __ballot_sync(0xffffffffu, contrib && (unsigned)(v - rel[ax]) <= 2u);
+        if ((t & 31) == ax * 8 + v) keep = b;
+      }
+    if ((t & 31) < DIM * 8) reinterpret_cast<unsigned*>(s_rng)[(t & 31) * (C / 32) + (t >> 5)] = keep;
+  }
+  if constexpr (SORT)
+    for (int i = t; i <= C; i += C) s_bin[i] = 0;
   __syncthreads();
+  // A cell's lane mask: the slots whose base lies in x-2..x, y-2..y (and
+  // z-2..z), the AND of its coordinates' masks.
+  auto cell_mask = [&](int q, Mask mk[NW]) {
+    const int x = DIM == 3 ? (q >> 3) & 7 : q >> 3, y = q & 7;
+    for (int w = 0; w < NW; ++w) {
+      mk[w] = s_rng[x * NW + w] & s_rng[(8 + y) * NW + w];
+      if constexpr (DIM == 3) mk[w] &= s_rng[(16 + (q >> 6)) * NW + w];
+    }
+  };
+  if constexpr (SORT) {
+    // Counting sort of the cells by hit count, busiest first: bin C - count.
+    int bin[NPASS];
+    for (int k = 0; k < NPASS; ++k) {
+      Mask mk[NW];
+      cell_mask(t + k * C, mk);
+      int n = 0;
+      for (int w = 0; w < NW; ++w) n += __popcll(mk[w]);
+      bin[k] = C - n;
+      atomicAdd(&s_bin[bin[k]], 1);
+    }
+    __syncthreads();
+    if (t < 32) {  // exclusive scan of the C + 1 bins, PER bins a lane
+      constexpr int PER = (C + 1 + 31) / 32;
+      int v[PER], sum = 0;
+      for (int i = 0; i < PER; ++i) {
+        const int j = t * PER + i;
+        v[i] = j <= C ? s_bin[j] : 0;
+        sum += v[i];
+      }
+      int incl = sum;
+      for (int off = 1; off < 32; off <<= 1) {
+        const int o = __shfl_up_sync(0xffffffffu, incl, off);
+        if (t >= off) incl += o;
+      }
+      int run = incl - sum;
+      for (int i = 0; i < PER; ++i) {
+        const int j = t * PER + i;
+        if (j <= C) s_bin[j] = run;
+        run += v[i];
+      }
+    }
+    __syncthreads();
+    for (int k = 0; k < NPASS; ++k)
+      s_list[atomicAdd(&s_bin[bin[k]], 1)] = (unsigned short)(t + k * C);
+    __syncthreads();
+  }
 
-  for (int k = 0; k < RC / C; ++k) {
-    const int q = t + k * C;
+  float res[NPASS][NCH];
+  int cell[NPASS];
+#pragma unroll
+  for (int k = 0; k < NPASS; ++k) {
+    const int q = SORT ? s_list[t + k * C] : t + k * C;
+    cell[k] = q;
+    Mask mk[NW];
+    cell_mask(q, mk);
+    const int x = DIM == 3 ? (q >> 3) & 7 : q >> 3, y = q & 7, z = q >> 6;
     float acc[NCH];
     for (int f = 0; f < NCH; ++f) acc[f] = 0.0f;
-    if constexpr (DIM == 3) {
-      const int z = q >> 6, x = (q >> 3) & 7, y = q & 7;
-      for (int s = 0; s < C; ++s) {
-        const unsigned a = (unsigned)(x - s_rel[0][s]);
-        const unsigned b = (unsigned)(y - s_rel[1][s]);
-        const unsigned c = (unsigned)(z - s_rel[2][s]);
-        if (a > 2u || b > 2u || c > 2u) continue;
-        const float wx = s_w[0][a][s], wy = s_w[1][b][s], wz = s_w[2][c][s];
-        const float dx = s_d[0][a][s], dy = s_d[1][b][s], dz = s_d[2][c][s];
+    while (true) {
+      // The lowest set lane: ascending lane order, as a walk over all slots.
+      static_assert(NW == 1 || NW == 2, "one or two mask words a cell");
+      int s;
+      if (mk[0] != 0ull) {
+        s = __ffsll(mk[0]) - 1;
+        mk[0] &= mk[0] - 1ull;
+      } else if (NW == 2 && mk[NW - 1] != 0ull) {
+        s = 63 + __ffsll(mk[NW - 1]);
+        mk[NW - 1] &= mk[NW - 1] - 1ull;
+      } else {
+        break;
+      }
+      s = slot_col(s);
+      if constexpr (DIM == 3) {
+        const float wx = s_w[0][x][s], wy = s_w[1][y][s], wz = s_w[2][z][s];
+        const float dx = s_d[0][x][s], dy = s_d[1][y][s], dz = s_d[2][z][s];
         const float wxy = wx * wy;
         const float wdx_y = (wx * dx) * wy;
         const float wx_dy = wx * (wy * dy);
@@ -385,15 +504,9 @@ __global__ void __launch_bounds__(C) p2g_fused_kernel(
                         (s_a[i * 3 + 0][s] * wz) * wdx_y + (s_a[i * 3 + 1][s] * wz) * wx_dy;
         }
         for (int f = 4; f < NCH; ++f) acc[f] += (s_p0[f][s] * wz) * wxy;
-      }
-    } else {
-      const int x = q >> 3, y = q & 7;
-      for (int s = 0; s < C; ++s) {
-        const unsigned a = (unsigned)(x - s_rel[0][s]);
-        const unsigned b = (unsigned)(y - s_rel[1][s]);
-        if (a > 2u || b > 2u) continue;
-        const float wx = s_w[0][a][s], wy = s_w[1][b][s];
-        const float wdx = wx * s_d[0][a][s], wdy = wy * s_d[1][b][s];
+      } else {
+        const float wx = s_w[0][x][s], wy = s_w[1][y][s];
+        const float wdx = wx * s_d[0][x][s], wdy = wy * s_d[1][y][s];
         acc[0] += (s_p0[0][s] * wx) * wy;
         // The affine x column rides the x taps, the y column the y taps,
         // as the JAX kernel's 2D contraction takes them.
@@ -403,8 +516,19 @@ __global__ void __launch_bounds__(C) p2g_fused_kernel(
         for (int f = 3; f < NCH; ++f) acc[f] += (s_p0[f][s] * wx) * wy;
       }
     }
-    for (int f = 0; f < NCH; ++f) img[f * RC + q] = acc[f];
+    for (int f = 0; f < NCH; ++f) res[k][f] = acc[f];
   }
+  if constexpr (!SORT) {
+    for (int k = 0; k < NPASS; ++k)
+      for (int f = 0; f < NCH; ++f) img[f * RC + cell[k]] = res[k][f];
+    return;
+  }
+  __syncthreads();  // the slot arrays are consumed: the image takes their place
+#pragma unroll
+  for (int k = 0; k < NPASS; ++k)
+    for (int f = 0; f < NCH; ++f) sh.out[f * RC + cell[k]] = res[k][f];
+  __syncthreads();
+  for (int e = t; e < NCH * RC; e += C) img[e] = sh.out[e];
 }
 
 // ---------------------------------------------------------------------------
@@ -1150,60 +1274,213 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
 // eligible; cand [D, KN], D for none; out [D, 2, C].
 //
 // The TPU kernel gets the candidates' rows gathered by XLA ([D, KN, 8, C])
-// and forms each [C, C] distance tile on the vector unit. Here one C-thread
-// CTA per chunk, one thread per own lane, reads e and the candidate ids
-// directly: each candidate chunk's position, m·psi, m and eligible rows go
-// to shared memory, and each thread walks its lanes in ascending order,
-// summing per candidate and then the candidates in ascending order (the
-// TPU kernel's loop order), so two runs are bit-equal. Bound on this card:
-// operations, KN·C distance tests per lane (~10 flops each), at C threads
-// per CTA; the bytes are each chunk's 8 rows and its candidates' d + 3.
+// and forms each [C, C] distance tile on the vector unit. Here two kernels
+// in one launcher call. eigen_box_kernel writes, per 32-lane group of every
+// chunk, the bounding box of its eligible lanes' positions (NaN positions
+// left out: they pair with nothing), [D, C/32, 8] (lo xyz·, hi xyz·;
+// +inf/-inf for none). eigen_pool_kernel runs one C-thread CTA per chunk,
+// one thread per own lane, and does only the work that can find a pair:
+//   - a chunk with no eligible lane writes zeros and stages nothing;
+//   - a candidate is kept only where some (own group, candidate group)
+//     pair of boxes lies within r2, and a warp tests only the candidate's
+//     groups near its own box. The box gap is formed per axis with the
+//     pair test's f32 operations in its order (candidate minus own, the
+//     square, the sum over axes); rounding is monotone, so the gap² is
+//     never more than any of the boxes' pairs' d2, and a culled group holds
+//     no pair: it would have added +0.0 (the sums never reach -0.0);
+//   - the kept candidates' d + 3 rows are staged by cp.async into two
+//     shared-memory stages, the next one loading while this one is tested.
+// Each thread walks its kept lanes in ascending order, summing per
+// candidate and then the candidates in ascending order (the TPU kernel's
+// loop order), so two runs are bit-equal and equal to the walk over every
+// candidate. With `work` set, it also counts (integer atomics) the chunks
+// skipped, the candidates kept and the pair tests run.
+// Bound on this card: operations, the pair tests of the kept groups (~10
+// flops each, at C threads per CTA); the bytes are each chunk's 8 rows,
+// the boxes and the kept candidates' d + 3 rows (from L2).
 // ---------------------------------------------------------------------------
+constexpr int EIG_ROWS = 8;
+constexpr int EIG_BOX = 8;  // floats per group box: lo x, y, z, 0, hi x, y, z, 0
+constexpr int EIG_BOX_WARPS = 4;
+
+template <int DIM, int C>
+__global__ void __launch_bounds__(32 * EIG_BOX_WARPS) eigen_box_kernel(
+    const float* __restrict__ e, float* __restrict__ boxes, int n_groups) {
+  constexpr int G = C / 32;
+  const int gid = blockIdx.x * EIG_BOX_WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (gid >= n_groups) return;
+  const float* E = e + (size_t)(gid / G) * EIG_ROWS * C + (gid % G) * 32 + lane;
+  const bool el = E[(DIM + 2) * C] != 0.0f;
+  float lo[DIM], hi[DIM];
+  for (int ax = 0; ax < DIM; ++ax) {
+    const float x = E[ax * C];
+    const bool ok = el && !isnan(x);
+    lo[ax] = ok ? x : INFINITY;
+    hi[ax] = ok ? x : -INFINITY;
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    for (int ax = 0; ax < DIM; ++ax) {
+      lo[ax] = fminf(lo[ax], __shfl_xor_sync(0xffffffffu, lo[ax], off));
+      hi[ax] = fmaxf(hi[ax], __shfl_xor_sync(0xffffffffu, hi[ax], off));
+    }
+  if (lane < EIG_BOX) {
+    const int ax = lane & 3;
+    float v = 0.0f;
+    for (int k = 0; k < DIM; ++k)
+      if (k == ax) v = lane < 4 ? lo[k] : hi[k];
+    boxes[(size_t)gid * EIG_BOX + lane] = v;
+  }
+}
+
+// Whether boxes `c` (candidate) and `o` (own) may hold a pair within r2:
+// the gap, candidate minus own per axis, squared and summed as the pair
+// test forms d2 (a NaN gap keeps the pair).
+template <int DIM>
+__device__ __forceinline__ bool boxes_near(const float* c, const float* o, float r2) {
+  float d2 = 0.0f;
+  for (int ax = 0; ax < DIM; ++ax) {
+    const float diff = c[ax] > o[4 + ax] ? c[ax] - o[4 + ax]
+                       : c[4 + ax] < o[ax] ? c[4 + ax] - o[ax]
+                                           : 0.0f;
+    d2 = ax == 0 ? diff * diff : d2 + diff * diff;
+  }
+  return !(d2 > r2);
+}
+
+__device__ __forceinline__ float f4(const float4& v, int u) {
+  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
 template <int DIM, int C>
 __global__ void __launch_bounds__(C) eigen_pool_kernel(const float* __restrict__ e,
                                                        const int* __restrict__ cand,
+                                                       const float* __restrict__ boxes,
                                                        float* __restrict__ out,
-                                                       int max_chunks, int kn, float r2) {
+                                                       int max_chunks, int kn, float r2,
+                                                       unsigned long long* __restrict__ work) {
+  constexpr int G = C / 32;     // lane groups (warps) a chunk
+  constexpr int NR = DIM + 3;   // staged rows: pos, m·psi_pos, m, eligible
   const int chunk = blockIdx.x;
-  const int t = threadIdx.x;
-  constexpr int EIG_ROWS = 8;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const float* E = e + (size_t)chunk * EIG_ROWS * C;
   float mine[DIM];
   for (int ax = 0; ax < DIM; ++ax) mine[ax] = E[ax * C + t];
   const bool eligible = E[(DIM + 2) * C + t] != 0.0f;
+  float* o = out + (size_t)chunk * 2 * C;
+  if (!__syncthreads_or(eligible)) {
+    o[t] = 0.0f;
+    o[C + t] = 0.0f;
+    if (work != nullptr && t == 0) atomicAdd(&work[0], 1ull);
+    return;
+  }
 
-  __shared__ float s_pos[DIM][C];
-  __shared__ float s_v0[C], s_v1[C], s_el[C];
+  __shared__ float s_own[G][EIG_BOX];
+  __shared__ __align__(16) float s_rows[2][NR * C];
+  __shared__ int s_cid[C];
+  __shared__ unsigned s_pairs[C];  // bit go * G + gc: own group go near candidate group gc
+  __shared__ int s_count[G];
+  if (t < G * EIG_BOX) s_own[t / EIG_BOX][t % EIG_BOX] = boxes[(size_t)chunk * G * EIG_BOX + t];
+  __syncthreads();
+
+  auto stage = [&](float* dst, int cid) {
+    const float* src = e + (size_t)cid * EIG_ROWS * C;
+    for (int i = t; i < NR * C / 4; i += C) cp_async16(dst + 4 * i, src + 4 * i);
+  };
   float acc0 = 0.0f, acc1 = 0.0f;
-  for (int k = 0; k < kn; ++k) {
-    const int cid = cand[(size_t)chunk * kn + k];  // the same for the whole CTA
-    if (cid < 0 || cid >= max_chunks) continue;
-    const float* G = e + (size_t)cid * EIG_ROWS * C;
-    __syncthreads();  // the previous candidate's rows are consumed
-    for (int ax = 0; ax < DIM; ++ax) s_pos[ax][t] = G[ax * C + t];
-    s_v0[t] = G[DIM * C + t];
-    s_v1[t] = G[(DIM + 1) * C + t];
-    s_el[t] = G[(DIM + 2) * C + t];
-    __syncthreads();
-    if (!eligible) continue;
-    const int self_lane = cid == chunk ? t : -1;
-    float p0 = 0.0f, p1 = 0.0f;
-    for (int j = 0; j < C; ++j) {
-      float d2 = 0.0f;
-      for (int ax = 0; ax < DIM; ++ax) {
-        const float diff = s_pos[ax][j] - mine[ax];
-        d2 = ax == 0 ? diff * diff : d2 + diff * diff;
-      }
-      if (d2 <= r2 && s_el[j] != 0.0f && j != self_lane) {
-        p0 += s_v0[j];
-        p1 += s_v1[j];
+  unsigned long long tests = 0;
+  int kept = 0;
+  for (int k0 = 0; k0 < kn; k0 += C) {
+    // This round's candidates (up to C), one a thread, compacted in
+    // ascending order where some pair of group boxes lies within r2.
+    const int k = k0 + t;
+    const int cid = k < kn ? cand[(size_t)chunk * kn + k] : -1;
+    unsigned pairs = 0u;
+    if (cid >= 0 && cid < max_chunks) {
+      const float4* B = reinterpret_cast<const float4*>(boxes + (size_t)cid * G * EIG_BOX);
+      for (int gc = 0; gc < G; ++gc) {
+        const float4 lo = B[2 * gc], hi = B[2 * gc + 1];
+        const float cb[EIG_BOX] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+        for (int go = 0; go < G; ++go)
+          if (boxes_near<DIM>(cb, s_own[go], r2)) pairs |= 1u << (go * G + gc);
       }
     }
-    acc0 += p0;
-    acc1 += p1;
+    const unsigned keep = __ballot_sync(0xffffffffu, pairs != 0u);
+    if (lane == 0) s_count[warp] = __popc(keep);
+    __syncthreads();
+    int base = 0, nk = 0;
+    for (int w = 0; w < G; ++w) {
+      base += w < warp ? s_count[w] : 0;
+      nk += s_count[w];
+    }
+    if (pairs != 0u) {
+      const int pos = base + __popc(keep & ((1u << lane) - 1u));
+      s_cid[pos] = cid;
+      s_pairs[pos] = pairs;
+    }
+    __syncthreads();
+    kept += nk;
+
+    if (nk > 0) stage(s_rows[0], s_cid[0]);
+    cp_async_commit();
+    for (int n = 0; n < nk; ++n) {
+      if (n + 1 < nk) stage(s_rows[(n + 1) & 1], s_cid[n + 1]);
+      cp_async_commit();
+      cp_async_wait_one();
+      __syncthreads();
+      const float* rows = s_rows[n & 1];
+      const unsigned groups = (s_pairs[n] >> (warp * G)) & ((1u << G) - 1u);
+      if (groups != 0u && eligible) {
+        const int self_lane = s_cid[n] == chunk ? t : -1;
+        float p0 = 0.0f, p1 = 0.0f;
+        for (unsigned gs = groups; gs != 0u; gs &= gs - 1u) {
+          const int j0 = (__ffs(gs) - 1) * 32;
+          for (int j = j0; j < j0 + 32; j += 4) {  // four lanes a load (broadcast)
+            float4 pos[DIM];
+            for (int ax = 0; ax < DIM; ++ax)
+              pos[ax] = *reinterpret_cast<const float4*>(rows + ax * C + j);
+            const float4 v0 = *reinterpret_cast<const float4*>(rows + DIM * C + j);
+            const float4 v1 = *reinterpret_cast<const float4*>(rows + (DIM + 1) * C + j);
+            const float4 el = *reinterpret_cast<const float4*>(rows + (DIM + 2) * C + j);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              float d2 = 0.0f;
+              for (int ax = 0; ax < DIM; ++ax) {
+                const float diff = f4(pos[ax], u) - mine[ax];
+                d2 = ax == 0 ? diff * diff : d2 + diff * diff;
+              }
+              if (d2 <= r2 && f4(el, u) != 0.0f && j + u != self_lane) {
+                p0 += f4(v0, u);
+                p1 += f4(v1, u);
+              }
+            }
+          }
+          tests += 32;
+        }
+        acc0 += p0;
+        acc1 += p1;
+      }
+      __syncthreads();  // this stage is consumed before it is refilled
+    }
   }
-  out[(size_t)chunk * 2 * C + t] = acc0;
-  out[((size_t)chunk * 2 + 1) * C + t] = acc1;
+  o[t] = acc0;
+  o[C + t] = acc1;
+  if (work != nullptr) {
+    for (int off = 16; off > 0; off >>= 1) tests += __shfl_xor_sync(0xffffffffu, tests, off);
+    if (lane == 0 && tests != 0) atomicAdd(&work[2], tests);
+    if (t == 0) atomicAdd(&work[1], (unsigned long long)kept);
+  }
 }
 
 GridArgs grid_args(float ox, float oy, float oz, float h, float invd,
@@ -1386,15 +1663,33 @@ int sparkl_g2p_fused(float* slots, const int* ints, const float* windows,
   return (int)cudaGetLastError();
 }
 
-int sparkl_eigen_pool(const float* e, const int* cand, float* out, int max_chunks, int kn,
-                      float r2, int dim, void* stream) {
+int sparkl_eigen_boxes(const float* e, float* boxes, int max_chunks, int dim, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  if (dim != 2 && dim != 3) return (int)cudaErrorInvalidValue;
+  const int n_groups = max_chunks * (dim == 3 ? 128 : 64) / 32;
+  if (n_groups <= 0) return (int)cudaSuccess;
+  const int blocks = (n_groups + EIG_BOX_WARPS - 1) / EIG_BOX_WARPS;
   if (dim == 3)
-    eigen_pool_kernel<3, 128><<<max_chunks, 128, 0, st>>>(e, cand, out, max_chunks, kn, r2);
-  else if (dim == 2)
-    eigen_pool_kernel<2, 64><<<max_chunks, 64, 0, st>>>(e, cand, out, max_chunks, kn, r2);
+    eigen_box_kernel<3, 128><<<blocks, 32 * EIG_BOX_WARPS, 0, st>>>(e, boxes, n_groups);
   else
-    return (int)cudaErrorInvalidValue;
+    eigen_box_kernel<2, 64><<<blocks, 32 * EIG_BOX_WARPS, 0, st>>>(e, boxes, n_groups);
+  return (int)cudaGetLastError();
+}
+
+// The boxes, then the pooling; `work` (3 counters) may be null.
+int sparkl_eigen_pool(const float* e, const int* cand, float* boxes, float* out,
+                      int max_chunks, int kn, float r2, int dim, void* work, void* stream) {
+  if ((((uintptr_t)e) | ((uintptr_t)boxes)) & 15) return (int)cudaErrorMisalignedAddress;
+  const int err = sparkl_eigen_boxes(e, boxes, max_chunks, dim, stream);
+  if (err != (int)cudaSuccess || max_chunks <= 0) return err;
+  cudaStream_t st = (cudaStream_t)stream;
+  unsigned long long* w = (unsigned long long*)work;
+  if (dim == 3)
+    eigen_pool_kernel<3, 128><<<max_chunks, 128, 0, st>>>(e, cand, boxes, out, max_chunks, kn,
+                                                          r2, w);
+  else
+    eigen_pool_kernel<2, 64><<<max_chunks, 64, 0, st>>>(e, cand, boxes, out, max_chunks, kn,
+                                                        r2, w);
   return (int)cudaGetLastError();
 }
 

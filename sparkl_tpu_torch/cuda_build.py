@@ -76,8 +76,10 @@ _SIGNATURES = {
     # gathered, gathered_i, target, out_f, out_i, max_chunks, k_src, nf, ni, c,
     # stream
     "sparkl_permute_chunks": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
-    # e, cand, out, max_chunks, kn, r2, dim, stream
-    "sparkl_eigen_pool": [_VP, _VP, _VP, _I, _I, _F, _I, _VP],
+    # e, cand, boxes, out, max_chunks, kn, r2, dim, work, stream
+    "sparkl_eigen_pool": [_VP, _VP, _VP, _VP, _I, _I, _F, _I, _VP, _VP],
+    # e, boxes, max_chunks, dim, stream
+    "sparkl_eigen_boxes": [_VP, _VP, _I, _I, _VP],
     # slot_data, out, max_chunks, dim, with_psi, ox, oy, oz, h, invd, stream
     "sparkl_p2g_windows": [_VP, _VP, _I, _I, _I, _F, _F, _F, _F, _F, _VP],
     # slot_data, windows, out, max_chunks, dim, with_psi, ox, oy, oz, h, invd,

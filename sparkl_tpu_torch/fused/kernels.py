@@ -1,7 +1,8 @@
 """The fused substep's kernels: kernel A (P2G images), the block merge,
 the scatter merge, kernel B (G2P + particle update), the fluid volume
-pass's mass-only P2G and G2P, the eigenerosion pooling, and the resort's
-source-row and permute kernels, each a hand-written CUDA kernel
+pass's mass-only P2G and G2P, the eigenerosion pooling (with its lane-group
+boxes), and the resort's source-row and permute kernels, each a
+hand-written CUDA kernel
 (csrc/fused_kernels.cu) with its plain PyTorch version beside it.
 
 Port of sparkl_tpu/fused/kernels.py for the configurations the port
@@ -46,7 +47,7 @@ TAB_F = 12
 # Kernel launches per wrapper since the last reset_launch_counts().
 LAUNCHES = {"p2g_fused": 0, "merge_blocks": 0, "merge_scatter": 0, "g2p_fused": 0,
             "mass_p2g_fused": 0, "mass_g2p_fused": 0, "src_rows_from_order": 0,
-            "permute_slots": 0, "eigen_pool_fused": 0, "permute_chunks": 0}
+            "permute_slots": 0, "eigen_pool_fused": 0, "eigen_boxes": 0, "permute_chunks": 0}
 
 _I32 = torch.int32
 
@@ -54,6 +55,10 @@ _I32 = torch.int32
 # of the candidate tensor flags "candidate == own chunk".
 EIG_ROWS = 8
 EIG_SELF = 7
+# The pooling's lane groups (one warp each) and their boxes [D, C/32, 8]:
+# lo x, y, z, 0, hi x, y, z, 0 of the group's eligible positions.
+EIG_GROUP = 32
+EIG_BOX = 8
 
 
 def reset_launch_counts():
@@ -1180,27 +1185,113 @@ def eigen_pool_fused_reference(grid: GridParams, e, g, group=None):
     return out
 
 
-def eigen_pool_fused(grid: GridParams, cfg, e, cand):
+def eigen_boxes_reference(e, dim):
+    """Plain version of the box kernel: e [D, 8, C] eigen rows -> [D, C/32,
+    8] f32, per group of 32 lanes the bounding box of its eligible lanes'
+    positions (lo x, y(, z), hi x, y(, z), the other entries 0); +inf / -inf
+    for a group with none. NaN positions are left out: they pair with
+    nothing."""
+    d_, _, c = e.shape
+    g = c // EIG_GROUP
+    pos = e[:, :dim, :].reshape(d_, dim, g, EIG_GROUP)
+    ok = (e[:, dim + 2, :] != 0.0).reshape(d_, 1, g, EIG_GROUP) & ~torch.isnan(pos)
+    out = torch.zeros((d_, g, EIG_BOX), dtype=torch.float32, device=e.device)
+    out[:, :, 0:dim] = torch.where(ok, pos, float("inf")).amin(dim=3).transpose(1, 2)
+    out[:, :, 4 : 4 + dim] = torch.where(ok, pos, float("-inf")).amax(dim=3).transpose(1, 2)
+    return out
+
+
+def eigen_group_pairs(grid: GridParams, e, cand):
+    """The pooling kernel's cull, in plain PyTorch: [D, KN, G, G] bool,
+    True where own group go and group gc of candidate k may hold a pair
+    (their boxes' gap² is not over h²); False for no candidate. A
+    candidate with none is skipped, and a warp tests only the candidate's
+    groups that pair with it. The gap² is formed as the pair test forms
+    d2: per axis the difference candidate minus own of the nearer faces (0
+    where the boxes overlap), its square, and the sum over axes in order.
+    Rounding is monotone, so it is never more than the d2 of any pair of
+    lanes in the boxes: the cull drops no pair."""
+    dim = grid.dim
+    d_, kn = cand.shape
+    boxes = eigen_boxes_reference(e, dim)
+    pad = torch.cat([boxes, torch.full_like(boxes[:1], float("nan"))])
+    cb = pad[torch.clamp(cand.long(), 0, d_)][:, :, None, :, :]  # [D, KN, 1, G, 8]
+    ob = boxes[:, None, :, None, :]  # [D, 1, G, 1, 8]
+    gap2 = None
+    for ax in range(dim):
+        clo, chi, olo, ohi = cb[..., ax], cb[..., 4 + ax], ob[..., ax], ob[..., 4 + ax]
+        diff = torch.where(clo > ohi, clo - ohi, torch.where(chi < olo, chi - olo, 0.0))
+        gap2 = diff * diff if gap2 is None else gap2 + diff * diff
+    r2 = torch.tensor(float(np.float32(grid.cell_width * grid.cell_width)))
+    valid = ((cand >= 0) & (cand < d_))[:, :, None, None]
+    return valid & ~(gap2 > r2)
+
+
+def eigen_pool_work(grid: GridParams, e, cand):
+    """What the pooling kernel's cull leaves, by eigen_group_pairs: chunks
+    skipped (no eligible lane), candidates kept, and pair tests run (each
+    eligible lane of a warp tests 32 lanes of every candidate group near
+    its own group's box), of a chunk that is not skipped."""
+    dim = grid.dim
+    d_, _, c = e.shape
+    el = e[:, dim + 2, :] != 0.0
+    live = el.any(dim=1)
+    pairs = eigen_group_pairs(grid, e, cand) & live[:, None, None, None]
+    per_group = el.reshape(d_, c // EIG_GROUP, EIG_GROUP).sum(dim=2)  # [D, G]
+    tests = (pairs.sum(dim=3) * per_group[:, None, :]).sum() * EIG_GROUP
+    return dict(skipped=int((~live).sum()), kept=int(pairs.any(dim=3).any(dim=2).sum()),
+                tests=int(tests))
+
+
+def eigen_boxes(grid: GridParams, cfg, e):
+    """The box kernel alone (the pooling's launcher runs it before the
+    pooling): e [D, 8, C] f32 -> [D, C/32, 8] f32."""
+    dim = grid.dim
+    d_, c = cfg.max_chunks, cfg.chunk_size
+    dev = e.device
+    check_tensor("e", e, torch.float32, (d_, EIG_ROWS, c), dev)
+    if route(dev) == "cpu":
+        return eigen_boxes_reference(e, dim)
+    _check_shape_route("the box kernel", dim, c)
+    out = torch.empty((d_, c // EIG_GROUP, EIG_BOX), dtype=torch.float32, device=dev)
+    launch("sparkl_eigen_boxes", e.data_ptr(), out.data_ptr(), d_, dim, stream_ptr(dev))
+    LAUNCHES["eigen_boxes"] += 1
+    return out
+
+
+def eigen_pool_fused(grid: GridParams, cfg, e, cand, work=None):
     """The pooling kernel (replaces sparkl_tpu/fused/kernels.py:
     eigen_pool_fused): e [D, 8, C] f32 eigen rows (3D: C 128, 2D: 64),
     cand [D, KN] i32 candidate chunk ids (D = none; KN = 3^d times the
     chunks per block) -> [D, 2, C] f32, the pooled m·psi_pos and m. The TPU
     kernel takes the candidates' rows gathered in XLA
-    ([D, KN, 8, C]); the CUDA kernel reads e and cand directly, and on the
-    CPU eigen_candidate_rows builds that tensor for the plain version."""
+    ([D, KN, 8, C]); the CUDA launcher forms the lane-group boxes (the box
+    kernel) and pools from e and cand directly, and on the CPU
+    eigen_candidate_rows builds that tensor for the plain version. `work`,
+    an int64 [3] tensor on e's device, takes the counts of chunks skipped,
+    candidates kept and pair tests run (added to it): the kernel's own, and
+    on the CPU the plain cull's (eigen_pool_work)."""
     dim = grid.dim
     d_, c = cfg.max_chunks, cfg.chunk_size
     dev = e.device
     kn = cand.shape[1]
     check_tensor("e", e, torch.float32, (d_, EIG_ROWS, c), dev)
     check_tensor("cand", cand, torch.int32, (d_, kn), dev)
+    if work is not None:
+        check_tensor("work", work, torch.int64, (3,), dev)
     if route(dev) == "cpu":
+        if work is not None:
+            w = eigen_pool_work(grid, e, cand)
+            work += torch.tensor([w["skipped"], w["kept"], w["tests"]], dtype=torch.int64)
         pooled = eigen_pool_fused_reference(grid, e, eigen_candidate_rows(e, cand))
         return pooled[:, :2].contiguous()
     _check_shape_route("the pooling kernel", dim, c)
+    boxes = torch.empty((d_, c // EIG_GROUP, EIG_BOX), dtype=torch.float32, device=dev)
     out = torch.empty((d_, 2, c), dtype=torch.float32, device=dev)
     r2 = float(np.float32(grid.cell_width * grid.cell_width))
-    launch("sparkl_eigen_pool", e.data_ptr(), cand.data_ptr(), out.data_ptr(), d_, kn, r2,
-           dim, stream_ptr(dev))
+    launch("sparkl_eigen_pool", e.data_ptr(), cand.data_ptr(), boxes.data_ptr(),
+           out.data_ptr(), d_, kn, r2, dim, None if work is None else work.data_ptr(),
+           stream_ptr(dev))
     LAUNCHES["eigen_pool_fused"] += 1
+    LAUNCHES["eigen_boxes"] += 1
     return out

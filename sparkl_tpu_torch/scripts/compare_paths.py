@@ -3,14 +3,18 @@ another one (the parent commit unpacked with `git archive`, say), in turns
 on one card: other, this, this, other, other, this, ... (PAIRS pairs). Each
 run is a fresh process that builds its own checkout's kernels and drives,
 as chip_smoke.py does and with its functions: fused sand3@1M (15 frames,
-the last 3 timed), elasticity2, basic2 and fluids2 (phase 16), materials2
-(phase 28) and the sparse basic2 path (phase 31). The card's host sets
-most of these rates and differs between machines, so two trees are
-compared only within one call.
+the last 3 timed), elasticity2, basic2 and fluids2 (phase 16), l_panel3 at
+full size with its load at LPANEL3_LOAD_SPEED (phase 23), materials3
+(phase 27), materials2 (phase 28) and the sparse basic2 path (phase 31).
+The card's host sets most of these rates and differs between machines, so
+two trees are compared only within one call; against a copy of this
+checkout the same run measures how far the rates spread between
+processes of one tree.
 
 Run on the GPU from the repository root:
-`python -m sparkl_tpu_torch.scripts.compare_paths OTHER_CHECKOUT [PAIRS]`
-(PAIRS 2 by default)."""
+`python -m sparkl_tpu_torch.scripts.compare_paths OTHER_CHECKOUT [PAIRS [PATHS]]`
+(PAIRS 2 by default; PATHS a comma-separated subset of the names above,
+e.g. `elasticity2,basic2`, all by default)."""
 
 import json
 import os
@@ -20,7 +24,8 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # Run in a fresh interpreter with the checkout first on sys.path; prints one
-# line "RATES {path: particle-updates/s}".
+# line "RATES {path: particle-updates/s}" for the paths named in argv[2]
+# (all if empty).
 CHILD = r'''
 import contextlib, io, json, sys, time
 sys.path.insert(0, sys.argv[1])
@@ -30,10 +35,14 @@ import sparkl_tpu_torch.scenes as scenes
 from sparkl_tpu_torch import cuda_build
 from sparkl_tpu_torch.fused.pipeline import FusedMpmPipeline
 
-cuda_build.build()
-cuda_build.library()
-rates = {}
-with contextlib.redirect_stdout(io.StringIO()):
+want = set(filter(None, sys.argv[2].split(",")))
+
+
+def on(name):
+    return not want or name in want
+
+
+def sand3_fused():
     b = scenes.build("sand3", nx=100, ny=50, nz=100)
     pipe = FusedMpmPipeline(b.grid, b.models, b.colliders, b.params, b.gravity)
     state = pipe.pack_state(b.particles)
@@ -45,34 +54,58 @@ with contextlib.redirect_stdout(io.StringIO()):
         state, k = pipe.run_frames_state(state, 1)
         n += k
     torch.cuda.synchronize()
-    rates["sand3 fused"] = int(b.particles.active.sum()) * n / (time.perf_counter() - t0)
-    del pipe, state, b
-    for name in ("elasticity2", "basic2", "fluids2"):
-        rates[name] = cs.phase_plastic_main(name, 16, golden=name != "fluids2")[3]["pups"]
-    rates["materials2"] = cs.phase_damage_main(cs.materials2(), cs.MATERIALS2_FRAMES, 1, 28,
-                                               stats=cs.materials_stats)[3]["pups"]
-    rates["sparse basic2"] = cs.phase_sparse_main(
+    return int(b.particles.active.sum()) * n / (time.perf_counter() - t0)
+
+
+paths = {
+    "sand3 fused": sand3_fused,
+    "elasticity2": lambda: cs.phase_plastic_main("elasticity2", 16)[3]["pups"],
+    "basic2": lambda: cs.phase_plastic_main("basic2", 16)[3]["pups"],
+    "fluids2": lambda: cs.phase_plastic_main("fluids2", 16, golden=False)[3]["pups"],
+    "l_panel3": lambda: cs.phase_damage_main(cs.l_panel3(load_speed=cs.LPANEL3_LOAD_SPEED),
+                                             cs.LPANEL3_FRAMES, cs.LPANEL3_TIMED, 23)[3]["pups"],
+    "materials3": lambda: cs.phase_damage_main(cs.materials3(), cs.MATERIALS3_FRAMES,
+                                               cs.MATERIALS3_TIMED, 27,
+                                               stats=cs.materials_stats)[3]["pups"],
+    "materials2": lambda: cs.phase_damage_main(cs.materials2(), cs.MATERIALS2_FRAMES, 1, 28,
+                                               stats=cs.materials_stats)[3]["pups"],
+    "sparse basic2": lambda: cs.phase_sparse_main(
         scenes.build("basic2"), cs.SPARSE2D_FRAMES, cs.SPARSE2D_TIMED, 31,
-        cs.golden_frames("basic2"), None)[3]["pups"]
+        cs.golden_frames("basic2"), None)[3]["pups"],
+}
+cuda_build.build()
+cuda_build.library()
+rates = {}
+with contextlib.redirect_stdout(io.StringIO()):
+    for name, fn in paths.items():
+        if on(name):
+            rates[name] = fn()
 print("RATES " + json.dumps(rates))
 '''
 
 
-def rates(checkout):
-    """{path: particle-updates/s} of one run of `checkout`'s main paths."""
-    p = subprocess.run([sys.executable, "-c", CHILD, checkout], capture_output=True,
+def turns(other, pairs):
+    """The order of the runs, (tag, checkout): other, this, this, other,
+    other, this, ... (`pairs` of each)."""
+    return [(("other", other), ("this", HERE))[(i + i // 2) % 2] for i in range(2 * pairs)]
+
+
+def child(code, checkout, args, key):
+    """Run `code` in a fresh interpreter in `checkout`, with argv[1] the
+    checkout (which the code puts first on sys.path) and `args` after it;
+    returns the JSON its output prints after `key` on a line of its own."""
+    p = subprocess.run([sys.executable, "-c", code, checkout, *args], capture_output=True,
                        text=True, cwd=checkout)
-    line = [ln for ln in p.stdout.splitlines() if ln.startswith("RATES ")]
+    line = [ln for ln in p.stdout.splitlines() if ln.startswith(key + " ")]
     if p.returncode != 0 or not line:
         raise RuntimeError(f"{checkout}: exit {p.returncode}\n{p.stderr[-4000:]}")
-    return json.loads(line[0][len("RATES "):])
+    return json.loads(line[0][len(key) + 1:])
 
 
-def main(other, pairs=2):
+def main(other, pairs=2, paths=""):
     runs = []
-    order = [(("other", other), ("this", HERE))[(i + i // 2) % 2] for i in range(2 * pairs)]
-    for tag, checkout in order:
-        r = rates(checkout)
+    for tag, checkout in turns(other, pairs):
+        r = child(CHILD, checkout, [paths], "RATES")
         runs.append((tag, r))
         print(f"{tag} ({checkout}): " + ", ".join(f"{k} {v:.4g}" for k, v in r.items()),
               flush=True)
@@ -80,7 +113,8 @@ def main(other, pairs=2):
 
 
 if __name__ == "__main__":
-    if len(sys.argv) not in (2, 3):
+    if len(sys.argv) not in (2, 3, 4):
         sys.exit("usage: python -m sparkl_tpu_torch.scripts.compare_paths OTHER_CHECKOUT "
-                 "[PAIRS]")
-    main(os.path.abspath(sys.argv[1]), int(sys.argv[2]) if len(sys.argv) == 3 else 2)
+                 "[PAIRS [PATHS]]")
+    main(os.path.abspath(sys.argv[1]), int(sys.argv[2]) if len(sys.argv) >= 3 else 2,
+         sys.argv[3] if len(sys.argv) == 4 else "")

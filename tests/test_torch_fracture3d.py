@@ -539,14 +539,10 @@ def test_kernel_b_damage_matches_pallas(kernel_states, form):
     assert crack_trips > 0 if modified else True
 
 
-def test_pool_3d_matches_pallas(small):
-    """The 3D pooling's plain version against the Pallas kernel in
-    interpret mode, on the reduced l_panel3's live chunks (positions jittered
-    by up to 0.3 of the spacing, psi_pos drawn, a third of the lanes
-    broken), each with its KN = 27 x 4 = 108 candidates: the same mask,
-    sums of non-negative terms in other orders within 2e-6 relative; the
-    candidate list bit-equal to the JAX pipeline's."""
-    k = small
+def _jittered_pool_inputs(k):
+    """The reduced l_panel3's packed state with positions jittered by up to
+    0.3 of the spacing, psi_pos drawn and a third of the lanes broken, and
+    the pooling's inputs on it: (state, e, eligible, cand, overflow)."""
     slots = _np(k.js.slots).copy()
     occ = (_np(k.js.ints)[:, TL.I_FLAGS] & TL.OCCUPIED) != 0
     rng = np.random.default_rng(75)
@@ -557,7 +553,19 @@ def test_pool_3d_matches_pallas(small):
     slots[:, R3.phase] = np.where(occ & (rng.uniform(size=shape) < 0.33), 0.0, slots[:, R3.phase])
     tstate = _port_state(k.tpipe, k.js).replace(slots=torch.from_numpy(slots.astype(np.float32)))
     e, elig = k.tpipe._eigen_rows(tstate)
-    cand_t, ov_t = k.tpipe._eigen_candidates(tstate.structure)
+    cand, overflow = k.tpipe._eigen_candidates(tstate.structure)
+    return tstate, e, elig, cand, overflow
+
+
+def test_pool_3d_matches_pallas(small):
+    """The 3D pooling's plain version against the Pallas kernel in
+    interpret mode, on the reduced l_panel3's live chunks (positions jittered
+    by up to 0.3 of the spacing, psi_pos drawn, a third of the lanes
+    broken), each with its KN = 27 x 4 = 108 candidates: the same mask,
+    sums of non-negative terms in other orders within 2e-6 relative; the
+    candidate list bit-equal to the JAX pipeline's."""
+    k = small
+    tstate, e, elig, cand_t, ov_t = _jittered_pool_inputs(k)
     cand_j, ov_j = jax.jit(k.jpipe._eigen_candidates)(k.js.structure)
     np.testing.assert_array_equal(cand_t.numpy(), _np(cand_j))
     assert cand_t.shape[1] == 108 and not bool(ov_t) and not bool(ov_j)
@@ -569,8 +577,64 @@ def test_pool_3d_matches_pallas(small):
     np.testing.assert_array_equal(out_t != 0, out_j != 0)
     np.testing.assert_allclose(out_t, out_j, rtol=2e-6, atol=0)
     assert not out_t[:, 2:].any() and (out_t[:, 1] > 0).sum() > 0.5 * int(elig.sum())
-    full = TK.eigen_pool_fused(k.tpipe.grid, k.tpipe._cfg, e, cand_t).numpy()
+    counters = torch.zeros(3, dtype=torch.int64)
+    full = TK.eigen_pool_fused(k.tpipe.grid, k.tpipe._cfg, e, cand_t, work=counters).numpy()
     np.testing.assert_array_equal(full[live], out_t[:, :2])
+    # On the CPU the wrapper adds the plain cull's counts to `work`.
+    work = TK.eigen_pool_work(k.tpipe.grid, e, cand_t)
+    assert counters.tolist() == [work["skipped"], work["kept"], work["tests"]]
+
+
+def test_pool_cull_is_exact(small):
+    """The pooling kernel's cull (csrc/fused_kernels.cu eigen_pool_kernel)
+    on the jittered reduced l_panel3: the lane-group boxes' plain version
+    equals a direct min / max over each group's eligible lanes; dropping
+    every candidate chunk whose group boxes all lie farther than h from the
+    own chunk's (gap² over h², formed as the pair test forms d2) leaves the
+    plain pooling bit-identical; and no culled (own group, candidate
+    group) pair holds two eligible lanes within h. The cull must take a
+    real share of the candidates and of the pair tests."""
+    k = small
+    _, e, elig, cand, _ = _jittered_pool_inputs(k)
+    grid = k.tpipe.grid
+    d_, kn = cand.shape
+    c, gs = e.shape[2], TK.EIG_GROUP
+    live = int(k.js.structure.num_chunks)
+
+    boxes = TK.eigen_boxes_reference(e, 3)
+    pos = e[:, 0:3].numpy().reshape(d_, 3, c // gs, gs)
+    el = elig.numpy().reshape(d_, 1, c // gs, gs)
+    np.testing.assert_array_equal(boxes[..., 0:3].numpy(),
+                                  np.where(el, pos, np.inf).min(axis=3).transpose(0, 2, 1))
+    np.testing.assert_array_equal(boxes[..., 4:7].numpy(),
+                                  np.where(el, pos, -np.inf).max(axis=3).transpose(0, 2, 1))
+    assert not boxes[..., 3].any() and not boxes[..., 7].any()
+
+    pairs = TK.eigen_group_pairs(grid, e, cand)  # [D, KN, own group, candidate group]
+    keep = pairs.any(dim=3).any(dim=2)
+    culled = torch.where(keep, cand, d_)
+    sl = slice(0, live)
+    out = TK.eigen_pool_fused_reference(grid, e[sl], TK.eigen_candidate_rows(e, cand)[sl])
+    out_c = TK.eigen_pool_fused_reference(grid, e[sl], TK.eigen_candidate_rows(e, culled)[sl])
+    assert torch.equal(out.view(torch.int32), out_c.view(torch.int32))
+    assert (out[:, 1] > 0).sum() > 0.5 * int(elig.sum())
+
+    # Every pair of eligible lanes within h lies in a kept group pair.
+    g = TK.eigen_candidate_rows(e, cand)[sl]
+    r2 = np.float32(grid.cell_width * grid.cell_width)
+    d2 = None
+    for ax in range(3):
+        diff = g[:, :, ax, :, None] - e[sl, None, ax, None, :]  # [L, KN, C cand, C own]
+        d2 = diff * diff if d2 is None else d2 + diff * diff
+    near = (d2 <= float(r2)) & (g[:, :, 5, :, None] != 0) & elig[sl, None, None, :]
+    near = near.reshape(live, kn, c // gs, gs, c // gs, gs).any(dim=5).any(dim=3)
+    assert not (near.transpose(2, 3) & ~pairs[sl]).any()
+
+    valid = cand[sl] < d_
+    work = TK.eigen_pool_work(grid, e, cand)
+    all_tests = int((elig[sl].sum(dim=1) * valid.sum(dim=1)).sum()) * c
+    assert int((valid & ~keep[sl]).sum()) > 0.3 * int(valid.sum())
+    assert 0 < work["tests"] < 0.5 * all_tests
 
 
 def test_eigen_overflow_regrows_and_retries_3d(small):
