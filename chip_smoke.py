@@ -1458,14 +1458,14 @@ def phase_fluid_kernels(pipe, state, dt, label, phase, timed):
     a_err = p2g_errors(a_k, a_p)
     res["mass_p2g_fused"] = dict(max_abs_err=m_err[1], over_bound=m_err[0],
                                  bit_equal=torch.equal(m_k, m_p))
-    if dim == 2:
-        # On the CPU the plain version's scatter-add sums each cell's slots
-        # in ascending lane order, as the kernel does: there the same sums
-        # to the bit (on the card its scatter-add takes atomics' order).
-        m_cpu = K.mass_p2g_fused_reference(grid, sl.cpu(), ints.cpu(), nch.cpu())
-        res["mass_p2g_fused"]["bit_equal_cpu"] = torch.equal(m_k.cpu(), m_cpu)
-        require(res["mass_p2g_fused"]["bit_equal_cpu"],
-                f"mass_p2g_fused differs from its plain version on the CPU ({label})")
+    # On the CPU the plain version's scatter-add sums each cell's slots in
+    # ascending lane order, as the kernel's walk does: there the same sums
+    # to the bit, in 3D and in 2D (on the card its scatter-add takes
+    # atomics' order).
+    m_cpu = K.mass_p2g_fused_reference(grid, sl.cpu(), ints.cpu(), nch.cpu())
+    res["mass_p2g_fused"]["bit_equal_cpu"] = torch.equal(m_k.cpu(), m_cpu)
+    require(res["mass_p2g_fused"]["bit_equal_cpu"],
+            f"mass_p2g_fused differs from its plain version on the CPU ({label})")
     res["mass_g2p_fused"] = dict(max_abs_err=g_err, bit_equal=torch.equal(g_k, g_p),
                                  rel_err=g_err / max(g_scale, 1e-30))
     res["p2g_fused"] = dict(max_abs_err=max(e for _, e in a_err),
@@ -1478,8 +1478,7 @@ def phase_fluid_kernels(pipe, state, dt, label, phase, timed):
                                                a_k, label, phase, need=(0,))
     say(phase, f"fluid kernels on the {label} state: mass_p2g_fused max|err| {m_err[1]:.3e} "
                f"({m_err[0]:.2e} of its bound; bit-equal {res['mass_p2g_fused']['bit_equal']}, "
-               f"to the plain version on the CPU "
-               f"{res['mass_p2g_fused'].get('bit_equal_cpu', 'not checked in 3D')}); "
+               f"to the plain version on the CPU {res['mass_p2g_fused']['bit_equal_cpu']}); "
                f"mass_g2p_fused max|err| {g_err:.3e} (relative "
                f"{g_err / max(g_scale, 1e-30):.2e}, pass <= 1e-6; bit-equal "
                f"{torch.equal(g_k, g_p)}); p2g_fused (EOS stress) per channel max|err|/bound "
@@ -3889,7 +3888,8 @@ def check_windows(grid, cfg, slot_data, windows, path_psi, phase, label, timed=T
     dropped) or with them (numpy-seeded psi rows and window channel);
     times of the path's form (20 CUDA-event-timed launches). In 2D also
     whether each kernel's output is bit-equal to its plain version on the
-    CPU (the plain versions sum in the kernels' order there; reported).
+    CPU (the plain versions sum in the kernels' order there): required of
+    the P2G image, reported of the gather.
     Returns {name: {max_abs_err, ms, plain_ms, library_ms, bytes, flops,
     bound_ms, bound_by, path, other}}."""
     import numpy as np
@@ -3946,6 +3946,11 @@ def check_windows(grid, cfg, slot_data, windows, path_psi, phase, label, timed=T
                           if cpu_equal else ""))
         require(finite and all(m <= 1.0 for e in errs.values() for m, _ in e),
                 f"{label}: a window kernel disagrees with its plain version (with_psi={psi})")
+        # The 2D P2G plain version sums each cell's slots in the kernel's
+        # walk order on the CPU: the same image to the bit.
+        require(dim == 3 or cpu_equal["p2g_windows"],
+                f"{label}: the 2D P2G window image differs from its plain version on the CPU "
+                f"(with_psi={psi})")
     taps = 3**dim
     f_p2g, f_g2p = window_flops(dim, path_psi)
     b_p2g, b_g2p = window_bytes(dim, path_psi, d_, c)

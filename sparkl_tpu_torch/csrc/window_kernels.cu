@@ -33,6 +33,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "scatter_walk.cuh"
+
 namespace {
 
 // Packed slot rows (ops/transfer_kernels.packed_rows(D)) and region cells.
@@ -79,79 +81,142 @@ __device__ __forceinline__ void axis_taps(const GridArgs& g, int ax, float pos, 
 // P2G: slot data -> the chunk's 8^d window image [m, m*v (d), (psi_mom,
 // psi_m)], momentum plus the affine columns through W_j.
 //
-// One C-thread CTA per chunk. Each thread stages its slot's stencil
-// (block-local base, weights, dpt-weighted weights) and payload in shared
-// memory; then each thread owns 8^d / C of the cells (4 of 512 in 3D, 1 of
-// 64 in 2D) and sums every slot's contribution to them in ascending lane
-// order, one sum per term of the TPU's contractions (base image, then the
-// affine columns added in order j = 0, 1(, 2)). No atomics: the image is
-// run-to-run deterministic, and in 2D bit-equal to the plain version on the
-// CPU, which sums in the same order. Slots past the last one with a nonzero
-// payload (the chunk's zero padding) add only zeros and are skipped, so an
-// empty chunk writes zeros at once. Bound on this card: the owner loop, 8^d
-// / C cells x the chunk's slots of shared-memory broadcasts and compares per
-// thread, ~3^d/8^d of them hits; the slot read and the image write are
-// coalesced.
+// One C-thread CTA per chunk, kernel A's lane-mask walk
+// (csrc/scatter_walk.cuh). Each thread stores its slot's payload and, per
+// axis, its 3 taps' weights and dpt-weighted weights at their window
+// coordinates lb + k (rows of 6: lb is 0..3); the warps' ballots build the
+// axis masks. The walk takes the lanes below nlive, one past the last slot
+// with a nonzero payload (past it lies the chunk's zero padding, which adds
+// only zeros): each cell's mask is the AND of its coordinates' axis masks
+// and of that live mask. Each thread walks its cells' set lanes in
+// ascending lane order (4 of 512 cells in 3D, 1 of 64 in 2D; the cells
+// with a coordinate of 6 or 7 lie outside every stencil and stay zero),
+// one sum per term of the TPU's contractions (base image, then the affine
+// columns added in order j = 0, 1(, 2)). That is the order of a loop over
+// the slots below nlive, so the image is run-to-run deterministic, and in
+// 2D bit-equal to the plain version on the CPU, which sums in the same
+// order. No atomics on floats. In 3D the cells go out sorted by hit count
+// and the image is staged in shared memory (over the consumed slot arrays)
+// and written coalesced: 1.65x faster than handing thread t cells t + k·C
+// (0.2397 against 0.3955 ms at sparse sand3@1M, NVIDIA H100), and the walk
+// is walk_chain's one loop. PSI is the psi channels' form, so that the form
+// without them carries no psi registers or shared memory.
+// Bound on this card: the walk's issue (27 hits a slot, ~20 shared loads
+// and ~20 f32 operations each in 3D, a warp paying for its busiest lane);
+// the slot read and the image write are coalesced.
 // ---------------------------------------------------------------------------
-template <int D, int C>
+
+template <int D, int C, bool PSI>
+union P2GWinShared {
+  static constexpr int SC = sparkl_walk::slot_cols<C>();
+  static constexpr int NP0 = PSI ? D + 3 : D + 1;  // m, m*v (d)(, psi_mom, psi_m)
+  struct {
+    float w[D][6][SC];   // per axis and window coordinate: the 3 taps' weights
+    float wd[D][6][SC];  // and w * dpt
+    float p0[NP0][SC];
+    float a[D * D][SC];  // affine, row-major
+  } in;
+  float out[NP0 * WinRows<D>::RC];  // the image, once the slot arrays are consumed (3D)
+};
+
+template <int D, int C, bool PSI>
 __global__ void __launch_bounds__(C) p2g_windows_kernel(const float* __restrict__ slots,
-                                                        float* __restrict__ out,
-                                                        int with_psi, GridArgs g) {
+                                                        float* __restrict__ out, GridArgs g) {
   using R = WinRows<D>;
+  using Sh = P2GWinShared<D, C, PSI>;
   constexpr int RC = R::RC;
+  constexpr int NF = Sh::NP0;    // image channels
+  constexpr int NW = C / 32;
+  constexpr int NPASS = RC / C;  // cells per thread
+  constexpr bool SORT = NPASS > 1;
   const int chunk = blockIdx.x;
   const int t = threadIdx.x;
-  const int nf = with_psi ? D + 3 : D + 1;
 
-  __shared__ int s_lb[D][C];
-  __shared__ float s_w[D][3][C];   // per axis, per tap
-  __shared__ float s_wd[D][3][C];  // per axis, per tap: w * dpt
-  __shared__ float s_p0[D + 3][C]; // m, m*v, psi_mom, psi_m
-  __shared__ float s_a[D * D][C];  // affine, row-major
-  __shared__ int s_nlive;
-
-  if (t == 0) s_nlive = 0;
-  __syncthreads();
+  __shared__ Sh sh;
+  __shared__ unsigned long long s_rng64[D * 8 * NW / 2];
+  unsigned* s_rng = reinterpret_cast<unsigned*>(s_rng64);
+  __shared__ unsigned s_nonzero[NW];  // per warp, the lanes with a nonzero payload
+  __shared__ int s_bin[SORT ? C + 1 : 1];
+  __shared__ unsigned short s_list[SORT ? RC : 1];
 
   const float* S = slots + (size_t)chunk * R::NF_IN * C;
+  const int ts = sparkl_walk::slot_col(t);
 #define SROW(k) S[(k) * C + t]
   const float m = SROW(R::MASS);
   bool nonzero = m != 0.0f;
-  s_p0[0][t] = m;
+  sh.in.p0[0][ts] = m;
   for (int ax = 0; ax < D; ++ax) {
     const float mv = m * SROW(R::VEL + ax);
-    s_p0[1 + ax][t] = mv;
+    sh.in.p0[1 + ax][ts] = mv;
     nonzero = nonzero || mv != 0.0f;
   }
   for (int e = 0; e < D * D; ++e) {
     const float a = SROW(R::AFF + e);
-    s_a[e][t] = a;
+    sh.in.a[e][ts] = a;
     nonzero = nonzero || a != 0.0f;
   }
-  if (with_psi) {
+  if constexpr (PSI) {
     const float psi_mom = SROW(R::PSI_MOM), psi_m = SROW(R::PSI_M);
-    s_p0[D + 1][t] = psi_mom;
-    s_p0[D + 2][t] = psi_m;
+    sh.in.p0[D + 1][ts] = psi_mom;
+    sh.in.p0[D + 2][ts] = psi_m;
     nonzero = nonzero || psi_mom != 0.0f || psi_m != 0.0f;
   }
+  int lb[D];
   for (int ax = 0; ax < D; ++ax) {
-    int lb;
     float w[3], wd[3];
-    axis_taps(g, ax, SROW(ax), lb, w, wd);
-    s_lb[ax][t] = lb;
+    axis_taps(g, ax, SROW(ax), lb[ax], w, wd);
     for (int k = 0; k < 3; ++k) {
-      s_w[ax][k][t] = w[k];
-      s_wd[ax][k][t] = wd[k];
+      sh.in.w[ax][lb[ax] + k][ts] = w[k];
+      sh.in.wd[ax][lb[ax] + k][ts] = wd[k];
     }
   }
 #undef SROW
-  if (nonzero) atomicMax(&s_nlive, t + 1);
+  sparkl_walk::axis_masks<D, C>(true, lb, s_rng);
+  {
+    const unsigned b = __ballot_sync(0xffffffffu, nonzero);
+    if ((t & 31) == 0) s_nonzero[t >> 5] = b;
+  }
+  if constexpr (SORT) sparkl_walk::clear_bins<C>(s_bin);
   __syncthreads();
-  const int nlive = s_nlive;
+  // The live mask: the lanes below nlive (the highest nonzero lane + 1).
+  unsigned live[NW];
+  {
+    int nlive = 0;
+    for (int h = 0; h < NW; ++h)
+      if (s_nonzero[h] != 0u) nlive = 32 * h + 32 - __clz(s_nonzero[h]);
+    for (int h = 0; h < NW; ++h) {
+      const int n = min(max(nlive - 32 * h, 0), 32);
+      live[h] = n == 32 ? ~0u : (1u << n) - 1u;
+    }
+  }
+  // Cell q's coordinates, row-major (x-major) in both dimensions, and mask.
+  auto cell_mask = [&](int q, int& x, int& y, int& z, unsigned mk[NW]) {
+    x = D == 3 ? q >> 6 : q >> 3;
+    y = D == 3 ? (q >> 3) & 7 : q & 7;
+    z = q & 7;
+    sparkl_walk::cell_mask<D, C>(s_rng, x, y, z, mk);
+    for (int h = 0; h < NW; ++h) mk[h] &= live[h];
+  };
+  if constexpr (SORT) {
+    int hits[NPASS];
+    for (int k = 0; k < NPASS; ++k) {
+      int x, y, z;
+      unsigned mk[NW];
+      cell_mask(t + k * C, x, y, z, mk);
+      hits[k] = sparkl_walk::popcount<C>(mk);
+    }
+    sparkl_walk::sort_cells<C, NPASS>(hits, s_bin, s_list);
+  }
 
-  float* img = out + (size_t)chunk * nf * RC;
-  for (int k = 0; k < RC / C; ++k) {
-    const int q = t + k * C;
+  float* img = out + (size_t)chunk * NF * RC;
+  float res[SORT ? NPASS : 1][NF];
+  int cell[SORT ? NPASS : 1];
+#pragma unroll
+  for (int k = 0; k < NPASS; ++k) {
+    const int q = SORT ? s_list[t + k * C] : t + k * C;
+    int x, y, z;
+    unsigned mk[NW];
+    cell_mask(q, x, y, z, mk);
     float acc_m = 0.0f, acc_pm = 0.0f, acc_ps = 0.0f;
     float acc_b[D];
     float acc_j[D][D];
@@ -159,63 +224,74 @@ __global__ void __launch_bounds__(C) p2g_windows_kernel(const float* __restrict_
       acc_b[i] = 0.0f;
       for (int j = 0; j < D; ++j) acc_j[i][j] = 0.0f;
     }
-    if constexpr (D == 3) {
-      const int x = q >> 6, y = (q >> 3) & 7, z = q & 7;
-      for (int s = 0; s < nlive; ++s) {
-        const unsigned a = (unsigned)(x - s_lb[0][s]);
-        const unsigned b = (unsigned)(y - s_lb[1][s]);
-        const unsigned c = (unsigned)(z - s_lb[2][s]);
-        if (a > 2u || b > 2u || c > 2u) continue;
-        const float wx = s_w[0][a][s], wy = s_w[1][b][s], wz = s_w[2][c][s];
+    auto hit = [&](int s) {
+      if constexpr (D == 3) {
+        const float wx = sh.in.w[0][x][s], wy = sh.in.w[1][y][s], wz = sh.in.w[2][z][s];
         const float wxy = wx * wy;
         const float w = wxy * wz;
-        const float wdx = (s_wd[0][a][s] * wy) * wz;
-        const float wdy = (wx * s_wd[1][b][s]) * wz;
-        const float wdz = wxy * s_wd[2][c][s];
-        acc_m += s_p0[0][s] * w;
+        const float wdx = (sh.in.wd[0][x][s] * wy) * wz;
+        const float wdy = (wx * sh.in.wd[1][y][s]) * wz;
+        const float wdz = wxy * sh.in.wd[2][z][s];
+        acc_m += sh.in.p0[0][s] * w;
         for (int i = 0; i < 3; ++i) {
-          acc_b[i] += s_p0[1 + i][s] * w;
-          acc_j[i][0] += s_a[i * 3 + 0][s] * wdx;
-          acc_j[i][1] += s_a[i * 3 + 1][s] * wdy;
-          acc_j[i][2] += s_a[i * 3 + 2][s] * wdz;
+          acc_b[i] += sh.in.p0[1 + i][s] * w;
+          acc_j[i][0] += sh.in.a[i * 3 + 0][s] * wdx;
+          acc_j[i][1] += sh.in.a[i * 3 + 1][s] * wdy;
+          acc_j[i][2] += sh.in.a[i * 3 + 2][s] * wdz;
         }
-        if (with_psi) {
-          acc_pm += s_p0[4][s] * w;
-          acc_ps += s_p0[5][s] * w;
+        if constexpr (PSI) {
+          acc_pm += sh.in.p0[4][s] * w;
+          acc_ps += sh.in.p0[5][s] * w;
         }
-      }
-    } else {
-      const int x = q >> 3, y = q & 7;
-      for (int s = 0; s < nlive; ++s) {
-        const unsigned a = (unsigned)(x - s_lb[0][s]);
-        const unsigned b = (unsigned)(y - s_lb[1][s]);
-        if (a > 2u || b > 2u) continue;
-        const float wx = s_w[0][a][s], wy = s_w[1][b][s];
+      } else {
+        const float wx = sh.in.w[0][x][s], wy = sh.in.w[1][y][s];
         const float w = wx * wy;
-        const float wdx = s_wd[0][a][s] * wy;
-        const float wdy = wx * s_wd[1][b][s];
-        acc_m += s_p0[0][s] * w;
+        const float wdx = sh.in.wd[0][x][s] * wy;
+        const float wdy = wx * sh.in.wd[1][y][s];
+        acc_m += sh.in.p0[0][s] * w;
         for (int i = 0; i < 2; ++i) {
-          acc_b[i] += s_p0[1 + i][s] * w;
-          acc_j[i][0] += s_a[i * 2 + 0][s] * wdx;
-          acc_j[i][1] += s_a[i * 2 + 1][s] * wdy;
+          acc_b[i] += sh.in.p0[1 + i][s] * w;
+          acc_j[i][0] += sh.in.a[i * 2 + 0][s] * wdx;
+          acc_j[i][1] += sh.in.a[i * 2 + 1][s] * wdy;
         }
-        if (with_psi) {
-          acc_pm += s_p0[3][s] * w;
-          acc_ps += s_p0[4][s] * w;
+        if constexpr (PSI) {
+          acc_pm += sh.in.p0[3][s] * w;
+          acc_ps += sh.in.p0[4][s] * w;
         }
       }
+    };
+    if constexpr (D == 3) {
+      unsigned long long mk64[C / 64];
+      for (int w = 0; w < C / 64; ++w) mk64[w] = mk[2 * w] | (unsigned long long)mk[2 * w + 1] << 32;
+      sparkl_walk::walk_chain<C>(mk64, hit);
+    } else {
+      sparkl_walk::walk<C>(mk, hit);
     }
-    img[q] = acc_m;
+    float v[NF];
+    v[0] = acc_m;
     for (int i = 0; i < D; ++i) {
       float mom = acc_b[i];
       for (int j = 0; j < D; ++j) mom = mom + acc_j[i][j];
-      img[(1 + i) * RC + q] = mom;
+      v[1 + i] = mom;
     }
-    if (with_psi) {
-      img[(D + 1) * RC + q] = acc_pm;
-      img[(D + 2) * RC + q] = acc_ps;
+    if constexpr (PSI) {
+      v[D + 1] = acc_pm;
+      v[D + 2] = acc_ps;
     }
+    if constexpr (SORT) {
+      for (int f = 0; f < NF; ++f) res[k][f] = v[f];
+      cell[k] = q;
+    } else {
+      for (int f = 0; f < NF; ++f) img[f * RC + q] = v[f];
+    }
+  }
+  if constexpr (SORT) {
+    __syncthreads();  // the slot arrays are consumed: the image takes their place
+#pragma unroll
+    for (int k = 0; k < NPASS; ++k)
+      for (int f = 0; f < NF; ++f) sh.out[f * RC + cell[k]] = res[k][f];
+    __syncthreads();
+    for (int e = t; e < NF * RC; e += C) img[e] = sh.out[e];
   }
 }
 
@@ -326,15 +402,17 @@ extern "C" {
 int sparkl_p2g_windows(const float* slots, float* out, int max_chunks, int dim, int with_psi,
                        float ox, float oy, float oz, float h, float invd, void* stream) {
   const GridArgs g = grid_args(ox, oy, oz, h, invd);
-  if (dim == 3) {
-    p2g_windows_kernel<3, 128><<<max_chunks, 128, 0, (cudaStream_t)stream>>>(slots, out,
-                                                                            with_psi, g);
-  } else if (dim == 2) {
-    p2g_windows_kernel<2, 64><<<max_chunks, 64, 0, (cudaStream_t)stream>>>(slots, out,
-                                                                          with_psi, g);
-  } else {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dim == 3 && with_psi)
+    p2g_windows_kernel<3, 128, true><<<max_chunks, 128, 0, st>>>(slots, out, g);
+  else if (dim == 3)
+    p2g_windows_kernel<3, 128, false><<<max_chunks, 128, 0, st>>>(slots, out, g);
+  else if (dim == 2 && with_psi)
+    p2g_windows_kernel<2, 64, true><<<max_chunks, 64, 0, st>>>(slots, out, g);
+  else if (dim == 2)
+    p2g_windows_kernel<2, 64, false><<<max_chunks, 64, 0, st>>>(slots, out, g);
+  else
     return (int)cudaErrorInvalidValue;
-  }
   return (int)cudaGetLastError();
 }
 

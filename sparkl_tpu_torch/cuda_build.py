@@ -32,7 +32,8 @@ import torch
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "sparkl_tpu_torch")
-SOURCES = ("fused_kernels.cu", "particle_physics.cuh", "window_kernels.cu", "probe_kernels.cu")
+SOURCES = ("fused_kernels.cu", "particle_physics.cuh", "scatter_walk.cuh", "window_kernels.cu",
+           "probe_kernels.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # -fmad=false keeps the kernels' rounding that of the plain versions (no
 # contraction of a*b+c); never --use_fast_math (expf/logf/sinf, sqrtf).

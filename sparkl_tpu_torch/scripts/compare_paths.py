@@ -5,7 +5,13 @@ run is a fresh process that builds its own checkout's kernels and drives,
 as chip_smoke.py does and with its functions: fused sand3@1M (15 frames,
 the last 3 timed), elasticity2, basic2 and fluids2 (phase 16), l_panel3 at
 full size with its load at LPANEL3_LOAD_SPEED (phase 23), materials3
-(phase 27), materials2 (phase 28) and the sparse basic2 path (phase 31).
+(phase 27), materials2 (phase 28), the sparse basic2 path (phase 31), and
+the two paths that carry the 3D scatter kernels of the fluid pass and the
+sparse pipeline: fluids3x4 (phase 10: 30 frames, the last 5 timed) and
+sparse sand3 (phase 7: sand3@1M on the sparse pipeline, 6 frames, the last
+2 timed). These two also profile one more frame each (torch.profiler, as
+chip_smoke.py does) and report its device busy ms beside the rate
+("... busy ms").
 The card's host sets most of these rates and differs between machines, so
 two trees are compared only within one call; against a copy of this
 checkout the same run measures how far the rates spread between
@@ -14,7 +20,7 @@ processes of one tree.
 Run on the GPU from the repository root:
 `python -m sparkl_tpu_torch.scripts.compare_paths OTHER_CHECKOUT [PAIRS [PATHS]]`
 (PAIRS 2 by default; PATHS a comma-separated subset of the names above,
-e.g. `elasticity2,basic2`, all by default)."""
+e.g. `elasticity2,basic2` or `"fluids3x4,sparse sand3"`, all by default)."""
 
 import json
 import os
@@ -24,10 +30,11 @@ import sys
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 # Run in a fresh interpreter with the checkout first on sys.path; prints one
-# line "RATES {path: particle-updates/s}" for the paths named in argv[2]
-# (all if empty).
+# line "RATES {path: particle-updates/s, ...}" for the paths named in
+# argv[2] (all if empty), with "<path> busy ms" for the profiled paths.
 CHILD = r'''
-import contextlib, io, json, sys, time
+import contextlib, io, json, os, sys, time
+from dataclasses import replace
 sys.path.insert(0, sys.argv[1])
 import torch
 import chip_smoke as cs
@@ -57,6 +64,22 @@ def sand3_fused():
     return int(b.particles.active.sum()) * n / (time.perf_counter() - t0)
 
 
+def fluids3x4():
+    pipe, _, state, _, res = cs.phase_fluid_main(cs.fluid_blob())
+    _, prof = cs.profile_frame(pipe, state, "fluid_profile.txt", 10, "fluid")
+    busy["fluids3x4 busy ms"] = prof["busy_ms"]
+    return res["pups"]
+
+
+def sparse_sand3():
+    b = scenes.build("sand3", nx=100, ny=50, nz=100)
+    res = cs.phase_sparse_main(replace(b, name="sand3@1M"), cs.SPARSE_FRAMES, cs.SPARSE_TIMED,
+                               7, profile="sparse_profile.txt")[3]
+    busy["sparse sand3 busy ms"] = res["profile"]["busy_ms"]
+    return res["pups"]
+
+
+busy = {}
 paths = {
     "sand3 fused": sand3_fused,
     "elasticity2": lambda: cs.phase_plastic_main("elasticity2", 16)[3]["pups"],
@@ -72,15 +95,18 @@ paths = {
     "sparse basic2": lambda: cs.phase_sparse_main(
         scenes.build("basic2"), cs.SPARSE2D_FRAMES, cs.SPARSE2D_TIMED, 31,
         cs.golden_frames("basic2"), None)[3]["pups"],
+    "fluids3x4": fluids3x4,
+    "sparse sand3": sparse_sand3,
 }
 cuda_build.build()
 cuda_build.library()
+os.makedirs(cs.OUT_DIR, exist_ok=True)
 rates = {}
 with contextlib.redirect_stdout(io.StringIO()):
     for name, fn in paths.items():
         if on(name):
             rates[name] = fn()
-print("RATES " + json.dumps(rates))
+print("RATES " + json.dumps({**rates, **busy}))
 '''
 
 
@@ -107,7 +133,7 @@ def main(other, pairs=2, paths=""):
     for tag, checkout in turns(other, pairs):
         r = child(CHILD, checkout, [paths], "RATES")
         runs.append((tag, r))
-        print(f"{tag} ({checkout}): " + ", ".join(f"{k} {v:.4g}" for k, v in r.items()),
+        print(f"{tag} ({checkout}): " + ", ".join(f"{k} {v:.6g}" for k, v in r.items()),
               flush=True)
     return runs
 

@@ -1,12 +1,13 @@
 """The remaining material models on the port's fused pipeline (neo-Hookean
 elasticity, NACC plasticity, and Rankine and Snow in 3D), on the CPU
-against the JAX package: the constitutive and return-map functions on
-random F, kernels A and B's material forms (their plain versions) against
-the Pallas kernels in interpret mode on reduced materials3 and materials2
-with the stress cache on and off, the materials3 build and pack, three
-substeps of reduced materials3 through both fused pipelines, a JAX model
-set carried across, and what the kernels and both pipelines carry and
-refuse.
+against the JAX package, their 3D forms: NACC's return map on random F,
+kernels A and B's material forms (their plain versions) against the
+Pallas kernels in interpret mode on reduced materials3 with the stress
+cache on and off, the materials3 build and pack, and three substeps of
+reduced materials3 through both fused pipelines.
+(test_torch_materials2d.py holds the 2D forms on reduced materials2,
+neo-Hookean's functions, a JAX model set carried across, and what the
+kernels and both pipelines carry and refuse.)
 
 The port builds materials3 and materials2 with chip_smoke.py's builders
 (the port's API); this file builds them again with the JAX package's API.
@@ -34,30 +35,24 @@ import jax.numpy as jnp
 
 import sparkl_tpu.scenes as jscenes
 from sparkl_tpu.core.particles import Particles as JParticles
-from sparkl_tpu.core.params import SolverParameters as JParams
 from sparkl_tpu.fused import kernels as JK
 from sparkl_tpu.fused.pipeline import FusedMpmPipeline as JPipeline
 from sparkl_tpu.math import cmat as jcmat
 from sparkl_tpu.math.svd import svd_c as jsvd_c
-from sparkl_tpu.models import constitutive as jcon
 from sparkl_tpu.models import plasticity as jplas
 from sparkl_tpu.models import registry as jreg
 from sparkl_tpu.sparse.blocks import BlockConfig as JBlockConfig
 
 import chip_smoke
-import sparkl_tpu_torch as tsk
 from sparkl_tpu_torch import interop
 from sparkl_tpu_torch.core.grid import GridParams
-from sparkl_tpu_torch.core.params import DamageModel
 from sparkl_tpu_torch.fused import kernels as TK
 from sparkl_tpu_torch.fused import layout as TL
 from sparkl_tpu_torch.fused.pipeline import FusedMpmPipeline
 from sparkl_tpu_torch.models import constitutive as tcon
-from sparkl_tpu_torch.models import failure as tfail
 from sparkl_tpu_torch.models import plasticity as tplas
 from sparkl_tpu_torch.models import registry as treg
 from sparkl_tpu_torch.sparse.blocks import BlockConfig
-from sparkl_tpu_torch.sparse.pipeline import SparseMpmPipeline
 
 torch.set_num_threads(1)
 
@@ -67,6 +62,8 @@ DT = 1e-4
 # calibrated ones hold 512 chunks, which the interpret-mode kernels would
 # all walk): reduced materials3 packs 8 chunks in 8 blocks, reduced
 # materials2 16 in 16.
+# The material forms this file holds (test_torch_materials2d.py the 2D ones).
+FORMS = ("3", "3-failure")
 CFG = {3: dict(max_blocks=16, max_chunks=16, chunk_size=128, max_grid_blocks=64),
        2: dict(max_blocks=32, max_chunks=32, chunk_size=64, max_grid_blocks=64)}
 
@@ -88,67 +85,9 @@ def _stack(m):
     return np.stack([np.stack([_np(x) for x in row], -1) for row in m], -2)
 
 
-def _random_f(rng, n, d, lo, hi):
-    """F = U diag(s) Vᵀ with U, V random rotations and s uniform in [lo, hi]."""
-    def rot():
-        q, r = np.linalg.qr(rng.normal(size=(n, d, d)))
-        q = q * np.sign(np.diagonal(r, axis1=1, axis2=2))[:, None, :]
-        q[:, :, 0] *= np.sign(np.linalg.det(q))[:, None]
-        return q
-    s = rng.uniform(lo, hi, size=(n, d))
-    return (rot() * s[:, None, :] @ rot().transpose(0, 2, 1)).astype(np.float32)
-
-
 # ---------------------------------------------------------------------------
 # The constitutive functions and the NACC return map
 # ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("d", [2, 3])
-def test_neo_hookean_matches_jax(d):
-    """Neo-Hookean's Kirchhoff stress, tensile energy and dt bound on random
-    F of the large deformations the model is for (singular values in [0.6,
-    1.6], random rotations) and near I (F = I + 0.02 N), phases 0, 0.3 and
-    1, hardening in [0.8, 1.2], E = 1e7: stress and energy within rtol 1e-5
-    and atol 1e-6 of the batch's largest magnitude, the bound within 1e-6
-    relative. Near I two terms cancel to their f32 floor: the deviatoric
-    stress µ J^(-2/d) (F Fᵀ - tr/d I) to ~µ·ulp·d (1.5 Pa of ~2e5 here),
-    so the near-I batch's stress takes atol 1e-5 of its scale; and the
-    energy's tr(F Fᵀ) J^(-2/d) - d, whose absolute error is the f32
-    rounding of J^(-2/d) (exp and log, computed by other libraries in the
-    two packages) times h µ d/2, so the near-I energy is held to the
-    strain-equivalent scale 2e-5 · 2 sqrt(µ e_max) (g2p_errors's energy
-    measure)."""
-    rng = np.random.default_rng(80 + d)
-    n = 4096
-    lam, mu = (np.float32(x) for x in treg.lame_lambda_mu(1.0e7, 0.2))
-    for batch, f in (("wide", _random_f(rng, n, d, 0.6, 1.6)),
-                     ("near I", (np.eye(d) + 0.02 * rng.normal(size=(n, d, d))).astype(np.float32))):
-        phase = rng.choice(np.array([0.0, 0.3, 1.0], np.float32), n)
-        eh = rng.uniform(0.8, 1.2, n).astype(np.float32)
-        jargs = (lam, mu, jnp.asarray(phase), jnp.asarray(eh), _c(f, "jax"))
-        targs = (torch.tensor(lam), torch.tensor(mu), torch.from_numpy(phase),
-                 torch.from_numpy(eh), _c(f, "torch"))
-        sj = _stack(jax.jit(jcon.neo_hookean_kirchhoff_stress_c)(*jargs))
-        st = _stack(tcon.neo_hookean_kirchhoff_stress_c(*targs))
-        atol = (1e-6 if batch == "wide" else 1e-5) * np.abs(sj).max()
-        np.testing.assert_allclose(st, sj, rtol=1e-5, atol=atol, err_msg=batch)
-        ej = _np(jax.jit(jcon.neo_hookean_pos_energy_c)(*jargs))
-        et = tcon.neo_hookean_pos_energy_c(*targs).numpy()
-        if batch == "wide":
-            np.testing.assert_allclose(et, ej, rtol=1e-5, atol=1e-6 * np.abs(ej).max())
-        else:
-            escale = 2.0 * np.sqrt(mu * np.abs(ej).max())
-            assert np.abs(et - ej).max() <= 2e-5 * escale
-        assert (ej > 0).any() and (np.linalg.det(f) < 1).any() and (np.linalg.det(f) > 1).any()
-    vel = rng.normal(scale=3.0, size=(n, d)).astype(np.float32)
-    rho = np.float32(2700.0)
-    bj = _np(jax.jit(jcon.neo_hookean_timestep_bound)(lam, mu, np.float32(0.5), jnp.asarray(eh),
-                                                      rho, jnp.asarray(vel), 0.2))
-    bt = tcon.neo_hookean_timestep_bound(torch.tensor(lam), torch.tensor(mu), 0.5,
-                                         torch.from_numpy(eh), torch.tensor(rho),
-                                         torch.from_numpy(vel), 0.2).numpy()
-    np.testing.assert_allclose(bt, bj, rtol=1e-6)
 
 
 def _jax_nacc_case(params, f, alpha):
@@ -292,20 +231,20 @@ def _pipelines(dim, failure):
     return jb, tb, jpipe, tpipe
 
 
+def pipelines_by_form(forms):
+    """Per form ("3", "3-failure", "2", "2-failure"): _pipelines."""
+    return {form: _pipelines(int(form[0]), form.endswith("failure")) for form in forms}
+
+
 @pytest.fixture(scope="module")
 def scenes():
-    """Per form ("3", "3-failure", "2", "2-failure"): _pipelines."""
-    return {f"{d}{'-failure' if fl else ''}": _pipelines(d, fl)
-            for d in (3, 2) for fl in (False, True)}
+    """The 3D forms' _pipelines (test_torch_materials2d.py builds the 2D
+    forms')."""
+    return pipelines_by_form(FORMS)
 
 
-@pytest.mark.parametrize("form", ["3", "3-failure", "2", "2-failure"])
-def test_materials_builds_bit_equal(scenes, form):
-    """chip_smoke.materials3 and materials2 (the port's API), reduced, and
-    with their failure forms, against the same configurations built with
-    the JAX package's API: every particle field, the grid and the model
-    tables bit for bit; materials3's bands hold 2 lattice columns each
-    (models 0-3), the lower lattice model 4."""
+def check_materials_builds_bit_equal(scenes, form):
+    """The body of test_materials_builds_bit_equal (this file's cases and another file's)."""
     jb, tb, _, _ = scenes[form]
     for f in fields(tb.particles):
         a, b = getattr(tb.particles, f.name).numpy(), _np(getattr(jb.particles, f.name))
@@ -325,14 +264,18 @@ def test_materials_builds_bit_equal(scenes, form):
     assert bool(tb.models.present_f) == form.endswith("failure")
 
 
-@pytest.mark.parametrize("dim", [3, 2])
-def test_materials_pack_bit_equal(scenes, dim):
-    """The fused pack of the reduced materials3 and materials2 (the stress
-    cache on: its rows seeded from registry.kirchhoff_stress, neo-Hookean
-    and corotated): the structure, every slot row (the stress and dt-bound
-    rows among them) and the ints, bit for bit, at the JAX pipeline's
-    calibration; the JAX pack carried across by interop.slot_state_from_numpy
-    keeps every row, the nacc row among them."""
+@pytest.mark.parametrize("form", FORMS)
+def test_materials_builds_bit_equal(scenes, form):
+    """chip_smoke.materials3 and materials2 (the port's API), reduced, and
+    with their failure forms, against the same configurations built with
+    the JAX package's API: every particle field, the grid and the model
+    tables bit for bit; materials3's bands hold 2 lattice columns each
+    (models 0-3), the lower lattice model 4."""
+    check_materials_builds_bit_equal(scenes, form)
+
+
+def check_materials_pack_bit_equal(scenes, dim):
+    """The body of test_materials_pack_bit_equal (this file's cases and another file's)."""
     jb, tb, _, _ = scenes[str(dim)]
     jpipe = JPipeline(jb.grid, jb.models, jb.colliders, jb.params, jb.gravity,
                       use_pallas="interpret")
@@ -353,6 +296,17 @@ def test_materials_pack_bit_equal(scenes, dim):
     r = TL.Rows(dim)
     occ = (ts.ints.numpy()[:, TL.I_FLAGS] & TL.OCCUPIED) != 0
     assert (carried.slots.numpy()[:, r.nacc][occ] == np.float32(-0.01)).all()
+
+
+@pytest.mark.parametrize("dim", [3])
+def test_materials_pack_bit_equal(scenes, dim):
+    """The fused pack of the reduced materials3 and materials2 (the stress
+    cache on: its rows seeded from registry.kirchhoff_stress, neo-Hookean
+    and corotated): the structure, every slot row (the stress and dt-bound
+    rows among them) and the ints, bit for bit, at the JAX pipeline's
+    calibration; the JAX pack carried across by interop.slot_state_from_numpy
+    keeps every row, the nacc row among them."""
+    check_materials_pack_bit_equal(scenes, dim)
 
 
 # ---------------------------------------------------------------------------
@@ -393,20 +347,21 @@ def _perturbed_state(tpipe, tb, seed):
     return state.replace(slots=torch.from_numpy(slots.astype(np.float32)))
 
 
+# The perturbed states' numpy seeds, per form.
+SEEDS = {"3": 100, "3-failure": 101, "2": 102, "2-failure": 103}
+
+
+def states_by_form(scenes):
+    return {form: _perturbed_state(s[3], s[1], SEEDS[form]) for form, s in scenes.items()}
+
+
 @pytest.fixture(scope="module")
 def kernel_states(scenes):
-    return {form: _perturbed_state(s[3], s[1], 100 + i)
-            for i, (form, s) in enumerate(scenes.items())}
+    return states_by_form(scenes)
 
 
-@pytest.mark.parametrize("form", ["3", "3-failure", "2", "2-failure"])
-def test_kernel_a_materials_matches_pallas(scenes, kernel_states, form):
-    """Kernel A's material forms on the perturbed reduced states: the
-    stress-cache read (materials3, materials2) and the fresh corotated and
-    neo-Hookean stress (the failure forms, the cache off): images [D, 1 +
-    d, 8^d] within rtol 1e-5, atol 1e-6 of the image's scale
-    (test_torch_plastic2d's bound: the same terms summed in another
-    order)."""
+def check_kernel_a_materials_matches_pallas(scenes, kernel_states, form):
+    """The body of test_kernel_a_materials_matches_pallas (this file's cases and another file's)."""
     _, _, jpipe, tpipe = scenes[form]
     state = kernel_states[form]
     dim = tpipe.grid.dim
@@ -425,27 +380,19 @@ def test_kernel_a_materials_matches_pallas(scenes, kernel_states, form):
     np.testing.assert_allclose(img_t, img_j, rtol=1e-5, atol=1e-6 * np.abs(img_j).max())
 
 
-@pytest.mark.parametrize("form", ["3", "3-failure", "2", "2-failure"])
-def test_kernel_b_materials_matches_pallas(scenes, kernel_states, form):
-    """Kernel B's material forms on occupied lanes of the perturbed reduced
-    states, on the windows of the port's kernel-A images: NACC (with the
-    nacc row), neo-Hookean's energy, cached stress (cache on) or failure
-    stress (cache off) and dt bound, Rankine and Snow in 3D with
-    Drucker-Prager beside them (3D), and NACC, neo-Hookean and Rankine in 2D.
-    test_torch_plastic2d's row tolerances: rows to 1e-5 of their scale,
-    those that pass through the SVDs and the maps' exp/log (F, the plastic
-    state, nacc, the hardening) to 2e-5; the energy rows psi_pos and par1
-    to 2e-5 of the strain-equivalent scale 2 sqrt(µ e_max) (times m for
-    par1), as test_torch_fracture3d holds them (neo-Hookean's energy
-    cancels near F = I); the stress rows to 2e-5 of λ + 2µ, chip_smoke's
-    g2p_errors measure (the cardano SVD's f32 floor as a strain: Snow's
-    clamp and Rankine's caps set singular values equal, and the epilogue's
-    SVD of such an F is degenerate; measured 1.5e-5 here); on every lane
-    but the NACC ties (counted, at most 2% of the NACC lanes). failed equal; phase equal (the failure
-    forms trip maximum stress on the neo-Hookean lanes: checked). NACC's
-    tips and projection occur in every form (its inside case too without
-    failure), and the Rankine caps; in 3D also Snow's two clamps,
-    Rankine's two-strain cap and Drucker-Prager flow."""
+@pytest.mark.parametrize("form", FORMS)
+def test_kernel_a_materials_matches_pallas(scenes, kernel_states, form):
+    """Kernel A's material forms on the perturbed reduced states: the
+    stress-cache read (materials3, materials2) and the fresh corotated and
+    neo-Hookean stress (the failure forms, the cache off): images [D, 1 +
+    d, 8^d] within rtol 1e-5, atol 1e-6 of the image's scale
+    (test_torch_plastic2d's bound: the same terms summed in another
+    order)."""
+    check_kernel_a_materials_matches_pallas(scenes, kernel_states, form)
+
+
+def check_kernel_b_materials_matches_pallas(scenes, kernel_states, form):
+    """The body of test_kernel_b_materials_matches_pallas (this file's cases and another file's)."""
     _, _, jpipe, tpipe = scenes[form]
     state = kernel_states[form]
     dim = tpipe.grid.dim
@@ -499,6 +446,30 @@ def test_kernel_b_materials_matches_pallas(scenes, kernel_states, form):
         assert counts["max_stress_trips"] > 0
     else:
         assert np.abs(b[:, r.stress : r.stress + r.nstress]).max() > 0
+
+
+@pytest.mark.parametrize("form", FORMS)
+def test_kernel_b_materials_matches_pallas(scenes, kernel_states, form):
+    """Kernel B's material forms on occupied lanes of the perturbed reduced
+    states, on the windows of the port's kernel-A images: NACC (with the
+    nacc row), neo-Hookean's energy, cached stress (cache on) or failure
+    stress (cache off) and dt bound, Rankine and Snow in 3D with
+    Drucker-Prager beside them (3D), and NACC, neo-Hookean and Rankine in 2D.
+    test_torch_plastic2d's row tolerances: rows to 1e-5 of their scale,
+    those that pass through the SVDs and the maps' exp/log (F, the plastic
+    state, nacc, the hardening) to 2e-5; the energy rows psi_pos and par1
+    to 2e-5 of the strain-equivalent scale 2 sqrt(µ e_max) (times m for
+    par1), as test_torch_fracture3d holds them (neo-Hookean's energy
+    cancels near F = I); the stress rows to 2e-5 of λ + 2µ, chip_smoke's
+    g2p_errors measure (the cardano SVD's f32 floor as a strain: Snow's
+    clamp and Rankine's caps set singular values equal, and the epilogue's
+    SVD of such an F is degenerate; measured 1.5e-5 here); on every lane
+    but the NACC ties (counted, at most 2% of the NACC lanes). failed equal; phase equal (the failure
+    forms trip maximum stress on the neo-Hookean lanes: checked). NACC's
+    tips and projection occur in every form (its inside case too without
+    failure), and the Rankine caps; in 3D also Snow's two clamps,
+    Rankine's two-strain cap and Drucker-Prager flow."""
+    check_kernel_b_materials_matches_pallas(scenes, kernel_states, form)
 
 
 # ---------------------------------------------------------------------------
@@ -571,120 +542,3 @@ def _nacc_ties(tpipe, p_in, p_out, dt):
     return ((ms.ptype[mid] == tplas.NACC) & (margin <= TIE)).numpy()
 
 
-def test_interop_carries_nacc_and_neo_hookean_models():
-    """A JAX ModelSet with neo-Hookean, NACC and the other models (materials3's
-    failure form), taken as numpy arrays, becomes a port ModelSet with the
-    same tables and present types, whose registry dispatch matches the JAX
-    package's on random F (singular values in [0.9, 1.1], random
-    rotations): on the neo-Hookean particles the stress within rtol 1e-5
-    and atol 1e-6 of the batch scale and the energy within the
-    strain-equivalent 2e-5 · 2 sqrt(µ e_max) (its near-I cancellation, as
-    test_neo_hookean_matches_jax holds it), on every particle the dt
-    bound within 1e-6 relative, and on the NACC particles the return map's
-    F and α within 1e-5 off the NACC ties (the corotated models' SVD-based
-    dispatch is held in tests/test_torch_math_models.py and
-    test_torch_plastic2d.py)."""
-    jm = _jax_models3(failure=True)
-    tm = interop.modelset_from_numpy(jm.ctype, jm.cparams, jm.ptype, jm.pparams, jm.ftype,
-                                     jm.fparams, device="cpu")
-    for k in ("ctype", "cparams", "ptype", "pparams", "ftype", "fparams"):
-        np.testing.assert_array_equal(getattr(tm, k).numpy(), _np(getattr(jm, k)))
-    assert (tm.present_c, tm.present_p, tm.present_f) == (jm.present_c, jm.present_p,
-                                                          jm.present_f)
-    assert not tm.unsupported()
-    rng = np.random.default_rng(120)
-    n = 2048
-    ids = rng.integers(0, 5, n).astype(np.int32)
-    f = _random_f(rng, n, 3, 0.9, 1.1)
-    phase = rng.choice(np.array([0.0, 1.0], np.float32), n)
-    eh = rng.uniform(0.9, 1.1, n).astype(np.float32)
-    mass = np.full(n, 2.7, np.float32)
-    vol0 = np.full(n, 1e-3, np.float32)
-    vel = rng.normal(size=(n, 3)).astype(np.float32)
-    zeros = np.zeros((n, 3, 3), np.float32)
-    J = (jnp.asarray(ids), jnp.asarray(phase), jnp.asarray(eh), jnp.asarray(f))
-    T = (torch.from_numpy(ids), torch.from_numpy(phase), torch.from_numpy(eh),
-         torch.from_numpy(f))
-    sj = _np(jax.jit(lambda *a: jreg.kirchhoff_stress(jm, *a, jnp.asarray(zeros),
-                                                       jnp.asarray(mass), jnp.asarray(vol0)))(*J))
-    st = treg.kirchhoff_stress(tm, *T, torch.from_numpy(zeros), torch.from_numpy(mass),
-                               torch.from_numpy(vol0)).numpy()
-    neo = (ids == 0) | (ids == 4)
-    np.testing.assert_allclose(st[neo], sj[neo], rtol=1e-5, atol=1e-6 * np.abs(sj[neo]).max())
-    ej = _np(jax.jit(lambda *a: jreg.pos_energy(jm, *a))(*J))
-    et = treg.pos_energy(tm, *T).numpy()
-    mu = float(tm.cparams[0, 1])
-    assert np.abs(et[neo] - ej[neo]).max() <= 2e-5 * 2.0 * np.sqrt(mu * np.abs(ej[neo]).max())
-    bj = _np(jax.jit(lambda *a: jreg.timestep_bound(jm, *a, jnp.asarray(mass), jnp.asarray(vol0),
-                                                     jnp.asarray(vel), 0.2))(*J))
-    bt = treg.timestep_bound(tm, *T, torch.from_numpy(mass), torch.from_numpy(vol0),
-                             torch.from_numpy(vel), 0.2).numpy()
-    np.testing.assert_allclose(bt, bj, rtol=1e-6)
-    alpha = rng.uniform(-0.05, 0.0, n).astype(np.float32)
-    ones = np.ones(n, np.float32)
-    outs_j = jax.jit(lambda i, ph, ff, a: jreg.apply_plasticity(
-        jm, i, ph, ff, jnp.asarray(ones), jnp.asarray(ones), jnp.asarray(ones),
-        jnp.zeros(n), a))(jnp.asarray(ids), jnp.asarray(phase), jnp.asarray(f),
-                          jnp.asarray(alpha))
-    outs_t = treg.apply_plasticity(tm, torch.from_numpy(ids), torch.from_numpy(phase),
-                                   torch.from_numpy(f), torch.ones(n), torch.ones(n),
-                                   torch.ones(n), torch.zeros(n), torch.from_numpy(alpha))
-    pp = tm.pparams[torch.from_numpy(ids).long()]
-    margin = tplas.nacc_project_c([pp[:, k] for k in range(6)],
-                                  [[torch.from_numpy(f[:, i, j].copy()) for j in range(3)]
-                                   for i in range(3)], torch.from_numpy(alpha))[3].numpy()
-    clear = (ids == 0) & (margin > TIE)
-    assert clear.sum() >= 0.98 * (ids == 0).sum()
-    np.testing.assert_array_less(np.abs(outs_t[0].numpy() - _np(outs_j[0])).max((1, 2))[clear],
-                                 1e-5)
-    np.testing.assert_array_less(np.abs(outs_t[5].numpy() - _np(outs_j[5]))[clear], 1e-5)
-    assert (outs_t[5].numpy()[ids == 0] != alpha[ids == 0]).any()
-    np.testing.assert_array_equal(outs_t[5].numpy()[ids != 0], alpha[ids != 0])
-
-
-def test_meta_and_sparse_refusals():
-    """meta_unsupported and registry.unsupported carry neo-Hookean, NACC,
-    and Rankine and Snow in 2D and 3D, and refuse CD-MPM; mats_form picks
-    the kernels' material instances for neo-Hookean or NACC, and for
-    Rankine or Snow only in 3D. Both pipelines take the material scenes'
-    models (the sparse one since the 2D slice) and refuse an unknown
-    constitutive type."""
-    base = dict(with_psi=False, m_count=1, present_c=(tcon.COROTATED,), present_p=(),
-                present_f=(), damage_model=int(DamageModel.NONE), stress_cache=True)
-    carried = [dict(present_c=(tcon.NEO_HOOKEAN,)), dict(present_p=(tplas.NACC,)),
-               dict(present_p=(tplas.RANKINE,)), dict(present_p=(tplas.SNOW,)),
-               dict(present_c=(tcon.COROTATED, tcon.NEO_HOOKEAN),
-                    present_p=(tplas.DRUCKER_PRAGER, tplas.NACC, tplas.RANKINE, tplas.SNOW)),
-               dict(present_c=(tcon.NEO_HOOKEAN,), present_f=(tfail.MAXIMUM_STRESS,),
-                    stress_cache=False)]
-    for over in carried:
-        for dim in (2, 3):
-            assert TK.meta_unsupported(dict(base, **over), dim) == [], (over, dim)
-    for dim in (2, 3):
-        assert TK.meta_unsupported(dict(base, damage_model=int(DamageModel.CD_MPM),
-                                        stress_cache=False), dim)
-        assert TK.mats_form(dict(base, present_c=(tcon.NEO_HOOKEAN,)), dim)
-        assert TK.mats_form(dict(base, present_p=(tplas.NACC,)), dim)
-        assert TK.mats_form(dict(base, present_p=(tplas.RANKINE,)), dim) == (dim == 3)
-        assert TK.mats_form(dict(base, present_p=(tplas.SNOW,)), dim) == (dim == 3)
-        assert not TK.mats_form(dict(base, present_p=(tplas.DRUCKER_PRAGER,)), dim)
-        assert not TK.mats_form(base, dim)
-    b = chip_smoke.materials3(chip_smoke.MATERIALS3_SMALL, device="cpu")
-    assert not b.models.unsupported()
-    assert isinstance(tsk.auto_pipeline(b, device="cpu"), FusedMpmPipeline)
-    e, nu = 1.0e7, 0.2
-    el = treg.corotated_linear_elasticity(e, nu)
-    for spec, word in (((treg.neo_hookean_elasticity(e, nu), None), "neo-Hookean"),
-                       ((el, treg.nacc_plasticity(e, nu, 0.5, True, 0.8, 0.6)), "NACC"),
-                       ((el, treg.rankine_plasticity(e, nu, 5e4, 5.0)), "Rankine"),
-                       ((el, treg.snow_plasticity()), "Snow")):
-        ms = treg.ModelSet.pack([treg.ParticleModel(*spec)], "cpu")
-        assert not ms.unsupported(), word
-        SparseMpmPipeline(b.grid, ms, b.colliders, b.params, device="cpu")
-        FusedMpmPipeline(b.grid, ms, b.colliders, b.params, device="cpu")
-    other = treg.ModelSet.from_tables([5], [[1.0, 1.0, 0.5, 0.0]], [0], np.zeros((1, 8)), [0],
-                                      np.zeros((1, 2)), "cpu")
-    assert other.unsupported()
-    for pipeline in (FusedMpmPipeline, SparseMpmPipeline):
-        with pytest.raises(NotImplementedError, match="constitutive model types"):
-            pipeline(b.grid, other, b.colliders, b.params, device="cpu")
