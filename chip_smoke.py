@@ -698,19 +698,28 @@ def phase_kernels(pipe, state, dt):
     res["merge_scatter"] = check_merge_scatter(cfg, state.structure, rows, 3, " (sand3)")
     require(not failures, "; ".join(failures))
 
-    # Kernel B, on the windows the main path computes from these images.
-    res["g2p_fused"], (slots_in, windows, args) = check_g2p(pipe, state, dt, "one frame", 3)
+    # Kernel B, on the window fields the main path computes from these images.
+    res["g2p_fused"], (slots_in, fc, args) = check_g2p(pipe, state, dt, "one frame", 3)
     scratch = slots_in.clone()
-    res["g2p_fused"]["ms"] = median_ms(
-        lambda: K.g2p_fused(grid, cfg, pipe._meta, pipe._kparams, scratch, state.ints,
-                            windows, dt, *args))
+
+    def b_call():
+        return K.g2p_fused(grid, cfg, pipe._meta, pipe._kparams, scratch, state.ints, *fc, dt,
+                           *args)
+
+    res["g2p_fused"]["ms"] = median_ms(b_call)
+    add_split(res["g2p_fused"], b_call)
     res["g2p_fused"]["plain_ms"] = median_ms(
-        lambda: K.g2p_fused_reference(grid, slots_in, state.ints, windows, dt, *args), reps=5)
+        lambda: K.g2p_fused_plain(grid, cfg, slots_in, state.ints, *fc, dt, *args), reps=5)
     traffic = substep_bytes(state.structure, cfg)
+    # B's bound from the rows its lanes need (the former count, every row
+    # of every lane, kept beside it).
+    all_rows = traffic["g2p_fused"]
+    traffic["g2p_fused"] = res["g2p_fused"]["bytes"]
     lanes = int(((state.ints[:, L.I_FLAGS, :] & L.ACTIVE) != 0).sum())
     flops = dict(p2g_fused=lanes * (27 * P2G_TAP_FLOPS + A_SLOT_FLOPS),
                  merge_blocks=traffic["merge_blocks"] // 4,
                  g2p_fused=lanes * (27 * G2P_TAP_FLOPS + B_LANE_FLOPS))
+    res["g2p_fused"]["former_bound_ms"] = bound(all_rows, flops["g2p_fused"])[0]
     for name in flops:
         v = res[name]
         v["bytes"], v["flops"] = traffic[name], flops[name]
@@ -721,8 +730,16 @@ def phase_kernels(pipe, state, dt):
         say(3, f"{name}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, library "
                f"{v['library_ms']} ms (batched medians); {traffic[name] / 1e9:.4f} GB counted from "
                f"shapes = {traffic[name] / v['ms'] / 1e6:.1f} GB/s; bound {v['bound_ms']:.4f} ms "
-               f"({v['bound_by']}){split_text(v)}{hits}")
+               f"({v['bound_by']}){split_text(v)}{hits}{former_bound_text(v)}")
     return res
+
+
+def former_bound_text(v):
+    """Kernel B's bound by its former count of bytes (every row of every
+    lane; on the fluid path the rows the fluid branch was taken to need),
+    as text."""
+    return (f"; bound by the former count {v['former_bound_ms']:.4f} ms"
+            if "former_bound_ms" in v else "")
 
 
 def image_rows(cfg, images):
@@ -792,7 +809,8 @@ def check_merge_scatter(cfg, structure, rows, phase, label="", timed=True):
 def substep_bytes(structure, cfg):
     """Bytes each substep kernel must move, counted from shapes: the slot
     rows it reads for the live chunks (kernel A: 24 f32 + 4 i32 rows;
-    kernel B: 32 f32 + 5 i32 rows and the [3, 512] window), what it writes
+    kernel B, every row of every lane: 32 f32 + 5 i32 rows and the [3,
+    512] window; b_bytes counts the rows its lanes need), what it writes
     (kernel A: every chunk's [4, 512] image; kernel B: the live chunks' 56
     rows), and for the merge each block's chunk rows (at most 8) read and
     its [8, 256] row written."""
@@ -846,13 +864,70 @@ def eos_dtb_errors(out_k, out_p, own, fluid):
             worst_eps)
 
 
+def b_inputs(pipe, state, images, dt, channels=None):
+    """Kernel B's inputs on the path: (the window fields [MG + 1, n · 4^d]
+    the path computes from `images` (merge, grid update), cut to their
+    first `channels` channels, the chunks' corner map [D, 2^d])."""
+    fields = pipe._node_fields(state, images, dt)
+    if channels is not None:
+        g, cpb = fields.shape[0], 4**pipe.grid.dim
+        fields = fields.reshape(g, -1, cpb)[:, :channels].reshape(g, -1).contiguous()
+    return fields, pipe._corners(state)
+
+
+def b_unchanged(pipe, state, slots_in, out_k, label, phase, meta=None):
+    """Kernel B's rows that its row table (fused/kernels.py B_ROWS) says no
+    class of a lane may change, held bit-equal to the kernel's input on
+    every lane (and every row of a dead chunk). Fails otherwise; returns
+    {rows_lanes_held, rows_lanes_differing}."""
+    import torch
+    from sparkl_tpu_torch.fused import kernels as K
+
+    meta = pipe._meta if meta is None else meta
+    kept = K.b_unchanged(meta, pipe._tab_i, state.ints, out_k, state.structure.num_chunks)
+    differ = kept & (out_k.view(torch.int32) != slots_in.view(torch.int32))
+    v = dict(rows_lanes_held=int(kept.sum()), rows_lanes_differing=int(differ.sum()))
+    say(phase, f"g2p_fused on the {label} state: the rows its row table leaves unchanged, "
+               f"{v['rows_lanes_held']} (row, lane) pairs, bit-equal to its input: "
+               f"{v['rows_lanes_differing'] == 0}")
+    require(v["rows_lanes_differing"] == 0,
+            f"g2p_fused changed rows its row table leaves unchanged on the {label} state")
+    return v
+
+
+def b_bytes(pipe, state, out_k, meta=None):
+    """Bytes kernel B must move on `state`, counted from its row table: on
+    each live lane the f32 rows its classes read and those they may change
+    (each read once and written once), the lane's 2 + d int rows (model,
+    flags, origin), and the window fields' rows of the live chunks' corner
+    blocks, each node-table row once, in the channels the form reads."""
+    from sparkl_tpu_torch.core.params import DamageModel
+    from sparkl_tpu_torch.fused import kernels as K
+
+    meta = pipe._meta if meta is None else meta
+    dim = pipe.grid.dim
+    nch = int(state.structure.num_chunks)
+    cls = K.b_lane_classes(meta, pipe._tab_i, state.ints, out_k)[:nch]
+    rows = K.b_field_rows(dim)
+    n = (2 + dim) * cls.numel()
+    for name, (readers, writers) in K.B_ROWS.items():
+        n += len(rows[name]) * int(((cls & readers) != 0).sum() + ((cls & writers) != 0).sum())
+    modified = (not meta["stress_cache"]
+                and meta["damage_model"] == DamageModel.MODIFIED_EIGENEROSION)
+    blocks = int(pipe._corners(state)[:nch].unique().numel())
+    return 4 * (n + blocks * (dim + int(modified)) * 4**dim)
+
+
 def check_g2p(pipe, state, dt, label, phase, need_plastic=False):
-    """Kernel B against its plain version on `state`, with the windows the
-    main path computes for it (kernel A, merge, grid update). Fails unless
-    every row group is within its tolerance and, with need_plastic, unless
-    Drucker-Prager plastic flow (a change of the hardening or plastic-volume
-    row) happened on some occupied lane in both. Returns ({max_abs_err, worst_over_tol, plastic_lanes},
-    (the input slots, the windows, the table arguments))."""
+    """Kernel B against its plain version on `state`, with the window fields
+    the main path computes for it (kernel A, merge, grid update) and the
+    corner map. Fails unless every row group is within its tolerance, the
+    rows its row table leaves unchanged are bit-equal to its input, and,
+    with need_plastic, unless Drucker-Prager plastic flow (a change of the
+    hardening or plastic-volume row) happened on some occupied lane in
+    both. Returns ({max_abs_err, worst_over_tol, plastic_lanes, unchanged,
+    bytes}, (the input slots, (the fields, the corners), the table
+    arguments))."""
     import torch
     from sparkl_tpu_torch.fused import kernels as K
     from sparkl_tpu_torch.fused import layout as L
@@ -862,16 +937,17 @@ def check_g2p(pipe, state, dt, label, phase, need_plastic=False):
     nchunks = state.structure.num_chunks
     tables = (pipe._tab_f, pipe._tab_i)
     images = K.p2g_fused(grid, cfg, pipe._meta, state.slots, state.ints, dt, nchunks, tables)
-    windows = pipe._grid_windows(state, images, dt)
+    fc = b_inputs(pipe, state, images, dt)
     args = (pipe._tab_f, pipe._tab_i, nchunks)
     slots_in = state.slots.clone()
     ints_in = state.ints.clone()
-    out_p = K.g2p_fused_reference(grid, slots_in, state.ints, windows, dt, *args,
-                                  velocity_clamp=pipe._kparams["gpu_velocity_clamp"])
+    out_p = K.g2p_fused_plain(grid, cfg, slots_in, state.ints, *fc, dt, *args,
+                              velocity_clamp=pipe._kparams["gpu_velocity_clamp"])
     out_k = K.g2p_fused(grid, cfg, pipe._meta, pipe._kparams, slots_in.clone(), state.ints,
-                        windows, dt, *args)
+                        *fc, dt, *args)
     torch.cuda.synchronize()
     require(torch.equal(state.ints, ints_in), "g2p_fused touched the int rows")
+    unchanged = b_unchanged(pipe, state, slots_in, out_k, label, phase)
     occ = (state.ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0
     ct = pipe._tab_i[:, 0][state.ints[:, L.I_MODEL, :].long()]
     # The dt-bound row the plain functions form from the kernel's own rows.
@@ -897,7 +973,8 @@ def check_g2p(pipe, state, dt, label, phase, need_plastic=False):
     res = dict(max_abs_err=torch.where(occ[:, None, :], out_k - out_p, 0.0).abs().max().item(),
                worst_over_tol=worst, plastic_lanes=plastic_k, fluid_lanes=int(fluid.sum()),
                eos_dtb_lanes_near_one=near_one, dtb_lanes_close=close,
-               eos_dtb_worst_lane_j_minus_1=worst_eps)
+               eos_dtb_worst_lane_j_minus_1=worst_eps, unchanged=unchanged,
+               bytes=b_bytes(pipe, state, out_k))
     say(phase, f"g2p_fused on the {label} state, slots {tuple(out_k.shape)}: worst measure/tol "
                f"per row group { {g: round(v, 4) for g, v in worst.items()} } (pass <= 1; "
                f"failed row equal: {worst['failed'] == 0}); lanes with plastic flow: kernel "
@@ -914,7 +991,7 @@ def check_g2p(pipe, state, dt, label, phase, need_plastic=False):
     if need_plastic and min(plastic_k, plastic_p) == 0:
         failures.append(f"no plastic flow on the {label} state: the return map went unchecked")
     require(not failures, "; ".join(failures))
-    return res, (slots_in, windows, args)
+    return res, (slots_in, fc, args)
 
 
 def phase_small_agreement():
@@ -1487,7 +1564,7 @@ def phase_fluid_kernels(pipe, state, dt, label, phase, timed):
     require(finite and m_err[0] <= 1.0 and g_err <= 1e-6 * g_scale
             and all(m <= 1.0 for m, _ in a_err),
             f"a fluid kernel disagrees with its plain version on the {label} state")
-    res["g2p_fused"], (slots_in, windows, args) = check_g2p(pipe, state, dt, label, phase)
+    res["g2p_fused"], (slots_in, fc, args) = check_g2p(pipe, state, dt, label, phase)
     # The scatter merge on the path's two kinds of rows: kernel A's images
     # (nf = 4, the row the kernels line reports) and the mass images (nf = 1).
     # (Timed at the 3D fluid path's shapes, where it is the path's merge.)
@@ -1518,13 +1595,14 @@ def phase_fluid_kernels(pipe, state, dt, label, phase, timed):
     # lanes, per live chunk: kernel A reads pos d, vel d, mass, vol0, grad
     # d², F00 and failed (3D 19, 2D 12 f32 rows; no stress-cache row) and
     # flags, model and the origin (3D 5, 2D 4 i32 rows), and writes every
-    # chunk's [1 + d, 8^d] image; kernel B reads pos d, F00, mass, vol0,
-    # failed and the drift (3D 8, 2D 7 f32 rows), flags, model and origin
-    # and the [d, 8^d] window, and changes pos d, vel d, grad d², F00, the
-    # dt bound, failed and the drift (3D 19, 2D 12 rows; the rest of F, the
-    # plastic, energy and stress-cache rows stay as they are for fluids);
-    # the mass kernels read pos d and the mass and flags and the origin
-    # (3D 8, 2D 6 rows).
+    # chunk's [1 + d, 8^d] image; kernel B's former count: it reads pos d,
+    # F00, mass, vol0, failed and the drift (3D 8, 2D 7 f32 rows), flags,
+    # model and origin and the [d, 8^d] window, and changes pos d, vel d,
+    # grad d², F00, the dt bound, failed and the drift (3D 19, 2D 12 rows);
+    # its bound counts the rows its row table gives the lanes (b_bytes: det
+    # F reads all of F, and psi_pos, par1, par2 and the stress rows' zeros
+    # are written); the mass kernels read pos d and the mass and flags and
+    # the origin (3D 8, 2D 6 rows).
     i_rows = 2 + dim
     a_rows, b_read = 4 + 2 * dim + dim * dim + i_rows, 5 + dim + i_rows
     b_written = 4 + 2 * dim + dim * dim
@@ -1553,16 +1631,20 @@ def phase_fluid_kernels(pipe, state, dt, label, phase, timed):
         v["bound_ms"], v["bound_by"] = bound(nbytes, flops)
     scratch = slots_in.clone()
     v = res["g2p_fused"]
-    v["ms"] = median_ms(lambda: K.g2p_fused(grid, cfg, pipe._meta, pipe._kparams, scratch,
-                                                 ints, windows, dt, *args))
-    add_split(v, lambda: K.g2p_fused(grid, cfg, pipe._meta, pipe._kparams, scratch, ints,
-                                     windows, dt, *args))
+
+    def b_call():
+        return K.g2p_fused(grid, cfg, pipe._meta, pipe._kparams, scratch, ints, *fc, dt, *args)
+
+    v["ms"] = median_ms(b_call)
+    add_split(v, b_call)
     v["plain_ms"] = median_ms(
-        lambda: K.g2p_fused_reference(grid, slots_in, ints, windows, dt, *args), reps=5)
-    v["bytes"] = live * ((b_read + b_written) * row + 4 * dim * cells)
+        lambda: K.g2p_fused_plain(grid, cfg, slots_in, ints, *fc, dt, *args), reps=5)
+    # v["bytes"]: the rows the fluid lanes need, by the row table (b_bytes).
     v["flops"] = lanes * b_flops
     v["library_ms"] = None
     v["bound_ms"], v["bound_by"] = bound(v["bytes"], v["flops"])
+    v["former_bound_ms"] = bound(live * ((b_read + b_written) * row + 4 * dim * cells),
+                                   v["flops"])[0]
     for name, v in res.items():
         if name.startswith("merge"):
             continue
@@ -1570,7 +1652,7 @@ def phase_fluid_kernels(pipe, state, dt, label, phase, timed):
                    f"{v['plain_ms']:.3f} ms "
                    f"(batched medians); {v['bytes'] / 1e9:.4f} GB counted from shapes = "
                    f"{v['bytes'] / v['ms'] / 1e6:.1f} GB/s; bound {v['bound_ms']:.4f} ms "
-                   f"({v['bound_by']}){split_text(v)}")
+                   f"({v['bound_by']}){split_text(v)}{former_bound_text(v)}")
     return res
 
 
@@ -1764,19 +1846,20 @@ def check_kernels_2d(pipe, state, dt, label, phase, meta=None, timed=False):
     first, nblk = state.structure.block_first_chunk, state.structure.block_num_chunks
     m_k = K.merge_blocks(rows, first, nblk)
     m_p = K.merge_blocks_reference(rows, first, nblk, T.MERGE_KMAX)
-    # The windows the path computes (from its own form's images), cut to
-    # the channels this form reads.
+    # The window fields the path computes (from its own form's images), cut
+    # to the channels this form reads.
     img_path = img_k if psi == pipe._meta["with_psi"] else K.p2g_fused(
         grid, cfg, pipe._meta, state.slots, state.ints, dt, nch, tables)
-    windows = pipe._grid_windows(state, img_path, dt)[:, :2 + psi].contiguous()
+    fc = b_inputs(pipe, state, img_path, dt, 2 + psi)
     slots_in = state.slots.clone()
     args = (pipe._tab_f, pipe._tab_i, nch)
-    out_p = K.g2p_fused_reference(grid, slots_in, state.ints, windows, dt, *args,
-                                  velocity_clamp=pipe._kparams["gpu_velocity_clamp"],
-                                  stress_cache=cache, modified=modified)
-    out_k = K.g2p_fused(grid, cfg, meta, pipe._kparams, slots_in.clone(), state.ints, windows,
+    out_p = K.g2p_fused_plain(grid, cfg, slots_in, state.ints, *fc, dt, *args,
+                              velocity_clamp=pipe._kparams["gpu_velocity_clamp"],
+                              stress_cache=cache, modified=modified)
+    out_k = K.g2p_fused(grid, cfg, meta, pipe._kparams, slots_in.clone(), state.ints, *fc,
                         dt, *args)
     torch.cuda.synchronize()
+    unchanged = b_unchanged(pipe, state, slots_in, out_k, label, phase, meta)
     per_ch = p2g_errors(img_k, img_p)
     occ = (state.ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0
     row_errs = g2p_errors(out_k, out_p, state.ints, pipe.models.cparams, grid.cell_width,
@@ -1795,7 +1878,7 @@ def check_kernels_2d(pipe, state, dt, label, phase, meta=None, timed=False):
     counts = plastic_counts(pipe, state, out_p, dt)
     if modified:
         cpf, cthr = slots_in[:, r.cpf], slots_in[:, r.cthr]
-        crack = cpf * grid.cell_width * psi_gathered(pipe, state, windows)
+        crack = cpf * grid.cell_width * psi_gathered(pipe, state, *fc)
         tie = tie | ((cpf != 0.0) & ((crack - cthr).abs() <= TIE * cthr.abs()))
         counts["crack_trips"] = int((occ & (slots_in[:, r.phase] > 0.0) & (cpf != 0.0)
                                      & (crack > cthr)).sum())
@@ -1813,7 +1896,8 @@ def check_kernels_2d(pipe, state, dt, label, phase, meta=None, timed=False):
                           worst_over_tol=worst, bit_equal=same_bits, counts=counts,
                           trips=counts["max_stress_trips"], trips_differ=int(differ.sum()),
                           tie_lanes=int((tie & occ).sum()),
-                          svd_reuse=K.svd_reuse(cache, meta["present_c"], meta["present_p"])),
+                          svd_reuse=K.svd_reuse(cache, meta["present_c"], meta["present_p"]),
+                          unchanged=unchanged),
     }
     say(phase, f"2D kernels on the {label} state (stress cache {cache}, psi {psi}, SVD reuse "
                f"{res['g2p_fused']['svd_reuse']}): p2g_fused images {tuple(img_k.shape)} max|err|"
@@ -1849,9 +1933,10 @@ def check_kernels_2d(pipe, state, dt, label, phase, meta=None, timed=False):
     # reads pos 2, vel 2, grad 4, mass, vol0, failed, then the 3 stress rows
     # (cache on) or F 4, phase and eh (fresh), with psi cpf and psi_pos, and
     # flags, model, origin 2 (4 i32 rows), and writes every chunk's [nf, 64]
-    # image; B reads 26 f32 rows (pos, F, the scalar state, kinematic
-    # velocity, crack and bookkeeping rows), 4 i32 rows and the [2, 64]
-    # velocity window, and writes all 40 rows.
+    # image; B counts the rows its row table gives each lane (b_bytes; the
+    # former count, beside it: 26 f32 rows read (pos, F, the scalar state,
+    # kinematic velocity, crack and bookkeeping rows), 4 i32 rows and the
+    # [2, 64] velocity window, and all 40 rows written).
     a_rows = 11 + (3 if cache else 6) + (2 if psi else 0)
     a_slot = A2_CACHED_SLOT_FLOPS if cache else A2_SLOT_FLOPS
     for name, fn, plain, lib, nbytes, flops in (
@@ -1866,10 +1951,10 @@ def check_kernels_2d(pipe, state, dt, label, phase, meta=None, timed=False):
              lambda: torch.segment_reduce(flat, "sum", lengths=lengths, axis=0),
              (merged + nblk.shape[0]) * block, merged * block // 4),
             ("g2p_fused", lambda: K.g2p_fused(grid, cfg, meta, pipe._kparams, scratch,
-                                              state.ints, windows, dt, *args),
-             lambda: K.g2p_fused_reference(grid, slots_in, state.ints, windows, dt, *args,
-                                           stress_cache=cache, modified=modified), None,
-             live * ((26 + 4 + 40) * row + 2 * 64 * 4),
+                                              state.ints, *fc, dt, *args),
+             lambda: K.g2p_fused_plain(grid, cfg, slots_in, state.ints, *fc, dt, *args,
+                                       stress_cache=cache, modified=modified), None,
+             b_bytes(pipe, state, out_k, meta),
              lanes * (9 * G2P2_TAP_FLOPS + B2_LANE_FLOPS) + plastic * B2_PLASTIC_FLOPS)):
         v = res[name]
         v["ms"], v["plain_ms"] = median_ms(fn), median_ms(plain, reps=5)
@@ -1878,10 +1963,12 @@ def check_kernels_2d(pipe, state, dt, label, phase, meta=None, timed=False):
         add_split(v, fn, lib, lib_captured=False)
         v["bytes"], v["flops"] = nbytes, flops
         v["bound_ms"], v["bound_by"] = bound(nbytes, flops)
+        if name == "g2p_fused":
+            v["former_bound_ms"] = bound(live * ((26 + 4 + 40) * row + 2 * 64 * 4), flops)[0]
         say(phase, f"{name} (2D, {label}): kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.3f} ms, "
                    f"library {v['library_ms']} ms (batched medians); {nbytes / 1e9:.4f} GB and "
                    f"{flops / 1e9:.4f} GFLOP counted; bound {v['bound_ms']:.4f} ms "
-                   f"({v['bound_by']}){split_text(v)}")
+                   f"({v['bound_by']}){split_text(v)}{former_bound_text(v)}")
     return res
 
 
@@ -2203,13 +2290,12 @@ def phase_stage_bisect(name, phase):
     held("merge", [node], [cpipe._merge_nodes(cstate, images.cpu())])
     fields = pipe._grid_fields(state, node, dt)
     held("grid side", [fields], [cpipe._grid_fields(cstate, node.cpu(), dt)])
-    windows = pipe._gather_windows(state, fields)
-    held("window gather", [windows], [cpipe._gather_windows(cstate, fields.cpu())])
+    held("corner map", [pipe._corners(state)], [cpipe._corners(cstate)])
     out = K.g2p_fused(pipe.grid, pipe._cfg, pipe._meta, pipe._kparams, state.slots.clone(),
-                      state.ints, windows, dt, pipe._tab_f, pipe._tab_i, nch)
+                      state.ints, fields, pipe._corners(state), dt, pipe._tab_f, pipe._tab_i, nch)
     out_c = K.g2p_fused(cpipe.grid, cpipe._cfg, cpipe._meta, cpipe._kparams,
-                        cstate.slots.clone(), cstate.ints, windows.cpu(), dt, cpipe._tab_f,
-                        cpipe._tab_i, cstate.structure.num_chunks)
+                        cstate.slots.clone(), cstate.ints, fields.cpu(), cpipe._corners(cstate),
+                        dt, cpipe._tab_f, cpipe._tab_i, cstate.structure.num_chunks)
     held_rows("kernel B", out, out_c, occ)
     first = next((k for k, v in diffs.items() if v > 0.0), None)
     say(phase, f"{name}, one substep stage by stage, card against CPU on each stage's own "
@@ -2854,16 +2940,18 @@ def phase_fracture_agreement():
     return dict(max_dx=dx, max_dv=dv, max_df=df, frame_substeps=na, repeat_bit_equal=not differ)
 
 
-def psi_gathered(pipe, state, windows):
-    """The psi channel of `windows` [D, d + 1, 8^d] at each slot, gathered
-    as kernel B's plain version gathers it (the crack energy of the
-    modified trip is cpf·h times it)."""
+def psi_gathered(pipe, state, fields, corners):
+    """The psi channel of the window fields [MG + 1, (d + 1) · 4^d] at each
+    slot, gathered at the chunks' corners as kernel B's plain version
+    gathers it (the crack energy of the modified trip is cpf·h times it)."""
     import torch
     from sparkl_tpu_torch.fused import kernels as K
     from sparkl_tpu_torch.fused import layout as L
+    from sparkl_tpu_torch.sparse import transfer as T
 
     grid = pipe.grid
     dim = grid.dim
+    windows = T.windows_from_corners(grid, pipe._cfg, corners, fields, pipe._cell_order())
     d_, _, c = state.slots.shape
     _, fx, rel, in_window, in_bounds = K._slot_geometry(grid, state.slots, state.ints)
     contrib = ((state.ints[:, L.I_FLAGS, :] & L.ACTIVE) != 0) & in_window & in_bounds
@@ -2907,15 +2995,16 @@ def check_kernels_3d(pipe, state, dt, label, phase, timed=False):
     first, nblk = state.structure.block_first_chunk, state.structure.block_num_chunks
     m_k = K.merge_blocks(rows, first, nblk)
     m_p = K.merge_blocks_reference(rows, first, nblk, T.MERGE_KMAX)
-    windows = pipe._grid_windows(state, img_k, dt)
+    fc = b_inputs(pipe, state, img_k, dt)
     slots_in = state.slots.clone()
     args = (pipe._tab_f, pipe._tab_i, nch)
-    out_p = K.g2p_fused_reference(grid, slots_in, state.ints, windows, dt, *args,
-                                  velocity_clamp=pipe._kparams["gpu_velocity_clamp"],
-                                  stress_cache=False, modified=modified)
-    out_k = K.g2p_fused(grid, cfg, meta, pipe._kparams, slots_in.clone(), state.ints, windows,
+    out_p = K.g2p_fused_plain(grid, cfg, slots_in, state.ints, *fc, dt, *args,
+                              velocity_clamp=pipe._kparams["gpu_velocity_clamp"],
+                              stress_cache=False, modified=modified)
+    out_k = K.g2p_fused(grid, cfg, meta, pipe._kparams, slots_in.clone(), state.ints, *fc,
                         dt, *args)
     torch.cuda.synchronize()
+    unchanged = b_unchanged(pipe, state, slots_in, out_k, label, phase, meta)
     per_ch = p2g_errors(img_k, img_p)
     occ = (state.ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0
     row_errs = g2p_errors(out_k, out_p, state.ints, pipe.models.cparams, grid.cell_width,
@@ -2937,7 +3026,7 @@ def check_kernels_3d(pipe, state, dt, label, phase, timed=False):
     crack_tie = torch.zeros_like(occ)
     crack_trips = 0
     if modified:
-        crack = cpf * grid.cell_width * psi_gathered(pipe, state, windows)
+        crack = cpf * grid.cell_width * psi_gathered(pipe, state, *fc)
         crack_tie = (cpf != 0.0) & ((crack - cthr).abs() <= TIE * cthr.abs())
         crack_trips = int((live & (cpf != 0.0) & (crack > cthr)).sum())
     tie = (stress_tie | crack_tie) & occ
@@ -2953,7 +3042,8 @@ def check_kernels_3d(pipe, state, dt, label, phase, timed=False):
                                                   0.0).abs().max().item(),
                           worst_over_tol=worst, bit_equal=same_bits, modified=modified,
                           stress_trips=stress_trips, crack_trips=crack_trips,
-                          trips_differ=int(differ.sum()), tie_lanes=int(tie.sum())),
+                          trips_differ=int(differ.sum()), tie_lanes=int(tie.sum()),
+                          unchanged=unchanged),
     }
     say(phase, f"3D damage kernels on the {label} state: p2g_fused images {tuple(img_k.shape)} "
                f"max|err|/bound {[f'{m:.2e}' for m, _ in per_ch]} (pass <= 1); merge_blocks "
@@ -2980,15 +3070,16 @@ def check_kernels_3d(pipe, state, dt, label, phase, timed=False):
     res["p2g_fused"]["hits_per_cta"] = a_hits(grid, state)
     live_chunks, row = int(nch), 4 * cfg.chunk_size
     lanes = int(((state.ints[:, L.I_FLAGS, :] & L.ACTIVE) != 0).sum())
-    n_win = windows.shape[1]
+    n_win = fc[0].shape[1] // 64
     scratch = slots_in.clone()
     # Bytes counted from what the 3D damage forms read and write per live
     # chunk: A reads pos 3, vel 3, grad 9, F 9, mass, vol0, phase, eh,
     # failed, cpf and psi_pos (31 rows) and 5 i32 rows (model, flags,
-    # origin 3), and writes every chunk's [6, 512] image; B reads 34 f32
-    # rows (pos, F, the scalar state, kinematic velocity, crack and
-    # bookkeeping rows), 5 i32 rows and the [d (+1), 512] window, and writes
-    # all 56 rows.
+    # origin 3), and writes every chunk's [6, 512] image; B counts the rows
+    # its row table gives each lane (b_bytes; the former count, beside it:
+    # 34 f32 rows read (pos, F, the scalar state, kinematic velocity, crack
+    # and bookkeeping rows), 5 i32 rows and the [d (+1), 512] window, and
+    # all 56 rows written).
     for name, fn, plain, nbytes, flops in (
             ("p2g_fused", lambda: K.p2g_fused(grid, cfg, meta, state.slots, state.ints, dt, nch,
                                               tables),
@@ -2997,10 +3088,10 @@ def check_kernels_3d(pipe, state, dt, label, phase, timed=False):
              live_chunks * (31 + 5) * row + cfg.max_chunks * img_k.shape[1] * 512 * 4,
              lanes * (27 * (P2G_TAP_FLOPS + P2G3_PSI_TAP_FLOPS) + A3_FRESH_SLOT_FLOPS)),
             ("g2p_fused", lambda: K.g2p_fused(grid, cfg, meta, pipe._kparams, scratch,
-                                              state.ints, windows, dt, *args),
-             lambda: K.g2p_fused_reference(grid, slots_in, state.ints, windows, dt, *args,
-                                           stress_cache=False, modified=modified),
-             live_chunks * ((34 + 5 + 56) * row + (4 if modified else 3) * 512 * 4),
+                                              state.ints, *fc, dt, *args),
+             lambda: K.g2p_fused_plain(grid, cfg, slots_in, state.ints, *fc, dt, *args,
+                                       stress_cache=False, modified=modified),
+             b_bytes(pipe, state, out_k),
              lanes * (27 * (G2P_TAP_FLOPS + (2 if modified else 0)) + B_LANE_FLOPS
                       + B3_FAILURE_FLOPS))):
         v = res[name]
@@ -3009,12 +3100,16 @@ def check_kernels_3d(pipe, state, dt, label, phase, timed=False):
         v["library_ms"] = None
         v["bytes"], v["flops"] = nbytes, flops
         v["bound_ms"], v["bound_by"] = bound(nbytes, flops)
+        if name == "g2p_fused":
+            v["former_bound_ms"] = bound(
+                live_chunks * ((34 + 5 + 56) * row + (4 if modified else 3) * 512 * 4), flops)[0]
         hits = (f"; hits per CTA mean {v['hits_per_cta'][0]:.1f}, max {v['hits_per_cta'][1]}"
                 if "hits_per_cta" in v else "")
         say(phase, f"{name} (3D damage, {label}): kernel {v['ms']:.4f} ms, plain "
                    f"{v['plain_ms']:.3f} ms (batched medians); window channels {n_win}; "
                    f"{nbytes / 1e9:.4f} GB and {flops / 1e9:.4f} GFLOP counted; bound "
-                   f"{v['bound_ms']:.4f} ms ({v['bound_by']}){split_text(v)}{hits}")
+                   f"{v['bound_ms']:.4f} ms ({v['bound_by']}){split_text(v)}{hits}"
+                   f"{former_bound_text(v)}")
     return res
 
 
@@ -3588,16 +3683,17 @@ def check_materials(pipe, state, dt, label, phase, timed=False):
     first, nblk = state.structure.block_first_chunk, state.structure.block_num_chunks
     m_k = K.merge_blocks(rows, first, nblk)
     m_p = K.merge_blocks_reference(rows, first, nblk, T.MERGE_KMAX)
-    windows = pipe._grid_windows(state, img_k, dt)
+    fc = b_inputs(pipe, state, img_k, dt)
     slots_in = state.slots.clone()
     args = (pipe._tab_f, pipe._tab_i, nch)
-    out_p = K.g2p_fused_reference(grid, slots_in, state.ints, windows, dt, *args,
-                                  velocity_clamp=pipe._kparams["gpu_velocity_clamp"],
-                                  stress_cache=cache)
-    out_k = K.g2p_fused(grid, cfg, meta, pipe._kparams, slots_in.clone(), state.ints, windows,
+    out_p = K.g2p_fused_plain(grid, cfg, slots_in, state.ints, *fc, dt, *args,
+                              velocity_clamp=pipe._kparams["gpu_velocity_clamp"],
+                              stress_cache=cache)
+    out_k = K.g2p_fused(grid, cfg, meta, pipe._kparams, slots_in.clone(), state.ints, *fc,
                         dt, *args)
     if out_k.is_cuda:
         torch.cuda.synchronize()
+    unchanged = b_unchanged(pipe, state, slots_in, out_k, label, phase, meta)
     per_ch = p2g_errors(img_k, img_p)
     occ = (state.ints[:, L.I_FLAGS, :] & L.OCCUPIED) != 0
     counts, nacc_tie, alpha = material_counts(pipe, state, out_p, dt)
@@ -3633,7 +3729,7 @@ def check_materials(pipe, state, dt, label, phase, timed=False):
                           nacc_tie_lanes=int(nacc_tie.sum()), trips_differ=int(differ.sum()),
                           trip_tie_lanes=int(trip_tie.sum()), lanes_per_model=lanes_per_model,
                           mixed_warps=mixed_warps,
-                          warps=int(w_occ.any(-1).sum())),
+                          warps=int(w_occ.any(-1).sum()), unchanged=unchanged),
     }
     say(phase, f"material kernels on the {label} state ({dim}D, stress cache {cache}, material "
                f"form {K.mats_form(meta, dim)}): p2g_fused images {tuple(img_k.shape)} "
@@ -3665,18 +3761,20 @@ def check_materials(pipe, state, dt, label, phase, timed=False):
     # Bytes counted from what the forms read and write per live chunk. A
     # reads pos, vel, grad, mass, vol0 and failed, then the stress rows
     # (cache on) or F, phase and eh (fresh), and flags, model and the origin
-    # (d + 2 i32 rows), and writes every chunk's [1 + d, 8^d] image. B reads
-    # the rows check_kernels_3d and check_kernels_2d count (3D 34 f32 and 5
-    # i32, 2D 26 and 4) and the [d, 8^d] velocity window, and writes every
-    # row. Operations: per tap as the other forms; per slot A's affine (and
+    # (d + 2 i32 rows), and writes every chunk's [1 + d, 8^d] image. B
+    # counts the rows its row table gives each lane (b_bytes; the former
+    # count, beside it: the rows check_kernels_3d and check_kernels_2d count,
+    # 3D 34 f32 and 5 i32, 2D 26 and 4, the [d, 8^d] velocity window, and
+    # every row written). Operations: per tap as the other forms; per slot A's affine (and
     # fresh, the corotated SVD stress or neo-Hookean's NH_SLOT_FLOPS), B's
     # lane, and per NACC, Rankine or Snow lane one more SVD and its map.
     cells = 512 if dim == 3 else 64
     a_rows = (3 * dim + 3 + (6 if dim == 3 else 3)) if cache else (
         2 * dim + dim * dim + 5 + dim * dim)
     a_bytes = live * (a_rows + dim + 2) * row + cfg.max_chunks * img_k.shape[1] * cells * 4
-    b_bytes = live * ((34 + 5 + r.nf) * row + 3 * 512 * 4 if dim == 3 else
-                      (26 + 4 + r.nf) * row + 2 * 64 * 4)
+    b_nbytes = b_bytes(pipe, state, out_k)
+    former = live * ((34 + 5 + r.nf) * row + 3 * 512 * 4 if dim == 3 else
+                     (26 + 4 + r.nf) * row + 2 * 64 * 4)
     if dim == 3:
         a_slot = A_SLOT_FLOPS if cache else A3_FRESH_SLOT_FLOPS
         a_flops = lanes * (27 * P2G_TAP_FLOPS + a_slot)
@@ -3694,18 +3792,21 @@ def check_materials(pipe, state, dt, label, phase, timed=False):
              lambda: K.p2g_fused_reference(grid, state.slots, state.ints, dt, nch, tables,
                                            stress_cache=cache), a_bytes, a_flops),
             ("g2p_fused", lambda: K.g2p_fused(grid, cfg, meta, pipe._kparams, scratch,
-                                              state.ints, windows, dt, *args),
-             lambda: K.g2p_fused_reference(grid, slots_in, state.ints, windows, dt, *args,
-                                           stress_cache=cache), b_bytes, b_flops)):
+                                              state.ints, *fc, dt, *args),
+             lambda: K.g2p_fused_plain(grid, cfg, slots_in, state.ints, *fc, dt, *args,
+                                       stress_cache=cache), b_nbytes, b_flops)):
         v = res[name]
         v["ms"], v["plain_ms"] = median_ms(fn), median_ms(plain, reps=5)
         add_split(v, fn)
         v["library_ms"] = None
         v["bytes"], v["flops"] = nbytes, flops
         v["bound_ms"], v["bound_by"] = bound(nbytes, flops)
+        if name == "g2p_fused":
+            v["former_bound_ms"] = bound(former, flops)[0]
         say(phase, f"{name} ({label}): kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.3f} ms "
                    f"(batched medians); {nbytes / 1e9:.4f} GB and {flops / 1e9:.4f} GFLOP counted; "
-                   f"bound {v['bound_ms']:.4f} ms ({v['bound_by']}){split_text(v)}")
+                   f"bound {v['bound_ms']:.4f} ms ({v['bound_by']}){split_text(v)}"
+                   f"{former_bound_text(v)}")
     return res
 
 

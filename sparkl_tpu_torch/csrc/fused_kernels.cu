@@ -31,14 +31,17 @@
 // NI=8, C] (row offsets of sparkl_tpu/fused/layout.py Rows(d), checked
 // against the Python side by the CPU tests), in 3D NF = 56 and C = 128 with
 // window images and windows in z-major region-cell order q = z*64 + x*8 +
-// y, in 2D NF = 40 and C = 64 with row-major cells q = x*8 + y. Kernels A
+// y, in 2D NF = 40 and C = 64 with row-major cells q = x*8 + y (kernel B
+// reads the node table's window fields [MAX_GRID_BLOCKS + 1, n · 4^d] at
+// each chunk's corner blocks instead of a window). Kernels A
 // and B, the two mass kernels and the pooling are templates on the
 // dimension and the chunk size, instantiated for (3, 128) and (2, 64); A
 // also on its psi channels and B on its damage form (the stress cache off:
 // damage and failure scenes), so that the scenes without damage keep their
 // code; both also on their material form (MATS: neo-Hookean, NACC, and
 // Rankine and Snow in 3D), so that the scenes without these materials keep
-// their code and registers. The launchers pick the instance. Each launcher is
+// their code and registers; B also on its fluid form (every model the EOS
+// fluid). The launchers pick the instance. Each launcher is
 // a plain C function that enqueues on the given stream and returns
 // cudaGetLastError() (cudaErrorInvalidValue for a shape it has no instance
 // for); the caller allocates every output.
@@ -172,6 +175,7 @@ constexpr int OPT_CLAMP = 1;         // kernel B: the GPU velocity clamp
 constexpr int OPT_SVD_REUSE = 4;     // kernel B: one SVD for DP, energy and stress
 constexpr int OPT_MODIFIED = 8;      // kernel B: the modified-eigenerosion trip
 constexpr int OPT_MATS = 16;         // kernels A and B: the material instance
+constexpr int OPT_FLUID = 32;        // kernel B: every model the EOS fluid
 
 // 8^d window cells.
 template <int D>
@@ -230,6 +234,23 @@ __device__ __forceinline__ void cell_coords(int q, int& x, int& y, int& z) {
   x = D == 3 ? (q >> 3) & 7 : q >> 3;
   y = q & 7;
   z = q >> 6;
+}
+
+// 16-byte asynchronous copies from global to shared memory (cp.async, L2
+// only), their commit groups, and the waits for all but the newest group or
+// for all of them.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void quadratic_weights(float f, float w[3]) {
@@ -893,29 +914,146 @@ __global__ void __launch_bounds__(128) permute_chunks_kernel(
 // blowup guard (the det = 0 guard stays), bound dt with the EOS bound and
 // write zero stress-cache rows: kernel A forms their stress fresh.
 //
-// One C-thread CTA per chunk: the chunk's velocity windows [d, 8^d] (6 KB
-// in 3D, 512 B in 2D) go to shared memory, each thread gathers its 3^d
-// nodes (3D: per z tap the xy sheet first; 2D: per x tap the y taps first,
-// the JAX kernel's contraction orders) and runs the particle physics in
-// registers (particle_physics.cuh). Each thread reads every row of its own
-// slot before writing it, and no thread touches another lane, so the
-// in-place update is safe. Dead chunks (>= num_chunks) return untouched.
-// Bound on this card: per-thread arithmetic and registers (in 3D one
+// One C-thread CTA per chunk, reading the node table directly: the
+// prologue copies the chunk's 2^d corner blocks' rows of the window-field
+// table (fields [MAX_GRID_BLOCKS + 1, n_win · 4^d]: the velocity channels
+// and the psi ratio, one row a block; `corners` [D, 2^d] the chunk's rows,
+// built once per structure) into shared memory by 16-byte cp.async copies
+// (3D 8 × 3 × 64 f32, 6 KB, 8 KB with psi; 2D 4 × 2 × 16), kept block-major:
+// window cell (x, y, z) is corner block (x>>2, y>>2, z>>2) at its cell
+// (x&3, y&3, z&3) (sparkl_tpu_torch/sparse/blocks.py region_maps), so no
+// window tensor is formed anywhere. The lane's ints and slot rows are
+// loaded while the copies fly. Each thread then gathers its 3^d nodes (3D:
+// per z tap the xy sheet first; 2D: per x tap the y taps first, the JAX
+// kernel's contraction orders; only the addresses differ from a gathered
+// window's) and runs the particle physics in registers
+// (particle_physics.cuh).
+//
+// Each warp moves only the slot rows its lanes need: the row table
+// SPARKL_B_ROWS below says, per field, which lane classes read it for their
+// physics and which can change it. A warp ORs its lanes' classes (one warp
+// reduction; after the physics the broken guard by one vote), loads a row
+// where some lane reads it or may change it, and stores a row where some
+// lane may change it. A row that no lane of the warp may change is one the
+// kernel would write back as the bits it read, so leaving it is bit-equal,
+// on live and empty lanes alike; rows the kernel computes (psi_pos, par1,
+// par2, the stress rows and their zeros, the padding's zeros) are written
+// on every lane. Each thread reads every row of its own slot that it
+// writes, and no thread touches another lane, so the in-place update is
+// safe. Dead chunks (>= num_chunks) return untouched.
+//
+// The FLUID instance (every model of the table the EOS fluid, no damage, no
+// materials) compiles the fluid branch alone: no SVD, no return map (3D
+// 117 registers against 122; 7% faster on a 2D fluid column, 1% in 3D).
+// It runs every lane as a fluid, so it takes model ids within the table.
+// Capping the registers for 5 or 6 CTAs an SM (__launch_bounds__(C, 5),
+// (C, 6)) spills in 3D and is slower on every 3D solid state.
+//
+// Bound on this card: the slot rows a warp must move (3D sand3: 22 f32
+// rows read and 42 written of a slot's 56; an EOS lane 17 and 31) and
+// per-thread arithmetic and registers (in 3D one
 // Cardano SVD and ~3 transcendental DP steps; a NACC, Rankine or Snow lane
-// two SVDs, logs and exps; a neo-Hookean lane no SVD) at one CTA per chunk;
-// the slot read/write is 2 x NF rows, coalesced. Lanes of different models
-// in one warp take their branches in turn: the slots are sorted by space,
-// so the warps that straddle two models are the band edges.
+// two SVDs, logs and exps; a neo-Hookean lane no SVD) at one CTA per chunk.
+// Lanes of different models in one warp take their branches in turn: the
+// slots are sorted by space, so the warps that straddle two models are the
+// band edges.
 // ---------------------------------------------------------------------------
-template <int DIM, int C, bool DAMAGE, bool MATS>
+
+// Lane classes of kernel B's row table (a lane's bits: LC_ALL, its model's
+// constitutive and plastic types, its flags, the instance's trips).
+constexpr int LC_NONE = 0;
+constexpr int LC_ALL = 1;          // every lane
+constexpr int LC_SOLID = 2;        // constitutive type not the EOS fluid
+constexpr int LC_BROKEN = 4;       // the failure guard broke (det F = 0, failed, |F00|)
+constexpr int LC_DP = 8;           // plastic type Drucker-Prager
+constexpr int LC_NACC = 16;        // plastic type NACC
+constexpr int LC_RANKINE = 32;     // plastic type Rankine
+constexpr int LC_SNOW = 64;        // plastic type Snow
+constexpr int LC_TRIP = 128;       // DAMAGE instance: modified, or maximum-stress failure
+constexpr int LC_KINEMATIC = 256;  // the kinematic flag
+constexpr int LC_MODIFIED = 512;   // DAMAGE instance under modified eigenerosion
+
+// Kernel B's row table: X(field, the classes that read it, the classes
+// whose physics can change it). sparkl_tpu_torch/fused/kernels.py B_ROWS
+// holds the same table (the CPU tests parse this one against it and hold
+// it to the plain version's outputs). DEFGRAD_J is F00 (a fluid's J),
+// DEFGRAD_OFF the other d² - 1 entries of F, PAD the rows past the stress.
+#define SPARKL_B_ROWS(X)                              \
+  X(POS, LC_ALL, LC_ALL)                              \
+  X(VEL, LC_NONE, LC_ALL)                             \
+  X(GRAD, LC_NONE, LC_ALL)                            \
+  X(DEFGRAD_J, LC_ALL, LC_ALL)                        \
+  X(DEFGRAD_OFF, LC_ALL, LC_SOLID | LC_BROKEN)        \
+  X(MASS, LC_ALL, LC_NONE)                            \
+  X(VOL0, LC_ALL, LC_NONE)                            \
+  X(PHASE, LC_SOLID | LC_MODIFIED, LC_TRIP)           \
+  X(PSI_POS, LC_ALL, LC_ALL)                          \
+  X(PDD, LC_DP | LC_SNOW, LC_DP | LC_SNOW)            \
+  X(PH, LC_DP | LC_RANKINE, LC_DP | LC_RANKINE)       \
+  X(EH, LC_SOLID, LC_SNOW)                            \
+  X(LVG, LC_DP, LC_DP)                                \
+  X(NACC, LC_NACC, LC_NACC)                           \
+  X(KINVEL, LC_KINEMATIC, LC_NONE)                    \
+  X(CPF, LC_MODIFIED, LC_NONE)                        \
+  X(CTHR, LC_MODIFIED, LC_NONE)                       \
+  X(DTB, LC_NONE, LC_ALL)                             \
+  X(FAILED, LC_ALL, LC_ALL)                           \
+  X(RADIUS0, LC_NONE, LC_NONE)                        \
+  X(PAR1, LC_NONE, LC_ALL)                            \
+  X(PAR2, LC_NONE, LC_ALL)                            \
+  X(MC, LC_NONE, LC_NONE)                             \
+  X(G, LC_NONE, LC_NONE)                              \
+  X(DEBUG, LC_NONE, LC_NONE)                          \
+  X(CUMD, LC_ALL, LC_ALL)                             \
+  X(STRESS, LC_NONE, LC_ALL)                          \
+  X(PAD, LC_NONE, LC_ALL)
+
+enum BField {
+#define SPARKL_X(name, r, w) BF_##name,
+  SPARKL_B_ROWS(SPARKL_X)
+#undef SPARKL_X
+  BF_COUNT
+};
+
+__host__ __device__ constexpr int b_readers(int f) {
+#define SPARKL_X(name, r, w) f == BF_##name ? (r) :
+  return SPARKL_B_ROWS(SPARKL_X) LC_NONE;
+#undef SPARKL_X
+}
+__host__ __device__ constexpr int b_writers(int f) {
+#define SPARKL_X(name, r, w) f == BF_##name ? (w) :
+  return SPARKL_B_ROWS(SPARKL_X) LC_NONE;
+#undef SPARKL_X
+}
+// The classes for which a row is loaded: its readers, and its writers where
+// not every lane writes it (such a row is read, changed on some lanes and
+// written back whole; a row every lane writes is computed whole or read by
+// every lane). The broken guard is known only after the physics, so a row
+// it changes must be read by every lane.
+__host__ __device__ constexpr int b_loaders(int f) {
+  return b_readers(f) | (b_writers(f) == LC_ALL ? LC_NONE : b_writers(f) & ~LC_BROKEN);
+}
+__host__ __device__ constexpr bool b_table_ok() {
+  for (int f = 0; f < BF_COUNT; ++f) {
+    if ((b_writers(f) & LC_BROKEN) && b_readers(f) != LC_ALL) return false;
+    if ((b_writers(f) & LC_ALL) && b_writers(f) != LC_ALL) return false;
+  }
+  return true;
+}
+static_assert(b_table_ok(), "kernel B's row table: a row the guard changes is read by all");
+
+template <int DIM, int C, bool DAMAGE, bool MATS, bool FLUID>
 __global__ void __launch_bounds__(C) g2p_fused_kernel(
-    float* __restrict__ slots, const int* __restrict__ ints,
-    const float* __restrict__ windows, const int* __restrict__ nchunks,
-    const float* __restrict__ tab_f, const int* __restrict__ tab_i, int m_count,
-    float dt, GridArgs g, int n_win, int opts) {
+    float* __restrict__ slots, const int* __restrict__ ints, const float* __restrict__ fields,
+    const int* __restrict__ corners, const int* __restrict__ nchunks,
+    const float* __restrict__ tab_f, const int* __restrict__ tab_i, int m_count, float dt,
+    GridArgs g, int n_win, int opts) {
+  static_assert(!(FLUID && (DAMAGE || MATS)), "the fluid instance has no damage or materials");
   using R = Rows<DIM>;
-  constexpr int RC = region_cells<DIM>();
   constexpr int NW = DIM + (DAMAGE ? 1 : 0);  // window channels read
+  constexpr int CPB = DIM == 3 ? 64 : 16;     // cells of a block
+  constexpr int NCORNER = 1 << DIM;
+  constexpr int WSTRIDE = NW * CPB;  // a corner block's channels in shared memory
   const int chunk = blockIdx.x;
   if (chunk >= *nchunks) return;
   const int t = threadIdx.x;
@@ -924,10 +1062,17 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
   // The psi channel is read only for the modified trip.
   const bool modified = DAMAGE && (opts & OPT_MODIFIED) != 0 && n_win > DIM;
 
-  __shared__ float win[NW * RC];
-  const float* W = windows + (size_t)chunk * n_win * RC;
-  for (int e = t; e < (modified ? DIM + 1 : DIM) * RC; e += C) win[e] = W[e];
-  __syncthreads();
+  // --- prologue: the corner blocks' rows, asynchronously ---
+  __shared__ __align__(16) float win[NCORNER * WSTRIDE];
+  {
+    const int pieces = (modified ? DIM + 1 : DIM) * CPB / 4;  // 16-byte pieces a corner
+    const int* K = corners + (size_t)chunk * NCORNER;
+    for (int e = t; e < NCORNER * pieces; e += C) {
+      const int k = e / pieces, o = e - k * pieces;
+      cp_async16(win + k * WSTRIDE + 4 * o, fields + (size_t)K[k] * n_win * CPB + 4 * o);
+    }
+    cp_async_commit();
+  }
 
   float* S = slots + (size_t)chunk * R::NF * C;
   const int* I = ints + (size_t)chunk * NI * C;
@@ -944,12 +1089,49 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
   const bool mid_ok = mid >= 0 && mid < m_count;
   for (int k = 0; k < NTAB_F; ++k) tf[k] = mid_ok ? tab_f[mid * NTAB_F + k] : 0.0f;
   for (int k = 0; k < NTAB_I; ++k) ti[k] = mid_ok ? tab_i[mid * NTAB_I + k] : 0;
+  const bool fluid = FLUID || ti[0] == EOS_MONAGHAN_SPH;
+
+  // The warp's lane classes (the row table's columns).
+  int cls = LC_ALL | (fluid ? LC_NONE : LC_SOLID) | (kinematic ? LC_KINEMATIC : LC_NONE);
+  if (!FLUID)
+    cls |= ti[1] == DRUCKER_PRAGER ? LC_DP
+           : ti[1] == NACC         ? LC_NACC
+           : ti[1] == RANKINE      ? LC_RANKINE
+           : ti[1] == SNOW         ? LC_SNOW
+                                   : LC_NONE;
+  if (DAMAGE && (modified || ti[2] == MAXIMUM_STRESS)) cls |= LC_TRIP;
+  if (modified) cls |= LC_MODIFIED;
+  unsigned wcls = __reduce_or_sync(0xffffffffu, (unsigned)cls);
+#define LOAD(f, k) ((b_loaders(BF_##f) & wcls) != 0u ? SROW(k) : 0.0f)
 
   float pos[DIM];
   for (int ax = 0; ax < DIM; ++ax) pos[ax] = SROW(R::POS + ax);
   int rel[DIM];
   float fx[DIM];
   const bool contrib = slot_transfer<DIM, C>(g, S, I, t, rel, fx);
+
+  // --- the slot rows, loaded while the copies fly ---
+  float phase = LOAD(PHASE, R::PHASE);
+  const bool failed = SROW(R::FAILED) != 0.0f;
+  const float mass = SROW(R::MASS);
+  const float vol0 = SROW(R::VOL0);
+  float eh = LOAD(EH, R::EH);
+  float ph = LOAD(PH, R::PH);
+  float pdd = LOAD(PDD, R::PDD);
+  float lvg = LOAD(LVG, R::LVG);
+  float nacc = LOAD(NACC, R::NACC);
+  float psi_pos = SROW(R::PSI_POS);
+  float f[DIM][DIM];
+  for (int i = 0; i < DIM; ++i)
+    for (int j = 0; j < DIM; ++j) f[i][j] = SROW(R::DEFGRAD + i * DIM + j);
+  float kin[DIM];
+  for (int ax = 0; ax < DIM; ++ax) kin[ax] = LOAD(KINVEL, R::KINVEL + ax);
+  const float cpf = LOAD(CPF, R::CPF), cthr = LOAD(CTHR, R::CTHR);
+  const float cumd0 = SROW(R::CUMD);
+#undef LOAD
+
+  cp_async_wait_all();
+  __syncthreads();
 
   // --- gather ---
   float vel[DIM], gm[DIM][DIM];
@@ -965,6 +1147,21 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
       quadratic_weights(fx[ax], w[ax]);
       for (int k = 0; k < 3; ++k) dpt[ax][k] = ((float)(rel[ax] + k) - px) * g.h;
     }
+    // Per axis and tap, the shared-memory offset of its window coordinate
+    // v: the corner block's part (v >> 2) and the cell's (v & 3).
+    int off[DIM][3];
+    for (int k = 0; k < 3; ++k) {
+      if constexpr (DIM == 3) {
+        const int x = rel[0] + k, y = rel[1] + k, z = rel[2] + k;
+        off[0][k] = (x >> 2) * 4 * WSTRIDE + (x & 3) * 16;
+        off[1][k] = (y >> 2) * 2 * WSTRIDE + (y & 3) * 4;
+        off[2][k] = (z >> 2) * WSTRIDE + (z & 3);
+      } else {
+        const int x = rel[0] + k, y = rel[1] + k;
+        off[0][k] = (x >> 2) * 2 * WSTRIDE + (x & 3) * 4;
+        off[1][k] = (y >> 2) * WSTRIDE + (y & 3);
+      }
+    }
     if constexpr (DIM == 3) {
       float sv[3] = {0.0f, 0.0f, 0.0f}, sgx[3] = {0.0f, 0.0f, 0.0f},
             sgy[3] = {0.0f, 0.0f, 0.0f}, sgz[3] = {0.0f, 0.0f, 0.0f};
@@ -972,21 +1169,20 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
         float tv[3] = {0.0f, 0.0f, 0.0f}, tx[3] = {0.0f, 0.0f, 0.0f},
               ty[3] = {0.0f, 0.0f, 0.0f};
         [[maybe_unused]] float tp = 0.0f;
-        const int zq = (rel[2] + c) * 64;
         for (int a = 0; a < 3; ++a) {
           for (int b = 0; b < 3; ++b) {
-            const int q = zq + (rel[0] + a) * 8 + (rel[1] + b);
+            const int q = off[2][c] + off[0][a] + off[1][b];
             const float wxy = w[0][a] * w[1][b];
             const float wdx_y = (w[0][a] * dpt[0][a]) * w[1][b];
             const float wx_dy = w[0][a] * (w[1][b] * dpt[1][b]);
             for (int i = 0; i < 3; ++i) {
-              const float v = win[i * RC + q];
+              const float v = win[q + i * CPB];
               tv[i] += v * wxy;
               tx[i] += v * wdx_y;
               ty[i] += v * wx_dy;
             }
             if constexpr (DAMAGE)
-              if (modified) tp += win[3 * RC + q] * wxy;
+              if (modified) tp += win[q + 3 * CPB] * wxy;
           }
         }
         const float wz = w[2][c], wdz = w[2][c] * dpt[2][c];
@@ -1008,11 +1204,10 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
       float sv[2] = {0.0f, 0.0f}, sgx[2] = {0.0f, 0.0f}, sgy[2] = {0.0f, 0.0f};
       for (int a = 0; a < 3; ++a) {
         const float wx = w[0][a], wdx = w[0][a] * dpt[0][a];
-        const int xq = (rel[0] + a) * 8 + rel[1];
         for (int i = 0; i < 2; ++i) {
           float tv = 0.0f, ty = 0.0f;
           for (int b = 0; b < 3; ++b) {
-            const float v = win[i * RC + xq + b];
+            const float v = win[off[0][a] + i * CPB + off[1][b]];
             tv += v * w[1][b];
             ty += v * (w[1][b] * dpt[1][b]);
           }
@@ -1023,7 +1218,7 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
         if constexpr (DAMAGE) {
           if (modified) {
             float tp = 0.0f;
-            for (int b = 0; b < 3; ++b) tp += win[2 * RC + xq + b] * w[1][b];
+            for (int b = 0; b < 3; ++b) tp += win[off[0][a] + 2 * CPB + off[1][b]] * w[1][b];
             psi_mom += tp * wx;
           }
         }
@@ -1037,25 +1232,6 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
   }
 
   // --- particle update ---
-  float phase = SROW(R::PHASE);
-  const bool failed = SROW(R::FAILED) != 0.0f;
-  const float mass = SROW(R::MASS);
-  const float vol0 = SROW(R::VOL0);
-  float eh = SROW(R::EH);
-  float ph = SROW(R::PH);
-  float pdd = SROW(R::PDD);
-  float lvg = SROW(R::LVG);
-  float nacc = SROW(R::NACC);
-  float psi_pos = SROW(R::PSI_POS);
-  float f[DIM][DIM];
-  for (int i = 0; i < DIM; ++i)
-    for (int j = 0; j < DIM; ++j) f[i][j] = SROW(R::DEFGRAD + i * DIM + j);
-  float kin[DIM];
-  for (int ax = 0; ax < DIM; ++ax) kin[ax] = SROW(R::KINVEL + ax);
-  const float cpf = SROW(R::CPF), cthr = SROW(R::CTHR), radius0 = SROW(R::RADIUS0);
-  const float mcv = SROW(R::MC), gval = SROW(R::G), dbg = SROW(R::DEBUG);
-  const float cumd0 = SROW(R::CUMD);
-
   // Modified eigenerosion: a crack slot breaks where cpf·h·psi exceeds its
   // threshold, before the return map reads the phase.
   if constexpr (DAMAGE) {
@@ -1075,7 +1251,6 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
   for (int ax = 0; ax < DIM; ++ax) npos[ax] = pos[ax] + vel[ax] * dt;
 
   // F += dt * (grad v) F; fluids: F00 += tr(grad v) dt F00, the rest kept.
-  const bool fluid = ti[0] == EOS_MONAGHAN_SPH;
   float fnew[DIM][DIM];
   if (fluid) {
     for (int i = 0; i < DIM; ++i)
@@ -1139,10 +1314,11 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
       }
     }
   }
+  if (__any_sync(0xffffffffu, broken)) wcls |= LC_BROKEN;
   // Without SVD reuse: one SVD of the final F serves the energy and the
   // cached or the failure stress (the JAX kernel decomposes the same F for
   // each). Neo-Hookean slots need none.
-  const bool corot = ti[0] == COROTATED;
+  const bool corot = !FLUID && ti[0] == COROTATED;
   const bool neo = MATS && ti[0] == NEO_HOOKEAN;
   if (!svd_reuse && !fluid && !neo) sparkl::svd(fnew, u, s, v);
 
@@ -1225,41 +1401,34 @@ __global__ void __launch_bounds__(C) g2p_fused_kernel(
     if (stress_cache && neo) sparkl::neo_hookean_stress<DIM>(lam, mu, phase, eh, fnew, st);
   }
 
-  // --- write the slot (every row of this lane was read above) ---
+  // --- write the rows some lane of the warp may change (each read above) ---
+#define STORES(f) ((b_writers(BF_##f) & wcls) != 0u)
   for (int ax = 0; ax < DIM; ++ax) {
     SROW(R::POS + ax) = npos[ax];
     SROW(R::VEL + ax) = vel[ax];
   }
   for (int i = 0; i < DIM; ++i)
-    for (int j = 0; j < DIM; ++j) {
-      SROW(R::GRAD + i * DIM + j) = gm[i][j];
-      SROW(R::DEFGRAD + i * DIM + j) = fnew[i][j];
-    }
-  SROW(R::MASS) = mass;
-  SROW(R::VOL0) = vol0;
-  SROW(R::PHASE) = phase;
+    for (int j = 0; j < DIM; ++j) SROW(R::GRAD + i * DIM + j) = gm[i][j];
+  SROW(R::DEFGRAD) = fnew[0][0];
+  if (STORES(DEFGRAD_OFF))
+    for (int e = 1; e < DIM * DIM; ++e) SROW(R::DEFGRAD + e) = fnew[e / DIM][e % DIM];
+  if (STORES(PHASE)) SROW(R::PHASE) = phase;
   SROW(R::PSI_POS) = psi_pos;
-  SROW(R::PDD) = pdd;
-  SROW(R::PH) = ph;
-  SROW(R::EH) = eh;
-  SROW(R::LVG) = lvg;
-  SROW(R::NACC) = nacc;
-  for (int ax = 0; ax < DIM; ++ax) SROW(R::KINVEL + ax) = kin[ax];
-  SROW(R::CPF) = cpf;
-  SROW(R::CTHR) = cthr;
+  if (STORES(PDD)) SROW(R::PDD) = pdd;
+  if (STORES(PH)) SROW(R::PH) = ph;
+  if (STORES(EH)) SROW(R::EH) = eh;
+  if (STORES(LVG)) SROW(R::LVG) = lvg;
+  if (STORES(NACC)) SROW(R::NACC) = nacc;
   SROW(R::DTB) = bound;
   SROW(R::FAILED) = failed_new ? 1.0f : 0.0f;
-  SROW(R::RADIUS0) = radius0;
   SROW(R::PAR1) = par1;
   SROW(R::PAR2) = par2;
-  SROW(R::MC) = mcv;
-  SROW(R::G) = gval;
-  SROW(R::DEBUG) = dbg;
   SROW(R::CUMD) = cumd;
   int k = 0;
   for (int i = 0; i < DIM; ++i)
     for (int j = i; j < DIM; ++j) SROW(R::STRESS + k++) = sparkl::clampf(st[i][j], -BIGF, BIGF);
   for (int r = R::STRESS + R::NSTRESS; r < R::NF; ++r) SROW(r) = 0.0f;
+#undef STORES
 #undef SROW
 }
 
@@ -1350,16 +1519,6 @@ __device__ __forceinline__ float f4(const float4& v, int u) {
   return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
 
 template <int DIM, int C>
 __global__ void __launch_bounds__(C) eigen_pool_kernel(const float* __restrict__ e,
@@ -1625,36 +1784,44 @@ int sparkl_permute_chunks(const float* gathered, const int* gathered_i, const in
   return (int)cudaGetLastError();
 }
 
-int sparkl_g2p_fused(float* slots, const int* ints, const float* windows,
+int sparkl_g2p_fused(float* slots, const int* ints, const float* fields, const int* corners,
                      const int* nchunks, const float* tab_f, const int* tab_i,
                      int m_count, int max_chunks, float dt, float ox, float oy,
                      float oz, float h, float invd, float d_coeff, int rx, int ry, int rz,
                      int dim, int n_win, int opts, void* stream) {
+  // The prologue's 16-byte copies: the table 16-byte aligned (every row is).
+  if (((uintptr_t)fields) & 15) return (int)cudaErrorMisalignedAddress;
   const GridArgs g = grid_args(ox, oy, oz, h, invd, d_coeff, rx, ry, rz);
   cudaStream_t st = (cudaStream_t)stream;
   // The damage form: the stress cache off (damage and failure scenes); the
-  // material form: neo-Hookean or NACC, or Rankine or Snow in 3D.
+  // material form: neo-Hookean or NACC, or Rankine or Snow in 3D; the fluid
+  // form: every model the EOS fluid.
   const bool damage = (opts & OPT_STRESS_CACHE) == 0;
   const bool mats = (opts & OPT_MATS) != 0;
-#define SPARKL_B(D, C, DMG, M)                                                           \
-  g2p_fused_kernel<D, C, DMG, M><<<max_chunks, C, 0, st>>>(                              \
-      slots, ints, windows, nchunks, tab_f, tab_i, m_count, dt, g, n_win, opts)
+  const bool fluid = (opts & OPT_FLUID) != 0 && !damage && !mats;
+#define SPARKL_B(D, C, DMG, M, FL)                                                       \
+  g2p_fused_kernel<D, C, DMG, M, FL><<<max_chunks, C, 0, st>>>(                          \
+      slots, ints, fields, corners, nchunks, tab_f, tab_i, m_count, dt, g, n_win, opts)
   if (dim == 3 && damage && mats)
-    SPARKL_B(3, 128, true, true);
+    SPARKL_B(3, 128, true, true, false);
   else if (dim == 3 && damage)
-    SPARKL_B(3, 128, true, false);
+    SPARKL_B(3, 128, true, false, false);
   else if (dim == 3 && mats)
-    SPARKL_B(3, 128, false, true);
+    SPARKL_B(3, 128, false, true, false);
+  else if (dim == 3 && fluid)
+    SPARKL_B(3, 128, false, false, true);
   else if (dim == 3)
-    SPARKL_B(3, 128, false, false);
+    SPARKL_B(3, 128, false, false, false);
   else if (dim == 2 && damage && mats)
-    SPARKL_B(2, 64, true, true);
+    SPARKL_B(2, 64, true, true, false);
   else if (dim == 2 && damage)
-    SPARKL_B(2, 64, true, false);
+    SPARKL_B(2, 64, true, false, false);
   else if (dim == 2 && mats)
-    SPARKL_B(2, 64, false, true);
+    SPARKL_B(2, 64, false, true, false);
+  else if (dim == 2 && fluid)
+    SPARKL_B(2, 64, false, false, true);
   else if (dim == 2)
-    SPARKL_B(2, 64, false, false);
+    SPARKL_B(2, 64, false, false, false);
   else
     return (int)cudaErrorInvalidValue;
 #undef SPARKL_B

@@ -66,9 +66,9 @@ _SIGNATURES = {
     # d_coeff, rx, ry, rz, dim, stream
     "sparkl_mass_g2p_fused": [_VP, _VP, _VP, _VP, _VP, _I, _F, _F, _F, _F, _F,
                               _F, _I, _I, _I, _I, _VP],
-    # slots, ints, windows, nchunks, tab_f, tab_i, m_count, max_chunks, dt,
-    # ox, oy, oz, h, invd, d_coeff, rx, ry, rz, dim, n_win, opts, stream
-    "sparkl_g2p_fused": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _F, _F, _F, _F,
+    # slots, ints, fields, corners, nchunks, tab_f, tab_i, m_count, max_chunks,
+    # dt, ox, oy, oz, h, invd, d_coeff, rx, ry, rz, dim, n_win, opts, stream
+    "sparkl_g2p_fused": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _F, _F, _F, _F,
                          _F, _F, _F, _I, _I, _I, _I, _I, _I, _VP],
     # order2, shifts, out, max_chunks, c, stream
     "sparkl_src_rows_from_order": [_VP, _VP, _VP, _I, _I, _VP],

@@ -35,6 +35,7 @@ from sparkl_tpu_torch.math.svd import svd_c
 from sparkl_tpu_torch.models import constitutive as con
 from sparkl_tpu_torch.models import failure as fail
 from sparkl_tpu_torch.models import plasticity as plas
+from sparkl_tpu_torch.sparse import transfer as T
 from sparkl_tpu_torch.sparse.blocks import default_chunk_size, region_cells
 from sparkl_tpu_torch.fused import layout as L
 
@@ -124,6 +125,16 @@ def mats_form(meta, dim):
     code of the scenes that need none of these, with their registers."""
     return bool(con.NEO_HOOKEAN in meta["present_c"] or plas.NACC in meta["present_p"]
                 or (dim == 3 and set(meta["present_p"]) & {plas.RANKINE, plas.SNOW}))
+
+
+def fluid_form(meta, dim):
+    """Whether kernel B takes its fluid instance: every model the EOS fluid
+    (no damage, no material instance), so that it compiles the fluid
+    branch alone, with no SVD and no return map. It runs every lane as a
+    fluid: a model id outside the table (which reads zeros, corotated)
+    would differ there, and no pack writes one."""
+    return (set(meta["present_c"]) == {con.EOS_MONAGHAN_SPH} and bool(meta["stress_cache"])
+            and not mats_form(meta, dim))
 
 
 def svd_reuse(stress_cache, present_c, present_p):
@@ -864,6 +875,114 @@ def permute_chunks(gathered, gathered_i, target):
 # ---------------------------------------------------------------------------
 
 
+# Kernel B's row table (csrc/fused_kernels.cu SPARKL_B_ROWS holds the same,
+# and the CPU tests parse it against this one): per slot field, the lane
+# classes that read it for their physics and those whose physics can change
+# it. A warp loads a row where some lane reads it or may change it and
+# stores it where some lane may change it; a row no lane may change is one
+# the kernel would write back as the bits it read.
+LC_ALL = 1          # every lane
+LC_SOLID = 2        # constitutive type not the EOS fluid
+LC_BROKEN = 4       # the failure guard broke (det F = 0, already failed, |F00| blowup)
+LC_DP = 8           # plastic type Drucker-Prager
+LC_NACC = 16        # plastic type NACC
+LC_RANKINE = 32     # plastic type Rankine
+LC_SNOW = 64        # plastic type Snow
+LC_TRIP = 128       # the damage form: modified eigenerosion, or maximum-stress failure
+LC_KINEMATIC = 256  # the kinematic flag
+LC_MODIFIED = 512   # the damage form under modified eigenerosion
+
+# field: (readers, writers). defgrad_j is F00 (a fluid's J), defgrad_off the
+# other d² - 1 entries of F, pad the rows past the stress rows.
+B_ROWS = {
+    "pos": (LC_ALL, LC_ALL),
+    "vel": (0, LC_ALL),
+    "grad": (0, LC_ALL),
+    "defgrad_j": (LC_ALL, LC_ALL),
+    "defgrad_off": (LC_ALL, LC_SOLID | LC_BROKEN),
+    "mass": (LC_ALL, 0),
+    "vol0": (LC_ALL, 0),
+    "phase": (LC_SOLID | LC_MODIFIED, LC_TRIP),
+    "psi_pos": (LC_ALL, LC_ALL),
+    "pdd": (LC_DP | LC_SNOW, LC_DP | LC_SNOW),
+    "ph": (LC_DP | LC_RANKINE, LC_DP | LC_RANKINE),
+    "eh": (LC_SOLID, LC_SNOW),
+    "lvg": (LC_DP, LC_DP),
+    "nacc": (LC_NACC, LC_NACC),
+    "kinvel": (LC_KINEMATIC, 0),
+    "cpf": (LC_MODIFIED, 0),
+    "cthr": (LC_MODIFIED, 0),
+    "dtb": (0, LC_ALL),
+    "failed": (LC_ALL, LC_ALL),
+    "radius0": (0, 0),
+    "par1": (0, LC_ALL),
+    "par2": (0, LC_ALL),
+    "m_c": (0, 0),
+    "g": (0, 0),
+    "debug": (0, 0),
+    "cumd": (LC_ALL, LC_ALL),
+    "stress": (0, LC_ALL),
+    "pad": (0, LC_ALL),
+}
+
+
+def b_field_rows(dim):
+    """B_ROWS's fields -> their slot rows in `dim` dimensions."""
+    r = L.Rows(dim)
+    rows = {"defgrad_j": [r.defgrad],
+            "defgrad_off": list(range(r.defgrad + 1, r.defgrad + dim * dim)),
+            "stress": list(range(r.stress, r.stress + r.nstress)),
+            "pad": list(range(r.stress + r.nstress, r.nf))}
+    for name, n in (("pos", dim), ("vel", dim), ("grad", dim * dim), ("kinvel", dim)):
+        rows[name] = list(range(getattr(r, name), getattr(r, name) + n))
+    for name in B_ROWS:
+        if name not in rows:
+            rows[name] = [getattr(r, name)]
+    return rows
+
+
+def b_lane_classes(meta, tab_i, ints, slots_out):
+    """Per lane [D, C] i32: its classes in B_ROWS's terms, as kernel B forms
+    them (a model id outside the table reads zeros). LC_BROKEN is read off
+    the output's failed row, a superset of the lanes the guard broke (it
+    also holds the lanes marked out of the grid)."""
+    dim = 3 if ints.shape[2] == default_chunk_size(3) else 2
+    (ct, pt, ft), _ = model_columns(tab_i, tab_i, ints, (), (0, 1, 2))
+    flags = ints[:, L.I_FLAGS, :]
+    damage = not meta["stress_cache"]
+    modified = damage and meta["damage_model"] == DamageModel.MODIFIED_EIGENEROSION
+    cls = torch.full_like(ct, LC_ALL)
+    cls |= torch.where(ct != con.EOS_MONAGHAN_SPH, LC_SOLID, 0)
+    cls |= torch.where(slots_out[:, L.Rows(dim).failed, :] != 0.0, LC_BROKEN, 0)
+    for code, bit in ((plas.DRUCKER_PRAGER, LC_DP), (plas.NACC, LC_NACC),
+                      (plas.RANKINE, LC_RANKINE), (plas.SNOW, LC_SNOW)):
+        cls |= torch.where(pt == code, bit, 0)
+    if damage:
+        cls |= LC_TRIP if modified else torch.where(ft == fail.MAXIMUM_STRESS, LC_TRIP, 0)
+    if modified:
+        cls |= LC_MODIFIED
+    cls |= torch.where((flags & L.KINEMATIC) != 0, LC_KINEMATIC, 0)
+    return cls.to(torch.int32)
+
+
+def b_unchanged(meta, tab_i, ints, slots_out, nchunks, table=None):
+    """[D, NF, C] bool: the slot rows that kernel B leaves as they were, by
+    the row table (`table`, B_ROWS by default): on a live lane each row
+    that none of the lane's classes may change, on a dead chunk every row.
+    The kernel's own rows are a superset: a warp writes a row back where
+    any of its lanes may change it."""
+    table = B_ROWS if table is None else table
+    d_, nf, c = slots_out.shape
+    dim = 3 if c == default_chunk_size(3) else 2
+    cls = b_lane_classes(meta, tab_i, ints, slots_out)
+    out = torch.ones((d_, nf, c), dtype=torch.bool, device=slots_out.device)
+    live = torch.arange(d_, device=slots_out.device) < int(nchunks)
+    for name, rows in b_field_rows(dim).items():
+        kept = ~live[:, None] | ((cls & table[name][1]) == 0)
+        out[:, rows, :] = kept[:, None, :]
+    return out
+
+
 def _gather(grid: GridParams, w, dpt, win, cf):
     """Kernel B's gather: velocity [d] and gradient [d][d] rows from the
     window values at each tap, win [D, n, 3^d, C] (n >= d channels), in
@@ -1088,16 +1207,32 @@ def g2p_fused_reference(grid: GridParams, slots, ints, windows, dt, tab_f, tab_i
     return torch.cat([torch.stack(rows, dim=1), slots_all[n_live:]], dim=0)
 
 
-def g2p_fused(grid: GridParams, cfg, meta, kparams, slots, ints, windows, dt,
+def g2p_fused_plain(grid: GridParams, cfg, slots, ints, fields, corners, dt, tab_f, tab_i,
+                    nchunks, **kw):
+    """Kernel B's plain version on its wrapper's arguments: the windows
+    gathered from the window fields at the chunks' corner blocks (the
+    port's gather_grid_windows), then g2p_fused_reference (keywords
+    passed on)."""
+    windows = T.windows_from_corners(grid, cfg, corners, fields,
+                                     T.ZMAJOR_ORDER_3D if grid.dim == 3 else None)
+    return g2p_fused_reference(grid, slots, ints, windows, dt, tab_f, tab_i, nchunks, **kw)
+
+
+def g2p_fused(grid: GridParams, cfg, meta, kparams, slots, ints, fields, corners, dt,
               tab_f, tab_i, nchunks):
     """Kernel B (replaces sparkl_tpu/fused/kernels.py:g2p_fused): slots
     [D, NF, C] f32 (3D: NF 56, C 128; 2D: 40, 64; updated IN PLACE on the
-    card, the CPU path returns a new tensor), ints [D, 8, C] i32, windows
-    [D, d(+1), 8^d] f32 (z-major cells in 3D, row-major in 2D; the psi
-    channel with meta["with_psi"]), dt (python float), tables f32 [M, 16] /
-    i32 [M, 4], nchunks [] i32. Returns the new slot tensor. Under modified
-    eigenerosion the kernel reads the psi channel and trips the crack
-    energy; under eigenerosion the channel is not read (the pooling trips)."""
+    card, the CPU path returns a new tensor), ints [D, 8, C] i32, the window
+    fields [MAX_GRID_BLOCKS + 1, d(+1) · 4^d] f32 (per node-table block the
+    grid velocity, channel-major, and the psi ratio with meta["with_psi"];
+    16-byte aligned), corners [D, 2^d] i32 (each chunk's corner blocks'
+    rows in it: the structure's _chunk_corners), dt (python float), tables
+    f32 [M, 16] / i32 [M, 4], nchunks [] i32. Returns the new slot tensor.
+    The JAX kernel takes the windows that XLA gathers ([D, d(+1), 8^d]);
+    the CUDA kernel reads the fields at the corners itself, and on the CPU
+    g2p_fused_plain gathers them. Under modified eigenerosion the kernel
+    reads the psi channel and trips the crack energy; under eigenerosion
+    the channel is not read (the pooling trips)."""
     dim = grid.dim
     _check_meta(meta, dim)
     d_, c = cfg.max_chunks, cfg.chunk_size
@@ -1106,7 +1241,9 @@ def g2p_fused(grid: GridParams, cfg, meta, kparams, slots, ints, windows, dt,
     n_win = dim + (1 if meta["with_psi"] else 0)
     check_tensor("slots", slots, torch.float32, (d_, r.nf, c), dev)
     check_tensor("ints", ints, torch.int32, (d_, L.NI, c), dev)
-    check_tensor("windows", windows, torch.float32, (d_, n_win, region_cells(dim)), dev)
+    check_tensor("fields", fields, torch.float32,
+                 (cfg.max_grid_blocks + 1, n_win * region_cells(dim) // 2**dim), dev)
+    check_tensor("corners", corners, torch.int32, (d_, 2**dim), dev)
     tab_f, tab_i, m = _check_tables((tab_f, tab_i), dev)
     check_tensor("nchunks", nchunks, torch.int32, (), dev)
     args = _grid_args(grid)
@@ -1114,16 +1251,16 @@ def g2p_fused(grid: GridParams, cfg, meta, kparams, slots, ints, windows, dt,
     stress_cache = bool(meta["stress_cache"])
     modified = meta["damage_model"] == DamageModel.MODIFIED_EIGENEROSION
     if route(dev) == "cpu":
-        return g2p_fused_reference(grid, slots, ints, windows, dt, tab_f, tab_i,
-                                   nchunks, velocity_clamp=clamp, stress_cache=stress_cache,
-                                   modified=modified)
+        return g2p_fused_plain(grid, cfg, slots, ints, fields, corners, dt, tab_f, tab_i,
+                               nchunks, velocity_clamp=clamp, stress_cache=stress_cache,
+                               modified=modified)
     _check_shape_route("kernel B", dim, c)
     reuse = svd_reuse(stress_cache, meta["present_c"], meta["present_p"])
-    launch("sparkl_g2p_fused", slots.data_ptr(), ints.data_ptr(),
-           windows.data_ptr(), nchunks.data_ptr(), tab_f.data_ptr(),
+    launch("sparkl_g2p_fused", slots.data_ptr(), ints.data_ptr(), fields.data_ptr(),
+           corners.data_ptr(), nchunks.data_ptr(), tab_f.data_ptr(),
            tab_i.data_ptr(), m, d_, float(dt), *args, dim, n_win,
            int(clamp) | 2 * int(stress_cache) | 4 * int(reuse) | 8 * int(modified)
-           | 16 * int(mats_form(meta, dim)), stream_ptr(dev))
+           | 16 * int(mats_form(meta, dim)) | 32 * int(fluid_form(meta, dim)), stream_ptr(dev))
     LAUNCHES["g2p_fused"] += 1
     return slots
 

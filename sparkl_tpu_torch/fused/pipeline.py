@@ -164,27 +164,33 @@ class FusedMpmPipeline:
         return T.ZMAJOR_ORDER_3D if self.grid.dim == 3 else None
 
     def _substep(self, state, dt):
-        """P2G -> merge -> grid update -> windows -> G2P. `dt` is a host
+        """P2G -> merge -> grid update -> G2P (kernel B reads the window
+        fields at each chunk's corner blocks itself). `dt` is a host
         float32. Returns the new state."""
         nchunks = state.structure.num_chunks
         images = K.p2g_fused(self.grid, self._cfg, self._meta, state.slots,
                              state.ints, dt, nchunks, tables=(self._tab_f, self._tab_i))
-        windows = self._grid_windows(state, images, dt)
         new_slots = K.g2p_fused(
             self.grid, self._cfg, self._meta, self._kparams, state.slots, state.ints,
-            windows, dt, self._tab_f, self._tab_i, nchunks,
+            self._node_fields(state, images, dt), self._corners(state), dt, self._tab_f,
+            self._tab_i, nchunks,
         )
         return state.replace(slots=new_slots,
                              cum_disp=torch.max(new_slots[:, self._rows.cumd, :]))
 
-    def _grid_windows(self, state, images, dt):
+    def _node_fields(self, state, images, dt):
         """Window images -> node table (merge) -> grid velocity with gravity,
-        the collider boundary conditions and the hooks -> per-chunk windows
-        [D, d (+1), 8^d]: the velocity, and with the psi channels the psi
-        ratio psi_mom / psi_mass. The three stages are methods of their own
-        (_merge_nodes, _grid_fields, _gather_windows)."""
-        node = self._merge_nodes(state, images)
-        return self._gather_windows(state, self._grid_fields(state, node, dt))
+        the collider boundary conditions and the hooks -> the window fields
+        [MG + 1, (d (+1)) · 4^d] kernel B reads: the velocity, and with the
+        psi channels the psi ratio psi_mom / psi_mass. The two stages are
+        methods of their own (_merge_nodes, _grid_fields)."""
+        return self._grid_fields(state, self._merge_nodes(state, images), dt)
+
+    @staticmethod
+    def _corners(state):
+        """[D, 2^d] i32: each chunk's corner blocks' rows in the node table
+        (built with the structure, in its grid cache)."""
+        return state.grid_cache[3]
 
     def _merge_nodes(self, state, images):
         """Window images [D, nf, 8^d] -> the block node table [MG + 1, nf,
@@ -212,7 +218,7 @@ class FusedMpmPipeline:
         inv_mass = linalg.inv_exact(mass)
         velocity = (mom + mass[..., None] * self.gravity * dt) * inv_mass[..., None]
 
-        node_pos, projections, _ = state.grid_cache
+        node_pos, projections = state.grid_cache[:2]
         gstate = GridState(mass=mass, momentum=mom, velocity=velocity,
                            psi_momentum=psi_mom, psi_mass=psi_mass)
         gstate = dense.grid_update(
@@ -229,9 +235,10 @@ class FusedMpmPipeline:
         return torch.cat(parts, dim=1).reshape(cfg.max_grid_blocks + 1, -1).contiguous()
 
     def _gather_windows(self, state, fields):
-        """Window fields -> per-chunk windows [D, nf, 8^d] (the gather)."""
-        return T.gather_grid_windows(
-            self.grid, self._cfg, state.structure, fields, cell_order=self._cell_order(),
+        """Node fields -> per-chunk windows [D, nf, 8^d] (the gather; the
+        fluid volume pass's mass windows)."""
+        return T.windows_from_corners(
+            self.grid, self._cfg, self._corners(state), fields, cell_order=self._cell_order(),
         ).contiguous()
 
     def _min_dtb(self, state):
@@ -490,15 +497,16 @@ class FusedMpmPipeline:
     def _grid_cache(self, structure):
         """Node positions + per-collider node projections of the block node
         table (the reference's projection cache, reset_grid.rs:29-63) + the
-        scatter merge's index plan, computed once per resort. The trash row
-        sits far outside the domain."""
+        scatter merge's index plan + each chunk's corner blocks' rows [D,
+        2^d] i32 (kernel B's and the volume pass's window reads), computed
+        once per resort. The trash row sits far outside the domain."""
         cpb = B.cells_per_block(self.grid.dim)
         node_pos = S.block_node_positions_ob2(self.grid, structure.grid_keys)
         pad = torch.full((1, cpb, self.grid.dim), 1.0e10, dtype=torch.float32,
                          device=node_pos.device)
         node_pos = torch.cat([node_pos, pad], dim=0)
         return (node_pos, dense.grid_node_projections(self.colliders, node_pos),
-                T.scatter_plan(self._cfg, structure))
+                T.scatter_plan(self._cfg, structure), T._chunk_corners(structure).contiguous())
 
     def _pack(self, particles):
         particles = dense.mark_out_of_grid_failed(self.grid, particles)

@@ -19,14 +19,24 @@ writes them under build/compare_kernels/, one file a case:
   l_panel2 at cell width 0.0025 (its psi form) 3 substeps in (phase 30):
   each in both forms, without the psi channels and with them (on the paths
   without psi, numpy-seeded psi rows on the occupied slots, as phase 30
-  seeds them).
+  seeds them);
+- kernel B (`g2p_fused`) on its slots, ints, window fields and corner map
+  (and the structure's corner tables) on sand3@1M one frame in, fluids3 x4
+  after its volume pass, materials3 and its failure form one frame in,
+  l_panel3 at full size in both damage forms LPANEL3_SUBSTEPS_IN substeps
+  in, elasticity2, basic2 and l_panel2 20 substeps in and the
+  250,000-particle fluids2 column 3 substeps in, the fields formed by this
+  checkout's kernel A, merge and grid update. A checkout whose g2p_fused
+  takes windows gathers them with its own gather_grid_windows (its
+  substep's gather), and is timed for its B alone and for gather + B.
 
 Each run is then a fresh process that builds its own checkout's kernels,
 launches the wrappers on these inputs and times them (scripts.device_ms,
-host_us). Every output must be bit-equal across runs and checkouts. The
-mass images and the 2D window images are also held to their plain
-versions run on the CPU (they sum each cell in the kernels' order there),
-for both checkouts; that is reported.
+host_us). Every output must be bit-equal across runs and checkouts (B's
+output from the input slots; it updates them in place, so its timed calls
+then run on from there). The mass images and the 2D window images are also
+held to their plain versions run on the CPU (they sum each cell in the
+kernels' order there), for both checkouts; that is reported.
 
 Run on the GPU from the repository root:
 `python -m sparkl_tpu_torch.scripts.compare_kernels OTHER_CHECKOUT [ROUNDS]`
@@ -45,7 +55,8 @@ INPUTS = os.path.join(HERE, "build", "compare_kernels")
 # each case's kernels, saves their outputs (argv[3] = 1) and prints one line
 # "TIMES {case kernel: {device_ms, host_us}}".
 CHILD = r'''
-import json, os, sys
+import inspect, json, os, sys
+from types import SimpleNamespace
 sys.path.insert(0, sys.argv[1])
 import torch
 from sparkl_tpu_torch import cuda_build
@@ -53,7 +64,37 @@ from sparkl_tpu_torch.core.grid import GridParams
 from sparkl_tpu_torch.fused import kernels as K
 from sparkl_tpu_torch.ops import transfer_kernels as WK
 from sparkl_tpu_torch.scripts import device_ms, host_us
+from sparkl_tpu_torch.sparse import transfer as T
 from sparkl_tpu_torch.sparse.blocks import BlockConfig
+
+# Kernel B reads the window fields at the corners itself, or takes the
+# windows that the checkout's gather forms from them.
+B_READS_FIELDS = "corners" in inspect.signature(K.g2p_fused).parameters
+
+
+def b_calls(grid, cfg, t):
+    """{name: fn} of kernel B on the case (on a scratch copy of its slots,
+    reset before the output is taken): B alone, and for a checkout whose B
+    takes windows, its gather + B."""
+    scratch = t["slots"].clone()
+    t["scratch"] = scratch
+    args = (t["dt"], t["tab_f"], t["tab_i"], t["nchunks"])
+    if B_READS_FIELDS:
+        return {"g2p_fused": lambda: K.g2p_fused(grid, cfg, t["meta"], t["kparams"], scratch,
+                                                 t["ints"], t["fields"], t["corners"], *args)}
+    structure = SimpleNamespace(nbr_index=t["nbr_index"], chunk_block=t["chunk_block"])
+    order = T.ZMAJOR_ORDER_3D if grid.dim == 3 else None
+
+    def gather():
+        return T.gather_grid_windows(grid, cfg, structure, t["fields"],
+                                     cell_order=order).contiguous()
+
+    windows = gather()
+    return {"g2p_fused": lambda: K.g2p_fused(grid, cfg, t["meta"], t["kparams"], scratch,
+                                             t["ints"], windows, *args),
+            "gather + g2p_fused": lambda: K.g2p_fused(grid, cfg, t["meta"], t["kparams"],
+                                                      scratch, t["ints"], gather(), *args)}
+
 
 cuda_build.build()
 cuda_build.library()
@@ -75,13 +116,21 @@ for name in sorted(os.listdir(inputs)):
         "p2g_windows psi": lambda: WK.p2g_windows(grid, cfg, t["slot_data_psi"],
                                                   with_psi=True),
     }
+    if "g2p_fused" in case["kernels"]:
+        fns.update(b_calls(grid, cfg, t))
     for kname in case["kernels"]:
-        fn = fns[kname]
-        key = f"{name[:-3]} {kname}"
-        out = fn()
-        torch.cuda.synchronize()
-        outs[key] = out.cpu()
-        times[key] = dict(device_ms=device_ms(fn), host_us=host_us(fn))
+        names = [kname] + (["gather + g2p_fused"] if "gather + g2p_fused" in fns
+                           and kname == "g2p_fused" else [])
+        for i, kn in enumerate(names):
+            fn = fns[kn]
+            key = f"{name[:-3]} {kn}"
+            if i == 0:
+                if kn == "g2p_fused":
+                    t["scratch"].copy_(t["slots"])
+                out = fn()
+                torch.cuda.synchronize()
+                outs[key] = out.cpu()
+            times[key] = dict(device_ms=device_ms(fn), host_us=host_us(fn))
 if save:
     torch.save(outs, os.path.join(inputs, "outputs_" + sys.argv[4] + ".pt"))
 print("TIMES " + json.dumps(times))
@@ -97,6 +146,7 @@ def write_inputs():
     sys.path.insert(0, HERE)
     import chip_smoke as cs
     import sparkl_tpu_torch.scenes as scenes
+    from sparkl_tpu_torch.fused import kernels as K
     from sparkl_tpu_torch.fused.pipeline import FusedMpmPipeline
     from sparkl_tpu_torch.sparse.pipeline import SparseMpmPipeline
 
@@ -105,7 +155,7 @@ def write_inputs():
     def geometry(grid, cfg):
         return dict(grid=(grid.origin, grid.cell_width, grid.res), cfg=asdict(cfg))
 
-    def save(name, pipe, state, dt, kernels=("p2g_fused",)):
+    def save(name, pipe, state, dt, kernels=("p2g_fused", "g2p_fused")):
         case = dict(geometry(pipe.grid, pipe._cfg), kernels=list(kernels), meta=pipe._meta,
                     slots=state.slots.cpu(), ints=state.ints.cpu(),
                     nchunks=state.structure.num_chunks.cpu(), dt=dt, tab_f=pipe._tab_f.cpu(),
@@ -114,6 +164,16 @@ def write_inputs():
             e, _ = pipe._eigen_rows(state)
             cand, _ = pipe._eigen_candidates(state.structure)
             case.update(e=e.cpu(), cand=cand.cpu())
+        if "g2p_fused" in kernels:
+            # Kernel B's inputs: the window fields of this checkout's kernel A,
+            # merge and grid update at dt, and the corner tables.
+            images = K.p2g_fused(pipe.grid, pipe._cfg, pipe._meta, state.slots, state.ints, dt,
+                                 state.structure.num_chunks, (pipe._tab_f, pipe._tab_i))
+            st = state.structure
+            case.update(kparams=pipe._kparams,
+                        fields=pipe._node_fields(state, images, dt).cpu(),
+                        corners=pipe._corners(state).cpu(), nbr_index=st.nbr_index.cpu(),
+                        chunk_block=st.chunk_block.cpu())
         torch.save(case, os.path.join(INPUTS, name + ".pt"))
         print(f"{name}: {int(state.structure.num_chunks)} live chunks, {pipe._cfg}, dt {dt:.3e}",
               flush=True)
@@ -152,29 +212,38 @@ def write_inputs():
     fb = cs.fluid_blob()
     pipe = FusedMpmPipeline(fb.grid, fb.models, fb.colliders, fb.params, fb.gravity)
     state = pipe._recompute_fluids(pipe.pack_state(fb.particles))
-    save("fluid", pipe, state, float(pipe._min_dtb(state)), ("p2g_fused", "mass_p2g_fused"))
+    save("fluid", pipe, state, float(pipe._min_dtb(state)),
+         ("p2g_fused", "mass_p2g_fused", "g2p_fused"))
     del fb, pipe, state
 
     pipe, state = cs.substep_state(cs.fluid2_block(), 3)
     state = pipe._recompute_fluids(state.replace(slots=state.slots.clone()))
-    save("fluids2_block", pipe, state, float(pipe._min_dtb(state)), ("mass_p2g_fused",))
+    save("fluids2_block", pipe, state, float(pipe._min_dtb(state)),
+         ("mass_p2g_fused", "g2p_fused"))
     del pipe, state
 
     pipe, state = cs.material_state(cs.materials3())
     save("materials3", pipe, state, float(pipe._min_dtb(state)))
+    pipe, state = cs.material_state(cs.materials3(failure=True))
+    save("materials3_failure", pipe, state, float(pipe._min_dtb(state)), ("g2p_fused",))
     del pipe, state
 
     pipe, state = cs.substep_state(cs.l_panel3(load_speed=cs.LPANEL3_LOAD_SPEED),
                                    cs.LPANEL3_SUBSTEPS_IN)
     save("l_panel3", pipe, state, float(pipe._min_dtb(state)),
-         ("p2g_fused", "eigen_pool_fused"))
+         ("p2g_fused", "eigen_pool_fused", "g2p_fused"))
+    pipe, state = cs.substep_state(cs.l_panel3("modified", load_speed=cs.LPANEL3_LOAD_SPEED),
+                                   cs.LPANEL3_SUBSTEPS_IN)
+    save("l_panel3_modified", pipe, state, float(pipe._min_dtb(state)), ("g2p_fused",))
     del pipe, state
 
     pipe, state = cs.substep_state(scenes.build("elasticity2"), cs.PLASTIC_SUBSTEPS_IN)
     save("elasticity2", pipe, state, float(pipe._min_dtb(state)))
+    pipe, state = cs.substep_state(scenes.build("basic2"), cs.PLASTIC_SUBSTEPS_IN)
+    save("basic2", pipe, state, float(pipe._min_dtb(state)), ("g2p_fused",))
     pipe, state = cs.substep_state(cs.fracture_bundle(), cs.FRACTURE_SUBSTEPS_IN)
     save("l_panel2", pipe, state, float(pipe._min_dtb(state)),
-         ("p2g_fused", "eigen_pool_fused"))
+         ("p2g_fused", "eigen_pool_fused", "g2p_fused"))
     del pipe, state
 
     for name, bundle in (("block", cs.plastic_block()),

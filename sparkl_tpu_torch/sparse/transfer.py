@@ -332,10 +332,17 @@ def merge_images_to_grid(grid: GridParams, cfg: BlockConfig, structure, images,
 def gather_grid_windows(grid: GridParams, cfg: BlockConfig, structure, node_fields,
                         cell_order=None):
     """Inverse of merge: node_fields [MGB+1, F*4^d] -> windows [D, F, 8^d]."""
+    return windows_from_corners(grid, cfg, _chunk_corners(structure), node_fields, cell_order)
+
+
+def windows_from_corners(grid: GridParams, cfg: BlockConfig, corners, node_fields,
+                         cell_order=None):
+    """gather_grid_windows on a chunk corner map [D, 2^d] (_chunk_corners
+    of the structure)."""
     dim = grid.dim
     cpb = cells_per_block(dim)
     nf = node_fields.shape[1] // cpb
-    rows = node_fields[_chunk_corners(structure).reshape(-1).long()]  # [D*2^d, F*cpb]
+    rows = node_fields[corners.reshape(-1).long()]  # [D*2^d, F*cpb]
     comb = _window_comb(dim, nf, cell_order is not None, node_fields.device)
     flat = rows.reshape(cfg.max_chunks, -1)
     return flat[:, comb].reshape(cfg.max_chunks, nf, region_cells(dim))

@@ -272,8 +272,9 @@ def test_kernel_a_matches_pallas(packed):
 
 
 def test_kernel_b_matches_pallas(packed):
-    """Kernel B (plain) against the JAX g2p_fused on numpy-seeded windows,
-    on occupied lanes. Fluids: F00 += tr(∇v)·dt·F00 and the rest of F kept,
+    """Kernel B (plain) against the JAX g2p_fused on the windows of
+    numpy-seeded node fields (the JAX side gathers them, the wrapper reads
+    them at the chunks' corners), on occupied lanes. Fluids: F00 += tr(∇v)·dt·F00 and the rest of F kept,
     no SVD, no |F00| guard, the EOS dt bound, zero stress rows. Tolerances
     of tests/test_torch_kernels.py: kinematics, dt bound and drift 1e-5 of
     each row's scale; F, stress, energy and plastic rows 2e-5 (the cardano
@@ -281,15 +282,18 @@ def test_kernel_b_matches_pallas(packed):
     strain units within 1e-6."""
     k = packed
     rng = np.random.default_rng(9)
-    windows = rng.normal(scale=0.5, size=(CFG["max_chunks"], 3, 512)).astype(np.float32)
+    fields = rng.normal(scale=0.5, size=(CFG["max_grid_blocks"] + 1, 3 * 64)).astype(np.float32)
+    windows = JT.gather_grid_windows(k.grid, k.jpipe._cfg, k.js.structure, jnp.asarray(fields),
+                                     cell_order=JT.ZMAJOR_ORDER_3D)
     out_j = np.asarray(JK.g2p_fused(
         k.grid, k.jpipe._cfg, k.jpipe._meta, k.jpipe._kparams, k.js.slots, k.js.ints,
-        jnp.asarray(windows), jnp.float32(DT), k.jpipe._tab_f, k.jpipe._tab_i,
+        windows, jnp.float32(DT), k.jpipe._tab_f, k.jpipe._tab_i,
         interpret=True, nchunks=k.js.structure.num_chunks))
     tp = k.tpipe
     out_t = TK.g2p_fused(tp.grid, BlockConfig(**CFG), TK.kernel_meta(tp.models, tp.params),
-                         tp._kparams, k.ts.slots, k.ts.ints, torch.tensor(windows), DT,
-                         tp._tab_f, tp._tab_i, k.ts.structure.num_chunks).numpy()
+                         tp._kparams, k.ts.slots, k.ts.ints, torch.tensor(fields),
+                         tp._corners(k.ts), DT, tp._tab_f, tp._tab_i,
+                         k.ts.structure.num_chunks).numpy()
     occ = _occupied(k.js)
     out_t = np.where(occ[:, None, :], out_t, 0.0)
     out_j = np.where(occ[:, None, :], out_j, 0.0)

@@ -32,6 +32,7 @@ import sparkl_tpu.scenes as jscenes
 from sparkl_tpu.fused import kernels as JK
 from sparkl_tpu.fused.pipeline import FusedMpmPipeline as JPipeline
 from sparkl_tpu.models import constitutive as jcon
+from sparkl_tpu.sparse import transfer as JT
 
 import sparkl_tpu_torch as tsk
 import sparkl_tpu_torch.scenes as tscenes
@@ -309,7 +310,8 @@ def test_kernel_a_plain_sums_cells_in_lane_order(scene, moved):
 
 def test_kernel_b_2d_fluid_matches_pallas(scene, moved):
     """Kernel B (plain) in its 2D fluid branch against the JAX g2p_fused on
-    numpy-seeded windows, on occupied lanes: F00 += tr(∇v)·dt·F00 with the
+    the windows of numpy-seeded node fields (the JAX side gathers them, the
+    wrapper reads them at the chunks' corners), on occupied lanes: F00 += tr(∇v)·dt·F00 with the
     rest of F kept, no SVD, no |F00| guard, the 2D EOS dt bound, zero stress
     rows. test_torch_fluids.py's tolerances: kinematics, dt bound and drift
     1e-5 of each row's scale, F00 within 1e-6 (strain units), the failed
@@ -320,15 +322,17 @@ def test_kernel_b_2d_fluid_matches_pallas(scene, moved):
     k = scene
     tp = k.tpipe
     rng = np.random.default_rng(9)
-    windows = rng.normal(scale=0.5, size=(tp._cfg.max_chunks, 2, 64)).astype(np.float32)
+    fields = rng.normal(scale=0.5, size=(tp._cfg.max_grid_blocks + 1, 2 * 16)).astype(np.float32)
+    windows = JT.gather_grid_windows(k.jb.grid, k.jpipe._cfg, moved.js.structure,
+                                     jnp.asarray(fields))
     out_j = _np(JK.g2p_fused(
         k.jb.grid, k.jpipe._cfg, k.jpipe._meta, k.jpipe._kparams, moved.js.slots, moved.js.ints,
-        jnp.asarray(windows), jnp.float32(DT), k.jpipe._tab_f, k.jpipe._tab_i,
+        windows, jnp.float32(DT), k.jpipe._tab_f, k.jpipe._tab_i,
         interpret=True, nchunks=moved.js.structure.num_chunks))
     before = moved.ts.slots.numpy()
     out_t = TK.g2p_fused(tp.grid, tp._cfg, tp._meta, tp._kparams, moved.ts.slots.clone(),
-                         moved.ts.ints, torch.tensor(windows), DT, tp._tab_f, tp._tab_i,
-                         moved.ts.structure.num_chunks).numpy()
+                         moved.ts.ints, torch.tensor(fields), tp._corners(moved.ts), DT,
+                         tp._tab_f, tp._tab_i, moved.ts.structure.num_chunks).numpy()
     occ = moved.occ
     out_t = np.where(occ[:, None, :], out_t, 0.0)
     out_j = np.where(occ[:, None, :], out_j, 0.0)

@@ -29,6 +29,7 @@ from sparkl_tpu.fused.pipeline import FusedMpmPipeline as JPipeline
 from sparkl_tpu.geometry import colliders as jcol
 from sparkl_tpu.models import registry as jreg
 from sparkl_tpu.solver.pipeline import DirichletVelocityHook as JHook
+from sparkl_tpu.sparse import transfer as JT
 from sparkl_tpu.sparse.blocks import BlockConfig as JBlockConfig
 
 from sparkl_tpu_torch import interop
@@ -176,14 +177,16 @@ def test_kernel_b_2d_matches_pallas(small):
              ints=_jnp(js.ints), cum_disp=0.0), cache_fn=tpipe._grid_cache, device="cpu")
     images = TK.p2g_fused(tpipe.grid, tpipe._cfg, tpipe._meta, slots_t, ints_t, DT,
                           tstate.structure.num_chunks, tables=(tpipe._tab_f, tpipe._tab_i))
-    windows = tpipe._grid_windows(tstate, images, DT)
+    fields = tpipe._node_fields(tstate, images, DT)
+    windows = JT.gather_grid_windows(jpipe.grid, jpipe._cfg, js.structure,
+                                     jnp.asarray(fields.numpy()))
     assert windows.shape == (SMALL_CFG["max_chunks"], 3, 64)
     out_j = np.asarray(JK.g2p_fused(jpipe.grid, jpipe._cfg, jpipe._meta, jpipe._kparams,
-                                    js.slots, js.ints, jnp.asarray(windows.numpy()),
+                                    js.slots, js.ints, windows,
                                     jnp.float32(DT), jpipe._tab_f, jpipe._tab_i, interpret=True,
                                     nchunks=nch))
     out_t = TK.g2p_fused(tpipe.grid, tpipe._cfg, tpipe._meta, tpipe._kparams, slots_t, ints_t,
-                         windows, DT, tpipe._tab_f, tpipe._tab_i,
+                         fields, tpipe._corners(tstate), DT, tpipe._tab_f, tpipe._tab_i,
                          tstate.structure.num_chunks).numpy()
     occ = (_jnp(js.ints)[:, TL.I_FLAGS, :] & TL.OCCUPIED) != 0
     a = np.where(occ[:, None, :], out_t, 0.0)

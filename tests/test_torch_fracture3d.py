@@ -37,6 +37,7 @@ from sparkl_tpu.fused.pipeline import FusedMpmPipeline as JPipeline
 from sparkl_tpu.geometry import colliders as jcol
 from sparkl_tpu.models import registry as jreg
 from sparkl_tpu.solver.pipeline import DirichletVelocityHook as JHook
+from sparkl_tpu.sparse import transfer as JT
 from sparkl_tpu.sparse.blocks import BlockConfig as JBlockConfig
 
 import chip_smoke
@@ -418,15 +419,18 @@ def test_kernel_b_damage_matches_pallas(kernel_states, form):
     ints_t = tstate.ints
     images = TK.p2g_fused(tpipe.grid, tpipe._cfg, tpipe._meta, tstate.slots, ints_t, dt,
                           tstate.structure.num_chunks, tables=(tpipe._tab_f, tpipe._tab_i))
-    windows = tpipe._grid_windows(tstate, images, dt)
+    fields = tpipe._node_fields(tstate, images, dt)
+    windows = JT.gather_grid_windows(jpipe.grid, jpipe._cfg, js.structure,
+                                     jnp.asarray(fields.numpy()),
+                                     cell_order=JT.ZMAJOR_ORDER_3D if dim == 3 else None)
     assert windows.shape[1] == dim + 1
     out_j = _np(JK.g2p_fused(jpipe.grid, jpipe._cfg, jpipe._meta, jpipe._kparams,
-                             jnp.asarray(slots), js.ints, jnp.asarray(windows.numpy()),
+                             jnp.asarray(slots), js.ints, windows,
                              jnp.float32(dt), jpipe._tab_f, jpipe._tab_i, interpret=True,
                              nchunks=nch))
     out_t = TK.g2p_fused(tpipe.grid, tpipe._cfg, tpipe._meta, tpipe._kparams,
-                         torch.from_numpy(slots), ints_t, windows, dt, tpipe._tab_f,
-                         tpipe._tab_i, tstate.structure.num_chunks).numpy()
+                         torch.from_numpy(slots), ints_t, fields, tpipe._corners(tstate), dt,
+                         tpipe._tab_f, tpipe._tab_i, tstate.structure.num_chunks).numpy()
     occ = (_np(js.ints)[:, TL.I_FLAGS, :] & TL.OCCUPIED) != 0
     a = np.where(occ[:, None, :], out_t, 0.0)
     b = np.where(occ[:, None, :], out_j, 0.0)
@@ -461,7 +465,7 @@ def test_kernel_b_damage_matches_pallas(kernel_states, form):
     cpf, cthr = slots[:, r.cpf], slots[:, r.cthr]
     crack_trips = 0
     if modified:
-        psi = chip_smoke.psi_gathered(tpipe, tstate, windows).numpy()
+        psi = chip_smoke.psi_gathered(tpipe, tstate, fields, tpipe._corners(tstate)).numpy()
         crack = cpf * np.float32(tpipe.grid.cell_width) * psi
         tie |= (cpf != 0) & (np.abs(crack - cthr) <= TIE * np.abs(cthr))
         crack_trips = int((occ & (slots[:, r.phase] > 0) & (cpf != 0) & (crack > cthr)).sum())

@@ -8,6 +8,8 @@ The CUDA kernels themselves run only on the card: chip_smoke.py holds
 each against its plain version there at the main path's shapes.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -18,12 +20,14 @@ import jax.numpy as jnp
 import sparkl_tpu.scenes as jscenes
 from sparkl_tpu.fused import kernels as JK
 from sparkl_tpu.fused.pipeline import FusedMpmPipeline as JPipeline
+from sparkl_tpu.sparse import transfer as JT
 from sparkl_tpu.sparse.blocks import BlockConfig as JBlockConfig
 
 from sparkl_tpu_torch import interop
 from sparkl_tpu_torch.core.params import DamageModel, SolverParameters
 from sparkl_tpu_torch.fused import kernels as TK
 from sparkl_tpu_torch.fused import layout as TL
+from sparkl_tpu_torch.sparse import transfer as TT
 from sparkl_tpu_torch.sparse.blocks import BlockConfig
 
 torch.set_num_threads(1)
@@ -61,6 +65,9 @@ def state():
         first=torch.tensor(np.asarray(js.structure.block_first_chunk)),
         nblk=torch.tensor(np.asarray(js.structure.block_num_chunks)),
         meta=TK.kernel_meta(models_t, SolverParameters()),
+        corners=TT._chunk_corners(SimpleNamespace(
+            nbr_index=torch.tensor(np.asarray(js.structure.nbr_index)),
+            chunk_block=torch.tensor(np.asarray(js.structure.chunk_block)))).contiguous(),
     )
     t["tab_f"], t["tab_i"] = TK.pack_model_tables(models_t)
     return b, pipe, js, t
@@ -240,17 +247,21 @@ def _row_groups():
 def test_g2p_fused_reference_matches_pallas(state):
     b, pipe, js, t = state
     rng = np.random.default_rng(9)
-    windows = rng.normal(scale=0.5, size=(CFG["max_chunks"], 3, 512)).astype(np.float32)
+    # Node fields seeded per node-table block; the JAX side gathers its
+    # windows from them, the wrapper reads them at the chunks' corners.
+    fields = rng.normal(scale=0.5, size=(CFG["max_grid_blocks"] + 1, 3 * 64)).astype(np.float32)
+    windows = JT.gather_grid_windows(b.grid, pipe._cfg, js.structure, jnp.asarray(fields),
+                                     cell_order=JT.ZMAJOR_ORDER_3D)
     out_j = np.asarray(JK.g2p_fused(
         b.grid, pipe._cfg, pipe._meta, pipe._kparams, js.slots, js.ints,
-        jnp.asarray(windows), jnp.float32(DT), pipe._tab_f, pipe._tab_i,
+        windows, jnp.float32(DT), pipe._tab_f, pipe._tab_i,
         interpret=True, nchunks=js.structure.num_chunks,
     ))
     slots_in = t["slots"].clone()
     TK.reset_launch_counts()
     out_t = TK.g2p_fused(b.grid, BlockConfig(**CFG), t["meta"], dict(gpu_velocity_clamp=False),
-                         t["slots"], t["ints"], torch.tensor(windows), DT, t["tab_f"],
-                         t["tab_i"], t["nchunks"]).numpy()
+                         t["slots"], t["ints"], torch.tensor(fields), t["corners"], DT,
+                         t["tab_f"], t["tab_i"], t["nchunks"]).numpy()
     assert TK.LAUNCHES["g2p_fused"] == 0
     assert torch.equal(t["slots"], slots_in)  # the CPU path writes a new tensor
 
@@ -298,8 +309,8 @@ def test_wrappers_check_arguments(state):
     with pytest.raises(NotImplementedError):
         TK.g2p_fused(b.grid, cfg, dict(t["meta"], damage_model=int(DamageModel.CD_MPM)),
                      dict(gpu_velocity_clamp=False),
-                     t["slots"], t["ints"], torch.zeros(CFG["max_chunks"], 3, 512), DT,
-                     t["tab_f"], t["tab_i"], t["nchunks"])
+                     t["slots"], t["ints"], torch.zeros(CFG["max_grid_blocks"] + 1, 3 * 64),
+                     t["corners"], DT, t["tab_f"], t["tab_i"], t["nchunks"])
     with pytest.raises(NotImplementedError):
         TK.merge_blocks(t["slots"][:, :8, :].contiguous().to("meta"),
                         t["first"].to("meta"), t["nblk"].to("meta"))

@@ -41,9 +41,11 @@ from sparkl_tpu.math import cmat as jcmat
 from sparkl_tpu.math.svd import svd_c as jsvd_c
 from sparkl_tpu.models import plasticity as jplas
 from sparkl_tpu.models import registry as jreg
+from sparkl_tpu.sparse import transfer as JT
 from sparkl_tpu.sparse.blocks import BlockConfig as JBlockConfig
 
 import chip_smoke
+from test_torch_plastic2d import jax_windows
 from sparkl_tpu_torch import interop
 from sparkl_tpu_torch.core.grid import GridParams
 from sparkl_tpu_torch.fused import kernels as TK
@@ -402,13 +404,14 @@ def check_kernel_b_materials_matches_pallas(scenes, kernel_states, form):
     nch = state.structure.num_chunks
     images = TK.p2g_fused(tpipe.grid, tpipe._cfg, meta, state.slots, state.ints, DT, nch,
                           tables=(tpipe._tab_f, tpipe._tab_i))
-    windows = tpipe._grid_windows(state, images, DT)
+    fields = tpipe._node_fields(state, images, DT)
+    windows = jax_windows(jpipe, state, fields)
     out_j = _np(JK.g2p_fused(jpipe.grid, jpipe._cfg, jpipe._meta, jpipe._kparams,
                              jnp.asarray(state.slots), jnp.asarray(state.ints),
-                             jnp.asarray(windows.numpy()), jnp.float32(DT), jpipe._tab_f,
+                             windows, jnp.float32(DT), jpipe._tab_f,
                              jpipe._tab_i, interpret=True, nchunks=jnp.asarray(nch)))
     out_t = TK.g2p_fused(tpipe.grid, tpipe._cfg, meta, tpipe._kparams, state.slots, state.ints,
-                         windows, DT, tpipe._tab_f, tpipe._tab_i, nch)
+                         fields, tpipe._corners(state), DT, tpipe._tab_f, tpipe._tab_i, nch)
     counts, tie, _ = chip_smoke.material_counts(tpipe, state, out_t, DT)
     out_t, tie = out_t.numpy(), tie.numpy()
     slots_in, ints = state.slots.numpy(), state.ints.numpy()

@@ -13,6 +13,7 @@ tolerance.
 """
 
 from dataclasses import fields
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -29,6 +30,7 @@ from sparkl_tpu.fused.pipeline import FusedMpmPipeline as JPipeline
 from sparkl_tpu.geometry import colliders as jcol
 from sparkl_tpu.models import plasticity as jplas
 from sparkl_tpu.models import registry as jreg
+from sparkl_tpu.sparse import transfer as JT
 from sparkl_tpu.sparse.blocks import BlockConfig as JBlockConfig
 
 from sparkl_tpu_torch import interop
@@ -48,6 +50,15 @@ R2 = TL.Rows(2)
 DT = 1.0e-3
 E, NU = 2.0e4, 0.35
 SMALL_CFG = dict(max_blocks=32, max_chunks=32, chunk_size=64, max_grid_blocks=64)
+
+
+def jax_windows(jpipe, state, fields):
+    """The JAX package's window gather (the windows its g2p_fused takes) of
+    the port's node fields over the port state's structure."""
+    structure = SimpleNamespace(nbr_index=jnp.asarray(state.structure.nbr_index.numpy()),
+                                chunk_block=jnp.asarray(state.structure.chunk_block.numpy()))
+    return JT.gather_grid_windows(jpipe.grid, jpipe._cfg, structure, jnp.asarray(fields.numpy()),
+                                  cell_order=JT.ZMAJOR_ORDER_3D if jpipe.grid.dim == 3 else None)
 
 
 def _np(x):
@@ -342,13 +353,15 @@ def test_kernel_b_2d_plastic_matches_pallas(small_states, form):
     nch = state.structure.num_chunks
     images = TK.p2g_fused(tpipe.grid, tpipe._cfg, meta, state.slots, state.ints, DT, nch,
                           tables=(tpipe._tab_f, tpipe._tab_i))
-    windows = tpipe._grid_windows(state, images, DT)
+    fields = tpipe._node_fields(state, images, DT)
+    windows = jax_windows(jpipe, state, fields)
     out_j = _np(JK.g2p_fused(jpipe.grid, jpipe._cfg, jpipe._meta, jpipe._kparams,
                              jnp.asarray(state.slots), jnp.asarray(state.ints),
-                             jnp.asarray(windows.numpy()), jnp.float32(DT), jpipe._tab_f,
+                             windows, jnp.float32(DT), jpipe._tab_f,
                              jpipe._tab_i, interpret=True, nchunks=jnp.asarray(nch)))
     out_t = TK.g2p_fused(tpipe.grid, tpipe._cfg, meta, tpipe._kparams, state.slots, state.ints,
-                         windows, DT, tpipe._tab_f, tpipe._tab_i, nch).numpy()
+                         fields, tpipe._corners(state), DT, tpipe._tab_f, tpipe._tab_i,
+                         nch).numpy()
     slots_in, ints = state.slots.numpy(), state.ints.numpy()
     occ = (ints[:, TL.I_FLAGS, :] & TL.OCCUPIED) != 0
     a = np.where(occ[:, None, :], out_t, 0.0)
