@@ -31,14 +31,19 @@ Phases (one line each, longer logs under chiprun_out/):
   2. build of the CUDA kernels from sparkl_tpu_torch/csrc;
   3. the substep kernels against their plain versions on the card, at the
      main path's shapes (sand3 at nx=100, ny=50, nz=100: ~1.02M particles),
-     with times, the scatter merge bit-equal to its plain version and to a
-     second launch, kernel A bit-equal to its plain version run on the CPU
+     with times; the merge stage (check_merge) in both forms on kernel A's
+     images, each bit-equal to its plain version, to a second launch and
+     to the parent's form (parent_merge), held to one index_add within
+     float atomics' reordering, with its byte bound and the parent stage's
+     glue timed beside it; kernel A bit-equal to its plain version run on the CPU
      on 256 live chunks (and its hits per CTA); and a small sand3 frame on
      the card against the port's CPU path;
   4. the main path: FusedMpmPipeline.pack_state -> 15 frames of
      run_frames_state -> unpack_state, with the kernels' launch counts
      held against the substeps and the resort branches taken; then one
-     more frame under torch.profiler (chiprun_out/sand3_profile.txt);
+     more frame under torch.profiler (chiprun_out/sand3_profile.txt), and
+     the merge stage of the landed state, one CUDA kernel in each form
+     (counted under torch.profiler);
   5. after the main path: the resort kernels against their plain versions
      on the state the main path's first resort started from, that whole
      resort on the card against the same resort of a CPU copy, the older
@@ -49,7 +54,8 @@ Phases (one line each, longer logs under chiprun_out/):
      plastic flow;
   6. the block-sparse path's two window kernels against their plain
      versions on the card, on the inputs of a substep one frame into the
-     fall at sand3@1M, without and with the psi channels, with times;
+     fall at sand3@1M, without and with the psi channels, with times; the
+     scatter merge on that substep's images (row-major), with times;
   7. the sparse main path: auto_pipeline(prefer="sparse") ->
      step_with_stats, then run_frames, 6 frames at sand3@1M, with the
      kernels' launch counts (and their 3D form) held against the substeps;
@@ -59,7 +65,9 @@ Phases (one line each, longer logs under chiprun_out/):
      sparse frames from the same particles bit-equal, and a small sand3
      frame through the sparse path on the card against the port's CPU path;
   9. the fluid path's kernels (mass P2G and G2P, kernels A and B with their
-     fluid branches, the scatter merge on both kinds of images) against
+     fluid branches, the merge stage in the path's form (the scatter form,
+     pinned by the blob's dense blocks) on both kinds of images, the mass
+     node table also against its plain version run on the CPU) against
      their plain versions on the card, on the packed state of fluids3 with
      each axis of its particle counts x4 (972,800 particles) after its
      first volume pass, with times; kernel A's mass channel bit-equal to
@@ -180,7 +188,8 @@ Phases (one line each, longer logs under chiprun_out/):
      and with seeded psi rows), l_panel2 as far in (its psi form, and
      without), timed on the 250,000-particle block (without psi) and on
      l_panel2 at cell width 0.0025 (with psi); the 3D psi forms on the
-     reduced l_panel3's sparse path;
+     reduced l_panel3's sparse path; the scatter merge on each state's
+     images (in 2D also against its plain version run on the CPU);
  31. the four 2D sparse main paths at published size: scenes.build ->
      auto_pipeline(prefer="sparse") -> step_with_stats / run_frames,
      elasticity2 and basic2 6 frames against the goldens, fluids2 5 frames
@@ -221,7 +230,11 @@ ms, batches of 10 calls between two CUDA events (what a path pays a call:
 the device's time, or the host's where the host cannot keep the device
 fed); device_ms, 10 calls captured in a CUDA graph and replayed between two
 events (the device alone); and host_us, the host's time to issue one call.
-A library call that reads the host (torch.segment_reduce) has no device_ms.
+A library call that reads the host has no device_ms.
+
+Every check of a state with kernel A's images (phases 3, 9-12, 15, 18,
+22, 26) also runs the merge stage there (check_merge), in the path's form;
+the 2D and mass node tables also against the plain version run on the CPU.
 """
 
 import contextlib
@@ -414,6 +427,10 @@ EXP_STEP_FLOPS = 4
 # Kernel A is also held to its plain version run on the CPU, on this many
 # live chunks of a state (p2g_cpu_bits).
 P2G_CPU_CHUNKS = 256
+# Calls of the merge stage under torch.profiler, each required to run its
+# one kernel and nothing else; the sessions' counts (check_merge).
+MERGE_PROFILED_CALLS = 5
+MERGE_PROFILES = []
 
 
 class SmokeError(RuntimeError):
@@ -663,39 +680,14 @@ def phase_kernels(pipe, state, dt):
     res["p2g_fused"]["plain_ms"] = median_ms(
         lambda: K.p2g_fused_reference(grid, state.slots, state.ints, dt, nchunks, tables), reps=5)
 
-    # Merge, on the rows the main path hands it.
-    rows = image_rows(cfg, img_k)
-    first, nblk = state.structure.block_first_chunk, state.structure.block_num_chunks
-    m_k = K.merge_blocks(rows, first, nblk)
-    m_p = K.merge_blocks_reference(rows, first, nblk, T.MERGE_KMAX)
-    torch.cuda.synchronize()
-    err = (m_k - m_p).abs().max().item()
-    res["merge_blocks"] = dict(max_abs_err=err)
-    say(3, f"merge_blocks {tuple(m_k.shape)}: bit-equal {torch.equal(m_k, m_p)}, max|err| {err:.3e}")
-    if not torch.equal(m_k, m_p):
-        failures.append("merge_blocks is not bit-equal to its plain version")
-    res["merge_blocks"]["ms"] = median_ms(lambda: K.merge_blocks(rows, first, nblk))
-    res["merge_blocks"]["plain_ms"] = median_ms(
-        lambda: K.merge_blocks_reference(rows, first, nblk, T.MERGE_KMAX), reps=5)
-    # The library yardstick: one segment sum over the valid chunks' rows
-    # (blocks own contiguous chunk ranges; none here holds more than kmax).
-    n_valid = int(nblk.sum())
-    require(int(nblk.max()) <= T.MERGE_KMAX, "a block holds more than MERGE_KMAX chunks")
-    flat, lengths = rows.reshape(cfg.max_chunks, -1)[:n_valid], nblk.long()
-    seg = torch.segment_reduce(flat, "sum", lengths=lengths, axis=0)
-    seg_err = (seg.reshape(m_k.shape) - m_k).abs().max().item()
-    res["merge_blocks"]["library_ms"] = median_ms(
-        lambda: torch.segment_reduce(flat, "sum", lengths=lengths, axis=0))
-    # segment_reduce checks its lengths on the host: no graph captures it.
-    add_split(res["merge_blocks"], lambda: K.merge_blocks(rows, first, nblk),
-              lambda: torch.segment_reduce(flat, "sum", lengths=lengths, axis=0),
-              lib_captured=False)
-    say(3, f"merge_blocks against torch.segment_reduce: max|diff| {seg_err:.3e}")
-
-    # The scatter merge (the fluid and sparse paths' merge) on the same rows:
-    # each node-table row sums its updates in ascending update order, so the
-    # kernel, its plain version and a second launch are bit-equal.
-    res["merge_scatter"] = check_merge_scatter(cfg, state.structure, rows, 3, " (sand3)")
+    # The merge stage, on the images the main path hands it, in the path's
+    # gather form and in the scatter form (the fluid and sparse paths').
+    # (Its launches counted under torch.profiler after phase 4's profiled
+    # frame: a profiler session slows the host, and phase 4 times the path.)
+    res["merge_blocks"] = check_merge(grid, cfg, state.structure, img_k, True, False, 3,
+                                      "sand3@1M", owner=state.grid_cache[4], profiled=False)
+    res["merge_scatter"] = check_merge(grid, cfg, state.structure, img_k, True, True, 3,
+                                       "sand3@1M", plan=state.grid_cache[2], profiled=False)
     require(not failures, "; ".join(failures))
 
     # Kernel B, on the window fields the main path computes from these images.
@@ -717,7 +709,6 @@ def phase_kernels(pipe, state, dt):
     traffic["g2p_fused"] = res["g2p_fused"]["bytes"]
     lanes = int(((state.ints[:, L.I_FLAGS, :] & L.ACTIVE) != 0).sum())
     flops = dict(p2g_fused=lanes * (27 * P2G_TAP_FLOPS + A_SLOT_FLOPS),
-                 merge_blocks=traffic["merge_blocks"] // 4,
                  g2p_fused=lanes * (27 * G2P_TAP_FLOPS + B_LANE_FLOPS))
     res["g2p_fused"]["former_bound_ms"] = bound(all_rows, flops["g2p_fused"])[0]
     for name in flops:
@@ -742,87 +733,280 @@ def former_bound_text(v):
             if "former_bound_ms" in v else "")
 
 
-def image_rows(cfg, images):
-    """Window images [D, nf, 8^d] (z-major in 3D, row-major in 2D) -> the
-    merge's (chunk, corner) rows [D, 2^d, nf·4^d], as merge_images_to_grid
-    forms them."""
-    from sparkl_tpu_torch.sparse import transfer as T
-
-    nf = images.shape[1]
-    dim = 3 if images.shape[2] == 512 else 2
-    comb = T._merge_comb(dim, nf, dim == 3, images.device)
-    return images.reshape(cfg.max_chunks, -1)[:, comb].reshape(
-        cfg.max_chunks, 2**dim, nf * 4**dim).contiguous()
-
-
-def check_merge_scatter(cfg, structure, rows, phase, label="", timed=True):
-    """The scatter merge kernel on `rows` [D, 8, W] (window images in
-    (chunk, corner) rows) over `structure`: bit-equal to its plain version
-    and to a second launch; with `timed`, times, with index_add (float
-    atomics) as the library yardstick. Returns {max_abs_err, ms, plain_ms,
-    library_ms, bytes, flops, bound_ms, bound_by}."""
+def parent_merge(cfg, structure, images, zmajor, scatter, plan):
+    """The parent's merge stage on window images, kept here as the plain
+    reference the new kernels are held to: the comb gather into (chunk,
+    corner) rows, then the scatter form's ordered row sums, or the gather
+    form's segment sums (the parent's rows kernel summed in this order),
+    the inverse-corner table built from nbr_index on the call, the 2^d
+    corner adds from zero; the trash row zeroed."""
     import torch
     from sparkl_tpu_torch.fused import kernels as K
-    from sparkl_tpu_torch.scripts import median_ms
     from sparkl_tpu_torch.sparse import transfer as T
 
-    d_, ncorners, w = rows.shape
-    flat = rows.reshape(d_ * ncorners, w)
-    order, starts = T.scatter_plan(cfg, structure)
-    out_k = K.merge_scatter(flat, order, starts)
-    out_k2 = K.merge_scatter(flat, order, starts)
-    out_p = K.merge_scatter_reference(flat, order, starts)
-    dest = T._chunk_corners(structure).reshape(-1).long()
-    zeros = torch.zeros_like(out_k)
-    lib = torch.index_add(zeros, 0, dest, flat)
+    dim = 3 if images.shape[2] == 512 else 2
+    nf, ncorners, cpb = images.shape[1], 2**dim, 4**dim
+    comb = T._merge_comb(dim, nf, zmajor, images.device)
+    rows = images.reshape(cfg.max_chunks, -1)[:, comb].reshape(cfg.max_chunks, ncorners,
+                                                                nf * cpb)
+    if scatter:
+        out = K.merge_scatter_reference(rows.reshape(-1, nf * cpb), *plan)
+    else:
+        blk = K.merge_blocks_reference(rows, structure.block_first_chunk,
+                                       structure.block_num_chunks, T.MERGE_KMAX)
+        blk = torch.cat([blk, blk.new_zeros((1,) + blk.shape[1:])], 0)
+        nbr = structure.nbr_index.long()
+        co = torch.full((cfg.max_grid_blocks + 1, ncorners), cfg.max_blocks, dtype=torch.long,
+                        device=images.device)
+        bidx = torch.clamp(torch.arange(nbr.shape[0], device=images.device), max=cfg.max_blocks)
+        kidx = torch.arange(ncorners, device=images.device)
+        co[nbr, kidx[None, :].expand_as(nbr)] = bidx[:, None].expand_as(nbr)
+        out = images.new_zeros((cfg.max_grid_blocks + 1, nf * cpb))
+        for k in range(ncorners):
+            out = out + blk[co[:, k], k]
+    out[cfg.max_grid_blocks] = 0.0
+    return out
+
+
+def parent_glue(cfg, structure, images, zmajor, scatter, blk):
+    """The parent's merge stage without its rows kernel (timed beside the
+    new kernel: what the kernel took off the path): the comb gather, and
+    for the gather form the cat, the inverse-corner table's build, the 2^d
+    corner gathers and adds (on `blk`, a stand-in for the kernel's output)
+    and the overflow max; the trash write."""
+    import torch
+    from sparkl_tpu_torch.sparse import transfer as T
+
+    dim = 3 if images.shape[2] == 512 else 2
+    nf, ncorners, cpb = images.shape[1], 2**dim, 4**dim
+    comb = T._merge_comb(dim, nf, zmajor, images.device)
+    rows = images.reshape(cfg.max_chunks, -1)[:, comb]
+    if scatter:
+        out = rows.new_zeros((cfg.max_grid_blocks + 1, nf * cpb))  # the kernel's output
+    else:
+        ovf = torch.max(structure.block_num_chunks) > T.MERGE_KMAX
+        b = torch.cat([blk, blk.new_zeros((1,) + blk.shape[1:])], 0)
+        nbr = structure.nbr_index.long()
+        co = torch.full((cfg.max_grid_blocks + 1, ncorners), cfg.max_blocks, dtype=torch.long,
+                        device=images.device)
+        bidx = torch.clamp(torch.arange(nbr.shape[0], device=images.device), max=cfg.max_blocks)
+        kidx = torch.arange(ncorners, device=images.device)
+        co[nbr, kidx[None, :].expand_as(nbr)] = bidx[:, None].expand_as(nbr)
+        out = images.new_zeros((cfg.max_grid_blocks + 1, nf * cpb))
+        for k in range(ncorners):
+            out = out + b[co[:, k], k]
+        del ovf
+    out[cfg.max_grid_blocks] = 0.0
+    return rows, out
+
+
+def merge_destinations(cfg, structure, images, zmajor):
+    """[D · nf · 8^d] i64: the flat node-table element each image element
+    adds to (its chunk's corner row, channel, block cell), for the library
+    yardstick's index_add."""
+    import numpy as np
+    import torch
+    from sparkl_tpu_torch.sparse import transfer as T
+
+    dim = 3 if images.shape[2] == 512 else 2
+    nf, cpb = images.shape[1], 4**dim
+    q = np.arange(8**dim)
+    if dim == 3:
+        if zmajor:
+            z, x, y = q // 64, (q // 8) % 8, q % 8
+        else:
+            x, y, z = q // 64, (q // 8) % 8, q % 8
+        corner = (x >= 4) * 4 + (y >= 4) * 2 + (z >= 4)
+        cell = (x % 4) * 16 + (y % 4) * 4 + z % 4
+    else:
+        x, y = q // 8, q % 8
+        corner, cell = (x >= 4) * 2 + (y >= 4), (x % 4) * 4 + y % 4
+    dev = images.device
+    rows = T._chunk_corners(structure).long()[:, torch.as_tensor(corner, device=dev)]
+    col = (torch.arange(nf, device=dev)[:, None] * cpb
+           + torch.as_tensor(cell, device=dev)[None, :])
+    return (rows[:, None, :] * (nf * cpb) + col[None]).reshape(-1)
+
+
+def merge_bytes(cfg, structure, images, scatter, plan, owner):
+    """(bytes, f32 adds, most terms of one node-table element) the merge
+    must move and do on these inputs: each live source run of 4^d cells
+    read once (the gather form: per live node row and corner, the owner's
+    chunks up to MERGE_KMAX; the scatter form: every planned update), the
+    node table written once, and the index tables it reads (the owners and
+    the blocks' chunk ranges; the plan)."""
+    import torch
+    from sparkl_tpu_torch.sparse import transfer as T
+
+    dim = 3 if images.shape[2] == 512 else 2
+    w = images.shape[1] * 4**dim
+    n_rows = cfg.max_grid_blocks + 1
+    ngb = int(structure.num_grid_blocks)
+    if scatter:
+        starts = plan[1]
+        terms = int(starts[ngb])
+        per_row = int((starts[1:] - starts[:-1]).max())
+        index = terms * 4 + (ngb + 1) * 4
+    else:
+        own = owner[:ngb].long()
+        live = own < cfg.max_blocks
+        nblk = structure.block_num_chunks.clamp(max=T.MERGE_KMAX).long()
+        n = torch.where(live, torch.cat([nblk, nblk.new_zeros(1)])[own.clamp(
+            max=cfg.max_blocks)], 0)
+        terms = int(n.sum())
+        per_row = int(n.sum(dim=1).max())
+        index = own.numel() * 4 + int(live.sum()) * 8
+    return terms * w * 4 + n_rows * w * 4 + index, terms * w, per_row
+
+
+def check_merge(grid, cfg, structure, images, zmajor, scatter, phase, label, plan=None,
+                owner=None, timed=True, cpu=False, profiled=None):
+    """The merge stage as the paths call it (merge_images_to_grid: one
+    kernel, the gather form's merge_blocks or the scatter form's
+    merge_scatter) on window images over `structure`, with the structure's
+    plan or corner owners (built here if not given): bit-equal to its plain
+    version, to a second launch and to the parent's form (parent_merge);
+    with `cpu`, to its plain version run on the CPU; within float
+    atomics' reordering of the library yardstick (one index_add of the
+    images, each element to its node-table element); with `profiled`
+    (default: `timed`), one CUDA kernel under torch.profiler (after the
+    timing: a profiler session slows the host's later calls). With
+    `timed`, the stage's batched, device and host
+    times, its plain version's, the library call's and the parent's glue's
+    (the parent stage without its rows kernel), and the byte bound.
+    Returns {max_abs_err, bit_equal_*, ..., ms, bound_ms, ...}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from sparkl_tpu_torch.fused import kernels as K
+    from sparkl_tpu_torch.sparse import transfer as T
+
+    name = "merge_scatter" if scatter else "merge_blocks"
+    plan = T.scatter_plan(cfg, structure) if plan is None else plan
+    owner = T.corner_owner(cfg, structure) if owner is None else owner
+    order = T.ZMAJOR_ORDER_3D if zmajor else None
+
+    def stage(img=images):
+        return T.merge_images_to_grid(grid, cfg, structure, img, cell_order=order,
+                                      force_scatter=scatter, plan=plan, owner=owner)
+
+    def plain(img=images, st=structure, pl=plan, ow=owner):
+        if scatter:
+            return K.merge_scatter_plain(img, *pl, zmajor)
+        return K.merge_blocks_plain(img, st.block_first_chunk, st.block_num_chunks, ow, zmajor)
+
+    before = K.LAUNCHES[name]
+    out_k, out_k2 = stage(), stage()
+    require(K.LAUNCHES[name] == before + 2, f"{name} was not launched ({label})")
+    out_p = plain()
+    out_par = parent_merge(cfg, structure, images, zmajor, scatter, plan)
+    dest = merge_destinations(cfg, structure, images, zmajor)
+    zeros = torch.zeros(out_k.numel(), dtype=torch.float32, device=images.device)
+    flat = images.reshape(-1)
+
+    def lib():
+        return torch.index_add(zeros, 0, dest, flat)
+
+    out_l = lib().reshape(out_k.shape)
+    abs_sum = stage(images.abs())
+    nbytes, adds, per_row = merge_bytes(cfg, structure, images, scatter, plan, owner)
     torch.cuda.synchronize()
-    same_p, same_k = torch.equal(out_k, out_p), torch.equal(out_k, out_k2)
-    lib_err = (lib - out_k).abs().max().item()
-    per_row = (starts[1:] - starts[:-1]).max().item()
-    g = starts.shape[0] - 1
-    v = dict(max_abs_err=(out_k - out_p).abs().max().item(), bit_equal_plain=same_p,
-             bit_equal_relaunch=same_k, max_updates_per_row=per_row)
-    say(phase, f"merge_scatter{label} {tuple(flat.shape)} -> {tuple(out_k.shape)}: bit-equal to "
-               f"its plain version {same_p}, to a second launch {same_k}; against index_add "
-               f"max|diff| {lib_err:.3e}; at most {per_row} updates per row")
-    require(same_p and same_k, "merge_scatter is not bit-equal to its plain version and itself")
-    if not timed:
-        return v
-    v["ms"] = median_ms(lambda: K.merge_scatter(flat, order, starts))
-    v["plain_ms"] = median_ms(lambda: K.merge_scatter_reference(flat, order, starts), reps=5)
-    v["library_ms"] = median_ms(lambda: torch.index_add(zeros, 0, dest, flat))
-    add_split(v, lambda: K.merge_scatter(flat, order, starts),
-              lambda: torch.index_add(zeros, 0, dest, flat))
-    # Every live update row read once (dead chunks' rows are left out of the
-    # plan), each node row written once, and the plan read.
-    v["bytes"] = (int(starts[-1]) * w + g * w) * 4 + (order.numel() + starts.numel()) * 4
-    v["flops"] = int(starts[-1]) * w
-    v["bound_ms"], v["bound_by"] = bound(v["bytes"], v["flops"])
-    say(phase, f"merge_scatter{label}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, "
-               f"library (index_add) {v['library_ms']:.3f} ms (batched medians); "
-               f"{v['bytes'] / 1e9:.4f} GB counted from shapes = "
-               f"{v['bytes'] / v['ms'] / 1e6:.1f} GB/s; bound {v['bound_ms']:.4f} ms "
-               f"({v['bound_by']}){split_text(v)}")
+    v = dict(form="scatter" if scatter else "gather", nf=images.shape[1], zmajor=zmajor,
+             max_abs_err=(out_k - out_p).abs().max().item(),
+             bit_equal_plain=torch.equal(out_k, out_p),
+             bit_equal_relaunch=torch.equal(out_k, out_k2),
+             bit_equal_parent=torch.equal(out_k, out_par), terms_per_row=per_row)
+    # Float atomics sum in any order: two orders of n terms differ by at
+    # most 2 (n - 1) u · sum|terms| (u = 2^-24), counted per element; held
+    # to that bound plus 1e-6 of the table's largest magnitude (on
+    # l_panel3's tables up to 18,000 elements came out past the per-element
+    # bound, by at most 3.6e-7, the kernel bit-equal to its plain version
+    # there). The trash row is left out.
+    diff = (out_l[:-1] - out_k[:-1]).abs()
+    tol = 2.0 * max(per_row, 1) * 2.0**-24 * abs_sum[:-1]
+    v["library_max_abs_diff"] = diff.max().item()
+    v["library_past_reorder_bound"] = int((diff > tol).sum())
+    lib_over = (diff - tol - 1e-6 * out_k.abs().max()).max().item()
+    if cpu:
+        cpu_dev = torch.device("cpu")
+        st_c = type(structure)(**{k: t.to(cpu_dev) for k, t in structure.tensors().items()})
+        out_c = plain(images.cpu(), st_c, tuple(t.cpu() for t in plan), owner.cpu())
+        v["bit_equal_cpu"] = torch.equal(out_k.cpu(), out_c)
+    say(phase, f"{name} ({label}, nf {v['nf']}, {'z-major' if zmajor else 'row-major'}) "
+               f"{tuple(images.shape)} -> {tuple(out_k.shape)}: bit-equal to its plain version "
+               f"{v['bit_equal_plain']}, to a second launch {v['bit_equal_relaunch']}, to the "
+               f"parent's form {v['bit_equal_parent']}"
+               + (f", to its plain version on the CPU {v['bit_equal_cpu']}" if cpu else "")
+               + f"; index_add max|diff| {v['library_max_abs_diff']:.3e} (elements past the "
+               f"reorder bound: {v['library_past_reorder_bound']}); at most {per_row} terms a "
+               f"node element")
+    require(v["bit_equal_plain"] and v["bit_equal_relaunch"] and v["bit_equal_parent"]
+            and v.get("bit_equal_cpu", True),
+            f"{name} ({label}) is not bit-equal to its plain version, itself and the parent's form")
+    require(lib_over <= 0.0, f"{name} ({label}) disagrees with index_add past its tolerance")
+    if timed:
+        time_merge(v, cfg, structure, images, zmajor, scatter, stage, plain, lib, nbytes, adds,
+                   phase, label)
+    if timed if profiled is None else profiled:
+        # A short profiler session may drop device events (seen: 4 of 5, 1
+        # of 5, none): every event seen must be the merge kernel, at most
+        # one a call; main() requires each form seen at least once. The
+        # launch count above holds the kernel to one a call.
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(MERGE_PROFILED_CALLS):
+                stage()
+            torch.cuda.synchronize()
+        events = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        v["stage_device_events"] = [len(events), MERGE_PROFILED_CALLS]
+        MERGE_PROFILES.append(dict(form=name, label=label, events=len(events),
+                                   calls=MERGE_PROFILED_CALLS))
+        say(phase, f"the merge stage ({label}) under torch.profiler: {len(events)} device "
+                   f"events seen in {MERGE_PROFILED_CALLS} calls, all of {sorted(set(events))}")
+        require(len(events) <= MERGE_PROFILED_CALLS and all(name in k for k in events),
+                f"the merge stage ({label}) ran other device work than its kernel: "
+                f"{len(events)} events in {MERGE_PROFILED_CALLS} calls, {sorted(set(events))}")
     return v
+
+
+def time_merge(v, cfg, structure, images, zmajor, scatter, stage, plain, lib, nbytes, adds,
+               phase, label):
+    """check_merge's times, added to its result v."""
+    import torch
+    from sparkl_tpu_torch.scripts import device_ms, median_ms
+
+    name = "merge_scatter" if scatter else "merge_blocks"
+    dim = 3 if images.shape[2] == 512 else 2
+    blk = torch.zeros((cfg.max_blocks, 2**dim, images.shape[1] * 4**dim), device=images.device)
+    v["ms"] = median_ms(stage)
+    v["plain_ms"] = median_ms(plain, reps=5)
+    v["library_ms"] = median_ms(lib)
+    add_split(v, stage, lib)
+    v["parent_glue_device_ms"] = device_ms(
+        lambda: parent_glue(cfg, structure, images, zmajor, scatter, blk))
+    v["bytes"], v["flops"] = nbytes, adds
+    v["bound_ms"], v["bound_by"] = bound(nbytes, adds)
+    say(phase, f"{name} ({label}): stage {v['ms']:.4f} ms, plain {v['plain_ms']:.3f} ms, "
+               f"library (index_add) {v['library_ms']:.4f} ms (batched medians); "
+               f"{nbytes / 1e9:.4f} GB counted from these inputs = "
+               f"{nbytes / v['ms'] / 1e6:.1f} GB/s batched, "
+               f"{nbytes / v['device_ms'] / 1e6:.1f} GB/s on the device; bound "
+               f"{v['bound_ms']:.4f} ms ({v['bound_by']}), device time at "
+               f"{v['bound_ms'] / v['device_ms']:.0%} of it{split_text(v)}; the parent stage's "
+               f"glue (without its rows kernel) {v['parent_glue_device_ms']:.4f} ms on the device")
 
 
 def substep_bytes(structure, cfg):
     """Bytes each substep kernel must move, counted from shapes: the slot
     rows it reads for the live chunks (kernel A: 24 f32 + 4 i32 rows;
     kernel B, every row of every lane: 32 f32 + 5 i32 rows and the [3,
-    512] window; b_bytes counts the rows its lanes need), what it writes
+    512] window; b_bytes counts the rows its lanes need) and what it writes
     (kernel A: every chunk's [4, 512] image; kernel B: the live chunks' 56
-    rows), and for the merge each block's chunk rows (at most 8) read and
-    its [8, 256] row written."""
-    from sparkl_tpu_torch.sparse import transfer as T
-
+    rows). The merge counts its own (merge_bytes)."""
     live, d_ = int(structure.num_chunks), cfg.max_chunks
     row = 4 * cfg.chunk_size
-    block = 4 * 8 * 256
-    merged = int(structure.block_num_chunks.clamp(max=T.MERGE_KMAX).sum())
     return {
         "p2g_fused": live * (24 + 4) * row + d_ * 4 * 4 * 512,
-        "merge_blocks": (merged + structure.block_num_chunks.shape[0]) * block,
         "g2p_fused": live * ((32 + 5 + 56) * row + 4 * 3 * 512),
     }
 
@@ -1240,14 +1424,16 @@ def perturbed_f(state, seed=7, scale=0.02):
     return state.replace(slots=slots)
 
 
-def capture_window_inputs(pipe, p):
+def capture_window_inputs(pipe, p, merge_in=False):
     """The window kernels' inputs (slot data, velocity windows) of the first
-    substep of one frame from `p` on the sparse path, recorded as the
-    pipeline hands them to the kernels."""
+    substep of one frame from `p` on the sparse path, and with `merge_in`
+    its merge's (structure, images, plan), recorded as the pipeline hands
+    them on."""
     from sparkl_tpu_torch.ops import transfer_kernels as WK
+    from sparkl_tpu_torch.sparse import transfer as T
 
     got = {}
-    p2g, g2p = WK.p2g_windows, WK.g2p_windows
+    p2g, g2p, merge = WK.p2g_windows, WK.g2p_windows, T.merge_images_to_grid
 
     def rec_p2g(grid, cfg, slot_data, with_psi=True):
         got.setdefault("slot_data", slot_data.clone())
@@ -1257,12 +1443,17 @@ def capture_window_inputs(pipe, p):
         got.setdefault("windows", windows.clone())
         return g2p(grid, cfg, slot_data, windows, with_psi=with_psi)
 
-    WK.p2g_windows, WK.g2p_windows = rec_p2g, rec_g2p
+    def rec_merge(grid, cfg, structure, images, **kw):
+        if "slot_data" in got:  # the substep's merge (not the volume pass's)
+            got.setdefault("merge", (structure, images.clone(), kw["plan"]))
+        return merge(grid, cfg, structure, images, **kw)
+
+    WK.p2g_windows, WK.g2p_windows, T.merge_images_to_grid = rec_p2g, rec_g2p, rec_merge
     try:
         pipe.step_with_stats(p)
     finally:
-        WK.p2g_windows, WK.g2p_windows = p2g, g2p
-    return got["slot_data"], got["windows"]
+        WK.p2g_windows, WK.g2p_windows, T.merge_images_to_grid = p2g, g2p, merge
+    return (got["slot_data"], got["windows"]) + ((got["merge"],) if merge_in else ())
 
 
 def g2p_window_errors(out_k, out_p, valid, win, cell_width):
@@ -1513,10 +1704,7 @@ def phase_fluid_kernels(pipe, state, dt, label, phase, timed):
     sl, ints = state.slots, state.ints
     m_k = K.mass_p2g_fused(grid, cfg, sl, ints, nch)
     m_p = K.mass_p2g_fused_reference(grid, sl, ints, nch)
-    node, _ = T.merge_images_to_grid(grid, cfg, state.structure, m_k,
-                                     cell_order=pipe._cell_order(),
-                                     force_scatter=pipe._merge_force_scatter,
-                                     plan=state.grid_cache[2])
+    node = pipe._merge_nodes(state, m_k).reshape(cfg.max_grid_blocks + 1, -1)
     win = T.gather_grid_windows(grid, cfg, state.structure, node,
                                 cell_order=pipe._cell_order()).contiguous()
     g_k = K.mass_g2p_fused(grid, cfg, sl, ints, win, nch)
@@ -1565,26 +1753,21 @@ def phase_fluid_kernels(pipe, state, dt, label, phase, timed):
             and all(m <= 1.0 for m, _ in a_err),
             f"a fluid kernel disagrees with its plain version on the {label} state")
     res["g2p_fused"], (slots_in, fc, args) = check_g2p(pipe, state, dt, label, phase)
-    # The scatter merge on the path's two kinds of rows: kernel A's images
-    # (nf = 4, the row the kernels line reports) and the mass images (nf = 1).
-    # (Timed at the 3D fluid path's shapes, where it is the path's merge.)
-    res["merge_scatter"] = check_merge_scatter(cfg, state.structure, image_rows(cfg, a_k),
-                                               phase, " (fluid, kernel A images)",
-                                               timed and dim == 3)
-    res["merge_scatter"]["mass"] = check_merge_scatter(
-        cfg, state.structure, image_rows(cfg, m_k), phase, " (fluid, mass images)",
-        timed and dim == 3)
-    if dim == 2:
-        # The 2D path merges with merge_blocks (a block of 4 x 4 cells holds
-        # one or two chunks): bit-equal to its plain version on both kinds.
-        first, nblk = state.structure.block_first_chunk, state.structure.block_num_chunks
-        same = [torch.equal(K.merge_blocks(rows, first, nblk),
-                            K.merge_blocks_reference(rows, first, nblk, T.MERGE_KMAX))
-                for rows in (image_rows(cfg, a_k), image_rows(cfg, m_k))]
-        res["merge_blocks"] = dict(bit_equal=all(same), max_chunks_per_block=int(nblk.max()))
-        say(phase, f"merge_blocks on the {label} state's images and mass images bit-equal "
-                   f"{same}; at most {int(nblk.max())} chunks a block")
-        require(all(same), f"merge_blocks disagrees with its plain version on the {label} state")
+    # The merge stage on the path's two kinds of images, kernel A's (the
+    # row the kernels line reports) and the mass images, in the path's form
+    # (3D: the scatter form, pinned by fluids3's dense blocks; 2D: the
+    # gather form); the mass and 2D node tables also against the plain
+    # version on the CPU.
+    # (Timed at the 3D fluid path's shapes and on the 2D column.)
+    name = "merge_scatter" if pipe._merge_force_scatter else "merge_blocks"
+    zm = dim == 3
+    merge_at = dict(plan=state.grid_cache[2], owner=state.grid_cache[4])
+    res[name] = check_merge(grid, cfg, state.structure, a_k, zm, name == "merge_scatter",
+                            phase, f"{label}, kernel A images", timed=timed, cpu=dim == 2,
+                            **merge_at)
+    res[name]["mass"] = check_merge(grid, cfg, state.structure, m_k, zm,
+                                    name == "merge_scatter", phase, f"{label}, mass images",
+                                    timed=timed, cpu=True, **merge_at)
     if not timed:
         return res
     live = int(nch)
@@ -1842,10 +2025,6 @@ def check_kernels_2d(pipe, state, dt, label, phase, meta=None, timed=False):
     img_k = K.p2g_fused(grid, cfg, meta, state.slots, state.ints, dt, nch, tables)
     img_p = K.p2g_fused_reference(grid, state.slots, state.ints, dt, nch, tables,
                                   stress_cache=cache, with_psi=psi)
-    rows = image_rows(cfg, img_k)
-    first, nblk = state.structure.block_first_chunk, state.structure.block_num_chunks
-    m_k = K.merge_blocks(rows, first, nblk)
-    m_p = K.merge_blocks_reference(rows, first, nblk, T.MERGE_KMAX)
     # The window fields the path computes (from its own form's images), cut
     # to the channels this form reads.
     img_path = img_k if psi == pipe._meta["with_psi"] else K.p2g_fused(
@@ -1889,8 +2068,6 @@ def check_kernels_2d(pipe, state, dt, label, phase, meta=None, timed=False):
         "p2g_fused": dict(max_abs_err=max(e for _, e in per_ch),
                           over_bound=max(m for m, _ in per_ch), stress_cache=cache,
                           with_psi=psi),
-        "merge_blocks": dict(max_abs_err=(m_k - m_p).abs().max().item(),
-                             bit_equal=torch.equal(m_k, m_p)),
         "g2p_fused": dict(max_abs_err=torch.where(occ[:, None, :], out_k - out_p,
                                                   0.0).abs().max().item(),
                           worst_over_tol=worst, bit_equal=same_bits, counts=counts,
@@ -1901,8 +2078,7 @@ def check_kernels_2d(pipe, state, dt, label, phase, meta=None, timed=False):
     }
     say(phase, f"2D kernels on the {label} state (stress cache {cache}, psi {psi}, SVD reuse "
                f"{res['g2p_fused']['svd_reuse']}): p2g_fused images {tuple(img_k.shape)} max|err|"
-               f"/bound {[f'{m:.2e}' for m, _ in per_ch]} (pass <= 1); merge_blocks "
-               f"{tuple(m_k.shape)} bit-equal {res['merge_blocks']['bit_equal']}; g2p_fused "
+               f"/bound {[f'{m:.2e}' for m, _ in per_ch]} (pass <= 1); g2p_fused "
                f"worst measure/tol {({g: round(v, 4) for g, v in worst.items()})}, bit-equal on "
                f"occupied lanes {same_bits}; lanes per branch {counts}; phase differing "
                f"{res['g2p_fused']['trips_differ']} (lanes within {TIE:g} of the envelope "
@@ -1910,25 +2086,24 @@ def check_kernels_2d(pipe, state, dt, label, phase, meta=None, timed=False):
     failures = []
     if not (all(m <= 1.0 for m, _ in per_ch) and torch.isfinite(img_k).all().item()):
         failures.append("p2g_fused")
-    if not res["merge_blocks"]["bit_equal"]:
-        failures.append("merge_blocks")
     if not (all(v <= 1.0 for v in worst.values()) and not bool((differ & ~tie).any())
             and torch.isfinite(torch.where(occ[:, None, :], out_k, 0.0)).all().item()):
         failures.append("g2p_fused")
     require(not failures, f"{failures} disagree with their plain versions on the {label} state")
+    # The merge stage on A's images, in the path's form (2D: the gather
+    # form unless a block holds more than MERGE_KMAX chunks), also against
+    # its plain version on the CPU.
+    scatter = pipe._merge_force_scatter
+    res["merge_scatter" if scatter else "merge_blocks"] = check_merge(
+        grid, cfg, state.structure, img_k, False, scatter, phase, label,
+        plan=state.grid_cache[2], owner=state.grid_cache[4], timed=timed, cpu=True)
     if not timed:
         return res
     live, row = int(nch), 4 * cfg.chunk_size
     lanes = int(((state.ints[:, L.I_FLAGS, :] & L.ACTIVE) != 0).sum())
     plastic = int((occ & (K.model_columns(pipe._tab_f, pipe._tab_i, state.ints, (),
                                           (1,))[0][0] != 0)).sum())
-    merged = int(nblk.clamp(max=T.MERGE_KMAX).sum())
-    block = 4 * 4 * img_k.shape[1] * 16
     scratch = slots_in.clone()
-    # The library yardstick of the merge: one segment sum over the valid
-    # chunks' rows (blocks own contiguous chunk ranges).
-    require(int(nblk.max()) <= T.MERGE_KMAX, "a block holds more than MERGE_KMAX chunks")
-    flat, lengths = rows.reshape(cfg.max_chunks, -1)[:int(nblk.sum())], nblk.long()
     # Bytes counted from what the 2D forms read and write per live chunk: A
     # reads pos 2, vel 2, grad 4, mass, vol0, failed, then the 3 stress rows
     # (cache on) or F 4, phase and eh (fresh), with psi cpf and psi_pos, and
@@ -1946,10 +2121,6 @@ def check_kernels_2d(pipe, state, dt, label, phase, meta=None, timed=False):
                                            stress_cache=cache, with_psi=psi), None,
              live * (a_rows + 4) * row + cfg.max_chunks * img_k.shape[1] * 64 * 4,
              lanes * (9 * P2G2_TAP_FLOPS + a_slot)),
-            ("merge_blocks", lambda: K.merge_blocks(rows, first, nblk),
-             lambda: K.merge_blocks_reference(rows, first, nblk, T.MERGE_KMAX),
-             lambda: torch.segment_reduce(flat, "sum", lengths=lengths, axis=0),
-             (merged + nblk.shape[0]) * block, merged * block // 4),
             ("g2p_fused", lambda: K.g2p_fused(grid, cfg, meta, pipe._kparams, scratch,
                                               state.ints, *fc, dt, *args),
              lambda: K.g2p_fused_plain(grid, cfg, slots_in, state.ints, *fc, dt, *args,
@@ -1959,8 +2130,7 @@ def check_kernels_2d(pipe, state, dt, label, phase, meta=None, timed=False):
         v = res[name]
         v["ms"], v["plain_ms"] = median_ms(fn), median_ms(plain, reps=5)
         v["library_ms"] = median_ms(lib) if lib else None
-        # The merge's library call, segment_reduce, reads the host.
-        add_split(v, fn, lib, lib_captured=False)
+        add_split(v, fn, lib)
         v["bytes"], v["flops"] = nbytes, flops
         v["bound_ms"], v["bound_by"] = bound(nbytes, flops)
         if name == "g2p_fused":
@@ -2991,10 +3161,6 @@ def check_kernels_3d(pipe, state, dt, label, phase, timed=False):
     img_k = K.p2g_fused(grid, cfg, meta, state.slots, state.ints, dt, nch, tables)
     img_p = K.p2g_fused_reference(grid, state.slots, state.ints, dt, nch, tables,
                                   stress_cache=False, with_psi=True)
-    rows = image_rows(cfg, img_k)
-    first, nblk = state.structure.block_first_chunk, state.structure.block_num_chunks
-    m_k = K.merge_blocks(rows, first, nblk)
-    m_p = K.merge_blocks_reference(rows, first, nblk, T.MERGE_KMAX)
     fc = b_inputs(pipe, state, img_k, dt)
     slots_in = state.slots.clone()
     args = (pipe._tab_f, pipe._tab_i, nch)
@@ -3036,8 +3202,6 @@ def check_kernels_3d(pipe, state, dt, label, phase, timed=False):
     res = {
         "p2g_fused": dict(max_abs_err=max(e for _, e in per_ch),
                           over_bound=max(m for m, _ in per_ch)),
-        "merge_blocks": dict(max_abs_err=(m_k - m_p).abs().max().item(),
-                             bit_equal=torch.equal(m_k, m_p)),
         "g2p_fused": dict(max_abs_err=torch.where(occ[:, None, :], out_k - out_p,
                                                   0.0).abs().max().item(),
                           worst_over_tol=worst, bit_equal=same_bits, modified=modified,
@@ -3046,8 +3210,7 @@ def check_kernels_3d(pipe, state, dt, label, phase, timed=False):
                           unchanged=unchanged),
     }
     say(phase, f"3D damage kernels on the {label} state: p2g_fused images {tuple(img_k.shape)} "
-               f"max|err|/bound {[f'{m:.2e}' for m, _ in per_ch]} (pass <= 1); merge_blocks "
-               f"{tuple(m_k.shape)} bit-equal {res['merge_blocks']['bit_equal']}; g2p_fused "
+               f"max|err|/bound {[f'{m:.2e}' for m, _ in per_ch]} (pass <= 1); g2p_fused "
                f"(modified trip {modified}) worst measure/tol "
                f"{({g: round(v, 4) for g, v in worst.items()})}, bit-equal on occupied lanes "
                f"{same_bits}; trips: maximum stress {stress_trips}, crack energy {crack_trips}; "
@@ -3056,12 +3219,15 @@ def check_kernels_3d(pipe, state, dt, label, phase, timed=False):
     failures = []
     if not (all(m <= 1.0 for m, _ in per_ch) and torch.isfinite(img_k).all().item()):
         failures.append("p2g_fused")
-    if not res["merge_blocks"]["bit_equal"]:
-        failures.append("merge_blocks")
     if not (all(v <= 1.0 for v in worst.values()) and not bool((differ & ~tie).any())
             and torch.isfinite(torch.where(occ[:, None, :], out_k, 0.0)).all().item()):
         failures.append("g2p_fused")
     require(not failures, f"{failures} disagree with their plain versions on the {label} state")
+    # The merge stage on A's images (z-major, nf = 6), in the path's form.
+    scatter = pipe._merge_force_scatter
+    res["merge_scatter" if scatter else "merge_blocks"] = check_merge(
+        grid, cfg, state.structure, img_k, True, scatter, phase, label,
+        plan=state.grid_cache[2], owner=state.grid_cache[4], timed=timed)
     if not timed:
         return res
     # Kernel A's fresh stress (the cardano SVD) against the CPU: reported.
@@ -3679,10 +3845,6 @@ def check_materials(pipe, state, dt, label, phase, timed=False):
     img_k = K.p2g_fused(grid, cfg, meta, state.slots, state.ints, dt, nch, tables)
     img_p = K.p2g_fused_reference(grid, state.slots, state.ints, dt, nch, tables,
                                   stress_cache=cache)
-    rows = image_rows(cfg, img_k)
-    first, nblk = state.structure.block_first_chunk, state.structure.block_num_chunks
-    m_k = K.merge_blocks(rows, first, nblk)
-    m_p = K.merge_blocks_reference(rows, first, nblk, T.MERGE_KMAX)
     fc = b_inputs(pipe, state, img_k, dt)
     slots_in = state.slots.clone()
     args = (pipe._tab_f, pipe._tab_i, nch)
@@ -3721,8 +3883,6 @@ def check_materials(pipe, state, dt, label, phase, timed=False):
         "p2g_fused": dict(max_abs_err=max(e for _, e in per_ch),
                           over_bound=max(m for m, _ in per_ch), stress_cache=cache,
                           mats_form=K.mats_form(meta, dim)),
-        "merge_blocks": dict(max_abs_err=(m_k - m_p).abs().max().item(),
-                             bit_equal=torch.equal(m_k, m_p)),
         "g2p_fused": dict(max_abs_err=torch.where((occ & ~nacc_tie)[:, None, :], out_k - out_p,
                                                   0.0).abs().max().item(),
                           worst_over_tol=worst, counts=counts, nacc_alpha=alpha,
@@ -3733,8 +3893,8 @@ def check_materials(pipe, state, dt, label, phase, timed=False):
     }
     say(phase, f"material kernels on the {label} state ({dim}D, stress cache {cache}, material "
                f"form {K.mats_form(meta, dim)}): p2g_fused images {tuple(img_k.shape)} "
-               f"max|err|/bound {[f'{m:.2e}' for m, _ in per_ch]} (pass <= 1); merge_blocks "
-               f"bit-equal {res['merge_blocks']['bit_equal']}; g2p_fused worst measure/tol "
+               f"max|err|/bound {[f'{m:.2e}' for m, _ in per_ch]} (pass <= 1); g2p_fused "
+               f"worst measure/tol "
                f"{({g: round(v, 4) for g, v in worst.items()})} off {int(nacc_tie.sum())} NACC "
                f"tie lanes; lanes per model {lanes_per_model}, warps with more than one model "
                f"{mixed_warps} of {res['g2p_fused']['warps']}; lanes per branch {counts}; NACC "
@@ -3743,12 +3903,16 @@ def check_materials(pipe, state, dt, label, phase, timed=False):
     failures = []
     if not (all(m <= 1.0 for m, _ in per_ch) and torch.isfinite(img_k).all().item()):
         failures.append("p2g_fused")
-    if not res["merge_blocks"]["bit_equal"]:
-        failures.append("merge_blocks")
     if not (all(v <= 1.0 for v in worst.values()) and not bool((differ & ~trip_tie).any())
             and torch.isfinite(torch.where(occ[:, None, :], out_k, 0.0)).all().item()):
         failures.append("g2p_fused")
     require(not failures, f"{failures} disagree with their plain versions on the {label} state")
+    # The merge stage on A's images, in the path's form (2D: also against
+    # its plain version on the CPU).
+    scatter = pipe._merge_force_scatter
+    res["merge_scatter" if scatter else "merge_blocks"] = check_merge(
+        grid, cfg, state.structure, img_k, dim == 3, scatter, phase, label,
+        plan=state.grid_cache[2], owner=state.grid_cache[4], timed=timed, cpu=dim == 2)
     if not timed:
         return res
     live, row = int(nch), 4 * cfg.chunk_size
@@ -4082,10 +4246,11 @@ def check_windows(grid, cfg, slot_data, windows, path_psi, phase, label, timed=T
     return res
 
 
-def sparse_inputs(b, substeps):
-    """The window kernels' inputs (slot data, windows) of the substep after
-    `substeps` single substeps of the sparse pipeline on bundle `b`, and the
-    pipeline (on the bundle's device)."""
+def sparse_inputs(b, substeps, merge_in=False):
+    """The pipeline (on the bundle's device) and the window kernels' (and
+    with `merge_in` the merge's) inputs (capture_window_inputs) of the
+    substep after `substeps` single substeps of the sparse pipeline on
+    bundle `b`."""
     from dataclasses import replace
     import sparkl_tpu_torch as sk
 
@@ -4094,8 +4259,7 @@ def sparse_inputs(b, substeps):
     p = b.particles
     for _ in range(substeps):
         p = pipe.step(p)
-    slot_data, windows = capture_window_inputs(pipe, p)
-    return pipe, slot_data, windows
+    return (pipe,) + capture_window_inputs(pipe, p, merge_in)
 
 
 def phase_sparse2d_kernels(phase=30):
@@ -4120,12 +4284,16 @@ def phase_sparse2d_kernels(phase=30):
               SPARSE2D_SUBSTEPS_IN, True))
     for label, build, substeps, timed in cases:
         b = build()
-        pipe, slot_data, windows = sparse_inputs(b, substeps)
+        pipe, slot_data, windows, merge_in = sparse_inputs(b, substeps, merge_in=True)
         say(phase, f"{label}: {int(b.particles.active.sum())} particles, {pipe._cfg}, "
                    f"{substeps} substeps in, psi channels on the path {pipe._with_psi}")
         out[label] = check_windows(b.grid, pipe._cfg, slot_data, windows, pipe._with_psi,
                                    phase, label, timed=timed)
-        del pipe, slot_data, windows, b
+        structure, images, plan = merge_in
+        out[label]["merge_scatter"] = check_merge(
+            b.grid, pipe._cfg, structure, images, False, True, phase, f"sparse {label}",
+            plan=plan, timed=timed, cpu=b.grid.dim == 2)
+        del pipe, slot_data, windows, merge_in, b
     return out
 
 
@@ -4751,6 +4919,15 @@ def main():
            f"centre of mass {[round(x, 4) for x in com]}")
     # One more frame of the path, profiled (its launches are not counted).
     state, fused_profile = profile_frame(pipe, state, "sand3_profile.txt", 4, "fused sand3@1M")
+    # The merge stage of that state, one CUDA kernel in both forms.
+    _, min_dtb = pipe._probe(state)
+    img = K.p2g_fused(b.grid, pipe._cfg, pipe._meta, state.slots, state.ints, float(min_dtb),
+                      state.structure.num_chunks, (pipe._tab_f, pipe._tab_i))
+    for scatter in (False, True):
+        check_merge(b.grid, pipe._cfg, state.structure, img, True, scatter, 4, "landed sand3@1M",
+                    plan=state.grid_cache[2], owner=state.grid_cache[4], timed=False,
+                    profiled=True)
+    del img
 
     # 5. After the main path: the resort kernels and the whole resort on the
     # state the first resort started from; kernel B with plastic flow.
@@ -4770,9 +4947,11 @@ def main():
 
     spipe = SparseMpmPipeline(b.grid, b.models, b.colliders, b.params, b.gravity, device="cuda")
     p1, _ = spipe.step_with_stats(b.particles)
-    slot_data, windows = capture_window_inputs(spipe, p1)
+    slot_data, windows, (structure, images, plan) = capture_window_inputs(spipe, p1, True)
     kres.update(check_windows(b.grid, spipe._cfg, slot_data, windows, False, 6, "sand3@1M"))
-    del spipe, p1, slot_data, windows
+    sparse_merge = check_merge(b.grid, spipe._cfg, structure, images, False, True, 6,
+                               "sparse sand3@1M", plan=plan)
+    del spipe, p1, slot_data, windows, structure, images, plan
 
     # 7. The sparse main path, then one profiled frame.
     _, _, sparse_launches, sparse_res = phase_sparse_main(
@@ -4812,7 +4991,7 @@ def main():
     for name in ("mass_p2g_fused", "mass_g2p_fused"):
         kres[name] = fluid_res["packed"][name]
     kres["merge_scatter"] = dict(fluid_res["packed"]["merge_scatter"],
-                                 sand3=kres["merge_scatter"])
+                                 sand3=kres["merge_scatter"], sparse=sparse_merge)
     del fpipe, first, fb
 
     # 11. fluids3 as published: card against CPU, two card runs bit-equal;
@@ -4980,6 +5159,13 @@ def main():
     # sizes, then both sweeps (their tables), times, bounds and registers.
     kres.update(phase_probes(log))
 
+    # Each merge form's stage seen under torch.profiler at least once.
+    seen = {f: sum(p["events"] for p in MERGE_PROFILES if p["form"] == f)
+            for f in ("merge_blocks", "merge_scatter")}
+    say(33, f"merge stages under torch.profiler: {len(MERGE_PROFILES)} sessions, device "
+            f"events seen per form {seen} (each the form's kernel)")
+    require(all(seen.values()), f"a merge form never seen under torch.profiler: {seen}")
+
     by_path = dict(fused=launches, sparse=sparse_launches, fluid=fluid_launches,
                    fracture=fracture_launches, elasticity2=plastic_launches["elasticity2"],
                    basic2=plastic_launches["basic2"], fluids2=fluid2_launches)
@@ -5025,6 +5211,21 @@ def main():
         forms_of[name]["sparse2d-psi"] = dict(
             launches=sparse2d_launches["l_panel2"][name],
             **{k: sk2["l_panel2 fine"][name].get(k) for k in keys})
+    # The merges on the other paths: each state's merge in its path's form,
+    # with that path's launches of it.
+    merges = (("l_panel3", lp3_launches, dk["l_panel3"]),
+              ("materials3", mat_launches["materials3"], mat_res["kernels"]["materials3"]),
+              ("l_panel2", fracture_launches, fracture_res["kernels"]["reference"]),
+              ("sparse", sparse_launches, dict(merge_scatter=sparse_merge)),
+              ("sparse2d", {"merge_scatter": sum(
+                  sparse2d_launches[path]["merge_scatter"] for path in
+                  ("elasticity2", "basic2", "fluids2", "fluids2-n40"))},
+               {"merge_scatter": sk2["block"]["merge_scatter"]}))
+    for label, ml, checks in merges:
+        for name in ("merge_blocks", "merge_scatter"):
+            if name in checks:
+                forms_of[name][label] = dict(launches=ml[name],
+                                             **{k: checks[name].get(k) for k in keys})
     for name in PROBES:
         forms_of[name] = kres[name]["forms"]
     source_of = dict.fromkeys(SPARSE_KERNELS, WINDOW_SOURCE)
@@ -5044,7 +5245,8 @@ def main():
                        build_s=build_s, kernel_checks=kres, sparse=sparse_res,
                        fluid=fluid_res, fracture=fracture_res, plastic2d=plastic_res,
                        fluids2=fluid2_res, damage=damage_res, materials=mat_res,
-                       sparse2d=sparse2d_res, sparse2d_launches=sparse2d_launches), f,
+                       sparse2d=sparse2d_res, sparse2d_launches=sparse2d_launches,
+                       merge_profiles=MERGE_PROFILES), f,
                   indent=1, default=str)
     print(json.dumps({"kernels": kernels}))
     print(smi)

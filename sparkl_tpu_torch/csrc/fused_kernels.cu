@@ -6,10 +6,11 @@
 //   p2g_fused_kernel  replaces sparkl_tpu/fused/kernels.py:p2g_fused
 //                     (_p2g_kernel), "kernel A";
 //   merge_blocks_kernel replaces sparkl_tpu/fused/kernels.py:merge_blocks_dma
-//                     (_merge_dma_kernel);
+//                     (_merge_dma_kernel) with the inverse-corner gather
+//                     after it, on the window images;
 //   merge_scatter_kernel replaces the XLA scatter-add of
 //                     sparkl_tpu/sparse/transfer.py:_merge_scatter (glue, not
-//                     a TPU kernel), deterministically;
+//                     a TPU kernel), deterministically, on the window images;
 //   g2p_fused_kernel  replaces sparkl_tpu/fused/kernels.py:g2p_fused
 //                     (_g2p_kernel), "kernel B";
 //   mass_p2g_kernel   replaces sparkl_tpu/fused/kernels.py:mass_p2g_fused
@@ -50,6 +51,7 @@
 //        -Xcompiler -fPIC -fmad=false   (never --use_fast_math: the physics
 //        uses expf/logf/sinf and sqrtf-based Cardano eigenvalues)
 
+#include <cuda.h>  // CUtensorMap (cuTensorMapEncodeTiled is fetched at run time)
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -502,52 +504,415 @@ __global__ void __launch_bounds__(C) p2g_fused_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// Merge: per owner block, the sum of its <= kmax contiguous chunk rows in
-// ascending chunk order (bit-equal to merge_blocks_dma and to the plain
-// version). One CTA per block, each thread a strided set of the row's
-// elements; any row width (3D: 8 corners x nf·64, 2D: 4 corners x nf·16).
-// Bound on this card: bytes (each block reads its chunk rows once,
-// coalesced, and writes one row).
+// The two merges: window images [D, nf, 8^d] -> the block node table
+// [n_rows = MAX_GRID_BLOCKS + 1, nf · 4^d], every row written once (rows
+// past num_grid_blocks and the trash row, the last, as zeros). Each reads
+// the images where the P2G kernels wrote them: z-major cells in 3D (kernel
+// A and the mass P2G, q = z*64 + x*8 + y) or row-major (2D and the sparse
+// path, q = x*8 + y (+ z)); corner k of a chunk's window, cx*4 + cy*2 + cz
+// in 3D and cx*2 + cy in 2D, covers the cells (cx*4 + lx, cy*4 + ly, cz*4
+// + lz), and node-table element f*4^d + l with l = lx*16 + ly*4 + lz (3D)
+// or lx*4 + ly (2D).
+//
+// A node row is one group of nf·4^(d-1) threads, each holding one run of 4
+// cells of one channel (16 B aligned in both cell orders: the innermost
+// axis of the image, lz row-major or ly z-major, runs 4 cells from cz*4 or
+// cy*4), so each thread's sums are 4 independent elements, each summed in
+// the same order as a plain loop. A CTA holds a few rows: at least a warp,
+// at most 1024 staged floats, and few enough that the grid has about 1024
+// CTAs, so that the short tables of the fluid paths still fill the card.
+// A CTA first lists its rows' sources in shared memory, with no host read
+// (dead rows have none). Two ways to fetch them:
+//
+// - Loads (the gather form, and the scatter form on tables of about as many
+//   rows as chunks): the list holds image offsets (chunk · nf · 8^d plus the
+//   corner's origin, which does not depend on the thread's run: the thread
+//   adds its own run's offset once), and each thread walks its row's list
+//   with MERGE_RING float4 loads in flight, the next offsets read a group
+//   ahead (computing each source's address in the walk was slower).
+// - Boxes (the scatter form on dense tables, MERGE_DENSE chunk corners a
+//   row or more: fluid blocks of up to 34 chunks give rows of ~256
+//   sources): a row's updates are runs of consecutive chunks at one corner
+//   (an owner block's chunks), and each run of up to MERGE_RUN comes into
+//   shared memory as one TMA box (those chunks' corner sub-cubes, all nf
+//   channels), issued by the row's threads into a ring of 2·half boxes;
+//   while the row adds one half the other is in flight, and each half is
+//   refilled after a barrier of the row's threads. There the time is the
+//   chain of a row's sources: on fluids3 x4's rows thread loads (16 B a
+//   thread) stayed slow whatever their depth (8 or 16 a thread) or width
+//   (4, 2 or 1 floats), and a box a source paid the box's fixed cost 256
+//   times a row; a box a run of chunks was the fastest of the three.
+// The row is staged in shared memory (z-major runs lie across ly, element
+// stride 4) and written coalesced. No atomics, so each row is the same sum
+// from run to run. Bound on this card: bytes (each live source's sub-cube
+// read once, every node row written once); a run of 16 B fills half of its
+// 32-byte sector, whose other half is the neighbouring corner's, another
+// node row's. A tensor-core form has nothing to do: there is no product,
+// only ordered adds.
 // ---------------------------------------------------------------------------
-__global__ void merge_blocks_kernel(const float* __restrict__ rows,
-                                    const int* __restrict__ first,
-                                    const int* __restrict__ nch,
-                                    float* __restrict__ out, int width,
-                                    int kmax) {
-  const int b = blockIdx.x;
-  const int f0 = first[b];
-  const int n = min(nch[b], kmax);
-  const float* src = rows + (size_t)f0 * width;
-  float* dst = out + (size_t)b * width;
-  for (int e = threadIdx.x; e < width; e += blockDim.x) {
-    float acc = 0.0f;
-    for (int k = 0; k < n; ++k) acc += src[(size_t)k * width + e];
-    dst[e] = acc;
+constexpr int MERGE_STAGE = 1024;       // floats of node rows a CTA stages
+constexpr int MERGE_THREADS = 256;      // a CTA's most threads (4 floats a thread)
+constexpr int MERGE_KMAX_MAX = 8;       // the gather form's chunks per owner block
+constexpr int MERGE_IDS = 2048;         // sources a CTA lists at a time
+constexpr int MERGE_RING = 8;           // loads in flight a thread
+constexpr int MERGE_RUN = 8;            // chunks a box holds
+constexpr int MERGE_HALF_MAX = 8;       // boxes in half of a row's ring, at most
+constexpr int MERGE_ROW_SMEM = 32768;   // bytes of boxes a row holds, about
+constexpr int MERGE_BOX_SMEM = 98304;   // bytes of boxes and their barriers a CTA holds
+constexpr int MERGE_SEG_END = 1 << 30;  // offset flag: the last source of a segment sum
+
+__device__ __forceinline__ void add4(float4& a, const float4& b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// Offset of corner k's origin within a chunk's channel image.
+template <int D>
+__device__ __forceinline__ int merge_corner(int k, bool zm) {
+  if (D == 3) {
+    const int cx = k >> 2, cy = (k >> 1) & 1, cz = k & 1;
+    return zm ? cz * 256 + cx * 32 + cy * 4 : cx * 256 + cy * 32 + cz * 4;
+  }
+  return (k >> 1) * 32 + (k & 1) * 4;
+}
+
+// Offset of unit u's run of 4 cells within corner 0 (0 .. 4^(d-1) - 1),
+// and (through `dst`, `step`) where its 4 elements go in the node row's
+// channel: z-major u = lz*4 + lx, the run along ly; row-major u = lx*4 +
+// ly, the run along lz; 2D u = lx, the run along ly. (A box holds a
+// source's run u of channel f as its float4 f · 4^(d-1) + u.)
+template <int D>
+__device__ __forceinline__ int merge_run(int u, bool zm, int& dst, int& step) {
+  if (D == 3) {
+    const int a = u >> 2, b = u & 3;
+    dst = zm ? b * 16 + a : a * 16 + b * 4;
+    step = zm ? 4 : 1;
+    return a * 64 + b * 8;
+  }
+  dst = u * 4;
+  step = 1;
+  return u * 8;
+}
+
+// Loads: sum the sources at offsets[b .. e) (from `base`, the thread's run
+// in image 0) into acc in order, MERGE_RING loads in flight and the next
+// offsets read a group ahead. SEGMENTS (the gather form): each source adds
+// to the segment sum s, from zero, and a flagged source closes it into
+// acc; else each source adds to acc.
+template <bool SEGMENTS>
+__device__ __forceinline__ void merge_walk_loads(const float* __restrict__ base,
+                                                 const int* offsets, int b, int e,
+                                                 float4& acc) {
+  constexpr int RING = MERGE_RING;
+  float4 v[RING];
+  int cur[RING];
+#pragma unroll
+  for (int j = 0; j < RING; ++j) {
+    cur[j] = b + j < e ? offsets[b + j] : 0;
+    if (b + j < e)
+      v[j] = __ldg(reinterpret_cast<const float4*>(base + (cur[j] & ~MERGE_SEG_END)));
+  }
+  float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll 1
+  for (int k = b; k < e; k += RING) {
+    int nxt[RING];
+#pragma unroll
+    for (int j = 0; j < RING; ++j) nxt[j] = k + RING + j < e ? offsets[k + RING + j] : 0;
+#pragma unroll
+    for (int j = 0; j < RING; ++j) {
+      if (k + j < e) {
+        if (SEGMENTS) {
+          add4(s, v[j]);
+          if (cur[j] & MERGE_SEG_END) {
+            add4(acc, s);
+            s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          }
+        } else {
+          add4(acc, v[j]);
+        }
+        if (k + RING + j < e)
+          v[j] = __ldg(reinterpret_cast<const float4*>(base + (nxt[j] & ~MERGE_SEG_END)));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < RING; ++j) cur[j] = nxt[j];
   }
 }
 
-// ---------------------------------------------------------------------------
-// Scatter merge: node-table row g = the sum of its updates rows[order[k]],
-// k in [starts[g], starts[g + 1]), in ascending k from zero. `order` holds
-// the flat (chunk, corner) update ids stably sorted by destination, so each
-// row sums in ascending update order: the JAX package's CPU scatter-add
-// order, bit-equal to it and to the plain version, and the same from run
-// to run (a float-atomic scatter is not). One CTA per node-table row, each
-// thread a strided set of the row's elements. Bound on this card: bytes
-// (every update row read once, coalesced; each node row written once).
-// ---------------------------------------------------------------------------
-__global__ void merge_scatter_kernel(const float* __restrict__ rows,
-                                     const int* __restrict__ order,
-                                     const int* __restrict__ starts,
-                                     float* __restrict__ out, int width) {
-  const int row = blockIdx.x;
-  const int k0 = starts[row], k1 = starts[row + 1];
-  float* dst = out + (size_t)row * width;
-  for (int e = threadIdx.x; e < width; e += blockDim.x) {
-    float acc = 0.0f;
-    for (int k = k0; k < k1; ++k) acc += rows[(size_t)order[k] * width + e];
-    dst[e] = acc;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One TMA box: MERGE_RUN chunks' corner sub-cubes (all nf channels), from
+// the chunk of `id` (chunk · 2^d + corner) on, into `dst`, completing on
+// `bar` (armed here with its bytes). The images' tensor: innermost first
+// (y, x, z) z-major, (z, y, x) row-major, (y, x) in 2D; then channel and
+// chunk (chunks past the images read as zeros).
+template <int D>
+__device__ __forceinline__ void merge_box(const CUtensorMap* map, void* dst, uint64_t* bar,
+                                          int id, bool zm, int bytes) {
+  const int c = id >> D, k = id & ((1 << D) - 1);
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+  const uint64_t m = reinterpret_cast<uint64_t>(map);
+  if (D == 3) {
+    const int cx = (k >> 2) * 4, cy = ((k >> 1) & 1) * 4, cz = (k & 1) * 4;
+    const int c0 = zm ? cy : cz, c1 = zm ? cx : cy, c2 = zm ? cz : cx;
+    asm volatile(
+        "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%2, %3, %4, %5, %6}], [%7];" ::"r"(smem_u32(dst)),
+        "l"(m), "r"(c0), "r"(c1), "r"(c2), "r"(0), "r"(c), "r"(smem_u32(bar))
+        : "memory");
+  } else {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(smem_u32(dst)),
+        "l"(m), "r"((k & 1) * 4), "r"((k >> 1) * 4), "r"(0), "r"(c), "r"(smem_u32(bar))
+        : "memory");
   }
+}
+
+// A CTA row's ring of boxes and their barriers in dynamic shared memory:
+// rows × (2·half slots, 2·half + 1 barriers), each row 128-byte aligned, as
+// TMA boxes must be.
+__host__ __device__ __forceinline__ int merge_row_bytes(int slot_bytes, int half) {
+  return ((2 * half * slot_bytes + (2 * half + 1) * 8 + 127) / 128) * 128;
+}
+
+struct MergeRow {
+  unsigned char* boxes;
+  uint64_t* full;   // per slot: its box landed
+  uint64_t* round;  // the row's threads done with a half
+};
+
+__device__ __forceinline__ MergeRow merge_row(unsigned char* dyn, int r, int slot_bytes,
+                                              int half) {
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(dyn) + 127) & ~(uintptr_t)127);
+  base += (size_t)r * merge_row_bytes(slot_bytes, half);
+  MergeRow row;
+  row.boxes = base;
+  row.full = reinterpret_cast<uint64_t*>(base + 2 * half * slot_bytes);
+  row.round = row.full + 2 * half;
+  return row;
+}
+
+// Boxes: sum the row's runs runs[b .. e) (each `id | count << 24`: count
+// <= MERGE_RUN sources of consecutive chunks at one corner, from id's) into
+// acc (this thread's float4 i of each source in a box; `src_f4` float4s a
+// source; the row has `group` threads) in order. q0: the runs the row took
+// before (for the slots' phases); `rounds` counts the row's half barriers.
+// The row's threads issue the boxes, one each, right after a barrier of
+// the row (one issuing thread, its warp-mates waiting on the next box, was
+// slower).
+template <int D>
+__device__ __forceinline__ void merge_walk_boxes(const CUtensorMap* map, const MergeRow& row,
+                                                 const int* runs, int b, int e, int q0,
+                                                 int& rounds, int i, int group, bool zm,
+                                                 int src_f4, int slot_bytes, int half,
+                                                 float4& acc) {
+  const int ring = 2 * half, n = e - b;
+  if (n <= 0) return;
+  for (int q = q0 + i; q < q0 + min(ring, n); q += group)
+    merge_box<D>(map, row.boxes + (q % ring) * slot_bytes, row.full + q % ring,
+                 runs[b + q - q0] & 0xffffff, zm, MERGE_RUN * src_f4 * 16);
+  for (int j = 0; j < n; ++j) {
+    const int q = q0 + j, s = q % ring;
+    mbar_wait(row.full + s, (q / ring) & 1);
+    const float4* box = reinterpret_cast<const float4*>(row.boxes + s * slot_bytes) + i;
+    const int count = runs[b + j] >> 24;
+    for (int c = 0; c < count; ++c) add4(acc, box[c * src_f4]);
+    if ((q + 1) % half == 0 || j == n - 1) {
+      // The row's threads are done with this half: refill it.
+      mbar_arrive(row.round);
+      mbar_wait(row.round, rounds & 1);
+      ++rounds;
+      const int last = min(q + ring, q0 + n - 1);
+      for (int qq = max(q - q % half, q0) + ring + i; qq <= last; qq += group)
+        merge_box<D>(map, row.boxes + (qq % ring) * slot_bytes, row.full + qq % ring,
+                     runs[b + qq - q0] & 0xffffff, zm, MERGE_RUN * src_f4 * 16);
+    }
+  }
+}
+
+// Stage the thread's 4 sums (unit u of channel f of CTA row r) in shared
+// memory, then write the CTA's rows [g0, g0 + rows) coalesced.
+template <int D>
+__device__ __forceinline__ void merge_store(float* stage, const float4& acc, int r, int f, int u,
+                                            int nf, bool zm, float* __restrict__ out, int g0,
+                                            int rows, int n_rows) {
+  constexpr int CPB = D == 3 ? 64 : 16;
+  const int w = nf * CPB;
+  int dst, step;
+  merge_run<D>(u, zm, dst, step);
+  float* s = stage + r * w + f * CPB + dst;
+  s[0] = acc.x;
+  s[step] = acc.y;
+  s[2 * step] = acc.z;
+  s[3 * step] = acc.w;
+  __syncthreads();
+  const int n_out = (min(rows, n_rows - g0) * w) >> 2;
+  for (int e = threadIdx.x; e < n_out; e += blockDim.x)
+    reinterpret_cast<float4*>(out + (size_t)g0 * w)[e] = reinterpret_cast<float4*>(stage)[e];
+}
+
+// The gather form (replaces sparkl_tpu/fused/kernels.py:merge_blocks_dma
+// and the inverse-corner gather after it, sparkl_tpu/sparse/transfer.py
+// _merge_gather): node row g, from zero, adds for k = 0 .. 2^d - 1 the
+// owner block b = owner[g, k]'s segment sum s = 0 + the corner-k runs of
+// its chunks first[b] + j, j < min(nch[b], kmax), in ascending j (an absent
+// owner, b = max_blocks, adds 0, and adding 0 to a sum that is never -0
+// changes nothing, so it is left out). Bit-equal to the plain version:
+// each element is the same sequence of f32 adds. A row has at most 2^d ·
+// kmax sources: loads.
+template <int D>
+__global__ void __launch_bounds__(MERGE_THREADS) merge_blocks_kernel(
+    const float* __restrict__ img, const int* __restrict__ first, const int* __restrict__ nch,
+    const int* __restrict__ owner, const int* __restrict__ ngb, float* __restrict__ out,
+    int n_rows, int max_blocks, int nf, int rows, int zm, int kmax) {
+  constexpr int NC = 1 << D, PLANE = D == 3 ? 16 : 4, RC = D == 3 ? 512 : 64;
+  constexpr int PER_ROW = NC * MERGE_KMAX_MAX;
+  __shared__ int offsets[MERGE_IDS];  // per CTA row, its sources (PER_ROW apart)
+  __shared__ int2 src[256];           // per CTA row and corner: (first chunk, count)
+  __shared__ int count[64];           // per CTA row: its sources
+  __shared__ __align__(16) float stage[MERGE_STAGE];
+  const int group = nf * PLANE;
+  const int t = threadIdx.x;
+  const int g0 = blockIdx.x * rows;
+  const int live = min(*ngb, n_rows - 1);
+  const int cstride = nf * RC;
+  for (int e = t; e < rows * NC; e += blockDim.x) {
+    const int g = g0 + e / NC;
+    int2 m = make_int2(0, 0);
+    if (g < live) {
+      const int b = owner[(size_t)g * NC + e % NC];
+      if (b >= 0 && b < max_blocks) m = make_int2(first[b], min(nch[b], kmax));
+    }
+    src[e] = m;
+  }
+  __syncthreads();
+  if (t < rows) {
+    int n = 0;
+    for (int k = 0; k < NC; ++k) {
+      const int2 m = src[t * NC + k];
+      const int corner = merge_corner<D>(k, zm != 0);
+      for (int j = 0; j < m.y; ++j)
+        offsets[t * PER_ROW + n++] =
+            ((m.x + j) * cstride + corner) | (j == m.y - 1 ? MERGE_SEG_END : 0);
+    }
+    count[t] = n;
+  }
+  __syncthreads();
+  const int r = t / group, i = t % group;
+  const int f = i / PLANE, u = i % PLANE;
+  int dst, step;
+  const float* base = img + f * RC + merge_run<D>(u, zm != 0, dst, step);
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  merge_walk_loads<true>(base, offsets, r * PER_ROW, r * PER_ROW + count[r], acc);
+  merge_store<D>(stage, acc, r, f, u, nf, zm != 0, out, g0, rows, n_rows);
+}
+
+// The scatter form (replaces the XLA scatter-add of
+// sparkl_tpu/sparse/transfer.py:_merge_scatter, glue, not a TPU kernel):
+// node row g adds, from zero, its updates order[k], k in [starts[g],
+// starts[g + 1]) ascending, update id = chunk · 2^d + corner (the flat
+// (chunk, corner) ids stably sorted by destination row, so each row sums
+// in ascending update order: the JAX package's CPU scatter-add order). The
+// CTA's rows' updates are one range of `order`, listed MERGE_IDS at a time,
+// as image offsets (loads) or ids (BOXES; `map` the images' tensor).
+template <int D, bool BOXES>
+__global__ void __launch_bounds__(MERGE_THREADS) merge_scatter_kernel(
+    const __grid_constant__ CUtensorMap map, const float* __restrict__ img,
+    const int* __restrict__ order, const int* __restrict__ starts, const int* __restrict__ ngb,
+    float* __restrict__ out, int n_rows, int nf, int rows, int zm, int slot_bytes, int half) {
+  constexpr int NC = 1 << D, PLANE = D == 3 ? 16 : 4, RC = D == 3 ? 512 : 64;
+  extern __shared__ unsigned char dyn[];
+  __shared__ int list[MERGE_IDS];
+  __shared__ int nruns[64];  // BOXES: per CTA row, its runs in this window
+  __shared__ __align__(16) float stage[MERGE_STAGE];
+  const int group = nf * PLANE;
+  const int t = threadIdx.x;
+  const int g0 = blockIdx.x * rows;
+  const int live = min(*ngb, n_rows - 1);
+  const int cstride = nf * RC;
+  const int r = t / group, i = t % group;
+  const int f = i / PLANE, u = i % PLANE;
+  const int g = g0 + r;
+  int dst, step;
+  const float* base = img + f * RC + merge_run<D>(u, zm != 0, dst, step);
+  MergeRow row;
+  if (BOXES) {
+    row = merge_row(dyn, r, slot_bytes, half);
+    if (i == 0) {
+      for (int s = 0; s < 2 * half; ++s) mbar_init(row.full + s, 1);
+      mbar_init(row.round, group);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+  }
+  // The CTA's updates [lo, hi) and this thread's row's [b, e) within them.
+  const int lo = g0 < live ? starts[g0] : 0;
+  const int hi = g0 < live ? starts[min(g0 + rows, live)] : 0;
+  const bool mine = g < live;
+  const int b = mine ? starts[g] : 0, e = mine ? starts[g + 1] : 0;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  int rounds = 0, taken = 0;
+  for (int w0 = lo; w0 < hi; w0 += MERGE_IDS) {
+    const int n = min(MERGE_IDS, hi - w0);
+    __syncthreads();  // the barriers' init, or the last window's reads
+    for (int k = t; k < n; k += blockDim.x) {
+      const int id = __ldg(order + w0 + k);
+      list[k] = BOXES ? id : (id >> D) * cstride + merge_corner<D>(id & (NC - 1), zm != 0);
+    }
+    __syncthreads();
+    const int wb = max(b - w0, 0), we = min(e - w0, n);
+    if (BOXES) {
+      // The row's updates as runs of consecutive chunks at one corner (an
+      // owner block's chunks, in order), in place, by its first thread.
+      if (i == 0) {
+        int w = wb;
+        for (int j = wb; j < we;) {
+          const int id = list[j];
+          int c = 1;
+          while (j + c < we && c < MERGE_RUN && list[j + c] == id + c * NC) ++c;
+          list[w++] = id | (c << 24);
+          j += c;
+        }
+        nruns[r] = w - wb;
+      }
+      __syncthreads();
+      const int m = we > wb ? nruns[r] : 0;
+      merge_walk_boxes<D>(&map, row, list, wb, wb + m, taken, rounds, i, group, zm != 0,
+                          cstride / (D == 3 ? 32 : 16), slot_bytes, half, acc);
+      taken += m;
+    } else {
+      merge_walk_loads<false>(base, list, wb, we, acc);
+    }
+  }
+  merge_store<D>(stage, acc, r, f, u, nf, zm != 0, out, g0, rows, n_rows);
 }
 
 // ---------------------------------------------------------------------------
@@ -1657,6 +2022,84 @@ GridArgs grid_args(float ox, float oy, float oz, float h, float invd,
 
 }  // namespace
 
+// The merges' host side. The images as a TMA tensor (the scatter form's
+// boxes): 5D in 3D (the cells' three axes innermost first, channel,
+// chunk), 4D in 2D; a box is one corner's 4^d cells of every channel.
+// cuTensorMapEncodeTiled is looked up at run time
+// (cudaGetDriverEntryPointByVersion), so the library links against the
+// runtime alone.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static bool merge_image_map(CUtensorMap* map, const float* img, int max_chunks, int nf,
+                            int dim) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                         cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return false;
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t n = (cuuint64_t)nf, d = (cuuint64_t)max_chunks;
+  const cuuint32_t box[5] = {4, 4, 4, (cuuint32_t)nf, MERGE_RUN};
+  const cuuint32_t box2[4] = {4, 4, (cuuint32_t)nf, MERGE_RUN};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const cuuint64_t size[5] = {8, 8, 8, n, d}, stride[4] = {32, 256, 2048, n * 2048};
+  const cuuint64_t size2[4] = {8, 8, n, d}, stride2[3] = {32, 256, n * 256};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, dim == 3 ? 5 : 4, (void*)img,
+                dim == 3 ? size : size2, dim == 3 ? stride : stride2, dim == 3 ? box : box2,
+                unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// A table is dense, and the scatter form takes boxes, from this many chunk
+// corners a node row (of the capacities: fluids3 x4 88, sand3@1M 24).
+constexpr int MERGE_DENSE = 48;
+
+// The merges' CTA: node rows of nf · 4^(d-1) threads, at least a warp, at
+// most MERGE_STAGE staged floats, about n_rows / 1024 rows; with boxes,
+// each row's ring of 2·half boxes of MERGE_RUN sources (about
+// MERGE_ROW_SMEM bytes, half at most MERGE_HALF_MAX), the CTA's within
+// MERGE_BOX_SMEM. rows 0: no shape.
+struct MergeShape {
+  int rows, threads, slot_bytes, half, dyn_bytes;
+};
+
+static MergeShape merge_shape(int dim, int nf, int n_rows, bool boxes) {
+  MergeShape sh = {0, 0, 0, 0, 0};
+  const int group = nf * (dim == 3 ? 16 : 4);
+  const int width = nf * (dim == 3 ? 64 : 16);
+  if (nf < 1 || width > MERGE_STAGE) return sh;
+  const int most = MERGE_STAGE / width, least = (32 + group - 1) / group;
+  const int want = n_rows / 1024 < most ? n_rows / 1024 : most;
+  sh.rows = want > least ? want : (least < most ? least : most);
+  sh.threads = sh.rows * group;
+  if (boxes) {
+    sh.slot_bytes = ((MERGE_RUN * width * 4 + 127) / 128) * 128;
+    sh.half = MERGE_ROW_SMEM / (2 * sh.slot_bytes);
+    sh.half = sh.half < 1 ? 1 : sh.half > MERGE_HALF_MAX ? MERGE_HALF_MAX : sh.half;
+    while (sh.rows > 1 && sh.rows * merge_row_bytes(sh.slot_bytes, sh.half) > MERGE_BOX_SMEM)
+      --sh.rows;
+    if (sh.rows * merge_row_bytes(sh.slot_bytes, sh.half) > MERGE_BOX_SMEM) sh.rows = 0;
+    sh.threads = sh.rows * group;
+    sh.dyn_bytes = sh.rows * merge_row_bytes(sh.slot_bytes, sh.half) + 128;  // and alignment
+  }
+  return sh;
+}
+
+// Once per kernel: allow the boxes' dynamic shared memory past 48 KB.
+template <typename K>
+static bool merge_smem(K kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              MERGE_BOX_SMEM + 128) == cudaSuccess;
+}
+
 extern "C" {
 
 int sparkl_p2g_fused(const float* slots, const int* ints, const int* nchunks,
@@ -1693,12 +2136,36 @@ int sparkl_p2g_fused(const float* slots, const int* ints, const int* nchunks,
   return (int)cudaGetLastError();
 }
 
-int sparkl_merge_scatter(const float* rows, const int* order, const int* starts,
-                         float* out, int n_rows, int width, void* stream) {
-  const int threads = width >= 256 ? 256 : ((width + 31) / 32) * 32;
-  if (n_rows > 0)
-    merge_scatter_kernel<<<n_rows, threads, 0, (cudaStream_t)stream>>>(rows, order, starts,
-                                                                        out, width);
+int sparkl_merge_scatter(const float* img, const int* order, const int* starts, const int* ngb,
+                         float* out, int n_rows, int max_chunks, int nf, int dim, int zm,
+                         void* stream) {
+  const bool boxes = (long long)max_chunks * (1 << dim) >= (long long)MERGE_DENSE * n_rows;
+  const MergeShape sh = merge_shape(dim, nf, n_rows, boxes);
+  CUtensorMap map = {};
+  if (sh.rows == 0 || (dim != 3 && dim != 2) || (zm && dim != 3) ||
+      (long long)max_chunks * nf * (dim == 3 ? 512 : 64) >= MERGE_SEG_END ||
+      ((uintptr_t)img | (uintptr_t)out) & 15 ||
+      (boxes && !merge_image_map(&map, img, max_chunks, nf, dim)))
+    return (int)cudaErrorInvalidValue;
+  const int ctas = (n_rows + sh.rows - 1) / sh.rows;
+  cudaStream_t st = (cudaStream_t)stream;
+#define SPARKL_MS(D, B)                                                                    \
+  merge_scatter_kernel<D, B><<<ctas, sh.threads, sh.dyn_bytes, st>>>(                       \
+      map, img, order, starts, ngb, out, n_rows, nf, sh.rows, zm, sh.slot_bytes, sh.half)
+  if (boxes) {
+    static const bool ok = merge_smem(merge_scatter_kernel<3, true>) &&
+                           merge_smem(merge_scatter_kernel<2, true>);
+    if (!ok) return (int)cudaErrorInvalidValue;
+    if (dim == 3)
+      SPARKL_MS(3, true);
+    else
+      SPARKL_MS(2, true);
+  } else if (dim == 3) {
+    SPARKL_MS(3, false);
+  } else {
+    SPARKL_MS(2, false);
+  }
+#undef SPARKL_MS
   return (int)cudaGetLastError();
 }
 
@@ -1732,11 +2199,22 @@ int sparkl_mass_g2p_fused(const float* slots, const int* ints, const float* wind
   return (int)cudaGetLastError();
 }
 
-int sparkl_merge_blocks(const float* rows, const int* first, const int* nch,
-                        float* out, int max_blocks, int width, int kmax,
-                        void* stream) {
-  merge_blocks_kernel<<<max_blocks, 256, 0, (cudaStream_t)stream>>>(
-      rows, first, nch, out, width, kmax);
+int sparkl_merge_blocks(const float* img, const int* first, const int* nch, const int* owner,
+                        const int* ngb, float* out, int n_rows, int max_chunks, int max_blocks,
+                        int nf, int dim, int zm, int kmax, void* stream) {
+  const MergeShape sh = merge_shape(dim, nf, n_rows, false);
+  if (sh.rows == 0 || (dim != 3 && dim != 2) || (zm && dim != 3) || kmax > MERGE_KMAX_MAX ||
+      (long long)max_chunks * nf * (dim == 3 ? 512 : 64) >= MERGE_SEG_END ||
+      ((uintptr_t)img | (uintptr_t)out) & 15)
+    return (int)cudaErrorInvalidValue;
+  const int ctas = (n_rows + sh.rows - 1) / sh.rows;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dim == 3)
+    merge_blocks_kernel<3><<<ctas, sh.threads, 0, st>>>(img, first, nch, owner, ngb, out, n_rows,
+                                                        max_blocks, nf, sh.rows, zm, kmax);
+  else
+    merge_blocks_kernel<2><<<ctas, sh.threads, 0, st>>>(img, first, nch, owner, ngb, out, n_rows,
+                                                        max_blocks, nf, sh.rows, zm, kmax);
   return (int)cudaGetLastError();
 }
 

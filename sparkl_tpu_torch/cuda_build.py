@@ -54,10 +54,12 @@ _SIGNATURES = {
     # oz, h, invd, d_coeff, rx, ry, rz, dim, opts, stream
     "sparkl_p2g_fused": [_VP, _VP, _VP, _VP, _VP, _I, _VP, _I, _F, _F, _F, _F, _F,
                          _F, _F, _I, _I, _I, _I, _I, _VP],
-    # rows, first, nchunks, out, max_blocks, width, kmax, stream
-    "sparkl_merge_blocks": [_VP, _VP, _VP, _VP, _I, _I, _I, _VP],
-    # rows, order, starts, out, n_rows, width, stream
-    "sparkl_merge_scatter": [_VP, _VP, _VP, _VP, _I, _I, _VP],
+    # images, first, nchunks, owner, num_grid_blocks, out, n_rows, max_chunks,
+    # max_blocks, nf, dim, zmajor, kmax, stream
+    "sparkl_merge_blocks": [_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP],
+    # images, order, starts, num_grid_blocks, out, n_rows, max_chunks, nf,
+    # dim, zmajor, stream
+    "sparkl_merge_scatter": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP],
     # slots, ints, nchunks, out, max_chunks, ox, oy, oz, h, invd, d_coeff, rx,
     # ry, rz, dim, stream
     "sparkl_mass_p2g_fused": [_VP, _VP, _VP, _VP, _I, _F, _F, _F, _F, _F, _F,

@@ -479,15 +479,15 @@ def p2g_fused(grid: GridParams, cfg, meta, slots, ints, dt, nchunks, tables=None
 
 
 # ---------------------------------------------------------------------------
-# Block merge: per owner block, the sum of its contiguous chunk rows
+# The merges: window images -> the block node table, each row written once
 # ---------------------------------------------------------------------------
 
 
 def merge_blocks_reference(rows, first, nchunks, kmax):
-    """Plain version of the merge: rows [D, K, W], first/nchunks [MB] ->
-    [MB, K, W], block b = sum of rows[first[b] + k] for k < min(nchunks[b],
-    kmax), accumulated in ascending k from zero (bit-equal to the kernel and
-    to sparkl_tpu's merge_blocks_dma)."""
+    """Per owner block, the sum of its chunk rows: rows [D, K, W],
+    first/nchunks [MB] -> [MB, K, W], block b = sum of rows[first[b] + k]
+    for k < min(nchunks[b], kmax), accumulated in ascending k from zero
+    (sparkl_tpu's merge_blocks_dma). A step of merge_blocks_plain."""
     d_ = rows.shape[0]
     pad = torch.cat([rows, rows.new_zeros((1,) + rows.shape[1:])], dim=0)
     acc = rows.new_zeros((first.shape[0],) + rows.shape[1:])
@@ -497,39 +497,15 @@ def merge_blocks_reference(rows, first, nchunks, kmax):
     return acc
 
 
-def merge_blocks(rows, first, nchunks, kmax=8):
-    """The merge kernel (replaces sparkl_tpu/fused/kernels.py:merge_blocks_dma):
-    rows [D, ncorners, W] f32, first/nchunks [MB] i32 -> [MB, ncorners, W]."""
-    dev = rows.device
-    d_, ncorners, w = rows.shape
-    mb = first.shape[0]
-    check_tensor("rows", rows, torch.float32, (d_, ncorners, w), dev)
-    check_tensor("first", first, torch.int32, (mb,), dev)
-    check_tensor("nchunks", nchunks, torch.int32, (mb,), dev)
-    if route(dev) == "cpu":
-        return merge_blocks_reference(rows, first, nchunks, kmax)
-    out = torch.empty((mb, ncorners, w), dtype=torch.float32, device=dev)
-    launch("sparkl_merge_blocks", rows.data_ptr(), first.data_ptr(),
-           nchunks.data_ptr(), out.data_ptr(), mb, ncorners * w, kmax,
-           stream_ptr(dev))
-    LAUNCHES["merge_blocks"] += 1
-    return out
-
-
-# ---------------------------------------------------------------------------
-# Scatter merge: per node-table row, the sum of its updates in a fixed order
-# ---------------------------------------------------------------------------
-
-
 def merge_scatter_reference(rows, order, starts):
-    """Plain version of the scatter merge: rows [U, W] (one per flat (chunk,
-    corner) update), order [U] update ids sorted by destination row,
-    starts [G + 1] each row's segment in `order` -> [G, W], row g = the sum
-    of rows[order[k]] for k in [starts[g], starts[g + 1]), accumulated in
-    ascending k from zero (bit-equal to the kernel, and to the JAX
-    package's CPU scatter-add when `order` is stable). Step k adds the k-th
-    update of every row that has one; rows are visited by descending count
-    so that step k touches a prefix."""
+    """Per node-table row, the sum of its updates: rows [U, W] (one per flat
+    (chunk, corner) update), order [U] update ids sorted by destination
+    row, starts [G + 1] each row's segment in `order` -> [G, W], row g = the
+    sum of rows[order[k]] for k in [starts[g], starts[g + 1]), accumulated
+    in ascending k from zero (the JAX package's CPU scatter-add when `order`
+    is stable). Step k adds the k-th update of every row that has one; rows
+    are visited by descending count so that step k touches a prefix. A step
+    of merge_scatter_plain."""
     g = starts.shape[0] - 1
     first = starts[:-1].long()
     n = starts[1:].long() - first
@@ -547,22 +523,105 @@ def merge_scatter_reference(rows, order, starts):
     return out
 
 
-def merge_scatter(rows, order, starts):
-    """The scatter merge kernel (replaces the XLA scatter-add
-    sparkl_tpu/sparse/transfer.py:237 _merge_scatter, which is glue, not a
-    TPU kernel): rows [U, W] f32, order [U] i32, starts [G + 1] i32 ->
-    [G, W] f32. Deterministic: no atomics."""
-    dev = rows.device
-    u, w = rows.shape
-    g = starts.shape[0] - 1
-    check_tensor("rows", rows, torch.float32, (u, w), dev)
-    check_tensor("order", order, torch.int32, (u,), dev)
-    check_tensor("starts", starts, torch.int32, (g + 1,), dev)
+def _merge_shape(images, zmajor):
+    """(dim, nf, 2^d, 4^d) of window images [D, nf, 8^d]; z-major cells only
+    in 3D."""
+    d_, nf, rc = images.shape
+    dim = {512: 3, 64: 2}.get(rc)
+    if dim is None or (zmajor and dim != 3):
+        raise ValueError(f"images {tuple(images.shape)}: not [D, nf, 8^d] window images of a "
+                         f"{'3D ' if zmajor else ''}merge")
+    return dim, nf, 2**dim, 4**dim
+
+
+def image_rows(images, zmajor):
+    """Window images [D, nf, 8^d] -> the (chunk, corner) rows [D, 2^d, nf ·
+    4^d] the plain merges sum (one flat-lane gather, the cell permutation
+    comb of the JAX package's merge_images_to_grid)."""
+    dim, nf, ncorners, cpb = _merge_shape(images, zmajor)
+    comb = T._merge_comb(dim, nf, zmajor, images.device)
+    return images.reshape(images.shape[0], -1)[:, comb].reshape(images.shape[0], ncorners,
+                                                                  nf * cpb)
+
+
+def merge_blocks_plain(images, first, nchunks, owner, zmajor, kmax=T.MERGE_KMAX):
+    """Plain version of the gather-form merge: the comb gather, the
+    per-owner-block segment sums (merge_blocks_reference), then from zero
+    for each corner k the owner's sum blk[owner[:, k], k] (an absent owner,
+    max_blocks, adds a zero row); the trash row (the last) zeroed. The
+    parent form of the JAX package's _merge_gather, bit for bit."""
+    _, nf, ncorners, cpb = _merge_shape(images, zmajor)
+    blk = merge_blocks_reference(image_rows(images, zmajor), first, nchunks, kmax)
+    blk = torch.cat([blk, blk.new_zeros((1,) + blk.shape[1:])], 0)
+    owner = owner.long()
+    out = images.new_zeros((owner.shape[0], nf * cpb))
+    for k in range(ncorners):
+        out = out + blk[owner[:, k], k]
+    out[-1] = 0.0
+    return out
+
+
+def merge_blocks(images, first, nchunks, owner, num_grid_blocks, zmajor, kmax=T.MERGE_KMAX):
+    """The gather-form merge kernel (replaces sparkl_tpu/fused/kernels.py:
+    merge_blocks_dma and the inverse-corner gather after it, in
+    sparkl_tpu/sparse/transfer.py:_merge_gather): images [D, nf, 8^d] f32
+    (z-major cells in 3D with `zmajor`, else row-major), first/nchunks [MB]
+    i32 (each owner block's chunks), owner [MG + 1, 2^d] i32
+    (transfer.corner_owner: corner k of node row g is owned by block
+    owner[g, k], or max_blocks), num_grid_blocks [] i32 -> the node table
+    [MG + 1, nf · 4^d] f32, rows past num_grid_blocks and the trash row
+    zero. One launch; blocks past kmax (<= 8) chunks are cut at kmax."""
+    dev = images.device
+    dim, nf, ncorners, cpb = _merge_shape(images, zmajor)
+    mb = first.shape[0]
+    n_rows = owner.shape[0]
+    check_tensor("images", images, torch.float32, tuple(images.shape), dev)
+    check_tensor("first", first, torch.int32, (mb,), dev)
+    check_tensor("nchunks", nchunks, torch.int32, (mb,), dev)
+    check_tensor("owner", owner, torch.int32, (n_rows, ncorners), dev)
+    check_tensor("num_grid_blocks", num_grid_blocks, torch.int32, (), dev)
     if route(dev) == "cpu":
-        return merge_scatter_reference(rows, order, starts)
-    out = torch.empty((g, w), dtype=torch.float32, device=dev)
-    launch("sparkl_merge_scatter", rows.data_ptr(), order.data_ptr(), starts.data_ptr(),
-           out.data_ptr(), g, w, stream_ptr(dev))
+        return merge_blocks_plain(images, first, nchunks, owner, zmajor, kmax)
+    out = torch.empty((n_rows, nf * cpb), dtype=torch.float32, device=dev)
+    launch("sparkl_merge_blocks", images.data_ptr(), first.data_ptr(), nchunks.data_ptr(),
+           owner.data_ptr(), num_grid_blocks.data_ptr(), out.data_ptr(), n_rows,
+           images.shape[0], mb, nf, dim, int(zmajor), kmax, stream_ptr(dev))
+    LAUNCHES["merge_blocks"] += 1
+    return out
+
+
+def merge_scatter_plain(images, order, starts, zmajor):
+    """Plain version of the scatter-form merge: the comb gather, then each
+    node row's updates summed in ascending order (merge_scatter_reference);
+    the trash row (the last) zeroed."""
+    _, nf, ncorners, cpb = _merge_shape(images, zmajor)
+    rows = image_rows(images, zmajor).reshape(images.shape[0] * ncorners, nf * cpb)
+    out = merge_scatter_reference(rows, order, starts)
+    out[-1] = 0.0
+    return out
+
+
+def merge_scatter(images, order, starts, num_grid_blocks, zmajor):
+    """The scatter-form merge kernel (replaces the XLA scatter-add
+    sparkl_tpu/sparse/transfer.py:237 _merge_scatter, which is glue, not a
+    TPU kernel): images [D, nf, 8^d] f32 (z-major cells in 3D with
+    `zmajor`), the structure's scatter_plan (order [D · 2^d] i32 flat
+    (chunk, corner) update ids sorted by destination row, starts [MG + 2]
+    i32), num_grid_blocks [] i32 -> the node table [MG + 1, nf · 4^d] f32.
+    Deterministic: no atomics. One launch."""
+    dev = images.device
+    dim, nf, ncorners, cpb = _merge_shape(images, zmajor)
+    n_rows = starts.shape[0] - 1
+    check_tensor("images", images, torch.float32, tuple(images.shape), dev)
+    check_tensor("order", order, torch.int32, (images.shape[0] * ncorners,), dev)
+    check_tensor("starts", starts, torch.int32, (n_rows + 1,), dev)
+    check_tensor("num_grid_blocks", num_grid_blocks, torch.int32, (), dev)
+    if route(dev) == "cpu":
+        return merge_scatter_plain(images, order, starts, zmajor)
+    out = torch.empty((n_rows, nf * cpb), dtype=torch.float32, device=dev)
+    launch("sparkl_merge_scatter", images.data_ptr(), order.data_ptr(), starts.data_ptr(),
+           num_grid_blocks.data_ptr(), out.data_ptr(), n_rows, images.shape[0], nf, dim,
+           int(zmajor), stream_ptr(dev))
     LAUNCHES["merge_scatter"] += 1
     return out
 

@@ -196,9 +196,10 @@ class FusedMpmPipeline:
         """Window images [D, nf, 8^d] -> the block node table [MG + 1, nf,
         4^d] (the merge)."""
         grid, cfg = self.grid, self._cfg
-        node, _ = T.merge_images_to_grid(
+        node = T.merge_images_to_grid(
             grid, cfg, state.structure, images, cell_order=self._cell_order(),
             force_scatter=self._merge_force_scatter, plan=state.grid_cache[2],
+            owner=state.grid_cache[4],
         )
         return node.reshape(cfg.max_grid_blocks + 1, images.shape[1], B.cells_per_block(grid.dim))
 
@@ -498,15 +499,17 @@ class FusedMpmPipeline:
         """Node positions + per-collider node projections of the block node
         table (the reference's projection cache, reset_grid.rs:29-63) + the
         scatter merge's index plan + each chunk's corner blocks' rows [D,
-        2^d] i32 (kernel B's and the volume pass's window reads), computed
-        once per resort. The trash row sits far outside the domain."""
+        2^d] i32 (kernel B's and the volume pass's window reads) + the
+        gather merge's corner owners [MG + 1, 2^d] i32, computed once per
+        resort. The trash row sits far outside the domain."""
         cpb = B.cells_per_block(self.grid.dim)
         node_pos = S.block_node_positions_ob2(self.grid, structure.grid_keys)
         pad = torch.full((1, cpb, self.grid.dim), 1.0e10, dtype=torch.float32,
                          device=node_pos.device)
         node_pos = torch.cat([node_pos, pad], dim=0)
         return (node_pos, dense.grid_node_projections(self.colliders, node_pos),
-                T.scatter_plan(self._cfg, structure), T._chunk_corners(structure).contiguous())
+                T.scatter_plan(self._cfg, structure), T._chunk_corners(structure).contiguous(),
+                T.corner_owner(self._cfg, structure))
 
     def _pack(self, particles):
         particles = dense.mark_out_of_grid_failed(self.grid, particles)

@@ -20,6 +20,15 @@ writes them under build/compare_kernels/, one file a case:
   each in both forms, without the psi channels and with them (on the paths
   without psi, numpy-seeded psi rows on the occupied slots, as phase 30
   seeds them);
+- the merge stage (`merge_images_to_grid` as the paths call it: the
+  checkout's merge kernel and the torch operations around it) on kernel
+  A's images of sand3@1M, fluids3 x4 (and its mass images), l_panel3,
+  materials3, elasticity2, l_panel2 and the fluids2 column (and its mass
+  images), and on the sparse P2G's images of sparse sand3@1M and the
+  block, each in its path's form (the gather or the scatter merge) with
+  its structure's plan and corner owners; both checkouts get the same
+  images, and the mass and 2D node tables are also held to this
+  checkout's plain version on the CPU;
 - kernel B (`g2p_fused`) on its slots, ints, window fields and corner map
   (and the structure's corner tables) on sand3@1M one frame in, fluids3 x4
   after its volume pass, materials3 and its failure form one frame in,
@@ -70,6 +79,25 @@ from sparkl_tpu_torch.sparse.blocks import BlockConfig
 # Kernel B reads the window fields at the corners itself, or takes the
 # windows that the checkout's gather forms from them.
 B_READS_FIELDS = "corners" in inspect.signature(K.g2p_fused).parameters
+# The merge stage takes the structure's cached corner owners, or builds its
+# inverse-corner table itself (and returns an overflow flag beside it).
+MERGE_OWNER = "owner" in inspect.signature(T.merge_images_to_grid).parameters
+
+
+def merge_call(grid, cfg, t, images):
+    """The checkout's merge stage (merge_images_to_grid, as its paths call
+    it) on the case's structure, plan (and owners) and `images`."""
+    structure = SimpleNamespace(**{k: v.cuda() for k, v in t["structure"].items()})
+    kw = dict(cell_order=T.ZMAJOR_ORDER_3D if t["zmajor"] else None,
+              force_scatter=t["scatter"], plan=(t["order"], t["starts"]))
+    if MERGE_OWNER:
+        kw["owner"] = t["owner"]
+
+    def fn():
+        out = T.merge_images_to_grid(grid, cfg, structure, images, **kw)
+        return out[0] if isinstance(out, tuple) else out
+
+    return fn
 
 
 def b_calls(grid, cfg, t):
@@ -118,6 +146,10 @@ for name in sorted(os.listdir(inputs)):
     }
     if "g2p_fused" in case["kernels"]:
         fns.update(b_calls(grid, cfg, t))
+    if "merge" in case["kernels"]:
+        fns["merge"] = merge_call(grid, cfg, t, t["merge_images"])
+    if "merge mass" in case["kernels"]:
+        fns["merge mass"] = merge_call(grid, cfg, t, t["merge_mass_images"])
     for kname in case["kernels"]:
         names = [kname] + (["gather + g2p_fused"] if "gather + g2p_fused" in fns
                            and kname == "g2p_fused" else [])
@@ -148,6 +180,7 @@ def write_inputs():
     import sparkl_tpu_torch.scenes as scenes
     from sparkl_tpu_torch.fused import kernels as K
     from sparkl_tpu_torch.fused.pipeline import FusedMpmPipeline
+    from sparkl_tpu_torch.sparse import transfer as T
     from sparkl_tpu_torch.sparse.pipeline import SparseMpmPipeline
 
     os.makedirs(INPUTS, exist_ok=True)
@@ -155,11 +188,34 @@ def write_inputs():
     def geometry(grid, cfg):
         return dict(grid=(grid.origin, grid.cell_width, grid.res), cfg=asdict(cfg))
 
-    def save(name, pipe, state, dt, kernels=("p2g_fused", "g2p_fused")):
+    def merge_inputs(structure, plan, owner, scatter, zmajor, **images):
+        # The merge stage's inputs: its structure's tables, plan and corner
+        # owners, the path's form and cell order, the images.
+        keys = ("nbr_index", "chunk_block", "block_first_chunk", "block_num_chunks",
+                "num_grid_blocks", "num_chunks")
+        out = dict(structure={k: getattr(structure, k).cpu() for k in keys
+                              if hasattr(structure, k)},
+                   order=plan[0].cpu(), starts=plan[1].cpu(), owner=owner.cpu(),
+                   scatter=scatter, zmajor=zmajor)
+        out.update({k: v.cpu() for k, v in images.items()})
+        return out
+
+    def save(name, pipe, state, dt, kernels=("p2g_fused", "g2p_fused", "merge")):
         case = dict(geometry(pipe.grid, pipe._cfg), kernels=list(kernels), meta=pipe._meta,
                     slots=state.slots.cpu(), ints=state.ints.cpu(),
                     nchunks=state.structure.num_chunks.cpu(), dt=dt, tab_f=pipe._tab_f.cpu(),
                     tab_i=pipe._tab_i.cpu())
+        if any(k.startswith("merge") for k in kernels):
+            # The merge stage on this checkout's kernel A's images (and the
+            # mass P2G's), in the path's form.
+            images = dict(merge_images=K.p2g_fused(
+                pipe.grid, pipe._cfg, pipe._meta, state.slots, state.ints, dt,
+                state.structure.num_chunks, (pipe._tab_f, pipe._tab_i)))
+            if "merge mass" in kernels:
+                images["merge_mass_images"] = K.mass_p2g_fused(
+                    pipe.grid, pipe._cfg, state.slots, state.ints, state.structure.num_chunks)
+            case.update(merge_inputs(state.structure, state.grid_cache[2], state.grid_cache[4],
+                                     pipe._merge_force_scatter, pipe.grid.dim == 3, **images))
         if "eigen_pool_fused" in kernels:
             e, _ = pipe._eigen_rows(state)
             cand, _ = pipe._eigen_candidates(state.structure)
@@ -178,7 +234,7 @@ def write_inputs():
         print(f"{name}: {int(state.structure.num_chunks)} live chunks, {pipe._cfg}, dt {dt:.3e}",
               flush=True)
 
-    def save_windows(name, grid, cfg, slot_data, path_psi, seed=5):
+    def save_windows(name, grid, cfg, slot_data, path_psi, merge_in, seed=5):
         # The form the path does not run: its psi rows dropped (with_psi
         # off), or seeded on the occupied slots as chip_smoke.check_windows
         # seeds them.
@@ -192,8 +248,11 @@ def write_inputs():
             sd_psi = slot_data.clone()
             sd_psi[:, row:row + 2] = (torch.from_numpy(noise.astype(np.float32)).to(
                 slot_data.device) * valid[:, None, :])
-        case = dict(geometry(grid, cfg), kernels=["p2g_windows", "p2g_windows psi"],
-                    slot_data=slot_data.cpu(), slot_data_psi=sd_psi.cpu(), path_psi=path_psi)
+        structure, images, plan = merge_in
+        case = dict(geometry(grid, cfg), kernels=["p2g_windows", "p2g_windows psi", "merge"],
+                    slot_data=slot_data.cpu(), slot_data_psi=sd_psi.cpu(), path_psi=path_psi,
+                    **merge_inputs(structure, plan, T.corner_owner(cfg, structure), True,
+                                   False, merge_images=images))
         torch.save(case, os.path.join(INPUTS, name + ".pt"))
         print(f"{name}: {slot_data.shape[0]} chunks, {cfg}, psi on the path {path_psi}",
               flush=True)
@@ -205,21 +264,21 @@ def write_inputs():
     del pipe, state
     spipe = SparseMpmPipeline(b.grid, b.models, b.colliders, b.params, b.gravity)
     p1, _ = spipe.step_with_stats(b.particles)
-    slot_data, _ = cs.capture_window_inputs(spipe, p1)
-    save_windows("sparse_sand3", b.grid, spipe._cfg, slot_data, False)
-    del b, spipe, p1, slot_data
+    slot_data, _, merge_in = cs.capture_window_inputs(spipe, p1, merge_in=True)
+    save_windows("sparse_sand3", b.grid, spipe._cfg, slot_data, False, merge_in)
+    del b, spipe, p1, slot_data, merge_in
 
     fb = cs.fluid_blob()
     pipe = FusedMpmPipeline(fb.grid, fb.models, fb.colliders, fb.params, fb.gravity)
     state = pipe._recompute_fluids(pipe.pack_state(fb.particles))
     save("fluid", pipe, state, float(pipe._min_dtb(state)),
-         ("p2g_fused", "mass_p2g_fused", "g2p_fused"))
+         ("p2g_fused", "mass_p2g_fused", "g2p_fused", "merge", "merge mass"))
     del fb, pipe, state
 
     pipe, state = cs.substep_state(cs.fluid2_block(), 3)
     state = pipe._recompute_fluids(state.replace(slots=state.slots.clone()))
     save("fluids2_block", pipe, state, float(pipe._min_dtb(state)),
-         ("mass_p2g_fused", "g2p_fused"))
+         ("mass_p2g_fused", "g2p_fused", "merge", "merge mass"))
     del pipe, state
 
     pipe, state = cs.material_state(cs.materials3())
@@ -231,7 +290,7 @@ def write_inputs():
     pipe, state = cs.substep_state(cs.l_panel3(load_speed=cs.LPANEL3_LOAD_SPEED),
                                    cs.LPANEL3_SUBSTEPS_IN)
     save("l_panel3", pipe, state, float(pipe._min_dtb(state)),
-         ("p2g_fused", "eigen_pool_fused", "g2p_fused"))
+         ("p2g_fused", "eigen_pool_fused", "g2p_fused", "merge"))
     pipe, state = cs.substep_state(cs.l_panel3("modified", load_speed=cs.LPANEL3_LOAD_SPEED),
                                    cs.LPANEL3_SUBSTEPS_IN)
     save("l_panel3_modified", pipe, state, float(pipe._min_dtb(state)), ("g2p_fused",))
@@ -243,26 +302,34 @@ def write_inputs():
     save("basic2", pipe, state, float(pipe._min_dtb(state)), ("g2p_fused",))
     pipe, state = cs.substep_state(cs.fracture_bundle(), cs.FRACTURE_SUBSTEPS_IN)
     save("l_panel2", pipe, state, float(pipe._min_dtb(state)),
-         ("p2g_fused", "eigen_pool_fused", "g2p_fused"))
+         ("p2g_fused", "eigen_pool_fused", "g2p_fused", "merge"))
     del pipe, state
 
     for name, bundle in (("block", cs.plastic_block()),
                          ("l_panel2_fine", cs.fracture_bundle(cs.FRACTURE_FINE_CELL))):
-        pipe, slot_data, _ = cs.sparse_inputs(bundle, 3)
-        save_windows(name, bundle.grid, pipe._cfg, slot_data, pipe._with_psi)
-        del pipe, slot_data
+        pipe, slot_data, _, merge_in = cs.sparse_inputs(bundle, 3, merge_in=True)
+        save_windows(name, bundle.grid, pipe._cfg, slot_data, pipe._with_psi, merge_in)
+        del pipe, slot_data, merge_in
     torch.cuda.empty_cache()
 
 
 def cpu_plain(name, kname):
     """The plain version on the CPU of a case's mass images or 2D window
-    images (which sum each cell in the kernels' order there), else None."""
+    images (which sum each cell in the kernels' order there), or of its
+    merge stage on mass or 2D images (this checkout's), else None."""
     from sparkl_tpu_torch.core.grid import GridParams
     from sparkl_tpu_torch.fused import kernels as K
     from sparkl_tpu_torch.ops import transfer_kernels as WK
 
     case = torch.load(os.path.join(INPUTS, name + ".pt"), weights_only=False)
     grid = GridParams(*case["grid"])
+    if kname == "merge mass" or (kname == "merge" and grid.dim == 2):
+        images = case["merge_mass_images" if kname == "merge mass" else "merge_images"]
+        if case["scatter"]:
+            return K.merge_scatter_plain(images, case["order"], case["starts"], case["zmajor"])
+        st = case["structure"]
+        return K.merge_blocks_plain(images, st["block_first_chunk"], st["block_num_chunks"],
+                                    case["owner"], case["zmajor"])
     if kname == "mass_p2g_fused":
         return K.mass_p2g_fused_reference(grid, case["slots"], case["ints"], case["nchunks"])
     if kname.startswith("p2g_windows") and grid.dim == 2:

@@ -9,9 +9,10 @@ full size with its load at LPANEL3_LOAD_SPEED (phase 23), materials3
 the two paths that carry the 3D scatter kernels of the fluid pass and the
 sparse pipeline: fluids3x4 (phase 10: 30 frames, the last 5 timed) and
 sparse sand3 (phase 7: sand3@1M on the sparse pipeline, 6 frames, the last
-2 timed). These two also profile one more frame each (torch.profiler, as
-chip_smoke.py does) and report its device busy ms beside the rate
-("... busy ms").
+2 timed). These two and fused sand3 also profile one more frame each
+(torch.profiler, as chip_smoke.py does) and report its device busy ms
+beside the rate ("... busy ms"), and the two fused ones its device
+operations a substep and its torch gathers' and scatters' device ms.
 The card's host sets most of these rates and differs between machines, so
 two trees are compared only within one call; against a copy of this
 checkout the same run measures how far the rates spread between
@@ -61,13 +62,23 @@ def sand3_fused():
         state, k = pipe.run_frames_state(state, 1)
         n += k
     torch.cuda.synchronize()
-    return int(b.particles.active.sum()) * n / (time.perf_counter() - t0)
+    rate = int(b.particles.active.sum()) * n / (time.perf_counter() - t0)
+    profiled("sand3 fused", pipe, state, "sand3_profile.txt", 4)
+    return rate
+
+
+def profiled(name, pipe, state, fname, phase):
+    """One more frame of a fused path under torch.profiler: its device busy
+    ms, device operations a substep and torch gathers' and scatters' ms."""
+    _, prof = cs.profile_frame(pipe, state, fname, phase, name)
+    busy[f"{name} busy ms"] = prof["busy_ms"]
+    busy[f"{name} device ops a substep"] = prof["device_ops"] / max(prof["substeps"], 1)
+    busy[f"{name} gathers ms"] = prof["split"].get("torch gathers and scatters", 0.0)
 
 
 def fluids3x4():
     pipe, _, state, _, res = cs.phase_fluid_main(cs.fluid_blob())
-    _, prof = cs.profile_frame(pipe, state, "fluid_profile.txt", 10, "fluid")
-    busy["fluids3x4 busy ms"] = prof["busy_ms"]
+    profiled("fluids3x4", pipe, state, "fluid_profile.txt", 10)
     return res["pups"]
 
 

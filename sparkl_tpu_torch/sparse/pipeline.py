@@ -191,8 +191,8 @@ class SparseMpmPipeline:
         images = T.p2g_images(grid, cfg, structure, p.position, p.mass,
                               torch.zeros_like(p.velocity), torch.zeros_like(p.velocity_gradient),
                               zero, zero, with_psi=True)
-        node, _ = T.merge_images_to_grid(grid, cfg, structure, images, force_scatter=True,
-                                         plan=plan)
+        node = T.merge_images_to_grid(grid, cfg, structure, images, force_scatter=True,
+                                      plan=plan)
         mass_g = node.reshape(cfg.max_grid_blocks + 1, dim + 3, cpb)[:, 0, :]
         # Gathered through the psi channel of the window machinery.
         win_fields = torch.cat([mass_g.new_zeros((cfg.max_grid_blocks + 1, dim, cpb)),
@@ -240,8 +240,8 @@ class SparseMpmPipeline:
                                    psi_mom_p)
         slot_data = K.gather_slot_data(cfg, structure, packed)
         images = K.p2g_windows(grid, cfg, slot_data, with_psi=with_psi)
-        node, _ = T.merge_images_to_grid(grid, cfg, structure, images, force_scatter=True,
-                                         plan=plan)
+        node = T.merge_images_to_grid(grid, cfg, structure, images, force_scatter=True,
+                                      plan=plan)
         node = node.reshape(cfg.max_grid_blocks + 1, nf, cpb)
         mass = node[:, 0, :]
         mom = node[:, 1 : 1 + dim, :].transpose(1, 2)  # [MGB+1, cpb, d]

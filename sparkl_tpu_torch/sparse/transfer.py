@@ -2,12 +2,12 @@
 
 A chunk's window image covers the 8^d cells of its owner block and the
 2^d - 1 upper corner blocks. merge_images_to_grid sums images into the
-block node table [MAX_GRID_BLOCKS + 1, F * 4^d] (last row = trash);
-gather_grid_windows is its inverse read. The per-owner-block segment sum is
-the merge kernel (fused/kernels.merge_blocks); the index reorders and the
-2^d inverse-corner gather stay torch indexing, as the JAX caller keeps them
-(transfer.py:284-297). The scatter form of the merge sums each node-table
-row's updates in a fixed order (fused/kernels.merge_scatter).
+block node table [MAX_GRID_BLOCKS + 1, F * 4^d] (last row = trash) with one
+of the two merge kernels, which read the images as the P2G kernels wrote
+them and write each node row once (fused/kernels.merge_blocks, the
+per-owner-block segment sums and the 2^d inverse-corner gather of the JAX
+package's _merge_gather; fused/kernels.merge_scatter, each node row's
+updates in a fixed order); gather_grid_windows is its inverse read.
 
 p2g_images and g2p_from_windows are the JAX package's einsum form of the
 window transfers: per group of chunks, the dense [C, 8^d] tensor-product
@@ -257,76 +257,50 @@ def scatter_plan(cfg, structure):
     return order.to(torch.int32), starts.to(torch.int32)
 
 
-def _merge_scatter(cfg, structure, rows, nf, cpb, ncorners, plan=None):
-    """Duplicate-index row scatter-add: the block-sparse pipeline's merge,
-    and the fused pipeline's fallback for blocks denser than MERGE_KMAX
-    chunks. Each node-table row is the sum of its updates in ascending
-    flat (chunk, corner) order from zero, the order of the JAX package's
-    CPU scatter (`.at[dest].add`), so it is deterministic and bit-equal to
-    it on every row but the trash row (zero here; scatter_plan); the sum is
-    the merge_scatter kernel (fused/kernels.py)."""
-    from sparkl_tpu_torch.fused import kernels as FK
-
-    order, starts = scatter_plan(cfg, structure) if plan is None else plan
-    return FK.merge_scatter(rows.reshape(cfg.max_chunks * ncorners, nf * cpb), order, starts)
-
-
-def _merge_gather(cfg, structure, rows, nf, cpb, ncorners):
-    """Per-owner-block segment sum over the contiguous chunk range (the
-    merge kernel), then the 2^d inverse-corner gather into the node table.
-    corner_owner inverts nbr_index; it is unique per (g, k) except on the
-    trash row, which the caller zeroes."""
-    from sparkl_tpu_torch.fused import kernels as FK
-
-    dev = rows.device
-    blk = FK.merge_blocks(
-        rows.reshape(cfg.max_chunks, ncorners, nf * cpb),
-        structure.block_first_chunk, structure.block_num_chunks,
-    )
-    blk = torch.cat(
-        [blk, torch.zeros((1, ncorners, nf * cpb), dtype=blk.dtype, device=dev)], 0
-    )  # pad row cfg.max_blocks = zero
-
-    nbr = structure.nbr_index.long()  # [MB + 1, 2^d]
-    co = torch.full((cfg.max_grid_blocks + 1, ncorners), cfg.max_blocks,
-                    dtype=torch.long, device=dev)
-    bidx = torch.clamp(torch.arange(nbr.shape[0], device=dev), max=cfg.max_blocks)
+def corner_owner(cfg: BlockConfig, structure):
+    """[MAX_GRID_BLOCKS + 1, 2^d] i32: the owner block of corner k of each
+    node-table row (max_blocks where none), the inverse of nbr_index, as
+    the JAX package's _merge_gather builds it (`co`). Unique per (g, k)
+    except on the trash row, which the merges zero. Built once per
+    structure (the fused pipeline's grid cache)."""
+    nbr = structure.nbr_index.long()  # [MB (+ 1), 2^d]
+    dev = nbr.device
+    ncorners = nbr.shape[1]
+    co = torch.full((cfg.max_grid_blocks + 1, ncorners), cfg.max_blocks, dtype=torch.int32,
+                    device=dev)
+    bidx = torch.clamp(torch.arange(nbr.shape[0], dtype=torch.int32, device=dev),
+                       max=cfg.max_blocks)
     kidx = torch.arange(ncorners, device=dev)
     co[nbr, kidx[None, :].expand_as(nbr)] = bidx[:, None].expand_as(nbr)
-
-    out = torch.zeros((cfg.max_grid_blocks + 1, nf * cpb), dtype=torch.float32, device=dev)
-    for k in range(ncorners):
-        out = out + blk[co[:, k], k]
-    return out
+    return co
 
 
 def merge_images_to_grid(grid: GridParams, cfg: BlockConfig, structure, images,
-                         cell_order=None, force_scatter=False, plan=None):
-    """images [D, F, 8^d] -> (node table [MAX_GRID_BLOCKS + 1, F * 4^d],
-    overflow [] bool). The segment-sum form always runs unless
-    `force_scatter`; `overflow` flags a block denser than MERGE_KMAX chunks,
-    whose sum the segment form truncated (the caller discards the span and
-    retries with the scatter pinned). cell_order: ZMAJOR_ORDER_3D for the
-    fused 3D kernels' image layout, or None for row-major. plan: the
-    structure's scatter_plan, if the caller keeps one."""
-    dim = grid.dim
-    nf = images.shape[1]
-    cpb = cells_per_block(dim)
-    ncorners = 2**dim
+                         cell_order=None, force_scatter=False, plan=None, owner=None):
+    """images [D, F, 8^d] -> the node table [MAX_GRID_BLOCKS + 1, F * 4^d]
+    (the trash row, the last, zero), in one kernel launch on the card. The
+    gather form (per-owner-block segment sums, then the 2^d owners of each
+    node row in corner order; fused/kernels.merge_blocks) runs unless
+    `force_scatter` (each row's updates in ascending flat (chunk, corner)
+    order; fused/kernels.merge_scatter). The gather form cuts a block
+    denser than MERGE_KMAX chunks; its caller checks for one (the fused
+    pipeline at each resort and span start) and pins the scatter form.
+    cell_order: ZMAJOR_ORDER_3D for the fused 3D kernels' image layout, or
+    None for row-major. plan / owner: the structure's scatter_plan /
+    corner_owner, if the caller keeps them (built here otherwise)."""
+    from sparkl_tpu_torch.fused import kernels as FK
+
     if cell_order is not None and cell_order is not ZMAJOR_ORDER_3D:
         raise NotImplementedError("cell_order must be None or ZMAJOR_ORDER_3D")
-    comb = _merge_comb(dim, nf, cell_order is not None, images.device)
-    rows = images.reshape(cfg.max_chunks, -1)[:, comb].reshape(
-        cfg.max_chunks, ncorners, nf, cpb
-    )
+    zmajor = cell_order is not None
     if force_scatter:
-        ovf = torch.zeros((), dtype=torch.bool, device=images.device)
-        out = _merge_scatter(cfg, structure, rows, nf, cpb, ncorners, plan)
-    else:
-        ovf = torch.max(structure.block_num_chunks) > MERGE_KMAX
-        out = _merge_gather(cfg, structure, rows, nf, cpb, ncorners)
-    out[cfg.max_grid_blocks] = 0.0  # trash block
-    return out, ovf
+        order, starts = scatter_plan(cfg, structure) if plan is None else plan
+        return FK.merge_scatter(images, order, starts, structure.num_grid_blocks, zmajor)
+    return FK.merge_blocks(
+        images, structure.block_first_chunk, structure.block_num_chunks,
+        corner_owner(cfg, structure) if owner is None else owner, structure.num_grid_blocks,
+        zmajor,
+    )
 
 
 def gather_grid_windows(grid: GridParams, cfg: BlockConfig, structure, node_fields,

@@ -1,6 +1,6 @@
 """The port's fluid path on the CPU (plain kernel versions) against the JAX
-package: the deterministic scatter merge bit-equal to the JAX package's
-scatter-add, the EOS model functions, the mass kernels, kernels A and B on
+package: the deterministic scatter merge on window images bit-equal to the
+JAX package's scatter-add, the EOS model functions, the mass kernels, kernels A and B on
 an all-fluid and a mixed corotated + EOS model set, the fluid volume pass,
 one frame of a fluid blob through both fused pipelines, and a replay of the
 fluids3 golden's first frames.
@@ -131,13 +131,15 @@ def _occupied(js):
 
 
 def test_scatter_merge_bit_equal_to_jax_scatter_add():
-    """The scatter merge's plain version against the JAX package's
-    `.at[dest].add` (sparkl_tpu/sparse/transfer.py:_merge_scatter) on
-    numpy-seeded rows over fluids3's packed structure, whose blocks hold 32
-    chunks (past MERGE_KMAX = 8), for the image width (nf = 4) and the mass
-    width (nf = 1): bit-equal, both summing each row in ascending update
-    order from zero. Dead chunks' rows are zero, as kernel A and the mass
-    kernel write them; the trash row, which the merge zeroes, is left out."""
+    """The scatter merge's plain version on z-major window images (the
+    cell permutation, then each row's updates in order) against the JAX
+    package's `.at[dest].add` (sparkl_tpu/sparse/transfer.py:_merge_scatter)
+    on the same images' (chunk, corner) rows over fluids3's packed
+    structure, whose blocks hold 32 chunks (past MERGE_KMAX = 8), for the
+    image width (nf = 4) and the mass width (nf = 1): bit-equal, both
+    summing each row in ascending update order from zero. Dead chunks'
+    images are zero, as kernel A and the mass kernel write them; the trash
+    row, which the merge zeroes, is left out."""
     b = tscenes.build("fluids3", device="cpu")
     pipe = FusedMpmPipeline(b.grid, b.models, b.colliders, b.params, b.gravity, device="cpu")
     st = pipe.pack_state(b.particles).structure
@@ -148,11 +150,13 @@ def test_scatter_merge_bit_equal_to_jax_scatter_add():
     rng = np.random.default_rng(17)
     plan = TT.scatter_plan(cfg, st)
     for nf in (4, 1):
-        rows = rng.normal(size=(cfg.max_chunks, 8, nf, 64)).astype(np.float32)
-        rows[int(st.num_chunks):] = 0.0
+        images = rng.normal(size=(cfg.max_chunks, nf, 512)).astype(np.float32)
+        images[int(st.num_chunks):] = 0.0
+        comb = TT._merge_comb(3, nf, True, torch.device("cpu")).numpy()
+        rows = images.reshape(cfg.max_chunks, -1)[:, comb].reshape(cfg.max_chunks, 8, nf, 64)
         out_j = np.asarray(JT._merge_scatter(cfg, jst, jnp.asarray(rows), nf, 64, 8))
         TK.reset_launch_counts()
-        out_t = TT._merge_scatter(cfg, st, torch.tensor(rows), nf, 64, 8, plan).numpy()
+        out_t = TK.merge_scatter(torch.tensor(images), *plan, st.num_grid_blocks, True).numpy()
         assert TK.LAUNCHES["merge_scatter"] == 0
         np.testing.assert_array_equal(out_t[:-1], out_j[:-1])
         assert not out_t[-1].any()

@@ -1,5 +1,6 @@
 """The plain versions of the port's five kernels against the JAX package's
-Pallas kernels in interpret mode (p2g_fused, merge_blocks_dma, g2p_fused,
+Pallas kernels in interpret mode (p2g_fused, merge_blocks_dma with the
+inverse-corner gather after it, g2p_fused,
 src_rows_from_order, and permute_chunks_dma for the port's permute_slots),
 on sand3 at nx=12, ny=6, nz=6 with an explicit small BlockConfig; plus the
 wrappers' CPU routing, launch counting and argument checks.
@@ -92,16 +93,39 @@ def test_p2g_fused_reference_matches_pallas(state):
 
 
 def test_merge_blocks_reference_bit_equal_to_pallas(state):
+    """The gather-form merge on z-major window images (merge_blocks' plain
+    version: the cell permutation, the segment sums, the inverse-corner
+    gather) against the JAX package's Pallas merge_blocks_dma in interpret
+    mode on the same images' (chunk, corner) rows, then its inverse-corner
+    gather (sparkl_tpu/sparse/transfer.py:_merge_gather), over the JAX
+    package's own packed structure: bit-equal on every row but the trash
+    row, which the port zeroes."""
     _, pipe, js, t = state
+    cfg = BlockConfig(**CFG)
     rng = np.random.default_rng(8)
-    rows = rng.normal(size=(CFG["max_chunks"], 8, 256)).astype(np.float32)
-    out_j = np.asarray(JK.merge_blocks_dma(
-        pipe._cfg, jnp.asarray(rows), js.structure.block_first_chunk,
-        js.structure.block_num_chunks, 8, interpret=True,
+    images = rng.normal(size=(CFG["max_chunks"], 4, 512)).astype(np.float32)
+    images[int(t["nchunks"]):] = 0.0
+    jst = js.structure
+    comb = TT._merge_comb(3, 4, True, torch.device("cpu")).numpy()
+    rows = images.reshape(CFG["max_chunks"], -1)[:, comb].reshape(CFG["max_chunks"], 8, 256)
+    blk = np.asarray(JK.merge_blocks_dma(
+        pipe._cfg, jnp.asarray(rows), jst.block_first_chunk, jst.block_num_chunks, 8,
+        interpret=True,
     ))
-    out_t = TK.merge_blocks(torch.tensor(rows), t["first"], t["nblk"]).numpy()
-    # Both sum each block's chunk rows in ascending order from zero.
-    np.testing.assert_array_equal(out_t, out_j)
+    blk = np.concatenate([blk, np.zeros((1, 8, 256), np.float32)])
+    structure = SimpleNamespace(nbr_index=torch.tensor(np.asarray(jst.nbr_index)))
+    owner = TT.corner_owner(cfg, structure)
+    out_j = np.zeros((CFG["max_grid_blocks"] + 1, 256), np.float32)
+    for k in range(8):
+        out_j = out_j + blk[owner[:, k].numpy(), k]
+    TK.reset_launch_counts()
+    out_t = TK.merge_blocks(torch.tensor(images), t["first"], t["nblk"], owner,
+                            torch.tensor(np.asarray(jst.num_grid_blocks)), True).numpy()
+    assert TK.LAUNCHES["merge_blocks"] == 0
+    # Both sum each block's chunk rows in ascending order from zero, then
+    # the corners in ascending order from zero.
+    np.testing.assert_array_equal(out_t[:-1], out_j[:-1])
+    assert not out_t[-1].any() and np.abs(out_t).max() > 0
     assert int(t["nblk"].max()) > 1  # some block sums several chunks
 
 
@@ -295,8 +319,15 @@ def test_wrappers_check_arguments(state):
         TK.p2g_fused(b.grid, cfg, t["meta"], t["slots"].double(), t["ints"], DT, t["nchunks"])
     with pytest.raises(TypeError):
         TK.p2g_fused(b.grid, cfg, t["meta"], t["slots"], t["ints"].long(), DT, t["nchunks"])
+    owner = torch.zeros(CFG["max_grid_blocks"] + 1, 8, dtype=torch.int32)
+    ngb = torch.zeros((), dtype=torch.int32)
+    images = torch.zeros(CFG["max_chunks"], 4, 512)
     with pytest.raises(ValueError):
-        TK.merge_blocks(t["slots"][:, :8, :].contiguous(), t["first"][:-1], t["nblk"])
+        TK.merge_blocks(images, t["first"][:-1], t["nblk"], owner, ngb, True)
+    with pytest.raises(ValueError):  # z-major cells only in 3D
+        TK.merge_scatter(torch.zeros(CFG["max_chunks"], 4, 64), torch.zeros(
+            CFG["max_chunks"] * 4, dtype=torch.int32), torch.zeros(
+            CFG["max_grid_blocks"] + 2, dtype=torch.int32), ngb, True)
     # The 3D cache-off form is carried, and forms the stress from the
     # model tables; CD-MPM and an unknown plastic type are not carried (3D
     # Rankine and NACC are, since the material slice).
@@ -312,8 +343,8 @@ def test_wrappers_check_arguments(state):
                      t["slots"], t["ints"], torch.zeros(CFG["max_grid_blocks"] + 1, 3 * 64),
                      t["corners"], DT, t["tab_f"], t["tab_i"], t["nchunks"])
     with pytest.raises(NotImplementedError):
-        TK.merge_blocks(t["slots"][:, :8, :].contiguous().to("meta"),
-                        t["first"].to("meta"), t["nblk"].to("meta"))
+        TK.merge_blocks(images.to("meta"), t["first"].to("meta"), t["nblk"].to("meta"),
+                        owner.to("meta"), ngb.to("meta"), True)
     d_ = CFG["max_chunks"]
     with pytest.raises(TypeError):
         TK.src_rows_from_order(torch.zeros(d_, 2, 128, dtype=torch.int64),
