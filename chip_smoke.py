@@ -10,8 +10,11 @@ star on a 2D heightfield, the stress cache off), its 2D fluid path
 (fluids2: a Monaghan EOS dam break between cuboid walls, with fluid
 volume recomputation), its 3D fracture path (l_panel3: l_panel2's two
 damage mechanisms in a 3D slab of 600,000 particles, built here by
-`l_panel3`; also under modified eigenerosion, and l_panel2 under it) and
-its material paths (materials3: sand3@1M's lattices under neo-Hookean +
+`l_panel3`; also under modified eigenerosion, and l_panel2 under it),
+its two other 3D reference scenes (cube_through_sand3, a kinematic block
+driven through sand, and sand_penetration3, sand dropped through four
+heightfields, on the fused and the sparse pipeline), its material paths
+(materials3: sand3@1M's lattices under neo-Hookean +
 NACC, Rankine, Snow, Drucker-Prager and neo-Hookean alone; materials2:
 the 2D block under neo-Hookean + NACC, neo-Hookean and Rankine; both built
 here, and their failure forms with the stress cache off), and the
@@ -210,15 +213,36 @@ Phases (one line each, longer logs under chiprun_out/):
      then both probes' main(), which print the scripts' tables (their
      launches are the kernels' counts); plain and library times, bounds,
      and each chain instance's registers and spill from ptxas;
- 34. a JSON line of per-kernel results (the 2D fluid forms of kernels A
+ 34. cube_through_sand3 (265,625 particles, a kinematic 25^3 block at
+     10 m/s through sand) and sand_penetration3 (250,000, four
+     heightfields, three rotated) as published, each on the fused main
+     path: scenes.build -> auto_pipeline -> pack_state -> 15 frames of
+     run_frames_state -> unpack_state, launch counts against the substeps
+     and the resorts by branch, per frame the resorts and mass, the
+     kinematic block against its exact advance, particle-updates/s over
+     the last 3 frames; the resort kernels on the path's own resorts and on
+     the state its first resort started from (with the source chunks a
+     destination draws from, and that resort card against CPU); kernels A,
+     B and the merge on the state that resort left; each field's node
+     projections card against CPU, ties counted; one profiled frame
+     (<scene>_profile.txt in the output directory);
+ 35. each of the two on the sparse path: the window kernels and the
+     scatter merge against their plain versions one frame in, then 3
+     frames with launches and mass, one profiled
+     (<scene>_sparse_profile.txt);
+ 36. each at the golden's size, 3 substeps on the card against the port's
+     CPU path at the card's dts (test_fused's tolerances, the kinematic
+     block bit-equal), and the card run twice, bit-equal;
+ 37. a JSON line of per-kernel results (the 2D fluid forms of kernels A
      and B and the mass kernels under "fluids2"; the 3D damage forms of A,
      B, the pooling and its box kernel under "l_panel3", B's crack-energy trip under
      "l_panel3-modified" and "l_panel2-modified"; A and B's material forms
      under "materials3", "materials3-failure", "materials2" and
      "materials2-failure"; the window kernels' 2D forms under "sparse2d"
      and "sparse2d-psi"; the probes' kinds, R and layouts under their own
-     labels), the card's nvidia-smi line, and the final {"ok": true,
-     "device": ...} line.
+     labels; the two scenes' forms under their names, and their sparse
+     paths' under "<scene>-sparse"), the card's nvidia-smi line, and the
+     final {"ok": true, "device": ...} line.
 
 Each kernel's bound_ms is the least time the card could take for its work
 at this run's shapes: the larger of the bytes it must move (each input read
@@ -276,13 +300,13 @@ PATH_OF.update(p2g_windows="sparse", g2p_windows="sparse", mass_p2g_fused="fluid
 # permute_chunks is on no path: no path of the JAX package calls it (its
 # one caller is tests/test_lowering.py), and the port's resort permutes with
 # permute_slots. Its launches are those of its checks on the resorts of
-# phases 5 and 12.
+# phases 5, 12 and 34.
 # The probes (phase 33) are the TPU probe scripts' kernels: microbenchmarks
 # on no path, whose launches are those of their sweeps.
 PROBES = ("vreg_chain", "layout_read", "layout_rw")
 NO_PATH = {"permute_chunks": "none: no path of the JAX package calls it (its only caller is "
                              "tests/test_lowering.py:100); launches from its checks on the "
-                             "phase 5 and 12 resorts (a graph of the device timer counts its "
+                             "phase 5, 12 and 34 resorts (a graph of the device timer counts its "
                              "captured calls, not its replays)",
            **dict.fromkeys(PROBES, "none: a microbenchmark; launches from its sweep "
                                    "(phase 33)")}
@@ -413,6 +437,20 @@ MATERIALS_DX, MATERIALS_DV, MATERIALS_DF, MATERIALS_DA = 1e-6, 1e-4, 1e-5, 1e-5
 # alike), and per 3D NACC, Rankine or Snow lane one more cardano SVD and
 # the map (logs, exps, the rebuild of F).
 NH_SLOT_FLOPS, MAT_MAP3_FLOPS = 80, 450
+# cube_through_sand3 and sand_penetration3 at their published sizes
+# (phases 34-36): frames of the fused main path (the last timed), frames of
+# the sparse path (the last timed), single substeps of the reduced forms
+# (the goldens' sizes) card against CPU with tests/test_fused.py::_compare's
+# bounds, and the distance past which a node's projection on the card
+# counts as another point than the CPU's (then it must be a tie: as near
+# the node in float64, rtol 1e-6); 2 ulps at the fields' |x| <= 22 m.
+SCENES3 = ("cube_through_sand3", "sand_penetration3")
+SCENE3_FRAMES, SCENE3_TIMED = 15, 3
+SCENE3_SPARSE_FRAMES, SCENE3_SPARSE_TIMED = 3, 1
+SCENE3_AGREE_SUBSTEPS = 3
+SCENE3_DX, SCENE3_DV, SCENE3_DF = 5e-5, 5e-4, 5e-4
+GOLDEN3 = dict(nx=12, ny=6, nz=6)
+PROJ_ATOL = 4e-6
 # The probes (phase 33): the exp chain may differ from its plain version by
 # this many f32 ulps. The kernel's expf is CUDA's, built here with
 # -fmad=false, torch.exp on the card CUDA's in PyTorch's own build, so the
@@ -642,9 +680,10 @@ def g2p_errors(out_k, out_p, ints, cparams, cell_width, skip_dtb=None, skip_rows
     return out
 
 
-def phase_kernels(pipe, state, dt):
-    """Each kernel against its plain version on the main path's tensors.
-    Returns {name: {max_abs_err, ms, plain_ms}}."""
+def phase_kernels(pipe, state, dt, phase=3, label="sand3@1M"):
+    """Each kernel against its plain version on the main path's tensors
+    (`label`: the path's scene). Returns {name: {max_abs_err, ms,
+    plain_ms}}."""
     import torch
     from sparkl_tpu_torch.fused import kernels as K
     from sparkl_tpu_torch.fused import layout as L
@@ -663,14 +702,14 @@ def phase_kernels(pipe, state, dt):
     err = (img_k - img_p).abs().max().item()
     per_ch = p2g_errors(img_k, img_p)
     res["p2g_fused"] = dict(max_abs_err=err)
-    say(3, f"p2g_fused images {tuple(img_k.shape)}: max|err| {err:.3e}; per channel "
+    say(phase, f"p2g_fused images {tuple(img_k.shape)}: max|err| {err:.3e}; per channel "
            f"max|err|/bound {[f'{m:.2e}' for m, _ in per_ch]} (pass <= 1)")
     failures = []
     if not (all(m <= 1.0 for m, _ in per_ch) and torch.isfinite(img_k).all().item()):
         failures.append("p2g_fused disagrees with its plain version")
     # The cache read: every channel bit-equal to the plain version on the CPU.
     res["p2g_fused"]["cpu"] = p2g_cpu_bits(grid, pipe._meta, state.slots, state.ints, dt,
-                                           nchunks, tables, img_k, "sand3@1M", 3)
+                                           nchunks, tables, img_k, label, phase)
     res["p2g_fused"]["hits_per_cta"] = a_hits(grid, state)
     res["p2g_fused"]["ms"] = median_ms(
         lambda: K.p2g_fused(grid, cfg, pipe._meta, state.slots, state.ints, dt, nchunks,
@@ -684,14 +723,14 @@ def phase_kernels(pipe, state, dt):
     # gather form and in the scatter form (the fluid and sparse paths').
     # (Its launches counted under torch.profiler after phase 4's profiled
     # frame: a profiler session slows the host, and phase 4 times the path.)
-    res["merge_blocks"] = check_merge(grid, cfg, state.structure, img_k, True, False, 3,
-                                      "sand3@1M", owner=state.grid_cache[4], profiled=False)
-    res["merge_scatter"] = check_merge(grid, cfg, state.structure, img_k, True, True, 3,
-                                       "sand3@1M", plan=state.grid_cache[2], profiled=False)
+    res["merge_blocks"] = check_merge(grid, cfg, state.structure, img_k, True, False, phase,
+                                      label, owner=state.grid_cache[4], profiled=False)
+    res["merge_scatter"] = check_merge(grid, cfg, state.structure, img_k, True, True, phase,
+                                       label, plan=state.grid_cache[2], profiled=False)
     require(not failures, "; ".join(failures))
 
     # Kernel B, on the window fields the main path computes from these images.
-    res["g2p_fused"], (slots_in, fc, args) = check_g2p(pipe, state, dt, "one frame", 3)
+    res["g2p_fused"], (slots_in, fc, args) = check_g2p(pipe, state, dt, "one frame", phase)
     scratch = slots_in.clone()
 
     def b_call():
@@ -718,7 +757,7 @@ def phase_kernels(pipe, state, dt):
         v.setdefault("library_ms", None)
         hits = (f"; hits per CTA mean {v['hits_per_cta'][0]:.1f}, max {v['hits_per_cta'][1]}"
                 if "hits_per_cta" in v else "")
-        say(3, f"{name}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, library "
+        say(phase, f"{name}: kernel {v['ms']:.3f} ms, plain {v['plain_ms']:.3f} ms, library "
                f"{v['library_ms']} ms (batched medians); {traffic[name] / 1e9:.4f} GB counted from "
                f"shapes = {traffic[name] / v['ms'] / 1e6:.1f} GB/s; bound {v['bound_ms']:.4f} ms "
                f"({v['bound_by']}){split_text(v)}{hits}{former_bound_text(v)}")
@@ -4801,6 +4840,290 @@ def phase_probes(log, phase=33):
     }
 
 
+def kinematic_advance(x, dts):
+    """The kinematic block's x after substeps of `dts` at 10 m/s, as kernel
+    B forms it (no FMA): x + f32(10·dt) per substep, in f32 on x's device."""
+    import numpy as np
+    import torch
+
+    for dt in dts:
+        step = np.float32(10.0) * np.float32(dt)
+        x = x + torch.tensor(step, dtype=torch.float32, device=x.device)
+    return x
+
+
+def phase_scene3_main(name, phase=34):
+    """`name` (cube_through_sand3 or sand_penetration3) at its published
+    size on the fused main path: scenes.build -> auto_pipeline ->
+    pack_state -> SCENE3_FRAMES frames of run_frames_state (the last
+    SCENE3_TIMED timed, each frame clocked alone) -> unpack_state. Held:
+    the launch counts against the substeps run and the resorts by branch;
+    per frame the substeps, the resorts and the mass (to 1e-6); after
+    every frame the kinematic block (cube_through_sand3) against its exact
+    advance, x + f32(10·dt) per substep at the dts the path took, y, z and
+    its velocity unchanged, bit for bit; the resort kernels on the path's
+    own resorts against their plain versions (ResortSpy) and on the state
+    the first resort started from (phase_resort, with the source chunks a
+    destination draws from); kernels A, B and the merge against their plain
+    versions on the state that resort left (on the landed state where the
+    path took no resort: sand_penetration3's sand may rest on its fields);
+    each field's node projections on the card against the CPU's; one
+    profiled frame. Returns (the pipeline, the final state, the launches,
+    results)."""
+    import numpy as np
+    import torch
+    import sparkl_tpu_torch as sk
+    import sparkl_tpu_torch.scenes as scenes
+    from sparkl_tpu_torch.fused import kernels as K
+    from sparkl_tpu_torch.fused import layout as L
+
+    t0 = time.perf_counter()
+    b = scenes.build(name)
+    act0 = b.particles.active
+    kin = b.particles.kinematic_enabled & act0
+    n_active, n_kin = int(act0.sum()), int(kin.sum())
+    pipe = sk.auto_pipeline(b)
+    require(isinstance(pipe, sk.FusedMpmPipeline), f"{name}: not the fused pipeline")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = pipe.pack_state(b.particles)
+    say(phase, f"{name}: {n_active} particles ({n_kin} kinematic), {len(b.colliders)} "
+               f"heightfields, grid {b.grid.res}, {pipe._cfg}, set-up "
+               f"{time.perf_counter() - t0:.1f} s")
+    mass0 = b.particles.mass[act0].double().sum().item()
+    kin_pos = b.particles.position[kin]
+    dts = []
+    substep = pipe._substep
+
+    def counted(st, dt):
+        dts.append(dt)
+        return substep(st, dt)
+
+    kept = {}
+    resort = L.resort
+
+    def keep_first(grid, cfg, st, dim, cache_fn=None):
+        first = "pre" not in kept
+        if first:
+            kept["pre"] = st.replace(slots=st.slots.clone(), ints=st.ints.clone())
+        out = resort(grid, cfg, st, dim, cache_fn=cache_fn)
+        if first:
+            kept["post"] = out[0].replace(slots=out[0].slots.clone(), ints=out[0].ints.clone())
+        return out
+
+    pipe._substep, L.resort = counted, keep_first
+    K.reset_launch_counts()
+    substeps = resorts = timed = 0
+    seconds, worst_kin = 0.0, 0.0
+    frames = []
+    spy = ResortSpy()
+    try:
+        for i in range(SCENE3_FRAMES):
+            clock = i >= SCENE3_FRAMES - SCENE3_TIMED
+            ran0 = len(dts)
+            if clock:
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                state, n = pipe.run_frames_state(state, 1)
+                torch.cuda.synchronize()
+                seconds += time.perf_counter() - t1
+                timed += n
+            else:
+                with spy:
+                    state, n = pipe.run_frames_state(state, 1)
+            substeps += n
+            resorts += pipe.last_resorts
+            p = pipe.unpack_state(state)
+            mass = p.mass[p.active].double().sum().item()
+            fr = dict(frame=i, substeps=n, run=len(dts) - ran0, resorts=pipe.last_resorts,
+                      mass=mass)
+            require(abs(mass - mass0) <= 1e-6 * mass0, f"{name} frame {i}: mass {mass} "
+                                                       f"against {mass0}")
+            if n_kin:
+                # A retried span re-runs the frame: its last n dts are the kept ones.
+                want = kinematic_advance(kin_pos[:, 0], dts[len(dts) - n:])
+                got = p.position[kin]
+                err = (got[:, 0] - want).abs().max().item()
+                worst_kin = max(worst_kin, err)
+                fr["block_x"] = got[:, 0].mean().item()
+                require(torch.equal(got[:, 0], want) and torch.equal(got[:, 1:], kin_pos[:, 1:])
+                        and bool((p.velocity[kin] == torch.tensor(
+                            [10.0, 0.0, 0.0], device=got.device)).all()),
+                        f"{name} frame {i}: the kinematic block is off its exact advance "
+                        f"(max|dx| {err:.3e})")
+                kin_pos = got
+            frames.append(fr)
+    finally:
+        pipe._substep, L.resort = substep, resort
+    ran = len(dts)
+    launches = dict(K.LAUNCHES)
+    branches = dict(pipe.resort_branches)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    p = pipe.unpack_state(state)
+    act = p.active
+    pups = n_active * timed / seconds
+    for fr in frames:
+        say(phase, f"{name} frame {fr['frame']}: " + ", ".join(
+            f"{k} {v}" for k, v in fr.items() if k != "frame"))
+    per_frame = [fr["resorts"] for fr in frames]
+    say(phase, f"{name} path, {SCENE3_FRAMES} frames: {substeps} substeps "
+               f"({substeps / SCENE3_FRAMES:.1f} per frame), {ran} run, {resorts} resorts "
+               f"{branches} ({resorts / SCENE3_FRAMES:.2f} per frame, at most {max(per_frame)}); "
+               f"last {SCENE3_TIMED} frames {timed} substeps in {seconds:.3f} s = {pups:.4g} "
+               f"particle-updates/s; scatter merge pinned {pipe._merge_force_scatter}; peak "
+               f"memory {peak_gib:.2f} GiB; launches {launches}")
+    require(bool(torch.isfinite(p.position[act]).all()), f"{name} path: non-finite positions")
+    taken = sum(branches.values())
+    require(taken >= resorts and ran >= substeps, f"{name}: {taken} resorts taken for "
+                                                  f"{resorts} kept, {ran} substeps for {substeps}")
+    # A, B and one merge per substep run (retried spans included); the
+    # source-row kernel on every resort that rebuilds, the permute on every
+    # mixed one; nothing else.
+    expect = dict.fromkeys(K.LAUNCHES, 0)
+    expect.update(p2g_fused=ran, g2p_fused=ran, src_rows_from_order=taken - branches["relabel"],
+                  permute_slots=branches["mixed"], merge_blocks=launches["merge_blocks"],
+                  merge_scatter=launches["merge_scatter"])
+    require(launches == expect and launches["merge_blocks"] + launches["merge_scatter"] == ran,
+            f"{name} path launch counts {launches}, expected {expect} (one merge a substep)")
+    # The block's drift passes the resort trigger about once a frame.
+    require(resorts >= 1 or not n_kin, f"{name}: the path took no resort")
+    res = dict(particles=n_active, kinematic=n_kin, substeps=substeps, substeps_run=ran,
+               resorts=resorts, branches=branches, resorts_per_frame=per_frame,
+               timed_substeps=timed, seconds=seconds, pups=pups, peak_gib=peak_gib,
+               scatter_pinned=pipe._merge_force_scatter, frames=frames, config=str(pipe._cfg),
+               kinematic_max_abs_err=worst_kin if n_kin else None)
+    res["resort_spy"] = spy.check(phase, name)
+    if "pre" in kept:
+        res["kernels"], res["resort_ms"] = phase_resort(pipe, kept.pop("pre"), phase)
+        st, where = kept.pop("post"), "the state the first resort left"
+    else:
+        res["kernels"], res["resort_ms"] = {}, None
+        st, where = state, "the landed state (the path took no resort)"
+    dt = float(pipe._min_dtb(st))
+    say(phase, f"{name}: kernels A, B and the merge on {where}, dt {dt:.3e}")
+    res["kernels"].update(phase_kernels(pipe, st, dt, phase, name))
+    del st
+    res["projections"] = phase_scene3_projections(name, b.colliders, state, phase)
+    state, res["profile"] = profile_frame(pipe, state, f"{name}_profile.txt", phase,
+                                          f"fused {name}")
+    return pipe, state, launches, res
+
+
+def phase_scene3_projections(name, colliders, state, phase):
+    """Each field's projections of the live node table (the grid cache's
+    node positions) on the card against the same projections on the CPU:
+    containment equal; the points bit-equal or within PROJ_ATOL, and
+    farther only on ties (as near the node in float64, rtol 1e-6), which
+    are counted. The cached projections the card's path reads equal the
+    card's projection here. Returns per field {nodes, bit_equal, ties}."""
+    import numpy as np
+    import torch
+
+    live = int(state.structure.num_grid_blocks)
+    node_pos, cached = state.grid_cache[0], state.grid_cache[1]
+    nodes_g = node_pos[:live].reshape(-1, node_pos.shape[-1])
+    nodes_c = nodes_g.cpu()
+    out = []
+    for ci, c in enumerate(colliders):
+        pg, ig = c.project_point(nodes_g)
+        pc, ic = c.project_point(nodes_c)
+        cp, cin = cached[ci]
+        same_cache = (torch.equal(cp[:live].reshape(pg.shape), pg)
+                      and torch.equal(cin[:live].reshape(ig.shape), ig))
+        pg, ig = pg.cpu(), ig.cpu()
+        d = (pg - pc).abs().amax(-1)
+        tie = d > PROJ_ATOL
+        q = nodes_c[tie].double()
+        dist_g = (q - pg[tie].double()).norm(dim=-1)
+        dist_c = (q - pc[tie].double()).norm(dim=-1)
+        genuine = bool(torch.allclose(dist_g, dist_c, rtol=1e-6, atol=0.0))
+        v = dict(nodes=len(nodes_c), bit_equal=int((d == 0).sum()), ties=int(tie.sum()),
+                 inside=int(ic.sum()), max_abs_err_off_ties=d[~tie].max().item())
+        out.append(v)
+        say(phase, f"{name} field {ci} (rotation {np.round(c.rotation, 3).tolist()}): "
+                   f"projections of {v['nodes']} live nodes, card against CPU: containment "
+                   f"equal {torch.equal(ig, ic)} ({v['inside']} inside), {v['bit_equal']} "
+                   f"bit-equal, max|err| off ties {v['max_abs_err_off_ties']:.2e} "
+                   f"({PROJ_ATOL:g}), {v['ties']} ties, genuine {genuine}; the cached "
+                   f"projections equal {same_cache}")
+        require(torch.equal(ig, ic) and genuine and same_cache,
+                f"{name} field {ci}: the card's projections differ from the CPU's")
+    return out
+
+
+def phase_scene3_sparse(name, phase=35):
+    """`name` at its published size on the sparse path: the window kernels
+    against their plain versions on a substep's inputs one frame in (and
+    the scatter merge on its images), then the path itself
+    (phase_sparse_main: SCENE3_SPARSE_FRAMES frames, launches against the
+    substeps, mass) with one profiled frame
+    (chiprun_out/<name>_sparse_profile.txt). Returns (launches, results)."""
+    import sparkl_tpu_torch.scenes as scenes
+    from sparkl_tpu_torch.sparse.pipeline import SparseMpmPipeline
+
+    b = scenes.build(name)
+    spipe = SparseMpmPipeline(b.grid, b.models, b.colliders, b.params, b.gravity, device="cuda")
+    p1, _ = spipe.step_with_stats(b.particles)
+    slot_data, windows, (structure, images, plan) = capture_window_inputs(spipe, p1, True)
+    kernels = check_windows(b.grid, spipe._cfg, slot_data, windows, False, phase, name)
+    kernels["merge_scatter"] = check_merge(b.grid, spipe._cfg, structure, images, False, True,
+                                           phase, f"sparse {name}", plan=plan)
+    del spipe, p1, slot_data, windows, structure, images, plan
+    _, _, launches, res = phase_sparse_main(b, SCENE3_SPARSE_FRAMES, SCENE3_SPARSE_TIMED, phase,
+                                            profile=f"{name}_sparse_profile.txt")
+    res["kernels"] = kernels
+    return launches, res
+
+
+def phase_scene3_agreement(name, phase=36):
+    """`name` at the golden's size (nx=12, ny=6, nz=6): SCENE3_AGREE_SUBSTEPS
+    single substeps on the card against the port's CPU path taking the
+    card's dt at every substep, with test_fused's tolerances on x, v and F,
+    the flags equal and the kinematic block bit-equal; then the same
+    substeps on the card again, bit-equal to the first card run in every
+    particle field."""
+    from dataclasses import fields, replace
+    import torch
+    import sparkl_tpu_torch as sk
+    import sparkl_tpu_torch.scenes as scenes
+
+    runs, dts = {}, []
+    for dev in ("cuda", "cpu", "cuda again"):
+        device = dev.split()[0]
+        b = scenes.build(name, device=device, **GOLDEN3)
+        pipe = sk.auto_pipeline(replace(b, params=replace(b.params, stop_after_one_substep=True)),
+                                device=device)
+        min_dtb = pipe._min_dtb
+        if dev == "cuda":
+            pipe._min_dtb = lambda st: dts.append(min_dtb(st)) or dts[-1]
+        elif dev == "cpu":
+            replay = iter([float(x) for x in dts])
+            pipe._min_dtb = lambda st: torch.tensor(next(replay), dtype=torch.float32)
+        state = pipe.pack_state(b.particles)
+        for _ in range(SCENE3_AGREE_SUBSTEPS):
+            state, _ = pipe.run_frames_state(state, 1)
+        runs[dev] = pipe.unpack_state(state).to("cpu")
+    a, c, again = runs["cuda"], runs["cpu"], runs["cuda again"]
+    act = c.active
+    kin = c.kinematic_enabled & act
+    dx = (a.position[act] - c.position[act]).abs().max().item()
+    dv = (a.velocity[act] - c.velocity[act]).abs().max().item()
+    df = (a.deformation_gradient[act] - c.deformation_gradient[act]).abs().max().item()
+    flags = torch.equal(a.active, c.active) and torch.equal(a.failed[act], c.failed[act])
+    block = torch.equal(a.position[kin], c.position[kin])
+    same = all(torch.equal(getattr(a, f.name), getattr(again, f.name)) for f in fields(a))
+    say(phase, f"reduced {name} ({int(act.sum())} particles, {int(kin.sum())} kinematic), "
+               f"{SCENE3_AGREE_SUBSTEPS} substeps at the card's dts "
+               f"{[f'{float(x):.3e}' for x in dts]}, card against CPU: max|dx| {dx:.3e} "
+               f"({SCENE3_DX:g}), max|dv| {dv:.3e} ({SCENE3_DV:g}), max|dF| {df:.3e} "
+               f"({SCENE3_DF:g}); flags equal {flags}; kinematic block bit-equal {block}; two "
+               f"card runs bit-equal {same}")
+    require(flags and block and dx <= SCENE3_DX and dv <= SCENE3_DV and df <= SCENE3_DF,
+            f"reduced {name}: card and CPU disagree")
+    require(same, f"reduced {name}: two card runs differ")
+    return dict(dx=dx, dv=dv, df=df, dts=[float(x) for x in dts], card_runs_equal=same)
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "sparkl_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository", file=sys.stderr)
@@ -5159,6 +5482,21 @@ def main():
     # sizes, then both sweeps (their tables), times, bounds and registers.
     kres.update(phase_probes(log))
 
+    # 34-36. cube_through_sand3 and sand_penetration3 at their published
+    # sizes: the fused main path with its kernels, resorts and projections;
+    # the sparse path with the window kernels; the reduced forms card
+    # against CPU and card against card.
+    scene3_res, scene3_launches = {}, {}
+    for name in SCENES3:
+        _, _, scene3_launches[name], scene3_res[name] = phase_scene3_main(name)
+    for name in SCENES3:
+        scene3_launches[f"{name}-sparse"], scene3_res[name]["sparse"] = phase_scene3_sparse(name)
+    for name in SCENES3:
+        scene3_res[name]["agreement"] = phase_scene3_agreement(name)
+    kres["permute_chunks"]["launches"] += sum(
+        scene3_res[name]["kernels"]["permute_chunks"]["launches"] for name in SCENES3
+        if "permute_chunks" in scene3_res[name]["kernels"])
+
     # Each merge form's stage seen under torch.profiler at least once.
     seen = {f: sum(p["events"] for p in MERGE_PROFILES if p["form"] == f)
             for f in ("merge_blocks", "merge_scatter")}
@@ -5174,7 +5512,7 @@ def main():
     missing = [k for k in REPLACES if launches[k] == 0]
     require(not missing, f"kernels their main paths (or checks) never launched: {missing}")
 
-    # 34. Results. The 2D fluid forms of four kernels carry their own
+    # 37. Results. The 2D fluid forms of four kernels carry their own
     # numbers (the fluids2 path's launches, times on the 2D column), and so
     # do the damage forms, the material forms (their paths' launches, times
     # at their size) and the window kernels' 2D forms (the 2D sparse paths'
@@ -5226,6 +5564,20 @@ def main():
             if name in checks:
                 forms_of[name][label] = dict(launches=ml[name],
                                              **{k: checks[name].get(k) for k in keys})
+    # The two scenes' paths: each kernel's numbers on the scene's state,
+    # with that path's launches of it.
+    for label in SCENES3:
+        r, ml = scene3_res[label], scene3_launches[label]
+        for name in ("p2g_fused", "g2p_fused", "merge_blocks", "merge_scatter",
+                     "src_rows_from_order", "permute_slots"):
+            if name not in r["kernels"]:
+                continue  # no resort on the path: its resort kernels unchecked there
+            forms_of[name][label] = dict(launches=ml[name],
+                                         **{k: r["kernels"][name].get(k) for k in keys})
+        sl, sr = scene3_launches[f"{label}-sparse"], r["sparse"]["kernels"]
+        for name in SPARSE_KERNELS + ("merge_scatter",):
+            forms_of[name][f"{label}-sparse"] = dict(launches=sl[name],
+                                                     **{k: sr[name].get(k) for k in keys})
     for name in PROBES:
         forms_of[name] = kres[name]["forms"]
     source_of = dict.fromkeys(SPARSE_KERNELS, WINDOW_SOURCE)
@@ -5246,6 +5598,7 @@ def main():
                        fluid=fluid_res, fracture=fracture_res, plastic2d=plastic_res,
                        fluids2=fluid2_res, damage=damage_res, materials=mat_res,
                        sparse2d=sparse2d_res, sparse2d_launches=sparse2d_launches,
+                       scenes3=scene3_res, scenes3_launches=scene3_launches,
                        merge_profiles=MERGE_PROFILES), f,
                   indent=1, default=str)
     print(json.dumps({"kernels": kernels}))

@@ -140,7 +140,7 @@ class Particles:
         p.model_id[:n] = int(model_id)
         p.active[:n] = True
         for k, v in overrides.items():
-            getattr(p, k)[:n] = v
+            getattr(p, k)[:n] = torch.as_tensor(v, device=device)
         return p
 
     @staticmethod
@@ -160,11 +160,12 @@ class Particles:
 
 
 def cube_particles(origin, counts, model_id, particle_radius, density0, device,
-                   capacity=None) -> Particles:
+                   capacity=None, **overrides) -> Particles:
     """Regular lattice of particles with spacing 2r (ref: helper.rs
     `cube_particles`). Positions come from the same sampler the JAX package
     prefers (native/sparkl_host.cpp), and from its numpy form where no g++
-    is available."""
+    is available. `overrides` set other fields of every particle, as in
+    Particles.from_positions (e.g. kinematic_enabled=True)."""
     from sparkl_tpu_torch import native
 
     pts = native.cube_particles(origin, counts, particle_radius)
@@ -176,5 +177,5 @@ def cube_particles(origin, counts, model_id, particle_radius, density0, device,
         )
         pts += np.asarray(origin, np.float32)
     return Particles.from_positions(
-        pts, model_id, particle_radius, density0, device, capacity=capacity
+        pts, model_id, particle_radius, density0, device, capacity=capacity, **overrides
     )

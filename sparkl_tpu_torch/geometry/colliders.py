@@ -46,6 +46,9 @@ class Collider:
         dev = points.device
         t = torch.as_tensor(self.translation, dtype=torch.float32, device=dev)
         r = torch.as_tensor(self.rotation, dtype=torch.float32, device=dev)
+        # f32 products (TF32 is off unless the caller turns it on). A
+        # rotation formed in float64 and cast has off-axis terms such as
+        # sin(pi) = 1.2e-16 rather than 0: these are true 3-term sums.
         proj, inside = projections[self.shape_type]((points - t) @ r, *self.data)
         if self.flip_interior:
             inside = ~inside

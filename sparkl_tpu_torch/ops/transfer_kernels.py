@@ -192,18 +192,30 @@ def _cell_sum(win, w, q):
     return _ordered_sum(v * _at_cells(w, q)[:, None])
 
 
+def _live_prefix(*tensors):
+    """The number of leading chunks up to the last one where any of
+    `tensors` ([D, ...] each) holds a nonzero value. Past it a plain
+    version's inputs are all zero (chunks that hold no particle), and so
+    are its outputs: every term there is a product with a zero."""
+    nz = torch.stack([t.reshape(t.shape[0], -1).ne(0).any(dim=1) for t in tensors]).any(dim=0)
+    idx = torch.nonzero(nz)
+    return int(idx[-1]) + 1 if idx.numel() else 0
+
+
 def p2g_windows_reference(grid: GridParams, slot_data, with_psi=True, group_size=256):
     """Plain version of the P2G window kernel: slot_data [D, NF_IN, C] ->
     images [D, 1+d(+2), 8^d]. Per chunk, [m, m*v(, psi_mom, psi_m)] through
     W, momentum plus sum_j affine[:, j] through W_j, each a contraction over
-    the chunk's slots; `group_size` chunks at a time. In 3D batched matrix
-    products; in 2D each cell sums its slots in ascending lane order, the
-    2D kernel's order, so that card and CPU agree to the bit."""
+    the chunk's slots; `group_size` chunks at a time, up to the last chunk
+    with a particle (zeros past it). In 3D batched matrix products; in 2D
+    each cell sums its slots in ascending lane order, the 2D kernel's
+    order, so that card and CPU agree to the bit."""
     dim = grid.dim
     a_off = 2 * dim + 1
-    out = []
-    for g0 in range(0, slot_data.shape[0], group_size):
-        data = slot_data[g0 : g0 + group_size]
+    live = _live_prefix(slot_data)
+    out = [slot_data.new_zeros((0, 1 + dim + (2 if with_psi else 0), region_cells(dim)))]
+    for g0 in range(0, live, group_size):
+        data = slot_data[g0 : min(g0 + group_size, live)]
         w_full, wd = _window_tensors(grid, [data[:, ax, :] for ax in range(dim)])
         q = _stencil_cells_2d(grid, data) if dim == 2 else None
 
@@ -224,7 +236,8 @@ def p2g_windows_reference(grid: GridParams, slot_data, with_psi=True, group_size
         if with_psi:
             img.append(base_img[:, 1 + dim :, :])
         out.append(torch.cat(img, dim=1))
-    return torch.cat(out, dim=0)
+    out = torch.cat(out, dim=0)
+    return torch.cat([out, out.new_zeros((slot_data.shape[0] - live,) + out.shape[1:])])
 
 
 def g2p_windows_reference(grid: GridParams, slot_data, windows, with_psi=True, group_size=256):
@@ -233,13 +246,16 @@ def g2p_windows_reference(grid: GridParams, slot_data, windows, with_psi=True, g
     columns j-major (d*d)(, psi)]; v = W-weighted window velocity, grad
     column j = invd * W_j-weighted velocity. In 3D batched matrix products;
     in 2D each slot sums the window's cells in ascending cell order, the 2D
-    kernel's order."""
+    kernel's order. Up to the last chunk with a particle or a nonzero
+    window (zeros past it)."""
     dim = grid.dim
     invd = kernel_inv_d(grid.cell_width)
-    out = []
-    for g0 in range(0, slot_data.shape[0], group_size):
-        data = slot_data[g0 : g0 + group_size]
-        win = windows[g0 : g0 + group_size]
+    live = _live_prefix(slot_data, windows)
+    out = [slot_data.new_zeros((0, dim + dim * dim + (1 if with_psi else 0),
+                                slot_data.shape[2]))]
+    for g0 in range(0, live, group_size):
+        data = slot_data[g0 : min(g0 + group_size, live)]
+        win = windows[g0 : min(g0 + group_size, live)]
         w_full, wd = _window_tensors(grid, [data[:, ax, :] for ax in range(dim)])
         q = _stencil_cells_2d(grid, data) if dim == 2 else None
 
@@ -252,7 +268,8 @@ def g2p_windows_reference(grid: GridParams, slot_data, windows, with_psi=True, g
         if with_psi:
             parts.append(contract(win[:, dim : dim + 1, :], w_full))
         out.append(torch.cat(parts, dim=1))
-    return torch.cat(out, dim=0)
+    out = torch.cat(out, dim=0)
+    return torch.cat([out, out.new_zeros((slot_data.shape[0] - live,) + out.shape[1:])])
 
 
 # ---------------------------------------------------------------------------

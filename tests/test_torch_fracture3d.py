@@ -631,8 +631,9 @@ def test_reduced_l_panel3_substeps_match_jax_fused(small):
         _compare(pj2, pt2, f"substep {step}")
         act = _np(pj2.active)
         differ = act & (pt2.phase.numpy() != _np(pj2.phase))
-        ties = chip_smoke.trip_ties(k.tpipe, _port_particles(pj), pt2).numpy()
-        assert not (differ & ~ties).any(), step
+        if differ.any():  # the ties only matter where the phases differ
+            ties = chip_smoke.trip_ties(k.tpipe, _port_particles(pj), pt2).numpy()
+            assert not (differ & ~ties).any(), step
         pj = pj2
     assert np.abs(_np(pj.velocity)[_np(pj.active)]).max() > 0.04  # the load moved the panels
 

@@ -143,8 +143,9 @@ def test_sparse_substeps_match_jax(name, monkeypatch):
                                        rtol=0, atol=tol, err_msg=f"{name} substep {step} {k}")
         np.testing.assert_array_equal(pt.failed.numpy()[act], _np(pj2.failed)[act])
         differ = act & (pt.phase.numpy() != _np(pj2.phase))
-        ties = chip_smoke.sparse_trip_ties(tpipe, pin, pt, gathered["psi"]).numpy()
-        assert not (differ & ~ties).any() and int(differ.sum()) <= 2, (name, step)
+        if differ.any():  # the ties only matter where the phases differ
+            ties = chip_smoke.sparse_trip_ties(tpipe, pin, pt, gathered["psi"]).numpy()
+            assert not (differ & ~ties).any() and int(differ.sum()) <= 2, (name, step)
         pj = pj2
     assert TK.LAUNCHES == {"p2g_windows": 0, "g2p_windows": 0}
     act = _np(pj.active)
